@@ -1,0 +1,283 @@
+"""Two-stage BM3D over a (B, H, W) image batch.
+
+Port of ``pnp_svrg_tpu/denoisers/bm3d.py`` (Dabov et al. 2007, fixed group
+size K): block matching, a 3-D transform (2-D DCT per patch x Walsh-Hadamard
+along the group) with hard thresholding, weighted overlap-add aggregation;
+then a Wiener stage that matches on the stage-1 estimate.
+
+Two steps run hand-written CUDA kernels on the card and their plain PyTorch
+versions on the CPU:
+
+* block matching: K1, ``ops/cuda/bm3d_match.py``, in the rounding mode that
+  ``BM3DParams.matcher`` and ``match_dtype`` name;
+* the aggregation scatter: K2, ``ops/cuda/bm3d_scatter.py``, into a
+  (B, hh*ww, 2*b*b) patch-position table, followed by a static overlap-add
+  (``torch.nn.functional.fold``) back to image space.
+
+The 3-D transform is one (K*b*b)-wide ``torch.matmul`` with
+``kron(H_K, D (x) D)``, as the JAX package leaves it to XLA.
+
+Not ported: ``row_valid_bounds`` (the spatial-sharding path) and the
+grid-aligned dense aggregation (``_aggregate_dense``, taken when
+``search_step`` is a multiple of ``step``); both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import bm3d_match
+from pnp_svrg_tpu_torch.ops.cuda.bm3d_scatter import bm3d_scatter
+from pnp_svrg_tpu_torch.ops.transforms import dct_matrix, hadamard_matrix, kaiser2d
+
+
+@dataclasses.dataclass(frozen=True)
+class BM3DParams:
+    """Static BM3D configuration (same fields and defaults as the reference)."""
+
+    block: int = 8  # patch edge
+    step: int = 4  # reference-block stride
+    search: int = 12  # search radius (window (2r+1)^2 offsets)
+    group_ht: int = 16  # group size, hard-threshold stage
+    group_wie: int = 16  # group size, Wiener stage
+    lam: float = 2.7  # hard threshold = lam * sigma
+    kaiser_beta: float = 2.0
+    match_dtype: str = "float32"  # "bfloat16": bf16 match distances
+    topk: str = "exact"  # only "exact" is ported
+    matcher: str = "xla"  # "xla"/"auto" or "pallas"/"pallas_interpret":
+    # names which JAX matcher's bf16 rounding the port follows
+    search_step: int = 1  # candidate-offset stride within the window
+
+
+def match_mode(p: BM3DParams) -> str:
+    """The K1 rounding mode for these parameters (see ``ops/cuda/bm3d_match.py``)."""
+    if p.match_dtype == "float32":
+        return "f32"
+    if p.match_dtype != "bfloat16":
+        raise ValueError(f"unknown match_dtype {p.match_dtype!r}")
+    if p.matcher in ("xla", "auto"):
+        return "bf16_xla"
+    if p.matcher in ("pallas", "pallas_interpret"):
+        return "bf16_pallas"
+    raise ValueError(f"unknown matcher {p.matcher!r}")
+
+
+def _ref_grid(size: int, block: int, step: int) -> np.ndarray:
+    """Reference-block coordinates: stride grid, last block always included."""
+    last = size - block
+    pts = list(range(0, last + 1, step))
+    if pts[-1] != last:
+        pts.append(last)
+    return np.asarray(pts, np.int32)
+
+
+def search_offsets(search: int, search_step: int) -> np.ndarray:
+    """(S, 2) (dy, dx) offsets of the window, or its ``search_step``
+    sublattice, in ascending index order (``bm3d.py:418-420``)."""
+    d1 = (search_step * np.arange(-(search // search_step), search // search_step + 1))
+    return np.asarray([(dy, dx) for dy in d1 for dx in d1], np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Geometry:
+    rows: np.ndarray
+    cols: np.ndarray
+    offsets: np.ndarray
+    rows_t: torch.Tensor
+    cols_t: torch.Tensor
+    offsets_t: torch.Tensor
+    kaiser: torch.Tensor  # (b*b,)
+    t3_ht: torch.Tensor
+    t3_wie: torch.Tensor
+
+
+@functools.lru_cache(maxsize=16)
+def _geometry(h: int, w: int, p: BM3DParams, device: torch.device) -> _Geometry:
+    """Grid, offsets and transform matrices, made once per shape and device so
+    the reconstruction loop copies nothing from the host."""
+    rows = _ref_grid(h, p.block, p.step)
+    cols = _ref_grid(w, p.block, p.step)
+    offsets = search_offsets(p.search, p.search_step)
+    d2 = dct_matrix(p.block)
+    d2d = np.kron(d2, d2)  # 2-D DCT on row-major-flattened patches
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return _Geometry(
+        rows=rows, cols=cols, offsets=offsets,
+        rows_t=dev(rows, torch.int64), cols_t=dev(cols, torch.int64),
+        offsets_t=dev(offsets, torch.int64),
+        kaiser=dev(kaiser2d(p.block, p.kaiser_beta).reshape(-1)),
+        t3_ht=dev(np.kron(hadamard_matrix(p.group_ht), d2d)),
+        t3_wie=dev(np.kron(hadamard_matrix(p.group_wie), d2d)),
+    )
+
+
+def _patch_tensor(imgs: torch.Tensor, block: int) -> torch.Tensor:
+    """(B, H-b+1, W-b+1, b, b) strided view of all patches; flattening the
+    last two axes row-major gives the reference's (ky, kx) patch order."""
+    return imgs.unfold(1, block, 1).unfold(2, block, 1)
+
+
+def _gather_groups(imgs, g: _Geometry, top_idx, block):
+    """(B, nR, nC, K, b*b) patch groups for top-K offset indices, with member
+    coordinates clipped to the image; also returns their (py, px)."""
+    b, h, w = imgs.shape
+    off = g.offsets_t[top_idx.to(torch.int64)]  # (B, nR, nC, K, 2)
+    py = torch.clamp(g.rows_t[None, :, None, None] + off[..., 0], 0, h - block)
+    px = torch.clamp(g.cols_t[None, None, :, None] + off[..., 1], 0, w - block)
+    bi = torch.arange(b, device=imgs.device)[:, None, None, None]
+    groups = _patch_tensor(imgs, block)[bi, py, px]  # (B, nR, nC, K, b, b)
+    return groups.reshape(*groups.shape[:4], block * block), py, px
+
+
+def _transform_3d(groups_flat, t3):
+    """Forward 3-D transform as ONE (K*b*b)-wide matmul."""
+    return groups_flat @ t3.T
+
+
+def _itransform_3d(coeffs_flat, t3):
+    return coeffs_flat @ t3  # t3 is orthonormal: inverse = transpose
+
+
+def _aggregation_rows(est_groups, weights, py, px, ww, kaiser):
+    """Scatter inputs of the aggregation: (B, P) int32 patch-position rows and
+    (B, P, 2*b*b) updates (numerator ++ denominator)."""
+    b = est_groups.shape[0]
+    bb = est_groups.shape[-1]
+    wk = weights[..., None, None] * kaiser  # (B, nR, nC, 1, b*b)
+    num_upd = (est_groups * wk).reshape(b, -1, bb)
+    den_upd = wk.expand(est_groups.shape).reshape(b, -1, bb)
+    upd = torch.cat([num_upd, den_upd], dim=-1)
+    idx = (py * ww + px).reshape(b, -1).to(torch.int32)
+    return idx, upd
+
+
+def _unfold_table(table, block, h, w):
+    """(B, hh*ww, 2*b*b) patch-position table -> (num, den) images by a static
+    overlap-add: channel 0 is the numerator, 1 the denominator."""
+    out = F.fold(table.transpose(1, 2), (h, w), kernel_size=block)  # (B, 2, H, W)
+    return out[:, 0], out[:, 1]
+
+
+def _aggregate(est_groups, weights, py, px, block, h, w, kaiser):
+    """Weighted overlap-add of patch estimates: K2 into the patch-position
+    table, the static unfold, then ``num / den``. Also returns the scatter
+    inputs (idx, upd, table_rows)."""
+    hh, ww = h - block + 1, w - block + 1
+    idx, upd = _aggregation_rows(est_groups, weights, py, px, ww, kaiser)
+    num, den = _unfold_table(bm3d_scatter(idx, upd, hh * ww), block, h, w)
+    return num / torch.clamp(den, min=1e-12), (idx, upd, hh * ww)
+
+
+def _check_supported(h, w, p: BM3DParams, row_valid_bounds):
+    if row_valid_bounds is not None:
+        raise NotImplementedError("row_valid_bounds (spatial sharding) is not ported")
+    if p.topk != "exact":
+        raise NotImplementedError(f"topk={p.topk!r} is not ported; use 'exact'")
+    dense_agg = (
+        p.search_step > 1
+        and p.search_step % p.step == 0
+        and (h - p.block) % p.step == 0
+        and (w - p.block) % p.step == 0
+    )
+    if dense_agg:
+        raise NotImplementedError(
+            "grid-aligned dense aggregation (_aggregate_dense) is not ported"
+        )
+
+
+def _stage1(x, sigma, p: BM3DParams, g: _Geometry):
+    """Hard-thresholding stage up to aggregation: (est, weights, py, px)."""
+    sig_g = sigma[:, None, None]
+    sig_c = sigma[:, None, None, None]
+    bb = p.block * p.block
+    top_idx = bm3d_match(x, g.rows, g.cols, g.offsets, p.block, p.group_ht, match_mode(p))
+    groups, py, px = _gather_groups(x, g, top_idx, p.block)
+    coeffs = _transform_3d(groups.reshape(*groups.shape[:3], -1), g.t3_ht)
+    keep = coeffs.abs() > p.lam * sig_c
+    coeffs_ht = torch.where(keep, coeffs, 0.0)
+    n_kept = torch.clamp(keep.sum(dim=-1), min=1).to(torch.float32)
+    est = _itransform_3d(coeffs_ht, g.t3_ht).reshape(*groups.shape[:3], -1, bb)
+    wgt = 1.0 / (sig_g * sig_g * n_kept + 1e-12)
+    return est, wgt, py, px
+
+
+def _stage2(x, basic, sigma, p: BM3DParams, g: _Geometry):
+    """Wiener stage up to aggregation, matching on the stage-1 estimate."""
+    sig_g = sigma[:, None, None]
+    sig_c = sigma[:, None, None, None]
+    bb = p.block * p.block
+    top_idx = bm3d_match(basic, g.rows, g.cols, g.offsets, p.block, p.group_wie, match_mode(p))
+    g_basic, py, px = _gather_groups(basic, g, top_idx, p.block)
+    g_noisy, _, _ = _gather_groups(x, g, top_idx, p.block)
+    c_basic = _transform_3d(g_basic.reshape(*g_basic.shape[:3], -1), g.t3_wie)
+    c_noisy = _transform_3d(g_noisy.reshape(*g_noisy.shape[:3], -1), g.t3_wie)
+    wien = c_basic**2 / (c_basic**2 + sig_c * sig_c + 1e-12)
+    est = _itransform_3d(wien * c_noisy, g.t3_wie).reshape(*g_basic.shape[:3], -1, bb)
+    wgt = 1.0 / (sig_g * sig_g * (wien**2).sum(dim=-1) + 1e-12)
+    return est, wgt, py, px
+
+
+def _denoise(images, sigma, p: BM3DParams, stages: int, row_valid_bounds):
+    """(estimate, stage-1 scatter inputs)."""
+    x = images.to(torch.float32)
+    b, h, w = x.shape
+    _check_supported(h, w, p, row_valid_bounds)
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).expand(b)
+    g = _geometry(h, w, p, x.device)
+    basic, scatter_in = _aggregate(*_stage1(x, sigma, p, g), p.block, h, w, g.kaiser)
+    if stages == 1:
+        return basic, scatter_in
+    out, _ = _aggregate(*_stage2(x, basic, sigma, p, g), p.block, h, w, g.kaiser)
+    return out, scatter_in
+
+
+def bm3d_denoise_batch(
+    images: torch.Tensor,
+    sigma,
+    params: BM3DParams = BM3DParams(),
+    stages: int = 2,
+    row_valid_bounds: tuple | None = None,
+) -> torch.Tensor:
+    """Two-stage BM3D over (B, H, W) ``images`` with per-image ``sigma``
+    ((B,) or scalar). ``stages=1`` runs hard thresholding only."""
+    return _denoise(images, sigma, params, stages, row_valid_bounds)[0]
+
+
+def stage1_scatter_inputs(images, sigma, params: BM3DParams = BM3DParams()):
+    """The stage-1 basic estimate and the (idx, upd, table_rows) that its
+    aggregation hands to K2 -- real inputs for checking the kernels."""
+    return _denoise(images, sigma, params, 1, None)
+
+
+def bm3d_denoise(image, sigma, params: BM3DParams = BM3DParams(), stages: int = 2,
+                 row_valid_bounds=None):
+    """Two-stage BM3D of a single (H, W) image."""
+    return bm3d_denoise_batch(image[None], sigma, params, stages, row_valid_bounds)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class BM3DDenoiser:
+    """PnP denoiser with the reference sigma contract: ``sigma_modifier *
+    sigma_est`` where the estimate is positive, else
+    ``denoise_strength * decay**t``. Fields may be floats or (B,) tensors."""
+
+    denoise_strength: torch.Tensor | float = 0.0
+    sigma_modifier: torch.Tensor | float = 1.0
+    decay: torch.Tensor | float = 1.0
+    params: BM3DParams = BM3DParams()
+    stages: int = 2
+
+    def denoise(self, x: torch.Tensor, sigma_est: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        fallback = self.denoise_strength * self.decay**t
+        sigma = torch.where(sigma_est > 0, sigma_est * self.sigma_modifier, fallback)
+        if x.dim() == 3:
+            return bm3d_denoise_batch(x, sigma, params=self.params, stages=self.stages)
+        return bm3d_denoise(x, sigma, params=self.params, stages=self.stages)

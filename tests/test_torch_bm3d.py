@@ -1,0 +1,212 @@
+"""Port parity: BM3D and the plain versions of kernels K1 (block matching) and
+K2 (aggregation scatter).
+
+On the CPU the kernel wrappers take their plain PyTorch versions; the CUDA
+kernels themselves are held against those versions on the card by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pnp_svrg_tpu.denoisers import bm3d as jbm3d
+from pnp_svrg_tpu.ops.pallas.bm3d_match import bm3d_match_pallas
+from pnp_svrg_tpu.ops.pallas.bm3d_scatter import bm3d_scatter_pallas
+from pnp_svrg_tpu_torch.denoisers import bm3d
+from pnp_svrg_tpu_torch.ops.cuda import bm3d_match as k1
+from pnp_svrg_tpu_torch.ops.cuda import bm3d_scatter as k2
+from pnp_svrg_tpu_torch.utils.io import load_image
+from test_golden_parity import bm3d_oracle
+
+K = 16
+
+
+def _noisy_batch(rng, size=40, b=2, sigma=0.1):
+    yy, xx = np.mgrid[:size, :size]
+    clean = np.clip(0.5 + 0.3 * np.sin(yy / 3.0) * np.cos(xx / 2.0), 0, 1)
+    clean[size // 4 : size // 2, size // 4 : size // 2] = 0.9
+    noisy = clean[None] + sigma * rng.standard_normal((b, size, size))
+    return clean.astype(np.float32), noisy.astype(np.float32)
+
+
+def _set_agreement(a, b):
+    a = np.asarray(a).reshape(-1, a.shape[-1])
+    b = np.asarray(b).reshape(-1, b.shape[-1])
+    return float(np.mean([len(set(p) & set(q)) / a.shape[1] for p, q in zip(a, b)]))
+
+
+def _grid(size, search, step):
+    rows = bm3d._ref_grid(size, 8, 4)
+    return rows, bm3d.search_offsets(search, step)
+
+
+@pytest.mark.parametrize("mode,floor", [("f32", 0.999), ("bf16_xla", 0.995)])
+@pytest.mark.parametrize("search_step", [1, 2])
+def test_plain_k1_matches_jax_xla_matcher(rng, mode, floor, search_step):
+    _, x = _noisy_batch(rng)
+    rows, offs = _grid(x.shape[-1], 6, search_step)
+    dtype = "float32" if mode == "f32" else "bfloat16"
+    want = jbm3d._top_k_offsets(
+        jbm3d._match_distances(jnp.asarray(x), rows, rows, offs, 8, match_dtype=dtype), K
+    )
+    got = k1.bm3d_match_plain(torch.tensor(x), rows, rows, offs, 8, K, mode)
+    assert got.shape == want.shape and got.dtype == torch.int32
+    assert _set_agreement(got.numpy(), want) >= floor
+
+
+@pytest.mark.parametrize("mode,floor", [("f32", 0.999), ("bf16_pallas", 0.995)])
+@pytest.mark.parametrize("search_step", [1, 2])
+def test_plain_k1_matches_pallas_kernel(rng, mode, floor, search_step):
+    _, x = _noisy_batch(rng, size=32)
+    rows, offs = _grid(x.shape[-1], 6, search_step)
+    dtype = "float32" if mode == "f32" else "bfloat16"
+    want = bm3d_match_pallas(
+        jnp.asarray(x), tuple(rows.tolist()), tuple(rows.tolist()),
+        tuple(map(tuple, offs.tolist())), 8, K, match_dtype=dtype, interpret=True,
+    )
+    got = k1.bm3d_match(torch.tensor(x), rows, rows, offs, 8, K, mode)
+    assert _set_agreement(got.numpy(), want) >= floor
+
+
+def test_k1_fills_spare_slots_with_offset_zero(rng):
+    # search 8 on the stride-4 sublattice: a corner block has only 9 valid
+    # candidates, and both JAX matchers fill the other 7 slots with index 0.
+    _, x = _noisy_batch(rng, size=32, b=1)
+    rows, offs = _grid(32, 8, 4)
+    got = k1.bm3d_match(torch.tensor(x), rows, rows, offs, 8, K, "f32").numpy()
+    want_xla = np.asarray(jbm3d._top_k_offsets(
+        jbm3d._match_distances(jnp.asarray(x), rows, rows, offs, 8), K))
+    want_pal = np.asarray(bm3d_match_pallas(
+        jnp.asarray(x), tuple(rows.tolist()), tuple(rows.tolist()),
+        tuple(map(tuple, offs.tolist())), 8, K, interpret=True))
+    corner = got[0, 0, 0]
+    assert np.all(corner[9:] == 0) and len(set(corner[:9])) == 9
+    np.testing.assert_array_equal(corner, want_xla[0, 0, 0])
+    np.testing.assert_array_equal(corner, want_pal[0, 0, 0])
+    np.testing.assert_array_equal(got, want_xla)  # every block, fills included
+
+
+def test_plain_k2_matches_pallas_and_xla_scatter(rng):
+    b, p, w, t = 2, 300, 128, 200  # 300 rows into 200: rows collide
+    idx = rng.integers(0, t, (b, p)).astype(np.int32)
+    upd = rng.standard_normal((b, p, w)).astype(np.float32)
+    got = k2.bm3d_scatter(torch.tensor(idx), torch.tensor(upd), t, check_bounds=True).numpy()
+    want_pal = np.asarray(bm3d_scatter_pallas(jnp.asarray(idx), jnp.asarray(upd), t,
+                                              chunk=128, interpret=True))
+    flat = (idx + (np.arange(b) * t)[:, None]).reshape(-1)
+    want_xla = np.asarray(jnp.zeros((b * t, w)).at[flat].add(upd.reshape(-1, w))).reshape(b, t, w)
+    np.testing.assert_allclose(got, want_pal, atol=1e-5)
+    np.testing.assert_allclose(got, want_xla, atol=1e-5)
+
+
+def test_k2_rejects_out_of_range_rows():
+    idx = torch.tensor([[0, 5]], dtype=torch.int32)
+    with pytest.raises(IndexError):
+        k2.bm3d_scatter(idx, torch.zeros((1, 2, 4)), 5, check_bounds=True)
+    with pytest.raises(ValueError):
+        k2.bm3d_scatter(idx.long(), torch.zeros((1, 2, 4)), 5)
+
+
+@pytest.mark.parametrize("match_dtype,tol", [("float32", 1e-3), ("bfloat16", 5e-3)])
+@pytest.mark.parametrize("stages", [1, 2])
+def test_bm3d_denoise_batch_matches_jax(rng, match_dtype, tol, stages):
+    _, x = _noisy_batch(rng)
+    sig = np.asarray([0.1, 0.12], np.float32)
+    want = np.asarray(jbm3d.bm3d_denoise_batch(
+        jnp.asarray(x), jnp.asarray(sig),
+        params=jbm3d.BM3DParams(search=6, match_dtype=match_dtype), stages=stages))
+    got = bm3d.bm3d_denoise_batch(
+        torch.tensor(x), torch.tensor(sig),
+        params=bm3d.BM3DParams(search=6, match_dtype=match_dtype), stages=stages).numpy()
+    assert float(np.abs(got - want).mean()) < tol
+
+
+def test_bm3d_turbo_rounding_matches_jax_pallas_matcher(rng):
+    _, x = _noisy_batch(rng, size=34)  # (34 - 8) % 4 != 0: stride 2 keeps the scatter
+    kw = dict(search=6, search_step=2, match_dtype="bfloat16")
+    want = np.asarray(jbm3d.bm3d_denoise_batch(
+        jnp.asarray(x), 0.1, params=jbm3d.BM3DParams(matcher="pallas_interpret", **kw)))
+    got = bm3d.bm3d_denoise_batch(
+        torch.tensor(x), 0.1, params=bm3d.BM3DParams(matcher="pallas", **kw)).numpy()
+    assert float(np.abs(got - want).mean()) < 5e-3
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+def test_bm3d_matches_direct_loop_oracle(stages):
+    prm = bm3d.BM3DParams(block=4, step=2, search=3, group_ht=4, group_wie=4)
+    rng = np.random.default_rng(1)
+    img = np.clip(
+        0.5 + 0.3 * np.sin(np.arange(16) / 3)[:, None] * np.cos(np.arange(16) / 2)
+        + 0.08 * rng.standard_normal((16, 16)), 0, 1,
+    ).astype(np.float32)
+    got = bm3d.bm3d_denoise(torch.tensor(img), 0.08, params=prm, stages=stages).numpy()
+    want = bm3d_oracle(img, 0.08, jbm3d.BM3DParams(block=4, step=2, search=3, group_ht=4,
+                                                    group_wie=4), stages=stages)
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+def test_per_lane_sigma(rng):
+    _, x = _noisy_batch(rng, b=2)
+    p = bm3d.BM3DParams(search=4)
+    both = bm3d.bm3d_denoise_batch(torch.tensor(x), torch.tensor([0.05, 0.2]), params=p)
+    for i, s in enumerate((0.05, 0.2)):
+        one = bm3d.bm3d_denoise_batch(torch.tensor(x[i : i + 1]), s, params=p)
+        torch.testing.assert_close(both[i], one[0], atol=1e-6, rtol=1e-5)
+    assert float((both[0] - both[1]).abs().mean()) > 1e-3
+
+
+def test_denoiser_sigma_contract_matches_jax(rng):
+    _, x = _noisy_batch(rng, size=32)
+    est = np.asarray([0.08, 0.0], np.float32)  # lane 1 falls back to strength * decay**t
+    t = np.asarray([3, 3], np.int32)
+    jden = jbm3d.BM3DDenoiser(denoise_strength=0.2, sigma_modifier=1.5, decay=0.9,
+                              params=jbm3d.BM3DParams(search=4))
+    tden = bm3d.BM3DDenoiser(denoise_strength=0.2, sigma_modifier=1.5, decay=0.9,
+                             params=bm3d.BM3DParams(search=4))
+    want = np.asarray(jden.denoise(jnp.asarray(x), jnp.asarray(est), jnp.asarray(t)))
+    got = tden.denoise(torch.tensor(x), torch.tensor(est), torch.tensor(t)).numpy()
+    assert float(np.abs(got - want).mean()) < 1e-3
+
+
+def test_unported_paths_raise(rng):
+    _, x = _noisy_batch(rng, size=32)
+    xt = torch.tensor(x)
+    with pytest.raises(NotImplementedError):
+        bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4), row_valid_bounds=(0, 32))
+    with pytest.raises(NotImplementedError):  # (32 - 8) % 4 == 0: dense aggregation
+        bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=8, search_step=4))
+    with pytest.raises(NotImplementedError):
+        bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4, topk="approx"))
+
+
+def test_cpu_tensors_take_plain_versions_and_count_no_launch(rng):
+    k1.bm3d_match.launches = 0
+    k2.bm3d_scatter.launches = 0
+    _, x = _noisy_batch(rng, size=32)
+    bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, bm3d.BM3DParams(search=4))
+    assert k1.bm3d_match.launches == 0 and k2.bm3d_scatter.launches == 0
+
+
+def test_each_bf16_mode_follows_its_own_jax_matcher():
+    # The two JAX matchers round bf16 at different points, so they pick
+    # different groups near ties; each port mode tracks its own matcher
+    # more closely than the two JAX matchers track each other.
+    rng = np.random.default_rng(0)
+    x = (load_image("13.png", 48, 48)[None] + 0.1 * rng.standard_normal((1, 48, 48)))
+    x = x.astype(np.float32)
+    rows, offs = _grid(48, 8, 1)
+    jax_xla = np.asarray(jbm3d._top_k_offsets(
+        jbm3d._match_distances(jnp.asarray(x), rows, rows, offs, 8, match_dtype="bfloat16"), K))
+    jax_pal = np.asarray(bm3d_match_pallas(
+        jnp.asarray(x), tuple(rows.tolist()), tuple(rows.tolist()),
+        tuple(map(tuple, offs.tolist())), 8, K, match_dtype="bfloat16", interpret=True))
+    port_xla = k1.bm3d_match(torch.tensor(x), rows, rows, offs, 8, K, "bf16_xla").numpy()
+    port_pal = k1.bm3d_match(torch.tensor(x), rows, rows, offs, 8, K, "bf16_pallas").numpy()
+    cross = _set_agreement(jax_xla, jax_pal)
+    assert cross < 1.0
+    assert _set_agreement(port_xla, jax_xla) > cross
+    assert _set_agreement(port_pal, jax_pal) > cross

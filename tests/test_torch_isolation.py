@@ -1,0 +1,55 @@
+"""The port stands alone: neither ``pnp_svrg_tpu_torch`` nor ``chip_smoke.py``
+imports jax or anything of the JAX package ``pnp_svrg_tpu``."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "pnp_svrg_tpu_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "optax", "pnp_svrg_tpu")
+
+
+def test_importing_the_port_and_chip_smoke_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pnp_svrg_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__":
+            names = [a.value for a in node.args[:1] if isinstance(a, ast.Constant)]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), f"{path}:{node.lineno} imports {names}"
