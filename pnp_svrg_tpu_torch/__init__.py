@@ -3,14 +3,17 @@
 A second package beside the JAX reference. It imports torch, numpy and PIL
 only -- never jax and nothing of ``pnp_svrg_tpu`` -- and mirrors the
 reference's module names. Entry points run on CUDA unless the caller passes
-``device="cpu"``; the BM3D block matching and aggregation scatter run as
-hand-written CUDA kernels on the card (``csrc/``, built on first use) and as
-their plain PyTorch versions on the CPU.
+``device="cpu"``; the BM3D block matching and aggregation scatter and the
+non-local means denoiser run as hand-written CUDA kernels on the card
+(``csrc/``, built on first use) and as their plain PyTorch versions on the
+CPU.
 
-Ported so far (the Set12 CSMRI + PnP-SVRG + BM3D path):
+Ported so far (the Set12 CSMRI + PnP-SVRG + BM3D path, with its grid-aligned
+dense aggregation, and the CSMRI + PnP-SVRG + NLM path):
 
 * ``problems.csmri`` (``CSMRI``, ``make_csmri``), ``core.batched.stack_problems``
 * ``denoisers.bm3d`` (``BM3DParams``, ``BM3DDenoiser``, ``bm3d_denoise_batch``)
+* ``denoisers.nlm`` (``NLMDenoiser``; ``nlm_denoise`` in ``ops.cuda.nlm``)
 * ``algorithms.loops.pnp_svrg``
 * ``ops``: metrics, sampling, ``dwt2``, ``estimate_sigma``, transforms
 * ``convert``: problem data and tuned per-lane parameters from the JAX side
@@ -20,6 +23,7 @@ from pnp_svrg_tpu_torch.device import default_device, resolve_device
 from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
 from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DDenoiser, BM3DParams, bm3d_denoise_batch
+from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser, nlm_denoise
 from pnp_svrg_tpu_torch.problems.csmri import CSMRI, make_csmri
 
 __all__ = [
@@ -30,6 +34,8 @@ __all__ = [
     "BM3DDenoiser",
     "BM3DParams",
     "bm3d_denoise_batch",
+    "NLMDenoiser",
+    "nlm_denoise",
     "CSMRI",
     "make_csmri",
 ]

@@ -13,8 +13,14 @@ hyperparameters (this path has no learned weights).
 * :func:`load_headline_masks` reads ``data/headline_masks_key2.npz``: the
   minibatch masks the JAX ``pnp_svrg`` draws in ``bench.py``'s timed
   headline run (``PRNGKey(2)``), for runs comparable lane by lane.
+* The CSMRI + NLM lane (``bench.py:465-506``): :func:`load_nlm_problem` is
+  the one-lane problem of ``13.png`` from the headline fixture,
+  :func:`nlm_params` the tuned configuration and its provenance grid from
+  ``data/csmri_nlm_tuned.json``, :func:`load_nlm_masks` the minibatch masks
+  of the JAX lane's run (``data/csmri_nlm_masks_key2.npz``, an unbatched key
+  chain) and :func:`load_nlm_reference` that run's PSNR trace and SSIM.
 
-Both fixtures are written by ``python tests/test_torch_fixture.py``.
+The fixtures are written by ``python tests/test_torch_fixture.py``.
 """
 
 from __future__ import annotations
@@ -28,10 +34,13 @@ import torch
 
 from pnp_svrg_tpu_torch.device import resolve_device
 from pnp_svrg_tpu_torch.problems.csmri import CSMRI
-from pnp_svrg_tpu_torch.utils.io import load_image
+from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image
 
 HEADLINE_FIXTURE = Path(__file__).resolve().parent / "data" / "headline_csmri_128.npz"
 HEADLINE_MASKS = HEADLINE_FIXTURE.parent / "headline_masks_key2.npz"
+NLM_MASKS = HEADLINE_FIXTURE.parent / "csmri_nlm_masks_key2.npz"
+NLM_TUNED = DATA_DIR / "csmri_nlm_tuned.json"
+NLM_LANE = "13.png"
 
 
 def csmri_from_numpy(arrays: dict, device=None) -> CSMRI:
@@ -80,28 +89,68 @@ def lane_params(tuned, lane_names, default_eta, default_mod, device=None):
     return eta, mod
 
 
-def load_headline_problems(device=None, path=HEADLINE_FIXTURE):
-    """(CSMRI, lane names) of the committed headline problems; the ground
-    truth is reloaded with the port's ``load_image``."""
+def load_headline_problems(device=None, path=HEADLINE_FIXTURE, lanes=None):
+    """(CSMRI, lane names) of the committed headline problems, or of the
+    named ``lanes`` only; the ground truth is reloaded with the port's
+    ``load_image``."""
     with np.load(path) as f:
         data = {k: f[k] for k in f.files}
-    paths = [str(p) for p in data["paths"]]
+    names = [str(n) for n in data["lanes"]]
+    keep = list(range(len(names))) if lanes is None else [names.index(n) for n in lanes]
+    paths = [str(data["paths"][i]) for i in keep]
     h, w = data["y"].shape[-2:]
     arrays = {
-        "y": data["y"],
-        "mask": data["mask"],
+        "y": data["y"][keep],
+        "mask": data["mask"][keep],
         "x": np.stack([load_image(p, h, w) for p in paths]),
-        "x_init": data["x_init"],
-        "snr": data["snr"],
-        "sigma": data["sigma"],
+        "x_init": data["x_init"][keep],
+        "snr": data["snr"][keep],
+        "sigma": data["sigma"][keep],
     }
-    return csmri_from_numpy(arrays, device), [str(n) for n in data["lanes"]]
+    return csmri_from_numpy(arrays, device), [names[i] for i in keep]
+
+
+def _unpack_masks(path, device) -> torch.Tensor:
+    with np.load(path) as f:
+        packed = f["masks"]
+    masks = np.unpackbits(packed, axis=-1).astype(np.float32)
+    return torch.as_tensor(masks, device=resolve_device(device))
 
 
 def load_headline_masks(device=None, path=HEADLINE_MASKS) -> torch.Tensor:
     """(n_outer, t2, B, H, W) float32 minibatch masks of the JAX headline run,
     for ``pnp_svrg(..., masks=...)``."""
+    return _unpack_masks(path, device)
+
+
+def load_nlm_problem(device=None, path=HEADLINE_FIXTURE) -> CSMRI:
+    """The one-lane CSMRI of the CSMRI + NLM lane: ``13.png`` at 128 px with
+    the reference's uniform mask and ``PRNGKey(0)``, as ``bench.py:486-490``
+    builds it (the headline fixture's last lane)."""
+    return load_headline_problems(device, path, lanes=[NLM_LANE])[0]
+
+
+def nlm_params(path=NLM_TUNED) -> dict:
+    """The tuned CSMRI + NLM configuration: ``eta``, ``lr_decay``,
+    ``sigma_modifier``, ``n_outer``, ``t2``, ``mini_batch_size``, and the
+    tuner's grid ``etas`` and ``mods``."""
+    with open(path) as f:
+        tuned = json.load(f)
+    keys = ("eta", "lr_decay", "sigma_modifier", "n_outer", "t2", "mini_batch_size")
+    out = {k: tuned[k] for k in keys}
+    out["etas"] = list(tuned["provenance"]["etas"])
+    out["mods"] = list(tuned["provenance"]["mods"])
+    return out
+
+
+def load_nlm_masks(device=None, path=NLM_MASKS) -> torch.Tensor:
+    """(n_outer, t2, 1, H, W) float32 minibatch masks of the JAX CSMRI + NLM
+    run (``PRNGKey(2)``), for ``pnp_svrg(..., masks=...)``."""
+    return _unpack_masks(path, device)
+
+
+def load_nlm_reference(path=NLM_MASKS) -> dict:
+    """The JAX CSMRI + NLM run on those masks: ``psnr_per_iter`` (numpy,
+    ``1 + n_outer*(t2+1)`` entries) and its final ``ssim``."""
     with np.load(path) as f:
-        packed = f["masks"]
-    masks = np.unpackbits(packed, axis=-1).astype(np.float32)
-    return torch.as_tensor(masks, device=resolve_device(device))
+        return {"psnr_per_iter": f["psnr_per_iter"], "ssim": float(f["ssim"])}

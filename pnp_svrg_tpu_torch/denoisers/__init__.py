@@ -1,0 +1,6 @@
+"""Denoisers: the PnP prior step (BM3D and non-local means so far)."""
+
+from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DDenoiser, BM3DParams, bm3d_denoise
+from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser, nlm_denoise
+
+__all__ = ["BM3DDenoiser", "BM3DParams", "bm3d_denoise", "NLMDenoiser", "nlm_denoise"]

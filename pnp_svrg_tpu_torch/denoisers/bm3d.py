@@ -17,9 +17,14 @@ versions on the CPU:
 The 3-D transform is one (K*b*b)-wide ``torch.matmul`` with
 ``kron(H_K, D (x) D)``, as the JAX package leaves it to XLA.
 
-Not ported: ``row_valid_bounds`` (the spatial-sharding path) and the
-grid-aligned dense aggregation (``_aggregate_dense``, taken when
-``search_step`` is a multiple of ``step``); both raise ``NotImplementedError``.
+When the search offsets are grid-aligned (``search_step`` a multiple of
+``step`` and the reference grid the full lattice), the aggregation is the
+scatter-free ``_aggregate_dense`` instead: a one-hot contraction over group
+slots and a clamp-shift contraction, both ``torch.einsum`` as the JAX package
+leaves them to XLA; K2 does not run there.
+
+Not ported: ``row_valid_bounds`` (the spatial-sharding path) and
+``topk="approx"``; both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -94,6 +99,32 @@ class _Geometry:
     kaiser: torch.Tensor  # (b*b,)
     t3_ht: torch.Tensor
     t3_wie: torch.Tensor
+    # Dense aggregation only: (S, nR, nR) and (S, nC, nC) clamp-shift matrices.
+    shift_y: torch.Tensor | None
+    shift_x: torch.Tensor | None
+
+
+def dense_aggregation(h: int, w: int, p: BM3DParams) -> bool:
+    """Whether every group member lands on the reference lattice, so the
+    aggregation is ``_aggregate_dense`` (``bm3d.py:423-429``)."""
+    return (
+        p.search_step > 1
+        and p.search_step % p.step == 0
+        and (h - p.block) % p.step == 0
+        and (w - p.block) % p.step == 0
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _clamp_shift_mats(q_list: tuple, n: int) -> np.ndarray:
+    """(S, n, n) stack of 0/1 clamp-shift matrices: ``M[s, t, i] = 1`` iff
+    ``clip(i + q_list[s], 0, n-1) == t``, the lattice image of
+    ``_gather_groups``' coordinate clip for grid-aligned offsets."""
+    mats = np.zeros((len(q_list), n, n), np.float32)
+    for s, q in enumerate(q_list):
+        for i in range(n):
+            mats[s, int(np.clip(i + q, 0, n - 1)), i] = 1.0
+    return mats
 
 
 @functools.lru_cache(maxsize=16)
@@ -109,6 +140,11 @@ def _geometry(h: int, w: int, p: BM3DParams, device: torch.device) -> _Geometry:
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    shift_y = shift_x = None
+    if dense_aggregation(h, w, p):
+        q = offsets // p.step
+        shift_y = dev(_clamp_shift_mats(tuple(q[:, 0].tolist()), len(rows)))
+        shift_x = dev(_clamp_shift_mats(tuple(q[:, 1].tolist()), len(cols)))
     return _Geometry(
         rows=rows, cols=cols, offsets=offsets,
         rows_t=dev(rows, torch.int64), cols_t=dev(cols, torch.int64),
@@ -116,6 +152,7 @@ def _geometry(h: int, w: int, p: BM3DParams, device: torch.device) -> _Geometry:
         kaiser=dev(kaiser2d(p.block, p.kaiser_beta).reshape(-1)),
         t3_ht=dev(np.kron(hadamard_matrix(p.group_ht), d2d)),
         t3_wie=dev(np.kron(hadamard_matrix(p.group_wie), d2d)),
+        shift_y=shift_y, shift_x=shift_x,
     )
 
 
@@ -176,25 +213,40 @@ def _aggregate(est_groups, weights, py, px, block, h, w, kaiser):
     return num / torch.clamp(den, min=1e-12), (idx, upd, hh * ww)
 
 
-def _check_supported(h, w, p: BM3DParams, row_valid_bounds):
+def _aggregate_dense(est_groups, weights, top_idx, block, step, h, w, kaiser,
+                     shift_y, shift_x):
+    """Scatter-free aggregation for grid-aligned offsets (``bm3d.py:343-392``):
+    every member lands on a reference-grid position, so a one-hot
+    contraction over group slots gives per-offset contribution grids, the
+    clamp-shift matrices move them onto the lattice (folding border members
+    as ``_gather_groups``' clip does), and a strided upsample fills the
+    patch-position table for the shared unfold-add."""
+    b, nr, nc, k, bb = est_groups.shape
+    s = shift_y.shape[0]
+    hh, ww = h - block + 1, w - block + 1
+    wk = weights[..., None] * kaiser  # (B, nR, nC, b*b)
+    offs = torch.arange(s, device=top_idx.device)
+    oh = (top_idx[..., None].to(torch.int64) == offs).to(est_groups.dtype)  # (B,nR,nC,K,S)
+    c_num = torch.einsum("bijks,bijkp->bsijp", oh, est_groups) * wk[:, None]
+    cnt = oh.sum(dim=3)  # (B, nR, nC, S) members per offset
+    c_den = cnt.permute(0, 3, 1, 2)[..., None] * wk[:, None]
+    c = torch.cat([c_num, c_den], dim=-1)  # (B, S, nR, nC, 2*b*b)
+    grid = torch.einsum("sti,bsijp,suj->btup", shift_y, c, shift_x)  # (B, nR, nC, 2*b*b)
+    table = torch.zeros((b, hh, ww, 2 * bb), dtype=torch.float32, device=est_groups.device)
+    table[:, ::step, ::step] = grid
+    num, den = _unfold_table(table.reshape(b, hh * ww, 2 * bb), block, h, w)
+    return num / torch.clamp(den, min=1e-12)
+
+
+def _check_supported(p: BM3DParams, row_valid_bounds):
     if row_valid_bounds is not None:
         raise NotImplementedError("row_valid_bounds (spatial sharding) is not ported")
     if p.topk != "exact":
         raise NotImplementedError(f"topk={p.topk!r} is not ported; use 'exact'")
-    dense_agg = (
-        p.search_step > 1
-        and p.search_step % p.step == 0
-        and (h - p.block) % p.step == 0
-        and (w - p.block) % p.step == 0
-    )
-    if dense_agg:
-        raise NotImplementedError(
-            "grid-aligned dense aggregation (_aggregate_dense) is not ported"
-        )
 
 
 def _stage1(x, sigma, p: BM3DParams, g: _Geometry):
-    """Hard-thresholding stage up to aggregation: (est, weights, py, px)."""
+    """Hard-thresholding stage up to aggregation: (est, weights, top_idx, py, px)."""
     sig_g = sigma[:, None, None]
     sig_c = sigma[:, None, None, None]
     bb = p.block * p.block
@@ -206,11 +258,12 @@ def _stage1(x, sigma, p: BM3DParams, g: _Geometry):
     n_kept = torch.clamp(keep.sum(dim=-1), min=1).to(torch.float32)
     est = _itransform_3d(coeffs_ht, g.t3_ht).reshape(*groups.shape[:3], -1, bb)
     wgt = 1.0 / (sig_g * sig_g * n_kept + 1e-12)
-    return est, wgt, py, px
+    return est, wgt, top_idx, py, px
 
 
 def _stage2(x, basic, sigma, p: BM3DParams, g: _Geometry):
-    """Wiener stage up to aggregation, matching on the stage-1 estimate."""
+    """Wiener stage up to aggregation, matching on the stage-1 estimate:
+    (est, weights, top_idx, py, px)."""
     sig_g = sigma[:, None, None]
     sig_c = sigma[:, None, None, None]
     bb = p.block * p.block
@@ -222,20 +275,30 @@ def _stage2(x, basic, sigma, p: BM3DParams, g: _Geometry):
     wien = c_basic**2 / (c_basic**2 + sig_c * sig_c + 1e-12)
     est = _itransform_3d(wien * c_noisy, g.t3_wie).reshape(*g_basic.shape[:3], -1, bb)
     wgt = 1.0 / (sig_g * sig_g * (wien**2).sum(dim=-1) + 1e-12)
-    return est, wgt, py, px
+    return est, wgt, top_idx, py, px
+
+
+def _aggregate_stage(stage_out, p: BM3DParams, g: _Geometry, h, w):
+    """The stage's estimate by the aggregation its geometry selects, and the
+    scatter inputs handed to K2 (None on the dense path, which runs no K2)."""
+    est, wgt, top_idx, py, px = stage_out
+    if g.shift_y is not None:
+        return _aggregate_dense(est, wgt, top_idx, p.block, p.step, h, w, g.kaiser,
+                                g.shift_y, g.shift_x), None
+    return _aggregate(est, wgt, py, px, p.block, h, w, g.kaiser)
 
 
 def _denoise(images, sigma, p: BM3DParams, stages: int, row_valid_bounds):
-    """(estimate, stage-1 scatter inputs)."""
+    """(estimate, stage-1 scatter inputs or None)."""
     x = images.to(torch.float32)
     b, h, w = x.shape
-    _check_supported(h, w, p, row_valid_bounds)
+    _check_supported(p, row_valid_bounds)
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).expand(b)
     g = _geometry(h, w, p, x.device)
-    basic, scatter_in = _aggregate(*_stage1(x, sigma, p, g), p.block, h, w, g.kaiser)
+    basic, scatter_in = _aggregate_stage(_stage1(x, sigma, p, g), p, g, h, w)
     if stages == 1:
         return basic, scatter_in
-    out, _ = _aggregate(*_stage2(x, basic, sigma, p, g), p.block, h, w, g.kaiser)
+    out, _ = _aggregate_stage(_stage2(x, basic, sigma, p, g), p, g, h, w)
     return out, scatter_in
 
 

@@ -172,13 +172,55 @@ def test_denoiser_sigma_contract_matches_jax(rng):
     assert float(np.abs(got - want).mean()) < 1e-3
 
 
+@pytest.mark.parametrize("size", [32, 48])
+@pytest.mark.parametrize("match_dtype,tol", [("float32", 1e-3), ("bfloat16", 5e-3)])
+@pytest.mark.parametrize("stages", [1, 2])
+def test_dense_aggregation_matches_jax(rng, size, match_dtype, tol, stages):
+    # search_step 4 on the step-4 grid, (size - 8) % 4 == 0: both packages
+    # take the scatter-free dense aggregation (the turbo4 lane's path).
+    _, x = _noisy_batch(rng, size=size)
+    sig = np.asarray([0.1, 0.12], np.float32)
+    bf16 = match_dtype == "bfloat16"
+    kw = dict(search=8, search_step=4, match_dtype=match_dtype)
+    assert bm3d.dense_aggregation(size, size, bm3d.BM3DParams(**kw))
+    want = np.asarray(jbm3d.bm3d_denoise_batch(
+        jnp.asarray(x), jnp.asarray(sig), stages=stages,
+        params=jbm3d.BM3DParams(matcher="pallas_interpret" if bf16 else "xla", **kw)))
+    got = bm3d.bm3d_denoise_batch(
+        torch.tensor(x), torch.tensor(sig), stages=stages,
+        params=bm3d.BM3DParams(matcher="pallas" if bf16 else "xla", **kw)).numpy()
+    assert float(np.abs(got - want).mean()) < tol
+
+
+def test_dense_aggregation_equals_the_scatter_aggregation(rng):
+    _, x = _noisy_batch(rng, size=40)
+    xt = torch.tensor(x)
+    p = bm3d.BM3DParams(search=8, search_step=4)
+    g = bm3d._geometry(40, 40, p, xt.device)
+    assert g.shift_y is not None and g.shift_y.shape == (25, 9, 9)
+    est, wgt, top_idx, py, px = bm3d._stage1(xt, torch.tensor([0.1, 0.12]), p, g)
+    dense = bm3d._aggregate_dense(est, wgt, top_idx, 8, 4, 40, 40, g.kaiser, g.shift_y, g.shift_x)
+    scatter, _ = bm3d._aggregate(est, wgt, py, px, 8, 40, 40, g.kaiser)
+    torch.testing.assert_close(dense, scatter, atol=2e-6, rtol=1e-5)
+
+
+def test_dense_aggregation_runs_no_scatter(rng, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the dense aggregation called the scatter")
+
+    monkeypatch.setattr(bm3d, "bm3d_scatter", refuse)
+    _, x = _noisy_batch(rng, size=32)
+    out = bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, bm3d.BM3DParams(search=8, search_step=4))
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    # 34 px: (34 - 8) % 4 != 0, so the same parameters need the scatter.
+    assert not bm3d.dense_aggregation(34, 34, bm3d.BM3DParams(search=8, search_step=4))
+
+
 def test_unported_paths_raise(rng):
     _, x = _noisy_batch(rng, size=32)
     xt = torch.tensor(x)
     with pytest.raises(NotImplementedError):
         bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4), row_valid_bounds=(0, 32))
-    with pytest.raises(NotImplementedError):  # (32 - 8) % 4 == 0: dense aggregation
-        bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=8, search_step=4))
     with pytest.raises(NotImplementedError):
         bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4, topk="approx"))
 

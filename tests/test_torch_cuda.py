@@ -16,11 +16,15 @@ import pytest
 import torch
 
 from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
+from pnp_svrg_tpu_torch.convert import load_nlm_problem
+from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers import bm3d
+from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import bm3d_match as k1
 from pnp_svrg_tpu_torch.ops.cuda import bm3d_scatter as k2
+from pnp_svrg_tpu_torch.ops.cuda import nlm as k3
+from pnp_svrg_tpu_torch.ops.sigma import estimate_sigma
 from pnp_svrg_tpu_torch.problems.csmri import make_csmri
-from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.utils.io import load_image
 
 
@@ -80,6 +84,58 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                         torch.zeros((1, 2, 6), device=cuda), 4)
 
 
+def _nlm_input(cuda, b):
+    """The shapes and values ``chip_smoke.py`` checks K3 at: the ``13.png``
+    lane's ``x_init`` after one gradient step (eta 7000), replicated to B
+    lanes with per-lane h = sigma from its sigma estimate."""
+    prob = load_nlm_problem(cuda)
+    z = prob.x_init - 7000.0 * prob.grad_full(prob.x_init)
+    h = estimate_sigma(z) * torch.linspace(1.2, 1.7, b, device=cuda)
+    return z.expand(b, -1, -1).contiguous(), h
+
+
+@pytest.mark.parametrize("b,bounds", [(1, None), (9, None), (9, (16, 112))])
+def test_k3_matches_plain(cuda, b, bounds):
+    z, h = _nlm_input(cuda, b)
+    before = k3.nlm_denoise.launches
+    got = k3.nlm_denoise(z, h, h, row_valid_bounds=bounds)
+    torch.cuda.synchronize()
+    assert k3.nlm_denoise.launches == before + 1
+    want = k3.nlm_denoise_plain(z, h, h, row_valid_bounds=bounds)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_k3_nan_at_h_zero_and_2d_input(cuda):
+    z, h = _nlm_input(cuda, 1)
+    zero = torch.zeros(1, device=cuda)
+    assert torch.isnan(k3.nlm_denoise(z, zero, zero)).all()
+    got = k3.nlm_denoise(z[0], h, h)
+    assert got.shape == z.shape[1:]
+    assert float((got - k3.nlm_denoise_plain(z[0], h, h)).abs().max()) <= 1e-5
+
+
+def test_k3_refuses_what_it_is_not_built_for(cuda):
+    z, h = _nlm_input(cuda, 1)
+    with pytest.raises(ValueError):
+        k3.nlm_denoise(z.double(), h, h)
+    with pytest.raises(ValueError):
+        k3.nlm_denoise(z, h, h, patch_size=5)
+    with pytest.raises(ValueError):  # h on the host would make the launch wait
+        k3.nlm_denoise(z, h.cpu(), h)
+    with pytest.raises(ValueError):
+        k3.nlm_denoise(z, h, h, row_valid_bounds=(-1, 128))
+
+
+def test_nlm_denoiser_on_the_card_matches_the_cpu(cuda):
+    z, _ = _nlm_input(cuda, 2)
+    est = torch.tensor([0.05, 0.0], device=cuda)
+    t = torch.tensor([3, 3], dtype=torch.int32, device=cuda)
+    den = NLMDenoiser(denoise_strength=0.1, sigma_modifier=1.3, decay=0.9)
+    gpu = den.denoise(z, est, t).cpu()
+    cpu = den.denoise(z.cpu(), est.cpu(), t.cpu())
+    assert float((gpu - cpu).abs().max()) <= 1e-5
+
+
 def test_bm3d_on_the_card_matches_the_cpu(cuda):
     x = _noisy(48)
     p = bm3d.BM3DParams(search=6, match_dtype="bfloat16")
@@ -88,14 +144,27 @@ def test_bm3d_on_the_card_matches_the_cpu(cuda):
     assert float((gpu - cpu).abs().mean()) < 1e-4
 
 
-def test_faithful_loop_on_the_card_matches_the_cpu(cuda):
+def test_dense_aggregation_on_the_card_matches_the_cpu(cuda):
+    x = _noisy(48)
+    p = bm3d.BM3DParams(search=8, search_step=4, matcher="pallas", match_dtype="bfloat16")
+    before = k2.bm3d_scatter.launches
+    gpu = bm3d.bm3d_denoise_batch(torch.tensor(x, device=cuda), 0.1, p).cpu()
+    assert k2.bm3d_scatter.launches == before  # the dense path runs no scatter
+    cpu = bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, p)
+    assert float((gpu - cpu).abs().mean()) < 1e-4
+
+
+@pytest.mark.parametrize("denoiser,eta", [
+    (bm3d.BM3DDenoiser(sigma_modifier=1.0, params=bm3d.BM3DParams(search=4)), 200.0),
+    (NLMDenoiser(sigma_modifier=1.2), 400.0),
+], ids=["bm3d", "nlm"])
+def test_faithful_loop_on_the_card_matches_the_cpu(cuda, denoiser, eta):
     gen = torch.Generator().manual_seed(0)
     cpu = stack_problems([make_csmri(load_image(p, 32, 32), gen, 0.5, snr=10, keep_low_freq=4,
                                      device="cpu")
                           for p in ("Set12/01.png", "13.png")])
     gpu = type(cpu)(**{k: v.to(cuda) for k, v in vars(cpu).items()})
-    den = bm3d.BM3DDenoiser(sigma_modifier=1.0, params=bm3d.BM3DParams(search=4))
-    a, b = (pnp_svrg(p, den, 200.0, 2, 3, 100, variant="faithful") for p in (cpu, gpu))
+    a, b = (pnp_svrg(p, denoiser, eta, 2, 3, 100, variant="faithful") for p in (cpu, gpu))
     np.testing.assert_allclose(b["psnr_per_iter"].cpu().numpy(), a["psnr_per_iter"].numpy(),
                                atol=0.05)
     assert float((b["image"].cpu() - a["image"]).abs().mean()) < 1e-3
