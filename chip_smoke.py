@@ -7,11 +7,15 @@ Runs from the repository root with no arguments and needs one CUDA card; it
 imports no JAX. Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` of ``pnp_svrg_tpu_torch/csrc/*.cu`` for ``sm_90a``;
-3. kernels: K1 (block matching) and K2 (aggregation scatter) against their
-   plain PyTorch versions at the headline shapes, on real inputs (the
-   headline batch's ``x_init`` and a stage-1 BM3D estimate and its update
-   rows), with CUDA-event times, the plain and library times and the bound;
+2. build: ``nvcc`` of ``pnp_svrg_tpu_torch/csrc/*.cu`` for ``sm_90a``, with
+   ptxas's registers and spills and the atomics in K2's SASS;
+3. kernels: K1 (block matching) and K2 (the fused aggregation: scatter and
+   unfold-add) against their plain PyTorch versions at the headline shapes,
+   on real inputs (the headline batch's ``x_init``, a stage-1 BM3D estimate
+   and its aggregation's arguments), with CUDA-event times, the plain and
+   library times and the bounds; K1 in every rounding mode at 289, 81 and
+   25 offsets, held slot by slot (the same offset or a near-tie), and K2
+   beside the dense aggregation at the turbo4 shape;
    K3 (non-local means) against its plain version on a real NLM input (the
    ``13.png`` lane's ``x_init`` after one gradient step) at B = 1 and B = 9,
    with NaN at ``h = 0`` and a row-bounds case;
@@ -51,11 +55,14 @@ failed check raises, and the script exits non-zero without the last line.
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import math
+import re
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,10 +80,14 @@ from pnp_svrg_tpu_torch.convert import (
 from pnp_svrg_tpu_torch.denoisers.bm3d import (
     BM3DDenoiser,
     BM3DParams,
+    _aggregate,
+    _aggregate_dense,
+    _geometry,
     _ref_grid,
+    _stage1,
     bm3d_denoise_batch,
     search_offsets,
-    stage1_scatter_inputs,
+    stage1_aggregate_inputs,
 )
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import _build
@@ -84,8 +95,13 @@ from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import (
     bm3d_match,
     bm3d_match_plain,
     match_distances_plain,
+    match_geometry,
 )
-from pnp_svrg_tpu_torch.ops.cuda.bm3d_scatter import bm3d_scatter, bm3d_scatter_plain
+from pnp_svrg_tpu_torch.ops.cuda.bm3d_aggregate import (
+    aggregate_geometry,
+    bm3d_aggregate,
+    bm3d_aggregate_plain,
+)
 from pnp_svrg_tpu_torch.ops.cuda.nlm import nlm_denoise, nlm_denoise_plain
 from pnp_svrg_tpu_torch.ops.metrics import ssim
 from pnp_svrg_tpu_torch.ops.sigma import estimate_sigma
@@ -104,10 +120,10 @@ NLM_FLOOR_DB, NLM_TRACE_TOL_DB = 26.59, 0.05
 # cores, and HBM bytes/s. Bounds are stated beside the card's name and limit.
 F32_PEAK, HBM_PEAK = 67e12, 3.35e12
 SFU_PER_SM_CLOCK, N_SMS = 16, 132  # expf throughput: 16 a clock on each of 132 SMs
-KERNELS = {"bm3d_match": bm3d_match, "bm3d_scatter": bm3d_scatter, "nlm": nlm_denoise}
+KERNELS = {"bm3d_match": bm3d_match, "bm3d_aggregate": bm3d_aggregate, "nlm": nlm_denoise}
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("K1 bm3d_match", ("bm3d_match_kernel",)),
-    ("K2 bm3d_scatter", ("bm3d_scatter_kernel",)),
+    ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel",)),
     ("K3 nlm", ("nlm_kernel",)),
     ("matmul (3-D transform)", ("gemm", "cutlass")),
     ("fft", ("fft",)),
@@ -119,8 +135,9 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
 SOURCES = {
     "bm3d_match": ("pnp_svrg_tpu_torch/csrc/bm3d_match.cu",
                    "pnp_svrg_tpu/ops/pallas/bm3d_match.py:52"),
-    "bm3d_scatter": ("pnp_svrg_tpu_torch/csrc/bm3d_scatter.cu",
-                     "pnp_svrg_tpu/ops/pallas/bm3d_scatter.py:39"),
+    "bm3d_aggregate": ("pnp_svrg_tpu_torch/csrc/bm3d_aggregate.cu",
+                       "pnp_svrg_tpu/ops/pallas/bm3d_scatter.py:39 + "
+                       "pnp_svrg_tpu/denoisers/bm3d.py:288 (_unfold_table)"),
     "nlm": ("pnp_svrg_tpu_torch/csrc/nlm.cu", "pnp_svrg_tpu/ops/pallas/nlm_kernel.py:31"),
 }
 
@@ -149,11 +166,53 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 25) -> float:
     return start.elapsed_time(end) / reps
 
 
-def set_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
-    k = a.shape[-1]
-    a = a.reshape(-1, k).cpu().numpy()
-    b = b.reshape(-1, k).cpu().numpy()
-    return float(np.mean([len(set(p) & set(q)) / k for p, q in zip(a, b)]))
+def device_ms(fn, reps: int = 50, warmup: int = 10) -> float:
+    """Device time of one call of ``fn``: the summed time of every kernel it
+    launches (``torch.profiler``) over ``reps`` calls, after ``warmup``
+    calls. Unlike :func:`cuda_ms` it leaves out the gaps in which the device
+    waits for the host to launch the next call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(us > 0, "the profiler saw no device time")
+    return us / reps / 1e3
+
+
+def multiset_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Mean share of each block's k indices that the other holds as often:
+    a repeated index (the index-0 fill) counts each time, so equal outputs
+    read 1."""
+    k, s = a.shape[-1], int(max(a.max(), b.max())) + 1
+    a, b = a.reshape(-1, k).long(), b.reshape(-1, k).long()
+    count = lambda t: torch.zeros(t.shape[0], s, device=t.device).scatter_add_(  # noqa: E731
+        1, t, torch.ones(t.shape, device=t.device))
+    return float(torch.minimum(count(a), count(b)).sum(1).mean() / k)
+
+
+# K1 and its plain version sum the same 64 rounded terms of a distance in
+# different orders, each within 63 half-ulps (2**-24 relative) of the exact
+# sum; so where they put different offsets in a slot, the two distances
+# there lie within twice that of each other (a near-tie).
+NEAR_TIE = 2 * 63 * 2.0**-24
+
+
+def slot_gaps(got: torch.Tensor, want: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
+    """Per top-k slot, |D[got] - D[want]| / max of the two, in the plain
+    version's distances D: 0 where the indices agree, inf where they differ
+    and one is an invalid candidate. A right set in a wrong order shows here
+    as a gap far above :data:`NEAR_TIE`."""
+    dg, dw = (dists.gather(-1, t.long()) for t in (got, want))
+    gap = torch.nan_to_num((dg - dw).abs() / torch.maximum(dg, dw), nan=0.0)  # 0/0: a tie at 0
+    gap = torch.where(torch.isinf(dg) | torch.isinf(dw), torch.inf, gap)
+    return torch.where(got == want, 0.0, gap)
 
 
 def phase_device() -> dict:
@@ -183,28 +242,92 @@ def phase_build() -> None:
     paths = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: p.name for n, p in paths.items()},
-          "ptxas": {n: [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln][:4]
-                    for n, log in _build.BUILD_LOG.items()}})
+          "ptxas": {n: ptxas_summary(log) for n, log in _build.BUILD_LOG.items()},
+          "sass_atomics": {n: sass_atomics(paths[n]) for n in ("bm3d_aggregate",)}})
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, spills and static shared memory of each kernel that ptxas
+    compiled, keyed by its name and template arguments (``<mode, offsets a
+    lane>`` for K1)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            base = re.search(r"(bm3d_match|bm3d_aggregate|nlm)_kernel", m.group(1))
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            name = (base.group(0) if base else m.group(1)) + (f"<{', '.join(args)}>" if args else "")
+        elif name and "spill" in ln:
+            out[name] = ln.strip()
+        elif name and "registers" in ln:
+            out[name] = out.get(name, "") + "; " + ln.split(":", 1)[1].strip()
+    return out
+
+
+def sass_atomics(lib) -> dict | str:
+    """Atomic and reduction opcodes in a built library's SASS (``cuobjdump``):
+    ``ATOMS.ADD`` is a native shared-memory add, ``ATOMS.CAS*`` a
+    compare-and-swap loop; ``RED`` a global reduction whose result is unused."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return "cuobjdump not found"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout
+    return dict(collections.Counter(re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", sass)))
+
+
+def match_bounds(b: int, h: int, w: int, rows, cols, offs) -> dict:
+    """K1's least time two ways, over the valid (reference block, offset)
+    pairs of this geometry. Direct: sub, mul, add for each of a pair's 64
+    patch terms. Separable (the Pallas kernel's form): per (image, offset)
+    the squared-difference plane (sub, mul a pixel), 8-wide row sums at the
+    reference columns (7 adds each) and 8-tall column sums at the reference
+    rows (7 adds each), shared among that offset's reference blocks; counted
+    for the valid share of them. Bytes: the images in, the indices out."""
+    nr, nc = len(rows), len(cols)
+    valid = sum(
+        1 for r in rows for c in cols for dy, dx in offs
+        if 0 <= r + dy <= h - 8 and 0 <= c + dx <= w - 8
+    ) * b
+    direct = valid * 64 * 3
+    separable = valid * (2 * h * w + 7 * h * nc + 7 * nr * nc) / (nr * nc)
+    nbytes = b * h * w * 4 + b * nr * nc * 16 * 4
+    out = {"valid_pairs": valid, "direct_operations": direct, "separable_operations": separable,
+           "bytes": nbytes}
+    for name, ops in (("direct", direct), ("separable", separable)):
+        out[f"bound_{name}_ms"] = max(ops / F32_PEAK, nbytes / HBM_PEAK) * 1e3
+        out[f"bound_{name}_by"] = "operations" if ops / F32_PEAK > nbytes / HBM_PEAK else "bytes"
+    return out
 
 
 def check_match() -> dict:
-    """K1 against its plain version at the headline shapes."""
+    """K1 against its plain version at the headline shapes, on the headline
+    batch's ``x_init`` and its stage-1 estimate, in every rounding mode at
+    289, 81 and 25 offsets (the headline's, turbo's and turbo4's windows):
+    the multiset agreement of each block's top 16, and slot by slot the
+    same offset or a near-tie. Then its time at the three lanes' offset
+    counts."""
     prob, _ = load_headline_problems("cuda")
     x = prob.x_init.contiguous()
     params = BM3DParams(search=8, match_dtype="bfloat16")
-    basic, scatter_in = stage1_scatter_inputs(x, estimate_sigma(x), params)
+    basic, agg_in = stage1_aggregate_inputs(x, estimate_sigma(x), params)
     rows = _ref_grid(x.shape[-1], 8, 4)
-    agreements = {}
+    agreements, slots = {}, {}
     for name, img in (("x_init", x), ("basic", basic.contiguous())):
         for mode in ("f32", "bf16_xla", "bf16_pallas"):
-            for ss in (1, 2):
+            for ss in (1, 2, 4):
                 offs = search_offsets(8, ss)
                 got = bm3d_match(img, rows, rows, offs, 8, 16, mode)
                 want = bm3d_match_plain(img, rows, rows, offs, 8, 16, mode)
-                agree = set_agreement(got, want)
-                agreements[f"{name}/{mode}/step{ss}"] = agree
+                key = f"{name}/{mode}/{len(offs)}"
+                agreements[key] = agree = multiset_agreement(got, want)
                 require(agree >= (0.999 if mode == "f32" else 0.995),
-                        f"K1 set agreement {agree} ({name}, {mode}, step {ss})")
+                        f"K1 multiset agreement {agree} ({key})")
+                gaps = slot_gaps(got, want, match_distances_plain(img, rows, rows, offs, 8, mode))
+                slots[key] = {"equal_share": float((got == want).float().mean()),
+                              "max_rel_gap": gaps.max().item()}
+                require(slots[key]["max_rel_gap"] <= NEAR_TIE,
+                        f"K1 slot gap {slots[key]['max_rel_gap']} > {NEAR_TIE} ({key})")
     # Headline configuration: bf16_xla, the full 289-offset window.
     offs = search_offsets(8, 1)
     mode = "bf16_xla"
@@ -212,50 +335,98 @@ def check_match() -> dict:
     want = bm3d_match_plain(x, rows, rows, offs, 8, 16, mode)
     dists = match_distances_plain(x, rows, rows, offs, 8, mode)
     err = (dists.gather(-1, got.long()) - dists.gather(-1, want.long())).abs().max().item()
+    require(math.isfinite(err), f"K1 picked an invalid candidate ({err})")
     b, h, w = x.shape
-    valid = sum(
-        1 for r in rows for c in rows for dy, dx in offs
-        if 0 <= r + dy <= h - 8 and 0 <= c + dx <= w - 8
-    ) * b
-    flops = valid * 64 * 3  # sub, mul, add per patch term
-    nbytes = x.numel() * 4 + got.numel() * 4
-    bound = max(flops / F32_PEAK, nbytes / HBM_PEAK) * 1e3
-    ms = cuda_ms(lambda: bm3d_match(x, rows, rows, offs, 8, 16, mode))
+    by_offsets = {}
+    for ss, lane_mode in ((1, "bf16_xla"), (2, "bf16_pallas"), (4, "bf16_pallas")):
+        o = search_offsets(8, ss)
+        geom = match_geometry(rows, rows, o, 8, x.device)
+        call = lambda: bm3d_match(x, rows, rows, o, 8, 16, lane_mode, geometry=geom)  # noqa: E731
+        by_offsets[len(o)] = {
+            "mode": lane_mode, "ms": device_ms(call), "event_ms": cuda_ms(call),
+            "smem_bytes": geom.smem_bytes,
+            **match_bounds(b, h, w, rows, rows, o),
+        }
+    geom = match_geometry(rows, rows, offs, 8, x.device)
+    modes_ms = {m: device_ms(lambda: bm3d_match(x, rows, rows, offs, 8, 16, m, geometry=geom))
+                for m in ("f32", "bf16_xla", "bf16_pallas")}  # 289 offsets, each rounding
+    head = by_offsets[len(offs)]
     plain_ms = cuda_ms(lambda: bm3d_match_plain(x, rows, rows, offs, 8, 16, mode), reps=10)
-    turbo_offs = search_offsets(8, 2)
-    turbo_ms = cuda_ms(lambda: bm3d_match(x, rows, rows, turbo_offs, 8, 16, "bf16_pallas"))
+    bound = min(head["bound_direct_ms"], head["bound_separable_ms"])
     return {
-        "name": "bm3d_match", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": "operations" if flops / F32_PEAK > nbytes / HBM_PEAK else "bytes",
-        "library_ms": None, "set_agreement": agreements, "turbo_81_offsets_ms": turbo_ms,
+        "name": "bm3d_match", "max_abs_err": err, "ms": head["ms"], "event_ms": head["event_ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": head["bound_separable_by"], "library_ms": None,
+        "bound_direct_ms": head["bound_direct_ms"], "bound_separable_ms": head["bound_separable_ms"],
+        "multiset_agreement": agreements, "slots": slots, "near_tie": NEAR_TIE,
+        "turbo_81_offsets_ms": by_offsets[81]["ms"],
+        "by_offsets": by_offsets, "modes_289_offsets_ms": modes_ms,
         "shape": {"images": list(x.shape), "offsets": len(offs), "k": 16},
-        "_scatter_in": scatter_in,
+        "_agg_in": agg_in,
     }
 
 
-def check_scatter(scatter_in) -> dict:
-    """K2 against its plain version on a stage-1 call's real update rows."""
-    idx, upd, table_rows = scatter_in
-    got = bm3d_scatter(idx, upd, table_rows, check_bounds=True)
-    want = bm3d_scatter_plain(idx, upd, table_rows)
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    require(err <= 1e-5 * scale, f"K2 max abs err {err} vs row magnitude {scale}")
-    b, p, w = upd.shape
-    nbytes = idx.numel() * 4 + upd.numel() * 4 + b * table_rows * w * 4
-    flops = upd.numel()
-    ms = cuda_ms(lambda: bm3d_scatter(idx, upd, table_rows))
-    plain_ms = cuda_ms(lambda: bm3d_scatter_plain(idx, upd, table_rows))
-    flat_idx = (idx.long() + torch.arange(b, device=idx.device)[:, None] * table_rows).reshape(-1)
-    flat_upd = upd.reshape(b * p, w)
-    table = torch.zeros((b * table_rows, w), device=upd.device)
-    library_ms = cuda_ms(lambda: table.index_add_(0, flat_idx, flat_upd))
+def check_aggregate(agg_in) -> dict:
+    """K2 against its plain version on a stage-1 call's real arguments; its
+    time beside the plain version, one ``index_add_`` of the per-pixel terms
+    into fresh planes (both timed with the zero fill of their output) and
+    the bound; and the dense aggregation against K2 at the turbo4 shape."""
+    idx, est, wgt, kai, h, w, geom = agg_in
+    b, p, bb = est.shape
+    got = bm3d_aggregate(*agg_in)
+    want = bm3d_aggregate_plain(idx, est, wgt, kai, h, w)
+    errs, scales = {}, {}
+    for name, g_, w_ in zip(("num", "den"), got, want):
+        errs[name] = (g_ - w_).abs().max().item()
+        scales[name] = w_.abs().max().item()
+        require(errs[name] <= 1e-5 * scales[name],
+                f"K2 {name} max abs err {errs[name]} vs plane magnitude {scales[name]}")
+    nbytes = (idx.numel() + est.numel() + wgt.numel() + kai.numel() + 2 * b * h * w) * 4
+    flops = est.numel() * 4  # wk, est * wk, two adds
+    ms = device_ms(lambda: bm3d_aggregate(*agg_in))
+    event_ms = cuda_ms(lambda: bm3d_aggregate(*agg_in))
+    plain_ms = cuda_ms(lambda: bm3d_aggregate_plain(idx, est, wgt, kai, h, w))
+    # The library yardstick: the same sums as one index_add_ of per-pixel
+    # terms (made here, outside the timing) into planes zeroed in the call.
+    g = wgt.shape[1]
+    ww = w - 7
+    wk = wgt[..., None, None] * kai  # (B, G, 1, 64)
+    terms = torch.cat([(est.view(b, g, -1, bb) * wk).reshape(-1),
+                       wk.expand(b, g, p // g, bb).reshape(-1)])
+    ky, kx = torch.arange(8, device=idx.device).repeat_interleave(8), torch.arange(8, device=idx.device).repeat(8)
+    pix = ((idx.long() // ww)[..., None] + ky) * w + (idx.long() % ww)[..., None] + kx  # (B, P, 64)
+    pix = (pix + torch.arange(b, device=idx.device)[:, None, None] * (h * w)).reshape(-1)
+    flat = torch.cat([pix, pix + b * h * w])
+    lib_planes = torch.zeros(2 * b * h * w, device=idx.device).index_add_(0, flat, terms)
+    lib_err = max((lib_planes.view(2, b, h, w)[i] - want[i]).abs().max().item() for i in (0, 1))
+    require(lib_err <= 1e-5 * max(scales.values()), f"index_add_ yardstick err {lib_err}")
+    library = lambda: torch.zeros(2 * b * h * w, device=idx.device).index_add_(0, flat, terms)  # noqa: E731
+    library_ms, library_event_ms = device_ms(library), cuda_ms(library)
+    del flat, terms, pix
+    # turbo4's shape: its stage-1 estimates through the dense aggregation
+    # and through K2 (recorded only; turbo4 keeps the dense path).
+    prob, _ = load_headline_problems("cuda")
+    x = prob.x_init.contiguous()
+    t4 = BM3DParams(search=8, search_step=4, matcher="pallas", match_dtype="bfloat16")
+    g4 = _geometry(h, w, t4, x.device)
+    e4, w4, top4, py4, px4 = _stage1(x, estimate_sigma(x), t4, g4)
+    a4 = aggregate_geometry(h, w, tuple(g4.rows.tolist()), tuple(g4.cols.tolist()), 8, 8, x.device)
+    dense = lambda: _aggregate_dense(e4, w4, top4, 8, 4, h, w, g4.kaiser, g4.shift_y, g4.shift_x)  # noqa: E731
+    fused = lambda: _aggregate(e4, w4, py4, px4, 8, h, w, g4.kaiser, a4)[0]  # noqa: E731
+    turbo4 = {"dense_ms": device_ms(dense), "fused_ms": device_ms(fused),
+              "dense_event_ms": cuda_ms(dense), "fused_event_ms": cuda_ms(fused),
+              "max_abs_diff": (dense() - fused()).abs().max().item()}
     return {
-        "name": "bm3d_scatter", "max_abs_err": err, "max_rel_err": err / scale, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(flops / F32_PEAK, nbytes / HBM_PEAK) * 1e3,
+        "name": "bm3d_aggregate", "max_abs_err": max(errs.values()), "max_abs_err_by_plane": errs,
+        "plane_magnitude": scales, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+        "bound_ms": max(flops / F32_PEAK, nbytes / HBM_PEAK) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_PEAK >= flops / F32_PEAK else "operations",
-        "library_ms": library_ms,
-        "shape": {"idx": list(idx.shape), "upd": list(upd.shape), "table_rows": table_rows},
+        "bytes": nbytes, "library_ms": library_ms, "library_event_ms": library_event_ms,
+        "library_max_abs_err": lib_err,
+        "smem_bytes": geom.smem_bytes, "footprint": [geom.fh, geom.fw],
+        "turbo4_shape": turbo4,
+        "shape": {"idx": list(idx.shape), "est": list(est.shape), "wgt": list(wgt.shape),
+                  "planes": [2, b, h, w]},
     }
 
 
@@ -310,7 +481,8 @@ def check_nlm(clock_hz: float) -> dict:
     times = {}
     for name, (z, h) in (("b9", (z9, h9)), ("b1", (z1, h1))):
         times[name] = {
-            "ms": cuda_ms(lambda: nlm_denoise(z, h, h)),
+            "ms": device_ms(lambda: nlm_denoise(z, h, h)),
+            "event_ms": cuda_ms(lambda: nlm_denoise(z, h, h)),
             "plain_ms": cuda_ms(lambda: nlm_denoise_plain(z, h, h), reps=10, warmup=3),
             **nlm_bound(z.shape[0], hh, ww, 0, hh, 5, clock_hz),
         }
@@ -476,7 +648,7 @@ def run_nlm_lane() -> dict:
     }
     emit(rec)
     denoises = N_OUTER * T2
-    expect = {"bm3d_match": 0, "bm3d_scatter": 0, "nlm": denoises}
+    expect = {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": denoises}
     require(launches == expect, f"csmri_nlm: launches {launches}, expected {expect}")
     require(ref_psnr >= NLM_FLOOR_DB, f"csmri_nlm: PSNR {ref_psnr:.2f} dB < {NLM_FLOOR_DB}")
     require(dtrace <= NLM_TRACE_TOL_DB, f"csmri_nlm: trace {dtrace:.4f} dB off the JAX trace")
@@ -505,7 +677,7 @@ def run_nlm_grid() -> dict:
         "pairs_eta_mod": pairs, **q,
     }
     emit(rec)
-    expect = {"bm3d_match": 0, "bm3d_scatter": 0, "nlm": N_OUTER * T2}
+    expect = {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": N_OUTER * T2}
     require(launches == expect, f"csmri_nlm_grid: launches {launches}, expected {expect}")
     return rec
 
@@ -545,26 +717,26 @@ def main() -> None:
     card = dev["kind"]
     phase_build()
     k1 = check_match()
-    k2 = check_scatter(k1.pop("_scatter_in"))
+    k2 = check_aggregate(k1.pop("_agg_in"))
     k3 = check_nlm(dev["max_sm_clock_mhz"] * 1e6)
-    emit({"phase": "kernels_checked", "bm3d_match": k1, "bm3d_scatter": k2, "nlm": k3})
+    emit({"phase": "kernels_checked", "bm3d_match": k1, "bm3d_aggregate": k2, "nlm": k3})
     phase_parity()
 
     prob, lanes = load_headline_problems("cuda")
     ref_masks = load_headline_masks("cuda")
-    with_scatter = {"bm3d_match": 2 * N_OUTER * T2, "bm3d_scatter": 2 * N_OUTER * T2, "nlm": 0}
+    with_k2 = {"bm3d_match": 2 * N_OUTER * T2, "bm3d_aggregate": 2 * N_OUTER * T2, "nlm": 0}
     lanes_run = {
         "headline": run_lane("headline", "set12_csmri_tuned.json", 6000.0, 1.0,
                              BM3DParams(search=8, match_dtype="bfloat16"), HEADLINE_FLOOR_DB,
-                             with_scatter, prob, lanes, ref_masks),
+                             with_k2, prob, lanes, ref_masks),
         "turbo": run_lane("turbo", "set12_csmri_turbo_tuned.json", 4000.0, 1.0,
                           BM3DParams(search=8, search_step=2, matcher="pallas",
                                      match_dtype="bfloat16"),
-                          TURBO_FLOOR_DB, with_scatter, prob, lanes, ref_masks),
+                          TURBO_FLOOR_DB, with_k2, prob, lanes, ref_masks),
         "turbo4": run_lane("turbo4", "set12_csmri_turbo4_tuned.json", 4000.0, 1.5,
                            BM3DParams(search=8, search_step=4, matcher="pallas",
                                       match_dtype="bfloat16"),
-                           TURBO4_FLOOR_DB, with_scatter | {"bm3d_scatter": 0}, prob, lanes,
+                           TURBO4_FLOOR_DB, with_k2 | {"bm3d_aggregate": 0}, prob, lanes,
                            ref_masks),
         "csmri_nlm": run_nlm_lane(),
         "csmri_nlm_grid": run_nlm_grid(),
@@ -585,7 +757,7 @@ def main() -> None:
     phase_profile("csmri_nlm_grid",
                   lambda: pnp_svrg(gprob, gden, geta, N_OUTER, T2, MINI_BATCH, generator=ggen))
 
-    main_lane = {"bm3d_match": "headline", "bm3d_scatter": "headline", "nlm": "csmri_nlm"}
+    main_lane = {"bm3d_match": "headline", "bm3d_aggregate": "headline", "nlm": "csmri_nlm"}
     kernels = []
     for rec in (k1, k2, k3):
         name = rec["name"]

@@ -10,9 +10,10 @@ versions on the CPU:
 
 * block matching: K1, ``ops/cuda/bm3d_match.py``, in the rounding mode that
   ``BM3DParams.matcher`` and ``match_dtype`` name;
-* the aggregation scatter: K2, ``ops/cuda/bm3d_scatter.py``, into a
-  (B, hh*ww, 2*b*b) patch-position table, followed by a static overlap-add
-  (``torch.nn.functional.fold``) back to image space.
+* the aggregation: K2, ``ops/cuda/bm3d_aggregate.py``, the patch
+  scatter-add and the static overlap-add back to image space in one pass
+  (its plain version builds the (B, hh*ww, 2*b*b) patch-position table and
+  folds it with ``torch.nn.functional.fold``).
 
 The 3-D transform is one (K*b*b)-wide ``torch.matmul`` with
 ``kron(H_K, D (x) D)``, as the JAX package leaves it to XLA.
@@ -34,10 +35,14 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import bm3d_match
-from pnp_svrg_tpu_torch.ops.cuda.bm3d_scatter import bm3d_scatter
+from pnp_svrg_tpu_torch.ops.cuda.bm3d_aggregate import (
+    AggregateGeometry,
+    aggregate_geometry,
+    bm3d_aggregate,
+    unfold_table,
+)
+from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import MatchGeometry, bm3d_match, match_geometry
 from pnp_svrg_tpu_torch.ops.transforms import dct_matrix, hadamard_matrix, kaiser2d
 
 
@@ -99,6 +104,8 @@ class _Geometry:
     kaiser: torch.Tensor  # (b*b,)
     t3_ht: torch.Tensor
     t3_wie: torch.Tensor
+    match: MatchGeometry | None  # K1's device-side grid, offsets and layout (CUDA only)
+    agg: AggregateGeometry | None  # K2's footprints (CUDA, and not the dense path)
     # Dense aggregation only: (S, nR, nR) and (S, nC, nC) clamp-shift matrices.
     shift_y: torch.Tensor | None
     shift_x: torch.Tensor | None
@@ -140,11 +147,15 @@ def _geometry(h: int, w: int, p: BM3DParams, device: torch.device) -> _Geometry:
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    shift_y = shift_x = None
+    on_card = torch.device(device).type == "cuda"
+    shift_y = shift_x = agg = None
     if dense_aggregation(h, w, p):
         q = offsets // p.step
         shift_y = dev(_clamp_shift_mats(tuple(q[:, 0].tolist()), len(rows)))
         shift_x = dev(_clamp_shift_mats(tuple(q[:, 1].tolist()), len(cols)))
+    elif on_card:
+        agg = aggregate_geometry(h, w, tuple(rows.tolist()), tuple(cols.tolist()),
+                                 int(np.abs(offsets).max()), p.block, torch.device(device))
     return _Geometry(
         rows=rows, cols=cols, offsets=offsets,
         rows_t=dev(rows, torch.int64), cols_t=dev(cols, torch.int64),
@@ -152,7 +163,8 @@ def _geometry(h: int, w: int, p: BM3DParams, device: torch.device) -> _Geometry:
         kaiser=dev(kaiser2d(p.block, p.kaiser_beta).reshape(-1)),
         t3_ht=dev(np.kron(hadamard_matrix(p.group_ht), d2d)),
         t3_wie=dev(np.kron(hadamard_matrix(p.group_wie), d2d)),
-        shift_y=shift_y, shift_x=shift_x,
+        match=match_geometry(rows, cols, offsets, p.block, device) if on_card else None,
+        agg=agg, shift_y=shift_y, shift_x=shift_x,
     )
 
 
@@ -183,34 +195,17 @@ def _itransform_3d(coeffs_flat, t3):
     return coeffs_flat @ t3  # t3 is orthonormal: inverse = transpose
 
 
-def _aggregation_rows(est_groups, weights, py, px, ww, kaiser):
-    """Scatter inputs of the aggregation: (B, P) int32 patch-position rows and
-    (B, P, 2*b*b) updates (numerator ++ denominator)."""
-    b = est_groups.shape[0]
-    bb = est_groups.shape[-1]
-    wk = weights[..., None, None] * kaiser  # (B, nR, nC, 1, b*b)
-    num_upd = (est_groups * wk).reshape(b, -1, bb)
-    den_upd = wk.expand(est_groups.shape).reshape(b, -1, bb)
-    upd = torch.cat([num_upd, den_upd], dim=-1)
-    idx = (py * ww + px).reshape(b, -1).to(torch.int32)
-    return idx, upd
-
-
-def _unfold_table(table, block, h, w):
-    """(B, hh*ww, 2*b*b) patch-position table -> (num, den) images by a static
-    overlap-add: channel 0 is the numerator, 1 the denominator."""
-    out = F.fold(table.transpose(1, 2), (h, w), kernel_size=block)  # (B, 2, H, W)
-    return out[:, 0], out[:, 1]
-
-
-def _aggregate(est_groups, weights, py, px, block, h, w, kaiser):
-    """Weighted overlap-add of patch estimates: K2 into the patch-position
-    table, the static unfold, then ``num / den``. Also returns the scatter
-    inputs (idx, upd, table_rows)."""
-    hh, ww = h - block + 1, w - block + 1
-    idx, upd = _aggregation_rows(est_groups, weights, py, px, ww, kaiser)
-    num, den = _unfold_table(bm3d_scatter(idx, upd, hh * ww), block, h, w)
-    return num / torch.clamp(den, min=1e-12), (idx, upd, hh * ww)
+def _aggregate(est_groups, weights, py, px, block, h, w, kaiser,
+               agg: AggregateGeometry | None):
+    """Weighted overlap-add of patch estimates, then ``num / den``: K2 adds
+    each member's ``est * wk`` and ``wk`` into the (num, den) planes in one
+    pass. Also returns K2's arguments (idx, est, wgt, kaiser, h, w,
+    geometry)."""
+    b, bb = est_groups.shape[0], est_groups.shape[-1]
+    idx = (py * (w - block + 1) + px).reshape(b, -1).to(torch.int32)
+    args = (idx, est_groups.reshape(b, -1, bb), weights.reshape(b, -1), kaiser, h, w, agg)
+    num, den = bm3d_aggregate(*args)
+    return num / torch.clamp(den, min=1e-12), args
 
 
 def _aggregate_dense(est_groups, weights, top_idx, block, step, h, w, kaiser,
@@ -234,7 +229,7 @@ def _aggregate_dense(est_groups, weights, top_idx, block, step, h, w, kaiser,
     grid = torch.einsum("sti,bsijp,suj->btup", shift_y, c, shift_x)  # (B, nR, nC, 2*b*b)
     table = torch.zeros((b, hh, ww, 2 * bb), dtype=torch.float32, device=est_groups.device)
     table[:, ::step, ::step] = grid
-    num, den = _unfold_table(table.reshape(b, hh * ww, 2 * bb), block, h, w)
+    num, den = unfold_table(table.reshape(b, hh * ww, 2 * bb), block, h, w)
     return num / torch.clamp(den, min=1e-12)
 
 
@@ -250,7 +245,8 @@ def _stage1(x, sigma, p: BM3DParams, g: _Geometry):
     sig_g = sigma[:, None, None]
     sig_c = sigma[:, None, None, None]
     bb = p.block * p.block
-    top_idx = bm3d_match(x, g.rows, g.cols, g.offsets, p.block, p.group_ht, match_mode(p))
+    top_idx = bm3d_match(x, g.rows, g.cols, g.offsets, p.block, p.group_ht, match_mode(p),
+                         geometry=g.match)
     groups, py, px = _gather_groups(x, g, top_idx, p.block)
     coeffs = _transform_3d(groups.reshape(*groups.shape[:3], -1), g.t3_ht)
     keep = coeffs.abs() > p.lam * sig_c
@@ -267,7 +263,8 @@ def _stage2(x, basic, sigma, p: BM3DParams, g: _Geometry):
     sig_g = sigma[:, None, None]
     sig_c = sigma[:, None, None, None]
     bb = p.block * p.block
-    top_idx = bm3d_match(basic, g.rows, g.cols, g.offsets, p.block, p.group_wie, match_mode(p))
+    top_idx = bm3d_match(basic, g.rows, g.cols, g.offsets, p.block, p.group_wie, match_mode(p),
+                         geometry=g.match)
     g_basic, py, px = _gather_groups(basic, g, top_idx, p.block)
     g_noisy, _, _ = _gather_groups(x, g, top_idx, p.block)
     c_basic = _transform_3d(g_basic.reshape(*g_basic.shape[:3], -1), g.t3_wie)
@@ -280,26 +277,26 @@ def _stage2(x, basic, sigma, p: BM3DParams, g: _Geometry):
 
 def _aggregate_stage(stage_out, p: BM3DParams, g: _Geometry, h, w):
     """The stage's estimate by the aggregation its geometry selects, and the
-    scatter inputs handed to K2 (None on the dense path, which runs no K2)."""
+    arguments handed to K2 (None on the dense path, which runs no K2)."""
     est, wgt, top_idx, py, px = stage_out
     if g.shift_y is not None:
         return _aggregate_dense(est, wgt, top_idx, p.block, p.step, h, w, g.kaiser,
                                 g.shift_y, g.shift_x), None
-    return _aggregate(est, wgt, py, px, p.block, h, w, g.kaiser)
+    return _aggregate(est, wgt, py, px, p.block, h, w, g.kaiser, g.agg)
 
 
 def _denoise(images, sigma, p: BM3DParams, stages: int, row_valid_bounds):
-    """(estimate, stage-1 scatter inputs or None)."""
+    """(estimate, stage-1 K2 arguments or None)."""
     x = images.to(torch.float32)
     b, h, w = x.shape
     _check_supported(p, row_valid_bounds)
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).expand(b)
     g = _geometry(h, w, p, x.device)
-    basic, scatter_in = _aggregate_stage(_stage1(x, sigma, p, g), p, g, h, w)
+    basic, agg_in = _aggregate_stage(_stage1(x, sigma, p, g), p, g, h, w)
     if stages == 1:
-        return basic, scatter_in
+        return basic, agg_in
     out, _ = _aggregate_stage(_stage2(x, basic, sigma, p, g), p, g, h, w)
-    return out, scatter_in
+    return out, agg_in
 
 
 def bm3d_denoise_batch(
@@ -314,9 +311,10 @@ def bm3d_denoise_batch(
     return _denoise(images, sigma, params, stages, row_valid_bounds)[0]
 
 
-def stage1_scatter_inputs(images, sigma, params: BM3DParams = BM3DParams()):
-    """The stage-1 basic estimate and the (idx, upd, table_rows) that its
-    aggregation hands to K2 -- real inputs for checking the kernels."""
+def stage1_aggregate_inputs(images, sigma, params: BM3DParams = BM3DParams()):
+    """The stage-1 basic estimate and the (idx, est, wgt, kaiser, h, w,
+    geometry) that its aggregation hands to K2 -- real inputs for checking
+    the kernels (None on the dense path)."""
     return _denoise(images, sigma, params, 1, None)
 
 

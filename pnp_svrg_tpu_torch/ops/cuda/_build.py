@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("bm3d_match", "bm3d_scatter", "nlm")
+SOURCES = ("bm3d_match", "bm3d_aggregate", "nlm")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas output of its build

@@ -1,5 +1,5 @@
 """Port parity: BM3D and the plain versions of kernels K1 (block matching) and
-K2 (aggregation scatter).
+K2 (the fused aggregation).
 
 On the CPU the kernel wrappers take their plain PyTorch versions; the CUDA
 kernels themselves are held against those versions on the card by
@@ -18,7 +18,7 @@ from pnp_svrg_tpu.ops.pallas.bm3d_match import bm3d_match_pallas
 from pnp_svrg_tpu.ops.pallas.bm3d_scatter import bm3d_scatter_pallas
 from pnp_svrg_tpu_torch.denoisers import bm3d
 from pnp_svrg_tpu_torch.ops.cuda import bm3d_match as k1
-from pnp_svrg_tpu_torch.ops.cuda import bm3d_scatter as k2
+from pnp_svrg_tpu_torch.ops.cuda import bm3d_aggregate as k2
 from pnp_svrg_tpu_torch.utils.io import load_image
 from test_golden_parity import bm3d_oracle
 
@@ -91,24 +91,57 @@ def test_k1_fills_spare_slots_with_offset_zero(rng):
 
 
 def test_plain_k2_matches_pallas_and_xla_scatter(rng):
-    b, p, w, t = 2, 300, 128, 200  # 300 rows into 200: rows collide
-    idx = rng.integers(0, t, (b, p)).astype(np.int32)
-    upd = rng.standard_normal((b, p, w)).astype(np.float32)
-    got = k2.bm3d_scatter(torch.tensor(idx), torch.tensor(upd), t, check_bounds=True).numpy()
-    want_pal = np.asarray(bm3d_scatter_pallas(jnp.asarray(idx), jnp.asarray(upd), t,
-                                              chunk=128, interpret=True))
+    # 20 x 20 px: 4 x 4 groups of K = 16 members, 256 rows into a 13 x 13
+    # table, drawn at random: rows collide.
+    h = w = 20
+    b, g, k, bb, t = 2, 16, K, 64, 13 * 13
+    idx = rng.integers(0, t, (b, g * k)).astype(np.int32)
+    est = rng.standard_normal((b, g * k, bb)).astype(np.float32)
+    wgt = rng.uniform(0.5, 2.0, (b, g)).astype(np.float32)
+    kai = rng.uniform(0.1, 1.0, bb).astype(np.float32)
+    num, den = k2.bm3d_aggregate(torch.tensor(idx), torch.tensor(est), torch.tensor(wgt),
+                                 torch.tensor(kai), h, w)
+    wk = np.repeat(wgt, k, axis=1)[..., None] * kai
+    upd = np.concatenate([est * wk, np.broadcast_to(wk, est.shape)], axis=-1)
+    want_pal = bm3d_scatter_pallas(jnp.asarray(idx), jnp.asarray(upd), t, chunk=128,
+                                   interpret=True)
     flat = (idx + (np.arange(b) * t)[:, None]).reshape(-1)
-    want_xla = np.asarray(jnp.zeros((b * t, w)).at[flat].add(upd.reshape(-1, w))).reshape(b, t, w)
-    np.testing.assert_allclose(got, want_pal, atol=1e-5)
-    np.testing.assert_allclose(got, want_xla, atol=1e-5)
+    want_xla = jnp.zeros((b * t, 2 * bb)).at[flat].add(upd.reshape(-1, 2 * bb))
+    for table in (want_pal, want_xla):  # sums of up to ~100 terms of order 1: f32 order
+        wn, wd = jbm3d._unfold_table(table.reshape(b, 13, 13, 2, 8, 8), 8, h, w)
+        np.testing.assert_allclose(num.numpy(), np.asarray(wn), atol=1e-5, rtol=1e-6)
+        np.testing.assert_allclose(den.numpy(), np.asarray(wd), atol=1e-5, rtol=1e-6)
 
 
 def test_k2_rejects_out_of_range_rows():
-    idx = torch.tensor([[0, 5]], dtype=torch.int32)
-    with pytest.raises(IndexError):
-        k2.bm3d_scatter(idx, torch.zeros((1, 2, 4)), 5, check_bounds=True)
+    est, wgt, kai = torch.zeros((1, 256, 64)), torch.ones((1, 16)), torch.ones(64)
+    idx = torch.zeros((1, 256), dtype=torch.int32)
+    idx[0, 5] = 13 * 13  # one past the table
+    with pytest.raises((IndexError, RuntimeError)):
+        k2.bm3d_aggregate(idx, est, wgt, kai, 20, 20)
     with pytest.raises(ValueError):
-        k2.bm3d_scatter(idx.long(), torch.zeros((1, 2, 4)), 5)
+        k2.bm3d_aggregate(idx.long(), est, wgt, kai, 20, 20)
+    with pytest.raises(ValueError):  # 255 members do not split into 16 groups
+        k2.bm3d_aggregate(idx[:, :255], est[:, :255], wgt, kai, 20, 20)
+
+
+def test_wrappers_refuse_a_geometry_made_for_other_arguments():
+    grid = bm3d._ref_grid(48, 8, 4)
+    x = torch.zeros((1, 48, 48))
+    geom = k1.match_geometry(grid, grid, bm3d.search_offsets(6, 1), 8, "cpu")
+    with pytest.raises(ValueError):  # the geometry of the 169-offset window, called with 49
+        k1.bm3d_match(x, grid, grid, bm3d.search_offsets(6, 2), 8, K, geometry=geom)
+    assert k1.bm3d_match(x, grid, grid, bm3d.search_offsets(6, 1), 8, K, geometry=geom).shape \
+        == (1, len(grid), len(grid), K)
+    agg = k2.aggregate_geometry(48, 48, tuple(grid.tolist()), tuple(grid.tolist()), 6, 8,
+                                torch.device("cpu"))
+    n = len(grid) ** 2
+    args = (torch.zeros((1, n * K), dtype=torch.int32), torch.zeros((1, n * K, 64)),
+            torch.ones((1, n)), torch.ones(64))
+    with pytest.raises(ValueError):  # the footprints of a 48 px image, called for 40 px
+        k2.bm3d_aggregate(*args, 40, 40, agg)
+    num, den = k2.bm3d_aggregate(*args, 48, 48, agg)
+    assert num.shape == den.shape == (1, 48, 48)
 
 
 @pytest.mark.parametrize("match_dtype,tol", [("float32", 1e-3), ("bfloat16", 5e-3)])
@@ -200,20 +233,30 @@ def test_dense_aggregation_equals_the_scatter_aggregation(rng):
     assert g.shift_y is not None and g.shift_y.shape == (25, 9, 9)
     est, wgt, top_idx, py, px = bm3d._stage1(xt, torch.tensor([0.1, 0.12]), p, g)
     dense = bm3d._aggregate_dense(est, wgt, top_idx, 8, 4, 40, 40, g.kaiser, g.shift_y, g.shift_x)
-    scatter, _ = bm3d._aggregate(est, wgt, py, px, 8, 40, 40, g.kaiser)
+    scatter, _ = bm3d._aggregate(est, wgt, py, px, 8, 40, 40, g.kaiser, g.agg)
     torch.testing.assert_close(dense, scatter, atol=2e-6, rtol=1e-5)
 
 
 def test_dense_aggregation_runs_no_scatter(rng, monkeypatch):
     def refuse(*args, **kwargs):
-        raise AssertionError("the dense aggregation called the scatter")
+        raise AssertionError("the dense aggregation called K2")
 
-    monkeypatch.setattr(bm3d, "bm3d_scatter", refuse)
+    monkeypatch.setattr(bm3d, "bm3d_aggregate", refuse)
     _, x = _noisy_batch(rng, size=32)
     out = bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, bm3d.BM3DParams(search=8, search_step=4))
     assert out.shape == x.shape and torch.isfinite(out).all()
     # 34 px: (34 - 8) % 4 != 0, so the same parameters need the scatter.
     assert not bm3d.dense_aggregation(34, 34, bm3d.BM3DParams(search=8, search_step=4))
+
+
+def test_cpu_path_takes_steps_the_kernels_are_not_built_for(rng):
+    # K1 is built for reference steps up to 4 on a step grid; the plain
+    # versions, which the CPU runs, take any step.
+    _, x = _noisy_batch(rng, size=32)
+    kw = dict(step=3, search=4)
+    want = np.asarray(jbm3d.bm3d_denoise_batch(jnp.asarray(x), 0.1, params=jbm3d.BM3DParams(**kw)))
+    got = bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, params=bm3d.BM3DParams(**kw)).numpy()
+    assert float(np.abs(got - want).mean()) < 1e-3
 
 
 def test_unported_paths_raise(rng):
@@ -227,10 +270,10 @@ def test_unported_paths_raise(rng):
 
 def test_cpu_tensors_take_plain_versions_and_count_no_launch(rng):
     k1.bm3d_match.launches = 0
-    k2.bm3d_scatter.launches = 0
+    k2.bm3d_aggregate.launches = 0
     _, x = _noisy_batch(rng, size=32)
     bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, bm3d.BM3DParams(search=4))
-    assert k1.bm3d_match.launches == 0 and k2.bm3d_scatter.launches == 0
+    assert k1.bm3d_match.launches == 0 and k2.bm3d_aggregate.launches == 0
 
 
 def test_each_bf16_mode_follows_its_own_jax_matcher():

@@ -21,7 +21,7 @@ from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers import bm3d
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import bm3d_match as k1
-from pnp_svrg_tpu_torch.ops.cuda import bm3d_scatter as k2
+from pnp_svrg_tpu_torch.ops.cuda import bm3d_aggregate as k2
 from pnp_svrg_tpu_torch.ops.cuda import nlm as k3
 from pnp_svrg_tpu_torch.ops.sigma import estimate_sigma
 from pnp_svrg_tpu_torch.problems.csmri import make_csmri
@@ -41,10 +41,30 @@ def _noisy(size, b=2, seed=0):
     return (clean + 0.1 * rng.standard_normal(clean.shape)).astype(np.float32)
 
 
-def _set_agreement(a, b):
-    a = a.reshape(-1, a.shape[-1]).cpu().numpy()
-    b = b.reshape(-1, b.shape[-1]).cpu().numpy()
-    return float(np.mean([len(set(p) & set(q)) / a.shape[1] for p, q in zip(a, b)]))
+def _multiset_agreement(a, b):
+    """Mean share of each block's k indices that the other holds as often
+    (a repeated index, such as the index-0 fill, counts each time)."""
+    s = int(max(a.max(), b.max())) + 1
+    count = lambda t: torch.zeros(t.numel() // t.shape[-1], s, device=t.device).scatter_add_(  # noqa: E731
+        1, t.reshape(-1, t.shape[-1]).long(), torch.ones(t.reshape(-1, t.shape[-1]).shape, device=t.device))
+    return float(torch.minimum(count(a), count(b)).sum(1).mean() / a.shape[-1])
+
+
+# Both versions sum the same 64 rounded terms of a distance in different
+# orders; each sum is within 63 half-ulps (2**-24 relative) of the exact one,
+# so a slot where they pick different offsets must hold two distances within
+# twice that of each other: a near-tie.
+NEAR_TIE = 2 * 63 * 2.0**-24
+
+
+def _slot_gaps(got, want, dists):
+    """Per slot, |D[got] - D[want]| / max of the two in the plain version's
+    distances D: 0 where the indices agree, inf where they differ and one
+    of them is an invalid candidate."""
+    dg, dw = (dists.gather(-1, t.long()) for t in (got, want))
+    gap = torch.nan_to_num((dg - dw).abs() / torch.maximum(dg, dw), nan=0.0)  # 0/0: a tie at 0
+    gap = torch.where(torch.isinf(dg) | torch.isinf(dw), torch.inf, gap)
+    return torch.where(got == want, 0.0, gap)
 
 
 @pytest.mark.parametrize("mode", list(k1.MODES))
@@ -58,18 +78,109 @@ def test_k1_matches_plain(cuda, mode, search_step):
     torch.cuda.synchronize()
     assert k1.bm3d_match.launches == before + 1
     want = k1.bm3d_match_plain(x, rows, rows, offs, 8, 16, mode)
-    assert _set_agreement(got, want) >= (0.999 if mode == "f32" else 0.995)
+    assert _multiset_agreement(got, want) >= (0.999 if mode == "f32" else 0.995)
+    dists = k1.match_distances_plain(x, rows, rows, offs, 8, mode)
+    assert float(_slot_gaps(got, want, dists).max()) <= NEAR_TIE  # right set, right order
 
 
-def test_k2_matches_plain_with_collisions(cuda):
-    rng = np.random.default_rng(1)
-    idx = torch.tensor(rng.integers(0, 200, (2, 300)).astype(np.int32), device=cuda)
-    upd = torch.tensor(rng.standard_normal((2, 300, 128)).astype(np.float32), device=cuda)
-    before = k2.bm3d_scatter.launches
-    got = k2.bm3d_scatter(idx, upd, 200, check_bounds=True)
+def _dyadic(rng, shape, levels, scale):
+    """Values ``scale * k`` for integer k in [0, levels]: every product and
+    sum the kernels form of them is exact in f32 (and in bf16 for the
+    squares of image differences), so any summation order gives the same
+    bits."""
+    return (scale * rng.integers(0, levels + 1, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("search_step", [1, 2, 4])  # 289, 81 and 25 offsets
+@pytest.mark.parametrize("size", [128, 34])  # 34: the last reference block is off the grid
+def test_k1_equals_plain_exactly_on_dyadic_images(cuda, mode, search_step, size):
+    # Values in {0, 0.25, ..., 1}: many exact ties, which the kernel must
+    # break to the lowest offset index as the plain version does.
+    x = torch.tensor(_dyadic(np.random.default_rng(size), (2, size, size), 4, 0.25), device=cuda)
+    rows = bm3d._ref_grid(size, 8, 4)
+    offs = bm3d.search_offsets(8, search_step)
+    got = k1.bm3d_match(x, rows, rows, offs, 8, 16, mode)
+    want = k1.bm3d_match_plain(x, rows, rows, offs, 8, 16, mode)
+    assert torch.equal(got, want)
+    if search_step == 4:  # a corner block has 9 valid candidates; index 0 fills the rest
+        corner = got[0, 0, 0].cpu().numpy()
+        assert len(set(corner[:9])) == 9 and np.all(corner[9:] == 0)
+
+
+def _k2_inputs(cuda, size, rng, dyadic, search=8):
+    """K2 arguments at ``size`` px: rows of members clipped as
+    ``_gather_groups`` clips them (random offsets within ``search``, so rows
+    of different groups collide), estimates, weights and a Kaiser window."""
+    grid = bm3d._ref_grid(size, 8, 4)
+    n, k = len(grid), 16
+    offs = rng.integers(-search, search + 1, (2, n, n, k, 2))
+    py = np.clip(grid[None, :, None, None] + offs[..., 0], 0, size - 8)
+    px = np.clip(grid[None, None, :, None] + offs[..., 1], 0, size - 8)
+    idx = (py * (size - 7) + px).reshape(2, -1).astype(np.int32)
+    if dyadic:
+        est = _dyadic(rng, (2, n * n * k, 64), 16, 0.125) - 1.0
+        wgt = 2.0 ** rng.integers(-2, 3, (2, n * n)).astype(np.float32)
+        kai = _dyadic(rng, 64, 4, 0.25) + 0.25
+    else:
+        est = rng.standard_normal((2, n * n * k, 64)).astype(np.float32)
+        wgt = rng.uniform(0.5, 5.0, (2, n * n)).astype(np.float32)
+        kai = rng.uniform(0.1, 1.0, 64).astype(np.float32)
+    geom = k2.aggregate_geometry(size, size, tuple(grid.tolist()), tuple(grid.tolist()),
+                                 search, 8, cuda)
+    tensors = [torch.tensor(a, device=cuda) for a in (idx, est, wgt, kai)]
+    return (*tensors, size, size, geom)
+
+
+@pytest.mark.parametrize("size", [128, 34])
+def test_k2_matches_plain_with_collisions(cuda, size):
+    args = _k2_inputs(cuda, size, np.random.default_rng(1), dyadic=True)
+    before = k2.bm3d_aggregate.launches
+    num, den = k2.bm3d_aggregate(*args)
     torch.cuda.synchronize()
-    assert k2.bm3d_scatter.launches == before + 1
-    torch.testing.assert_close(got, k2.bm3d_scatter_plain(idx, upd, 200), atol=1e-5, rtol=1e-5)
+    assert k2.bm3d_aggregate.launches == before + 1
+    want_num, want_den = k2.bm3d_aggregate_plain(*args[:6])
+    assert torch.equal(num, want_num) and torch.equal(den, want_den)
+
+
+def test_k2_adds_rows_outside_the_footprint(cuda):
+    # Rows anywhere in the table: most fall outside their tile's footprint
+    # and take the kernel's global path; dyadic values keep it exact.
+    rng = np.random.default_rng(2)
+    idx, est, wgt, kai, h, w, geom = _k2_inputs(cuda, 48, rng, dyadic=True)
+    idx = torch.tensor(rng.integers(0, 41 * 41, tuple(idx.shape)).astype(np.int32), device=cuda)
+    num, den = k2.bm3d_aggregate(idx, est, wgt, kai, h, w, geom)
+    want_num, want_den = k2.bm3d_aggregate_plain(idx, est, wgt, kai, h, w)
+    assert torch.equal(num, want_num) and torch.equal(den, want_den)
+
+
+def test_k2_drops_rows_outside_the_table(cuda):
+    # The plain version's index_add_ raises on such a row; the kernel cannot
+    # raise and drops the member, as the wrapper's docstring states. Three
+    # members get rows before, just past and far past the 41 x 41 table; the
+    # result is the full sum less their terms (exact: dyadic values).
+    idx, est, wgt, kai, h, w, geom = _k2_inputs(cuda, 48, np.random.default_rng(3), dyadic=True)
+    want_num, want_den = k2.bm3d_aggregate_plain(idx, est, wgt, kai, h, w)
+    ww = w - 7
+    bad = idx.clone()
+    for (b, p), row in zip(((0, 5), (1, 77), (1, idx.shape[1] - 1)), (-1, (h - 7) * ww, 2**30)):
+        py, px = divmod(int(idx[b, p]), ww)
+        wk = (wgt[b, p // 16] * kai).view(8, 8)
+        want_num[b, py : py + 8, px : px + 8] -= est[b, p].view(8, 8) * wk
+        want_den[b, py : py + 8, px : px + 8] -= wk
+        bad[b, p] = row
+    num, den = k2.bm3d_aggregate(bad, est, wgt, kai, h, w, geom)
+    assert torch.equal(num, want_num) and torch.equal(den, want_den)
+
+
+def test_k2_matches_plain_on_bm3d_estimates(cuda):
+    x = torch.tensor(_noisy(128), device=cuda)
+    p = bm3d.BM3DParams(search=8, match_dtype="bfloat16")
+    _, args = bm3d.stage1_aggregate_inputs(x, 0.1, p)
+    num, den = k2.bm3d_aggregate(*args)
+    want_num, want_den = k2.bm3d_aggregate_plain(*args[:6])
+    for got, want in ((num, want_num), (den, want_den)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -79,9 +190,30 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         k1.bm3d_match(x, rows, rows, bm3d.search_offsets(4, 1), 8, 16)
     with pytest.raises(ValueError):  # unsupported group size: the kernel refuses
         k1.bm3d_match(x.float(), rows, rows, bm3d.search_offsets(4, 1), 8, 5)
+    with pytest.raises(ValueError):  # unsupported patch edge
+        k1.bm3d_match(x.float(), rows, rows, bm3d.search_offsets(4, 1), 4, 16)
+    big = torch.zeros((1, 256, 256), device=cuda)
+    grid = bm3d._ref_grid(256, 8, 4)
+    with pytest.raises(ValueError):  # a 121 x 121 window: more offsets than K1 holds
+        k1.bm3d_match(big, grid, grid, bm3d.search_offsets(60, 1), 8, 16)
+    idx, est, wgt, kai, h, w, geom = _k2_inputs(cuda, 34, np.random.default_rng(0), dyadic=False)
     with pytest.raises(ValueError):
-        k2.bm3d_scatter(torch.zeros((1, 2), dtype=torch.int32, device=cuda),
-                        torch.zeros((1, 2, 6), device=cuda), 4)
+        k2.bm3d_aggregate(idx, est.double(), wgt, kai, h, w, geom)
+    with pytest.raises(ValueError):
+        k2.bm3d_aggregate(idx.long(), est, wgt, kai, h, w, geom)
+    with pytest.raises(ValueError):  # 15 members a group do not fit the weights
+        k2.bm3d_aggregate(idx[:, :-1], est[:, :-1], wgt, kai, h, w, geom)
+    with pytest.raises(ValueError):  # kaiser of a 4 x 4 patch
+        k2.bm3d_aggregate(idx, est, wgt, kai[:16], h, w, geom)
+    with pytest.raises(ValueError):  # no footprints: the kernel cannot run
+        k2.bm3d_aggregate(idx, est, wgt, kai, h, w)
+    grid = tuple(bm3d._ref_grid(256, 8, 4).tolist())
+    huge = k2.aggregate_geometry(256, 256, grid, grid, 100, 8, cuda)  # 220 x 236 footprint
+    n = len(grid) ** 2
+    with pytest.raises(ValueError):
+        k2.bm3d_aggregate(torch.zeros((1, n * 16), dtype=torch.int32, device=cuda),
+                          torch.zeros((1, n * 16, 64), device=cuda),
+                          torch.zeros((1, n), device=cuda), kai, 256, 256, huge)
 
 
 def _nlm_input(cuda, b):
@@ -147,9 +279,9 @@ def test_bm3d_on_the_card_matches_the_cpu(cuda):
 def test_dense_aggregation_on_the_card_matches_the_cpu(cuda):
     x = _noisy(48)
     p = bm3d.BM3DParams(search=8, search_step=4, matcher="pallas", match_dtype="bfloat16")
-    before = k2.bm3d_scatter.launches
+    before = k2.bm3d_aggregate.launches
     gpu = bm3d.bm3d_denoise_batch(torch.tensor(x, device=cuda), 0.1, p).cpu()
-    assert k2.bm3d_scatter.launches == before  # the dense path runs no scatter
+    assert k2.bm3d_aggregate.launches == before  # the dense path runs no K2
     cpu = bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, p)
     assert float((gpu - cpu).abs().mean()) < 1e-4
 
