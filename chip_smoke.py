@@ -8,7 +8,8 @@ imports no JAX. Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` of ``pnp_svrg_tpu_torch/csrc/*.cu`` for ``sm_90a``, with
-   ptxas's registers and spills and the atomics in K2's SASS;
+   ptxas's registers and spills, the atomics in K2's SASS and the
+   instruction mix of K3's shift loop;
 3. kernels: K1 (block matching) and K2 (the fused aggregation: scatter and
    unfold-add) against their plain PyTorch versions at the headline shapes,
    on real inputs (the headline batch's ``x_init``, a stage-1 BM3D estimate
@@ -16,9 +17,10 @@ imports no JAX. Phases, each printing one JSON line:
    library times and the bounds; K1 in every rounding mode at 289, 81 and
    25 offsets, held slot by slot (the same offset or a near-tie), and K2
    beside the dense aggregation at the turbo4 shape;
-   K3 (non-local means) against its plain version on a real NLM input (the
-   ``13.png`` lane's ``x_init`` after one gradient step) at B = 1 and B = 9,
-   with NaN at ``h = 0`` and a row-bounds case;
+   K3 (non-local means) against its plain version on real NLM inputs (the
+   ``13.png`` lane's ``x_init`` after one gradient step) at B = 1 and at
+   B = 9 on distinct lanes (each grid pair's own step and h), with and
+   without row bounds, and NaN at ``h = 0``;
 4. parity: small faithful-variant reconstructions (BM3D and NLM) on the card
    against the same runs on the CPU (plain kernel versions), and a
    standalone BM3D denoise on the card;
@@ -40,9 +42,9 @@ imports no JAX. Phases, each printing one JSON line:
    the JAX run's PSNR trace stored beside them;
 9. csmri_nlm_grid: the NLM tuner's chunk, 9 lanes of that problem with the
    3 x 3 (eta, sigma_modifier) grid of ``data/csmri_nlm_tuned.json``;
-10. profile: one more run each of headline, turbo4 and the grid under
-   ``torch.profiler``: device time by kernel, grouped, and the device's
-   busy share of the run's wall time.
+10. profile: one more run each of headline, turbo4, csmri_nlm and the grid
+   under ``torch.profiler``: device time by kernel, grouped, and the
+   device's busy share of the run's wall time.
 
 The tuned per-lane step sizes sit at the stability edge of the reference's
 own key stream: on other minibatch streams single lanes diverge, so the
@@ -166,24 +168,36 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 25) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 50, warmup: int = 10) -> float:
-    """Device time of one call of ``fn``: the summed time of every kernel it
-    launches (``torch.profiler``) over ``reps`` calls, after ``warmup``
-    calls. Unlike :func:`cuda_ms` it leaves out the gaps in which the device
-    waits for the host to launch the next call."""
+def device_records(fn, calls: int) -> list:
+    """The device records (kernels, fills, copies) of ``calls`` calls of
+    ``fn`` under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int = 50, warmup: int = 10, windows: int = 3) -> float:
+    """Device time of one call of ``fn``: the summed time of every device
+    record it makes (``torch.profiler``) over ``reps`` calls, after
+    ``warmup`` calls. Unlike :func:`cuda_ms` it leaves out the gaps in which
+    the device waits for the host to launch the next call. The profiler has
+    dropped device records on the card's machine, so a window counts only
+    if it holds exactly ``reps`` times the records of one profiled call (at
+    least one); else both are measured again, up to ``windows`` times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(us > 0, "the profiler saw no device time")
-    return us / reps / 1e3
+    for _ in range(windows):
+        per_call = len(device_records(fn, 1))
+        records = device_records(fn, reps)
+        if per_call > 0 and len(records) == reps * per_call:
+            return sum(e.time_range.elapsed_us() for e in records) / reps / 1e3
+    raise RuntimeError(f"check failed: the profiler recorded {len(records)} device records "
+                       f"for {reps} calls of {per_call} each, in each of {windows} windows")
 
 
 def multiset_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -243,7 +257,8 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: p.name for n, p in paths.items()},
           "ptxas": {n: ptxas_summary(log) for n, log in _build.BUILD_LOG.items()},
-          "sass_atomics": {n: sass_atomics(paths[n]) for n in ("bm3d_aggregate",)}})
+          "sass_atomics": sass_atomics(sass(paths["bm3d_aggregate"])),
+          "nlm_shift_loop_sass": sass_loop_mix(sass(paths["nlm"]), "MUFU.EX2")})
 
 
 def ptxas_summary(log: str) -> dict:
@@ -264,16 +279,37 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def sass_atomics(lib) -> dict | str:
-    """Atomic and reduction opcodes in a built library's SASS (``cuobjdump``):
-    ``ATOMS.ADD`` is a native shared-memory add, ``ATOMS.CAS*`` a
-    compare-and-swap loop; ``RED`` a global reduction whose result is unused."""
+def sass(lib) -> str:
+    """A built library's SASS (``cuobjdump -sass``), or "" without the tool."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
-        return "cuobjdump not found"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+        return ""
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120).stdout
-    return dict(collections.Counter(re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", sass)))
+
+
+def sass_atomics(text: str) -> dict:
+    """Atomic and reduction opcodes in SASS: ``ATOMS.ADD`` is a native
+    shared-memory add, ``ATOMS.CAS*`` a compare-and-swap loop; ``RED`` a
+    global reduction whose result is unused."""
+    return dict(collections.Counter(re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", text)))
+
+
+def sass_loop_mix(text: str, marker: str) -> dict:
+    """The smallest loop of the SASS (a backward branch and its target) whose
+    body holds ``marker``: its instruction count and opcodes. For K3,
+    ``MUFU.EX2`` finds the shift loop, one shift a trip (with the
+    once-a-shift-row block that resets the row masks)."""
+    code = [(int(a, 16), ins.split()) for a, ins in re.findall(r"/\*([0-9a-f]+)\*/\s+([^;]+);", text)]
+    code = [(a, w[1:] if w[0].startswith("@") else w) for a, w in code]
+    loops = [(int(w[-1], 16), a) for a, w in code
+             if w[0].startswith("BRA") and w[-1].startswith("0x") and int(w[-1], 16) < a]
+    loops = [(lo, hi) for lo, hi in loops if any(lo <= a <= hi and w[0] == marker for a, w in code)]
+    if not loops:
+        return {}
+    lo, hi = min(loops, key=lambda r: r[1] - r[0])
+    body = [w[0].split(".")[0] for a, w in code if lo <= a <= hi]
+    return {"instructions": len(body), "opcodes": dict(collections.Counter(body).most_common())}
 
 
 def match_bounds(b: int, h: int, w: int, rows, cols, offs) -> dict:
@@ -430,12 +466,19 @@ def check_aggregate(agg_in) -> dict:
     }
 
 
-def nlm_input(prob, eta: float, mod: float) -> tuple:
-    """A real K3 input: the ``13.png`` lane's ``x_init`` after the first
-    PnP-SVRG step (``v = mu`` there) with step ``eta``, and the h = sigma
-    the denoiser derives from its sigma estimate with modifier ``mod``."""
-    z = prob.x_init - eta * prob.grad_full(prob.x_init)
-    return z, estimate_sigma(z) * mod
+def nlm_input(prob, eta: float, mod: float, steps: int = 1) -> tuple:
+    """A real K3 input: the ``13.png`` lane's ``x_init`` after ``steps``
+    full-gradient steps with step ``eta`` (the first PnP-SVRG step, where
+    ``v = mu``), each but the last followed by the NLM denoise, and the
+    h = sigma the denoiser derives from its sigma estimate with modifier
+    ``mod``. From two steps on, the image depends on ``mod`` too."""
+    x = prob.x_init
+    for s in range(steps):
+        z = x - eta * prob.grad_full(x)
+        h = estimate_sigma(z) * mod
+        if s + 1 < steps:
+            x = nlm_denoise_plain(z, h, h)
+    return z, h
 
 
 def nlm_bound(b: int, h: int, w: int, lo: int, hi: int, d: int, clock_hz: float) -> dict:
@@ -457,17 +500,29 @@ def nlm_bound(b: int, h: int, w: int, lo: int, hi: int, d: int, clock_hz: float)
             "sm_clock_hz": clock_hz}
 
 
-def check_nlm(clock_hz: float) -> dict:
-    """K3 against its plain version on real inputs at B = 1 (the csmri_nlm
-    lane) and B = 9 (the grid lane), NaN at h = 0, and a row-bounds case."""
+def nlm_check_inputs() -> dict:
+    """K3's inputs at B = 1 (the csmri_nlm lane's one-step image and h) and
+    B = 9 (the grid lane: each lane its own (eta, modifier) pair's two-step
+    image and h, so no two lanes are equal), as {"b1": (z, h), "b9": (z, h)}."""
     cfg = nlm_params()
     prob = load_nlm_problem("cuda")
-    z1, h1 = nlm_input(prob, cfg["eta"], cfg["sigma_modifier"])
-    pairs = itertools.product(cfg["etas"], cfg["mods"])
-    h9 = torch.cat([nlm_input(prob, e, m)[1] for e, m in pairs])  # the grid lane's first pairs
-    z9 = z1.expand(9, -1, -1).contiguous()
+    lanes = [nlm_input(prob, e, m, 2) for e, m in itertools.product(cfg["etas"], cfg["mods"])]
+    z9 = torch.cat([z for z, _ in lanes])
+    require(all(bool((z9[a] != z9[c]).any()) for a, c in itertools.combinations(range(9), 2)),
+            "K3 check: two grid lanes hold the same image")
+    return {"b1": nlm_input(prob, cfg["eta"], cfg["sigma_modifier"]),
+            "b9": (z9, torch.cat([h for _, h in lanes]))}
+
+
+def check_nlm(clock_hz: float) -> dict:
+    """K3 against its plain version on :func:`nlm_check_inputs` with and
+    without row bounds, and NaN at h = 0; then its times at both shapes
+    beside the plain version and the bound."""
+    inputs = nlm_check_inputs()
+    (z1, h1), (z9, h9) = inputs["b1"], inputs["b9"]
     errs = {}
-    cases = {"b1": (z1, h1, None), "b9": (z9, h9, None), "b9_rows_16_112": (z9, h9, (16, 112))}
+    cases = {"b1": (z1, h1, None), "b1_rows_16_112": (z1, h1, (16, 112)), "b9": (z9, h9, None)}
+    cases |= {f"b9_rows_{lo}_{hi}": (z9, h9, (lo, hi)) for lo, hi in ((16, 112), (10, 11), (5, 5))}
     for name, (z, h, bounds) in cases.items():
         got = nlm_denoise(z, h, h, row_valid_bounds=bounds)
         want = nlm_denoise_plain(z, h, h, row_valid_bounds=bounds)
@@ -479,7 +534,7 @@ def check_nlm(clock_hz: float) -> dict:
     require(nan_equal, "K3 at h = 0: NaN where the plain version has NaN")
     b, hh, ww = z9.shape
     times = {}
-    for name, (z, h) in (("b9", (z9, h9)), ("b1", (z1, h1))):
+    for name, (z, h) in inputs.items():
         times[name] = {
             "ms": device_ms(lambda: nlm_denoise(z, h, h)),
             "event_ms": cuda_ms(lambda: nlm_denoise(z, h, h)),
@@ -488,7 +543,7 @@ def check_nlm(clock_hz: float) -> dict:
         }
     return {
         "name": "nlm", "max_abs_err": max(errs.values()), "max_abs_err_by_case": errs,
-        "nan_equal_at_h0": nan_equal, **{k: times["b9"][k] for k in times["b9"]},
+        "nan_equal_at_h0": nan_equal, **times["b9"],
         "library_ms": None, "b1": times["b1"], "h_b9": h9.tolist(),
         "shape": {"images": [b, hh, ww], "patch_size": 4, "patch_distance": 5},
     }
@@ -618,13 +673,17 @@ def run_lane(label: str, tuned_json: str, default_eta: float, default_mod: float
     return rec
 
 
-def run_nlm_lane() -> dict:
-    """The CSMRI + NLM lane: one lane of ``13.png``, the tuned (eta,
-    sigma_modifier), held on the JAX lane's masks to its stored trace."""
+def nlm_lane():
+    """The CSMRI + NLM lane: one lane of ``13.png`` with the tuned (eta,
+    sigma_modifier); returns (problem, denoiser, eta, config)."""
     cfg = nlm_params()
-    prob = load_nlm_problem("cuda")
-    den = NLMDenoiser(sigma_modifier=cfg["sigma_modifier"])
     eta = torch.tensor(cfg["eta"], device="cuda")  # made here: a copy in the loop would sync
+    return load_nlm_problem("cuda"), NLMDenoiser(sigma_modifier=cfg["sigma_modifier"]), eta, cfg
+
+
+def run_nlm_lane() -> dict:
+    """The CSMRI + NLM lane, held on the JAX lane's masks to its stored trace."""
+    prob, den, eta, cfg = nlm_lane()
     run, out, steady, first, launches = drive(prob, den, eta, cfg["lr_decay"])
     own = lane_quality(prob, out)
     ref_run = lane_quality(prob, run(masks=load_nlm_masks("cuda")))
@@ -752,12 +811,18 @@ def main() -> None:
         den = BM3DDenoiser(sigma_modifier=mod, params=params)
         gen = torch.Generator(device="cuda").manual_seed(3)
         phase_profile(label, lambda: pnp_svrg(prob, den, eta, N_OUTER, T2, MINI_BATCH, generator=gen))
+    nprob, nden, neta, ncfg = nlm_lane()
+    ngen = torch.Generator(device="cuda").manual_seed(3)
+    phase_profile("csmri_nlm", lambda: pnp_svrg(nprob, nden, neta, N_OUTER, T2, MINI_BATCH,
+                                                generator=ngen, lr_decay=ncfg["lr_decay"]))
     gprob, gden, geta, _ = nlm_grid()
     ggen = torch.Generator(device="cuda").manual_seed(3)
     phase_profile("csmri_nlm_grid",
                   lambda: pnp_svrg(gprob, gden, geta, N_OUTER, T2, MINI_BATCH, generator=ggen))
 
-    main_lane = {"bm3d_match": "headline", "bm3d_aggregate": "headline", "nlm": "csmri_nlm"}
+    # K3's times are at B = 9, so its launches are the grid lane's (B = 9);
+    # its B = 1 record (csmri_nlm) stands beside them.
+    main_lane = {"bm3d_match": "headline", "bm3d_aggregate": "headline", "nlm": "csmri_nlm_grid"}
     kernels = []
     for rec in (k1, k2, k3):
         name = rec["name"]
@@ -769,6 +834,8 @@ def main() -> None:
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "card": dev["nvidia_smi"],
         })
+    kernels[-1]["b1"] = {"launches": lanes_run["csmri_nlm"]["launches"]["nlm"],
+                         **{k: k3["b1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
     for k in kernels:
         require(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")), f"{k['name']} times")
     emit({"kernels": kernels})

@@ -217,24 +217,52 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
 
 
 def _nlm_input(cuda, b):
-    """The shapes and values ``chip_smoke.py`` checks K3 at: the ``13.png``
-    lane's ``x_init`` after one gradient step (eta 7000), replicated to B
-    lanes with per-lane h = sigma from its sigma estimate."""
+    """The ``13.png`` lane's ``x_init`` after one gradient step, one image a
+    lane: lane k steps with its own eta (spread over 2000-12000, around the
+    tuned 7000), and h from each image's own sigma estimate."""
     prob = load_nlm_problem(cuda)
-    z = prob.x_init - 7000.0 * prob.grad_full(prob.x_init)
+    grad = prob.grad_full(prob.x_init)
+    etas = torch.linspace(2000.0, 12000.0, b, device=cuda)
+    z = prob.x_init - etas[:, None, None] * grad
     h = estimate_sigma(z) * torch.linspace(1.2, 1.7, b, device=cuda)
-    return z.expand(b, -1, -1).contiguous(), h
+    return z.contiguous(), h
 
 
-@pytest.mark.parametrize("b,bounds", [(1, None), (9, None), (9, (16, 112))])
-def test_k3_matches_plain(cuda, b, bounds):
-    z, h = _nlm_input(cuda, b)
+def _nlm_noise_input(cuda, b, hh, ww):
+    """B distinct images of ``hh`` x ``ww``: ``13.png`` plus numpy-seeded
+    noise, a different draw a lane, with per-lane h and sigma."""
+    rng = np.random.default_rng(hh * 1000 + ww + b)
+    clean = load_image("13.png", hh, ww)
+    z = (clean + 0.1 * rng.standard_normal((b, hh, ww))).astype(np.float32)
+    h = rng.uniform(0.06, 0.2, b).astype(np.float32)
+    return torch.tensor(z, device=cuda), torch.tensor(h, device=cuda)
+
+
+NLM_BOUNDS = {  # row bounds by name, as (lo, hi) for an image of height hh
+    "full": lambda hh: (0, hh),
+    "band": lambda hh: (hh // 8, hh - hh // 8),  # (16, 112) at 128
+    "one_row": lambda hh: (min(10, hh - 1), min(10, hh - 1) + 1),  # (10, 11)
+    "empty": lambda hh: (min(5, hh), min(5, hh)),  # (5, 5): no candidate, output 0
+}
+
+
+@pytest.mark.parametrize("bounds", list(NLM_BOUNDS))
+@pytest.mark.parametrize("b", [1, 9, 13])
+@pytest.mark.parametrize("hh,ww", [(128, 128), (48, 40), (37, 70), (3, 3)])
+def test_k3_matches_plain(cuda, hh, ww, b, bounds):
+    # Lanes are distinct images, so a kernel that read another lane's image
+    # (or h) would fail; 40, 70 and 3 columns fill no whole 29-column tile,
+    # 37 and 3 rows no whole 8-row strip.
+    z, h = _nlm_input(cuda, b) if hh == 128 else _nlm_noise_input(cuda, b, hh, ww)
+    rows = NLM_BOUNDS[bounds](hh)
     before = k3.nlm_denoise.launches
-    got = k3.nlm_denoise(z, h, h, row_valid_bounds=bounds)
+    got = k3.nlm_denoise(z, h, 0.8 * h, row_valid_bounds=rows)
     torch.cuda.synchronize()
     assert k3.nlm_denoise.launches == before + 1
-    want = k3.nlm_denoise_plain(z, h, h, row_valid_bounds=bounds)
+    want = k3.nlm_denoise_plain(z, h, 0.8 * h, row_valid_bounds=rows)
     assert float((got - want).abs().max()) <= 1e-5
+    if bounds == "empty":
+        assert not bool(got.any())
 
 
 def test_k3_nan_at_h_zero_and_2d_input(cuda):
