@@ -17,13 +17,16 @@ imports no JAX. Phases, each printing one JSON line:
    library times and the bounds; K1 in every rounding mode at 289, 81 and
    25 offsets, held slot by slot (the same offset or a near-tie), and K2
    beside the dense aggregation at the turbo4 shape;
+   K1 and K2 again at B = 1 on the first BM3D input of each of the PR,
+   Deblur and Deblur-SR lanes (128 px f32 at 289 offsets, 256 px f32 at
+   289, 256 px ``bf16_pallas`` at 81);
    K3 (non-local means) against its plain version on real NLM inputs (the
    ``13.png`` lane's ``x_init`` after one gradient step) at B = 1 and at
    B = 9 on distinct lanes (each grid pair's own step and h), with and
    without row bounds, and NaN at ``h = 0``;
-4. parity: small faithful-variant reconstructions (BM3D and NLM) on the card
-   against the same runs on the CPU (plain kernel versions), and a
-   standalone BM3D denoise on the card;
+4. parity: small faithful-variant reconstructions (BM3D, NLM and the
+   wavelet "TV" denoiser) on the card against the same runs on the CPU
+   (plain kernel versions), and a standalone BM3D denoise on the card;
 5. headline: the 13-lane 128x128 Set12 CSMRI + PnP-SVRG (16 x 10, minibatch
    4000) + BM3D (search 8, bf16 match distances) lane: one warm-up run and
    one timed run on the port's own generator, with the kernels' launch
@@ -42,9 +45,17 @@ imports no JAX. Phases, each printing one JSON line:
    the JAX run's PSNR trace stored beside them;
 9. csmri_nlm_grid: the NLM tuner's chunk, 9 lanes of that problem with the
    3 x 3 (eta, sigma_modifier) grid of ``data/csmri_nlm_tuned.json``;
-10. profile: one more run each of headline, turbo4, csmri_nlm and the grid
-   under ``torch.profiler``: device time by kernel, grouped, and the
-   device's busy share of the run's wall time.
+10. pr_bm3d, deblur_bm3d, deblur_sr_bm3d: ``bench.py``'s phase retrieval
+   (Set12/04 at 128 px, M = 8192), Deblur (Set12/01 at 256 px, Minimal
+   kernel) and Deblur-SR (256 -> 128 px, ``kernel25.png``) lanes with BM3D,
+   one lane each (B = 1), in the same pattern (three spread seeds), on the
+   problems the JAX package built (``pr_bm3d_128.npz``, ``deblur_256.npz``);
+   three runs each on the JAX runs' minibatches, whose mean is held to the
+   lane's quality floor, and each problem is also built once through
+   ``make_phase_retrieval`` or ``make_deblur`` on the card;
+11. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
+   pr_bm3d and deblur_sr_bm3d under ``torch.profiler``: device time by
+   kernel, grouped, and the device's busy share of the run's wall time.
 
 The tuned per-lane step sizes sit at the stability edge of the reference's
 own key stream: on other minibatch streams single lanes diverge, so the
@@ -71,12 +82,20 @@ import torch
 
 from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
 from pnp_svrg_tpu_torch.convert import (
+    BENCH_LANES,
+    bench_config,
     lane_params,
+    load_deblur_masks,
+    load_deblur_problem,
+    load_deblur_reference,
     load_headline_masks,
     load_headline_problems,
     load_nlm_masks,
     load_nlm_problem,
     load_nlm_reference,
+    load_pr_indices,
+    load_pr_problem,
+    load_pr_reference,
     nlm_params,
 )
 from pnp_svrg_tpu_torch.denoisers.bm3d import (
@@ -88,10 +107,12 @@ from pnp_svrg_tpu_torch.denoisers.bm3d import (
     _ref_grid,
     _stage1,
     bm3d_denoise_batch,
+    match_mode,
     search_offsets,
     stage1_aggregate_inputs,
 )
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
+from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import _build
 from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import (
     bm3d_match,
@@ -108,8 +129,10 @@ from pnp_svrg_tpu_torch.ops.cuda.nlm import nlm_denoise, nlm_denoise_plain
 from pnp_svrg_tpu_torch.ops.metrics import ssim
 from pnp_svrg_tpu_torch.ops.sigma import estimate_sigma
 from pnp_svrg_tpu_torch.problems.csmri import make_csmri
+from pnp_svrg_tpu_torch.problems.deblur import make_deblur
+from pnp_svrg_tpu_torch.problems.pr import make_phase_retrieval
 from pnp_svrg_tpu_torch.core.batched import stack_problems
-from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image
+from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image, resolve_data_path
 
 N_OUTER, T2, MINI_BATCH = 16, 10, 4000
 SPREAD_SEEDS = (3, 4, 5, 6, 7, 8)
@@ -118,6 +141,22 @@ REF_DB = {"headline": (26.50, 25.54), "turbo": (26.86, 25.00), "turbo4": (26.20,
 HEADLINE_FLOOR_DB, TURBO_FLOOR_DB, TURBO4_FLOOR_DB = 25.5, 25.86, 25.20
 NLM_REF_DB, NLM_REF_SSIM = 27.09, 0.8291  # BENCH_r05.json csmri_nlm_*
 NLM_FLOOR_DB, NLM_TRACE_TOL_DB = 26.59, 0.05
+# bench.py's PR and Deblur lanes: the JAX package's (PSNR, SSIM),
+# BENCH_r05.json; the Deblur floors are 0.5 dB under them, the PR floor
+# 0.5 dB under the JAX CPU run on the fixture's problem (another A than
+# BENCH_r05.json's, whose 28.33 dB is reported beside it for information).
+BENCH_RUNS = ("pr_bm3d", "deblur_bm3d", "deblur_sr_bm3d")
+BENCH_REF = {"pr_bm3d": (28.33, 0.897), "deblur_bm3d": (19.10, 0.4902),
+             "deblur_sr_bm3d": (18.69, 0.5149)}
+BENCH_FLOOR_DB = {"deblur_bm3d": 18.60, "deblur_sr_bm3d": 18.19}
+BENCH_BELOW_JAX_DB = 0.5
+BENCH_SPREAD_SEEDS = (3, 4, 5)
+# K2 adds with f32 atomics, so runs on the same minibatches differ in the
+# last bits, and the PR lane carries such differences to its end (one ulp on
+# y or x_init moves the JAX package's own final PSNR by up to 0.25 dB,
+# `python tests/test_torch_fixture.py --cpu-lanes`): the reference-minibatch
+# run is repeated and the floor holds their mean.
+BENCH_REF_REPEATS = 3
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM bytes/s. Bounds are stated beside the card's name and limit.
 F32_PEAK, HBM_PEAK = 67e12, 3.35e12
@@ -402,11 +441,11 @@ def check_match() -> dict:
     }
 
 
-def check_aggregate(agg_in) -> dict:
-    """K2 against its plain version on a stage-1 call's real arguments; its
-    time beside the plain version, one ``index_add_`` of the per-pixel terms
-    into fresh planes (both timed with the zero fill of their output) and
-    the bound; and the dense aggregation against K2 at the turbo4 shape."""
+def aggregate_record(agg_in) -> dict:
+    """K2 against its plain version on one call's real arguments (``num``
+    and ``den`` within 1e-5 of the planes' magnitude), its time beside the
+    plain version and one ``index_add_`` of the per-pixel terms into fresh
+    planes (both timed with the zero fill of their output), and the bound."""
     idx, est, wgt, kai, h, w, geom = agg_in
     b, p, bb = est.shape
     got = bm3d_aggregate(*agg_in)
@@ -416,7 +455,7 @@ def check_aggregate(agg_in) -> dict:
         errs[name] = (g_ - w_).abs().max().item()
         scales[name] = w_.abs().max().item()
         require(errs[name] <= 1e-5 * scales[name],
-                f"K2 {name} max abs err {errs[name]} vs plane magnitude {scales[name]}")
+                f"K2 {name} max abs err {errs[name]} vs plane magnitude {scales[name]} at {list(est.shape)}")
     nbytes = (idx.numel() + est.numel() + wgt.numel() + kai.numel() + 2 * b * h * w) * 4
     flops = est.numel() * 4  # wk, est * wk, two adds
     ms = device_ms(lambda: bm3d_aggregate(*agg_in))
@@ -438,7 +477,24 @@ def check_aggregate(agg_in) -> dict:
     require(lib_err <= 1e-5 * max(scales.values()), f"index_add_ yardstick err {lib_err}")
     library = lambda: torch.zeros(2 * b * h * w, device=idx.device).index_add_(0, flat, terms)  # noqa: E731
     library_ms, library_event_ms = device_ms(library), cuda_ms(library)
-    del flat, terms, pix
+    return {
+        "max_abs_err": max(errs.values()), "max_abs_err_by_plane": errs,
+        "plane_magnitude": scales, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+        "bound_ms": max(flops / F32_PEAK, nbytes / HBM_PEAK) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_PEAK >= flops / F32_PEAK else "operations",
+        "bytes": nbytes, "library_ms": library_ms, "library_event_ms": library_event_ms,
+        "library_max_abs_err": lib_err,
+        "smem_bytes": geom.smem_bytes, "footprint": [geom.fh, geom.fw],
+        "shape": {"idx": list(idx.shape), "est": list(est.shape), "wgt": list(wgt.shape),
+                  "planes": [2, b, h, w]},
+    }
+
+
+def check_aggregate(agg_in) -> dict:
+    """K2 on a headline stage-1 call's real arguments (:func:`aggregate_record`),
+    and the dense aggregation against K2 at the turbo4 shape."""
+    rec = aggregate_record(agg_in)
+    h, w = agg_in[4], agg_in[5]
     # turbo4's shape: its stage-1 estimates through the dense aggregation
     # and through K2 (recorded only; turbo4 keeps the dense path).
     prob, _ = load_headline_problems("cuda")
@@ -449,21 +505,61 @@ def check_aggregate(agg_in) -> dict:
     a4 = aggregate_geometry(h, w, tuple(g4.rows.tolist()), tuple(g4.cols.tolist()), 8, 8, x.device)
     dense = lambda: _aggregate_dense(e4, w4, top4, 8, 4, h, w, g4.kaiser, g4.shift_y, g4.shift_x)  # noqa: E731
     fused = lambda: _aggregate(e4, w4, py4, px4, 8, h, w, g4.kaiser, a4)[0]  # noqa: E731
-    turbo4 = {"dense_ms": device_ms(dense), "fused_ms": device_ms(fused),
-              "dense_event_ms": cuda_ms(dense), "fused_event_ms": cuda_ms(fused),
-              "max_abs_diff": (dense() - fused()).abs().max().item()}
-    return {
-        "name": "bm3d_aggregate", "max_abs_err": max(errs.values()), "max_abs_err_by_plane": errs,
-        "plane_magnitude": scales, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-        "bound_ms": max(flops / F32_PEAK, nbytes / HBM_PEAK) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_PEAK >= flops / F32_PEAK else "operations",
-        "bytes": nbytes, "library_ms": library_ms, "library_event_ms": library_event_ms,
-        "library_max_abs_err": lib_err,
-        "smem_bytes": geom.smem_bytes, "footprint": [geom.fh, geom.fw],
-        "turbo4_shape": turbo4,
-        "shape": {"idx": list(idx.shape), "est": list(est.shape), "wgt": list(wgt.shape),
-                  "planes": [2, b, h, w]},
+    rec["turbo4_shape"] = {"dense_ms": device_ms(dense), "fused_ms": device_ms(fused),
+                           "dense_event_ms": cuda_ms(dense), "fused_event_ms": cuda_ms(fused),
+                           "max_abs_diff": (dense() - fused()).abs().max().item()}
+    return {"name": "bm3d_aggregate", **rec}
+
+
+def first_denoise_input(lane: dict) -> tuple:
+    """A bench lane's first BM3D input and sigma: ``x_init`` after the first
+    PnP-SVRG step (``v = mu`` there, whatever the minibatch), and the
+    estimate times the lane's modifier."""
+    prob, cfg = lane["prob"], lane["cfg"]
+    x = prob.x_init.reshape(prob.batch_size, -1)
+    z = (x - lane["eta"] * prob.grad_full(x)).reshape(prob.x_init.shape).contiguous()
+    return z, estimate_sigma(z) * cfg["sigma_modifier"]
+
+
+def check_bench_kernels(lane: dict) -> tuple:
+    """K1 and K2 at a bench lane's shape (B = 1) and mode on its first BM3D
+    input: K1 held slot by slot to its plain version on that image and on
+    its stage-1 estimate, with its times and bounds; K2 on the stage-1
+    aggregation's arguments (:func:`aggregate_record`)."""
+    z, sig = first_denoise_input(lane)
+    p = lane["cfg"]["params"]
+    mode = match_mode(p)
+    basic, agg_in = stage1_aggregate_inputs(z, sig, p)
+    b, h, w = z.shape
+    rows, cols = _ref_grid(h, 8, 4), _ref_grid(w, 8, 4)
+    offs = search_offsets(p.search, p.search_step)
+    checks = {}
+    for name, img in (("input", z), ("basic", basic.contiguous())):
+        got = bm3d_match(img, rows, cols, offs, 8, 16, mode)
+        want = bm3d_match_plain(img, rows, cols, offs, 8, 16, mode)
+        dists = match_distances_plain(img, rows, cols, offs, 8, mode)
+        gaps = slot_gaps(got, want, dists)
+        checks[name] = {"multiset_agreement": multiset_agreement(got, want),
+                        "equal_share": float((got == want).float().mean()),
+                        "max_rel_gap": gaps.max().item()}
+        require(checks[name]["multiset_agreement"] >= (0.999 if mode == "f32" else 0.995),
+                f"K1 multiset agreement {checks[name]} ({lane['label']}/{name})")
+        require(checks[name]["max_rel_gap"] <= NEAR_TIE,
+                f"K1 slot gap {checks[name]['max_rel_gap']} > {NEAR_TIE} ({lane['label']}/{name})")
+    err = (dists.gather(-1, got.long()) - dists.gather(-1, want.long())).abs().max().item()
+    require(math.isfinite(err), f"K1 picked an invalid candidate ({lane['label']})")
+    geom = match_geometry(rows, cols, offs, 8, z.device)
+    call = lambda: bm3d_match(z, rows, cols, offs, 8, 16, mode, geometry=geom)  # noqa: E731
+    bounds = match_bounds(b, h, w, rows, cols, offs)
+    k1 = {
+        "shape": {"images": [b, h, w], "offsets": len(offs), "k": 16, "mode": mode}, "max_abs_err": err,
+        "ms": device_ms(call), "event_ms": cuda_ms(call),
+        "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, cols, offs, 8, 16, mode), reps=10),
+        "bound_ms": min(bounds["bound_direct_ms"], bounds["bound_separable_ms"]),
+        "bound_by": bounds["bound_separable_by"], "library_ms": None,
+        "smem_bytes": geom.smem_bytes, "checks": checks, **bounds,
     }
+    return k1, aggregate_record(agg_in)
 
 
 def nlm_input(prob, eta: float, mod: float, steps: int = 1) -> tuple:
@@ -566,11 +662,13 @@ def faithful_parity(den, eta: float) -> dict:
 
 
 def phase_parity() -> None:
-    """Small faithful-variant reconstructions with BM3D and with NLM: the
-    card's kernels against the CPU's plain versions; and a standalone BM3D
+    """Small faithful-variant reconstructions with BM3D, NLM and the wavelet
+    "TV" denoiser: the card against the CPU (the kernels against their plain
+    versions, and the TV denoiser's plain PyTorch on both); and a standalone BM3D
     denoise on the card that must clearly improve a noisy image."""
     bm3d = faithful_parity(BM3DDenoiser(sigma_modifier=2.0, params=BM3DParams(search=4)), 3000.0)
     nlm = faithful_parity(NLMDenoiser(sigma_modifier=1.2), 400.0)
+    tv = faithful_parity(TVDenoiser(sigma_modifier=0.7), 400.0)
     clean = torch.tensor(load_image("13.png", 128, 128), device="cuda")[None]
     gen = torch.Generator(device="cuda").manual_seed(0)
     noisy = clean + 0.1 * torch.randn(clean.shape, generator=gen, device="cuda")
@@ -578,9 +676,9 @@ def phase_parity() -> None:
     mse_noisy = float(((noisy - clean) ** 2).mean())
     mse_den = float(((out - clean) ** 2).mean())
     emit({"phase": "parity", "trace_max_abs_db": bm3d["trace_max_abs_db"],
-          "image_mean_abs_diff": bm3d["image_mean_abs_diff"], "nlm": nlm,
+          "image_mean_abs_diff": bm3d["image_mean_abs_diff"], "nlm": nlm, "tv": tv,
           "bm3d_mse_noisy": mse_noisy, "bm3d_mse_denoised": mse_den})
-    for name, rec in (("BM3D", bm3d), ("NLM", nlm)):
+    for name, rec in (("BM3D", bm3d), ("NLM", nlm), ("TV", tv)):
         require(rec["finite"] and rec["trace_max_abs_db"] < 0.05 and rec["image_mean_abs_diff"] < 1e-3,
                 f"{name} card vs CPU: trace {rec['trace_max_abs_db']} dB, "
                 f"image {rec['image_mean_abs_diff']}")
@@ -617,7 +715,8 @@ def quality(prob, out, lanes, refs, check: bool = True) -> dict:
     }
 
 
-def drive(prob, den, eta, lr_decay: float = 1.0):
+def drive(prob, den, eta, lr_decay: float = 1.0, n_outer: int = N_OUTER, t2: int = T2,
+          mini_batch: int = MINI_BATCH):
     """A warm-up run, then the timed run on the port's generator (seed 2)
     with every kernel's launches counted from 0 and any implicit host-device
     synchronisation an error. Returns (run, output, steady s, first s,
@@ -625,7 +724,7 @@ def drive(prob, den, eta, lr_decay: float = 1.0):
 
     def run(seed=None, masks=None):
         gen = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
-        return pnp_svrg(prob, den, eta, N_OUTER, T2, MINI_BATCH, generator=gen, masks=masks,
+        return pnp_svrg(prob, den, eta, n_outer, t2, mini_batch, generator=gen, masks=masks,
                         lr_decay=lr_decay)
 
     t0 = time.perf_counter()
@@ -741,6 +840,123 @@ def run_nlm_grid() -> dict:
     return rec
 
 
+def bench_lane(label: str) -> dict:
+    """One of ``bench.py``'s PR and Deblur lanes on the card: its
+    configuration, the fixture's problem (the JAX package's), the denoiser,
+    ``eta`` as a device tensor (a copy in the loop would sync), the JAX
+    run's minibatches and, where the fixture has one, its trace."""
+    cfg = bench_config(label)
+    if label == "pr_bm3d":
+        prob, ref_mb, jax_ref = load_pr_problem("cuda"), load_pr_indices("cuda"), load_pr_reference()
+    else:
+        prob, ref_mb = load_deblur_problem(label, "cuda"), load_deblur_masks(label, "cuda")
+        jax_ref = load_deblur_reference() if label == "deblur_bm3d" else None
+    return {"label": label, "cfg": cfg, "prob": prob, "ref_mb": ref_mb, "jax_ref": jax_ref,
+            "den": BM3DDenoiser(sigma_modifier=cfg["sigma_modifier"], params=cfg["params"]),
+            "eta": torch.tensor(cfg["eta"], device="cuda")}
+
+
+def bench_run(lane: dict, seed: int):
+    """A run of the lane on the port's generator (seed ``seed``)."""
+    cfg = lane["cfg"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return pnp_svrg(lane["prob"], lane["den"], lane["eta"], cfg["n_outer"], cfg["t2"],
+                    cfg["mini_batch_size"], generator=gen, lr_decay=cfg["lr_decay"])
+
+
+def entry_point_build(lane: dict) -> dict:
+    """The lane's problem built once through the normal entry point on the
+    card (a CUDA generator: other noise and, for PR, another A than the
+    fixture's). Deblur: its noiseless forward of the ground truth against
+    the fixture problem's, at f32 tolerance; PR: the spectral
+    initialisation's steps and seconds."""
+    spec, prob = BENCH_LANES[lane["label"]], lane["prob"]
+    size = spec["size"]
+    img = load_image(spec["image"], size, size)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    if lane["label"] == "pr_bm3d":
+        stats = {}
+        built = make_phase_retrieval(img, gen, spec["num_meas"], snr=spec["snr"], device="cuda",
+                                     stats=stats)
+        torch.cuda.synchronize()
+        x0 = built.x_init
+        rec = {**stats, "x_init_range": [float(x0.min()), float(x0.max())],
+               "init_psnr_db": float(built.psnr(x0)[0])}
+        require(bool(torch.isfinite(x0).all()) and rec["x_init_range"] == [0.0, 1.0],
+                f"pr_bm3d: make_phase_retrieval's x_init {rec['x_init_range']}")
+        del built
+    else:
+        kernel = spec["kernel"]
+        if kernel.endswith(".png"):
+            kernel = str(resolve_data_path(kernel))
+        built = make_deblur(img, gen, kernel=kernel, scale_percent=spec["scale_percent"],
+                            snr=spec["snr"], device="cuda")
+        torch.cuda.synchronize()
+        want = prob.forward(prob.x)
+        diff = (built.forward(prob.x) - want).abs().max().item()
+        scale = want.abs().max().item()
+        rec = {"forward_max_abs_diff": diff, "forward_magnitude": scale,
+               "sigma": float(built.sigma[0]), "fixture_sigma": float(prob.sigma[0])}
+        require(diff <= 1e-5 * scale, f"{lane['label']}: make_deblur forward {diff} vs {scale}")
+        require(abs(rec["sigma"] - rec["fixture_sigma"]) <= 1e-4 * rec["fixture_sigma"],
+                f"{lane['label']}: make_deblur sigma {rec['sigma']} vs {rec['fixture_sigma']}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def run_bench_lane(lane: dict) -> dict:
+    """A PR or Deblur lane in the ``drive`` pattern; its runs on the JAX
+    run's minibatches (:data:`BENCH_REF_REPEATS`) are held, by their mean, to
+    the lane's floor."""
+    label, cfg, prob = lane["label"], lane["cfg"], lane["prob"]
+    torch.cuda.reset_peak_memory_stats()
+    run, out, steady, first, launches = drive(prob, lane["den"], lane["eta"], cfg["lr_decay"],
+                                              cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"])
+    own = lane_quality(prob, out)
+    own.pop("_trace")
+    ref_run = lane_quality(prob, run(masks=lane["ref_mb"]))
+    trace = ref_run.pop("_trace")[:, 0]
+    repeats = [ref_run["per_lane_psnr_db"][0]] + [
+        lane_quality(prob, run(masks=lane["ref_mb"]))["per_lane_psnr_db"][0]
+        for _ in range(BENCH_REF_REPEATS - 1)]
+    spread = {s: lane_quality(prob, run(seed=s), check=False)["per_lane_psnr_db"][0]
+              for s in BENCH_SPREAD_SEEDS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ref_db, ref_ssim = BENCH_REF[label]
+    psnr, ssim_ = ref_run["per_lane_psnr_db"][0], ref_run["per_lane_ssim"][0]
+    mean_psnr = float(np.mean(repeats))
+    ref = {"psnr_db": psnr, "ssim": ssim_, "repeats_psnr_db": repeats,
+           "repeats_mean_psnr_db": mean_psnr, "bench_r05_psnr_db": ref_db,
+           "delta_psnr_db_vs_bench_r05": psnr - ref_db, "delta_ssim_vs_bench_r05": ssim_ - ref_ssim}
+    floor = BENCH_FLOOR_DB.get(label)
+    if lane["jax_ref"] is not None:
+        jax_trace = lane["jax_ref"]["psnr_per_iter"]
+        ref |= {"jax_cpu_psnr_db": float(jax_trace[-1]), "jax_cpu_ssim": lane["jax_ref"]["ssim"],
+                "delta_psnr_db_vs_jax_cpu": psnr - float(jax_trace[-1]),
+                "trace_max_abs_db_vs_jax_cpu": float(np.abs(trace - jax_trace).max())}
+        if floor is None:
+            floor = float(jax_trace[-1]) - BENCH_BELOW_JAX_DB
+    iters = cfg["n_outer"] * (cfg["t2"] + 1)
+    rec = {
+        "phase": label, "lanes": 1, "steady_s": steady, "first_s": first,
+        "image_iters_per_s": iters / steady, "launches": launches,
+        "reference_minibatches": ref, "floor_db": floor,
+        "port_stream_seed2": {"psnr_db": own["per_lane_psnr_db"][0], "ssim": own["per_lane_ssim"][0]},
+        "port_stream_seeds_psnr_db": spread, "peak_mem_gb": peak_gb,
+        "config": {k: cfg[k] for k in ("eta", "lr_decay", "sigma_modifier", "n_outer", "t2",
+                                       "mini_batch_size")} | {"params": cfg["params"].__dict__},
+        "entry_point": entry_point_build(lane),
+    }
+    emit(rec)
+    denoises = cfg["n_outer"] * cfg["t2"]
+    expect = {"bm3d_match": 2 * denoises, "bm3d_aggregate": 2 * denoises, "nlm": 0}
+    require(launches == expect, f"{label}: launches {launches}, expected {expect}")
+    require(mean_psnr >= floor, f"{label}: mean PSNR of {len(repeats)} runs on the JAX run's "
+                                f"minibatches {mean_psnr:.2f} dB < {floor:.2f}")
+    return rec
+
+
 def phase_profile(label: str, run) -> dict:
     """Device time by kernel over one run of ``run()`` (port stream)."""
     from torch.profiler import ProfilerActivity, profile
@@ -775,8 +991,12 @@ def main() -> None:
     dev = phase_device()
     card = dev["kind"]
     phase_build()
+    bench = {label: bench_lane(label) for label in BENCH_RUNS}
     k1 = check_match()
     k2 = check_aggregate(k1.pop("_agg_in"))
+    at_lanes = {label: check_bench_kernels(lane) for label, lane in bench.items()}
+    k1["bench_shapes"] = {label: r[0] for label, r in at_lanes.items()}
+    k2["bench_shapes"] = {label: r[1] for label, r in at_lanes.items()}
     k3 = check_nlm(dev["max_sm_clock_mhz"] * 1e6)
     emit({"phase": "kernels_checked", "bm3d_match": k1, "bm3d_aggregate": k2, "nlm": k3})
     phase_parity()
@@ -800,6 +1020,7 @@ def main() -> None:
         "csmri_nlm": run_nlm_lane(),
         "csmri_nlm_grid": run_nlm_grid(),
     }
+    lanes_run |= {label: run_bench_lane(lane) for label, lane in bench.items()}
 
     for label, tuned, default_eta, default_mod, params in (
         ("headline", "set12_csmri_tuned.json", 6000.0, 1.0,
@@ -819,10 +1040,14 @@ def main() -> None:
     ggen = torch.Generator(device="cuda").manual_seed(3)
     phase_profile("csmri_nlm_grid",
                   lambda: pnp_svrg(gprob, gden, geta, N_OUTER, T2, MINI_BATCH, generator=ggen))
+    for label in ("pr_bm3d", "deblur_sr_bm3d"):
+        phase_profile(label, lambda: bench_run(bench[label], 3))
 
     # K3's times are at B = 9, so its launches are the grid lane's (B = 9);
-    # its B = 1 record (csmri_nlm) stands beside them.
+    # its B = 1 record (csmri_nlm) stands beside them. K1's and K2's records
+    # at the PR and Deblur lanes' shapes (B = 1) carry those lanes' launches.
     main_lane = {"bm3d_match": "headline", "bm3d_aggregate": "headline", "nlm": "csmri_nlm_grid"}
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for rec in (k1, k2, k3):
         name = rec["name"]
@@ -831,13 +1056,18 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": by_lane[main_lane[name]], "launches_by_lane": by_lane,
-            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "card": dev["nvidia_smi"],
+            **{k: rec[k] for k in fields}, "card": dev["nvidia_smi"],
         })
+        if name != "nlm":
+            kernels[-1]["bench_shapes"] = {
+                label: {"launches": by_lane[label], "shape": r["shape"], **{k: r[k] for k in fields}}
+                for label, r in rec["bench_shapes"].items()}
     kernels[-1]["b1"] = {"launches": lanes_run["csmri_nlm"]["launches"]["nlm"],
                          **{k: k3["b1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
     for k in kernels:
-        require(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")), f"{k['name']} times")
+        shapes = [k] + list(k.get("bench_shapes", {}).values())
+        require(all(math.isfinite(r[f]) for r in shapes for f in ("ms", "plain_ms", "bound_ms")),
+                f"{k['name']} times")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}})
 

@@ -9,13 +9,18 @@ non-local means denoiser run as hand-written CUDA kernels on the card
 CPU.
 
 Ported so far (the Set12 CSMRI + PnP-SVRG + BM3D path, with its grid-aligned
-dense aggregation, and the CSMRI + PnP-SVRG + NLM path):
+dense aggregation, the CSMRI + PnP-SVRG + NLM path, and phase retrieval and
+Deblur/SR with BM3D):
 
-* ``problems.csmri`` (``CSMRI``, ``make_csmri``), ``core.batched.stack_problems``
+* ``problems.csmri`` (``CSMRI``, ``make_csmri``), ``problems.deblur``
+  (``Deblur``, ``make_deblur``), ``problems.pr`` (``PhaseRetrieval``,
+  ``make_phase_retrieval``, ``spectral_init``), ``core.batched.stack_problems``
 * ``denoisers.bm3d`` (``BM3DParams``, ``BM3DDenoiser``, ``bm3d_denoise_batch``)
 * ``denoisers.nlm`` (``NLMDenoiser``; ``nlm_denoise`` in ``ops.cuda.nlm``)
+* ``denoisers.tv`` (``TVDenoiser``, the wavelet BayesShrink denoiser)
 * ``algorithms.loops.pnp_svrg``
-* ``ops``: metrics, sampling, ``dwt2``, ``estimate_sigma``, transforms
+* ``ops``: metrics, sampling, wavelets, ``estimate_sigma``, transforms, the
+  1-D FFT blur and the bilinear resize pair
 * ``convert``: problem data and tuned per-lane parameters from the JAX side
 """
 
@@ -24,7 +29,10 @@ from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
 from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DDenoiser, BM3DParams, bm3d_denoise_batch
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser, nlm_denoise
+from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.problems.csmri import CSMRI, make_csmri
+from pnp_svrg_tpu_torch.problems.deblur import Deblur, make_deblur
+from pnp_svrg_tpu_torch.problems.pr import PhaseRetrieval, make_phase_retrieval
 
 __all__ = [
     "default_device",
@@ -36,6 +44,11 @@ __all__ = [
     "bm3d_denoise_batch",
     "NLMDenoiser",
     "nlm_denoise",
+    "TVDenoiser",
     "CSMRI",
     "make_csmri",
+    "Deblur",
+    "make_deblur",
+    "PhaseRetrieval",
+    "make_phase_retrieval",
 ]

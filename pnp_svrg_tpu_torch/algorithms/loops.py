@@ -64,9 +64,11 @@ def pnp_svrg(
 
     ``variant="svrg"``: the published control variate
     ``v = (g(z, mb) - g(w, mb)) / b + mu``; ``"faithful"``: the reference
-    code's ``v = mu``. Minibatch masks come from ``generator`` (on the
+    code's ``v = mu``. Minibatches come from ``generator`` (on the
     problem's device) or, for exact parity with another implementation, from
-    ``masks`` shaped (n_outer, t2, B, H, W).
+    ``masks`` shaped ``(n_outer, t2) + problem.mb_shape(mini_batch_size)``:
+    (B, H, W) 0/1 masks for CSMRI, (B, M) masks for Deblur, (B, k) row
+    indices for phase retrieval.
 
     Returns ``image`` (B, H, W), ``z`` (B, N), ``psnr_per_iter`` with the
     reference layout ``[init, (snapshot, t2 inner) x n_outer]`` (shape
@@ -78,8 +80,9 @@ def pnp_svrg(
     b, h, w = problem.x_init.shape
     if variant == "svrg":
         if masks is not None:
-            if tuple(masks.shape) != (n_outer, t2, b, h, w):
-                raise ValueError(f"masks must be {(n_outer, t2, b, h, w)}, got {tuple(masks.shape)}")
+            want = (n_outer, t2) + tuple(problem.mb_shape(mini_batch_size))
+            if tuple(masks.shape) != want:
+                raise ValueError(f"masks must be {want}, got {tuple(masks.shape)}")
         elif generator is None:
             raise ValueError("variant='svrg' needs a generator or masks")
     dev = problem.device

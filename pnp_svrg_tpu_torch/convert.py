@@ -20,6 +20,27 @@ hyperparameters (this path has no learned weights).
   of the JAX lane's run (``data/csmri_nlm_masks_key2.npz``, an unbatched key
   chain) and :func:`load_nlm_reference` that run's PSNR trace and SSIM.
 
+* The Deblur lanes (``bench.py:602-717``): :func:`bench_config` is a lane's
+  tuned configuration (``data/deblur_tuned.json``,
+  ``data/deblur_sr_tuned.json``) merged over ``bench.py``'s defaults, with its
+  ``BM3DParams``; :func:`deblur_from_numpy` builds the port's ``Deblur``
+  from JAX fields; :func:`load_deblur_problem` reads ``data/deblur_256.npz``
+  (both lanes' problems as ``make_deblur(PRNGKey(0), ...)`` builds them,
+  with the SR lane's kernel, whose PIL resampling depends on the Pillow
+  version), :func:`load_deblur_masks` the minibatch masks of each lane's
+  JAX run (``PRNGKey(2)``, the unbatched key chain) and
+  :func:`load_deblur_reference` the JAX CPU run's trace of the Minimal lane.
+* The PR + BM3D lane (``bench.py:508-542``): its 8192 x 16384 matrix A is
+  too large to commit, so both sides build it from
+  ``numpy.random.RandomState(seed)`` (:func:`pr_matrix`), a stream numpy
+  keeps fixed across versions. :func:`load_pr_problem` rebuilds A and checks
+  it against the checksum in ``data/pr_bm3d_128.npz``, which also holds
+  ``y``, ``x_init``, ``sigma`` and ``snr`` as the JAX package makes them from
+  that A; :func:`load_pr_indices` reads the JAX run's minibatch row indices
+  (``PRNGKey(5)``) and :func:`load_pr_reference` its PSNR trace and SSIM.
+  :func:`pr_from_numpy` builds the port's ``PhaseRetrieval`` from JAX
+  fields.
+
 The fixtures are written by ``python tests/test_torch_fixture.py``.
 """
 
@@ -32,15 +53,47 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DParams
 from pnp_svrg_tpu_torch.device import resolve_device
+from pnp_svrg_tpu_torch.ops.fourier import fft_blur_1d_adjoint_kernel
+from pnp_svrg_tpu_torch.ops.resize import bilinear_gather_params
 from pnp_svrg_tpu_torch.problems.csmri import CSMRI
-from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image
+from pnp_svrg_tpu_torch.problems.deblur import Deblur, deblur_kernel
+from pnp_svrg_tpu_torch.problems.pr import PhaseRetrieval
+from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image, resolve_data_path
 
 HEADLINE_FIXTURE = Path(__file__).resolve().parent / "data" / "headline_csmri_128.npz"
 HEADLINE_MASKS = HEADLINE_FIXTURE.parent / "headline_masks_key2.npz"
 NLM_MASKS = HEADLINE_FIXTURE.parent / "csmri_nlm_masks_key2.npz"
 NLM_TUNED = DATA_DIR / "csmri_nlm_tuned.json"
 NLM_LANE = "13.png"
+DEBLUR_FIXTURE = HEADLINE_FIXTURE.parent / "deblur_256.npz"
+PR_FIXTURE = HEADLINE_FIXTURE.parent / "pr_bm3d_128.npz"
+
+# bench.py's three lanes: the problem, bench.py's defaults and the tuned
+# JSON merged over them (bench.py:508-542, 602-661, 663-717).
+_RUN_KEYS = ("eta", "lr_decay", "sigma_modifier", "n_outer", "t2", "mini_batch_size")
+BENCH_LANES = {
+    "pr_bm3d": {
+        "image": "Set12/04.png", "size": 128, "num_meas": 8192, "snr": 20.0,
+        "tuned": "pr_tuned.json",
+        "defaults": (0.2, 0.99, 1.0, 20, 8, 800),
+    },
+    "deblur_bm3d": {
+        "image": "Set12/01.png", "size": 256, "kernel": "Minimal", "scale_percent": 100,
+        "snr": 5.0, "tuned": "deblur_tuned.json",
+        "defaults": (2e9, 0.6, 1.0, 4, 6, 5000),
+    },
+    "deblur_sr_bm3d": {
+        "image": "Set12/01.png", "size": 256, "kernel": "kernel25.png", "scale_percent": 50,
+        "snr": 20.0, "tuned": "deblur_sr_tuned.json",
+        "defaults": (1.2, 1.0, 12.0, 24, 10, 5000),
+    },
+}
+DEBLUR_LANES = ("deblur_bm3d", "deblur_sr_bm3d")
+PR_SEED = 4  # RandomState seed of the PR lane's A
+PR_BLOCK_ROWS = 512
+PR_CHECK_ENTRIES = ((0, 0), (1, 7), (4095, 8191), (8191, 16383))  # (row, column) of A
 
 
 def csmri_from_numpy(arrays: dict, device=None) -> CSMRI:
@@ -154,3 +207,159 @@ def load_nlm_reference(path=NLM_MASKS) -> dict:
     ``1 + n_outer*(t2+1)`` entries) and its final ``ssim``."""
     with np.load(path) as f:
         return {"psnr_per_iter": f["psnr_per_iter"], "ssim": float(f["ssim"])}
+
+
+def bench_config(lane: str) -> dict:
+    """One of :data:`BENCH_LANES` with its run configuration resolved as
+    ``bench.py`` resolves it: ``eta``, ``lr_decay``, ``sigma_modifier``,
+    ``n_outer``, ``t2``, ``mini_batch_size`` and ``params``, the
+    ``BM3DParams`` (search 8; the Deblur lanes take ``search_step``,
+    ``matcher`` and ``match_dtype`` from their JSON)."""
+    spec = dict(BENCH_LANES[lane])
+    with open(DATA_DIR / spec["tuned"]) as f:
+        tuned = json.load(f)
+    cfg = dict(zip(_RUN_KEYS, spec.pop("defaults")))
+    cfg.update({k: tuned[k] for k in _RUN_KEYS if k in tuned})
+    for k in ("n_outer", "t2", "mini_batch_size"):
+        cfg[k] = int(cfg[k])
+    extra = {}
+    if lane in DEBLUR_LANES:
+        extra = {"search_step": int(tuned.get("search_step", 1)),
+                 "matcher": str(tuned.get("matcher", "xla")),
+                 "match_dtype": str(tuned.get("match_dtype", "float32"))}
+    return {**spec, **cfg, "params": BM3DParams(search=8, **extra)}
+
+
+def _lane_tensor(device):
+    """numpy -> a copied tensor on ``device`` with a leading lane axis."""
+    return lambda a, dtype=torch.float32: torch.tensor(np.asarray(a)[None], dtype=dtype, device=device)
+
+
+def deblur_from_numpy(arrays: dict, device=None) -> Deblur:
+    """A one-lane port ``Deblur`` from one JAX ``Deblur``'s fields as numpy
+    arrays: ``y`` (M,), ``b`` (N,), ``x``, ``x_init`` (H, W), ``ds_idx``,
+    ``ds_w`` (M, 4) and optional ``b_adj`` (derived), ``allowed`` (all
+    ones), ``snr``, ``sigma`` (0). Lanes stack with ``stack_problems``."""
+    dev = resolve_device(device)
+    as_t = _lane_tensor(dev)
+    b = as_t(np.asarray(arrays["b"]).reshape(-1))
+    y = as_t(arrays["y"])
+    return Deblur(
+        y=y, b=b,
+        b_adj=as_t(arrays["b_adj"]) if "b_adj" in arrays else fft_blur_1d_adjoint_kernel(b),
+        x=as_t(arrays["x"]), x_init=as_t(arrays["x_init"]),
+        ds_idx=as_t(arrays["ds_idx"], torch.int64)[0], ds_w=as_t(arrays["ds_w"])[0],
+        allowed=as_t(arrays["allowed"]) if "allowed" in arrays else torch.ones_like(y),
+        snr=as_t(arrays.get("snr", 0.0)), sigma=as_t(arrays.get("sigma", 0.0)),
+    )
+
+
+def pr_from_numpy(arrays: dict, device=None) -> PhaseRetrieval:
+    """A one-lane port ``PhaseRetrieval`` from one JAX problem's fields as
+    numpy arrays: ``a`` (M, N), ``y`` (M,), ``x``, ``x_init`` (H, W) and
+    optional ``snr``, ``sigma`` (0). Lanes stack with ``stack_problems``."""
+    as_t = _lane_tensor(resolve_device(device))
+    return PhaseRetrieval(a=as_t(arrays["a"]), y=as_t(arrays["y"]), x=as_t(arrays["x"]),
+                          x_init=as_t(arrays["x_init"]), snr=as_t(arrays.get("snr", 0.0)),
+                          sigma=as_t(arrays.get("sigma", 0.0)))
+
+
+def _fixture(path) -> dict:
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def load_deblur_problem(lane: str, device=None, path=DEBLUR_FIXTURE) -> Deblur:
+    """The one-lane problem of a Deblur lane (``"deblur_bm3d"`` or
+    ``"deblur_sr_bm3d"``) as the JAX package builds it: ``y``, ``x_init``,
+    ``sigma`` and ``snr`` from the fixture, the ground truth from the
+    port's ``load_image``, the kernel from ``make_minimal_kernel`` or, for
+    the image kernel, the fixture."""
+    cfg = BENCH_LANES[lane]
+    data = _fixture(path)
+    size = cfg["size"]
+    n = size * size
+    lr = int(size * cfg["scale_percent"] / 100)
+    if f"{lane}/b" in data:
+        b = data[f"{lane}/b"]
+    else:
+        b = deblur_kernel(cfg["kernel"], size, size).reshape(-1) / np.float32(n)
+    idx, wts = bilinear_gather_params(size, size, lr, lr)
+    return deblur_from_numpy({
+        "y": data[f"{lane}/y"], "b": b, "x": load_image(cfg["image"], size, size),
+        "x_init": data[f"{lane}/x_init"], "ds_idx": idx, "ds_w": wts,
+        "snr": data[f"{lane}/snr"], "sigma": data[f"{lane}/sigma"],
+    }, device)
+
+
+def load_deblur_masks(lane: str, device=None, path=DEBLUR_FIXTURE) -> torch.Tensor:
+    """(n_outer, t2, 1, M) float32 minibatch masks of the JAX run of a Deblur
+    lane (``PRNGKey(2)``), for ``pnp_svrg(..., masks=...)``."""
+    packed = _fixture(path)[f"{lane}/masks"]
+    return torch.as_tensor(np.unpackbits(packed, axis=-1).astype(np.float32),
+                           device=resolve_device(device))
+
+
+def load_deblur_reference(path=DEBLUR_FIXTURE) -> dict:
+    """The JAX CPU run of the ``deblur_bm3d`` lane on its masks:
+    ``psnr_per_iter`` (``1 + n_outer*(t2+1)`` entries) and final ``ssim``."""
+    data = _fixture(path)
+    return {"psnr_per_iter": data["deblur_bm3d/psnr_per_iter"],
+            "ssim": float(data["deblur_bm3d/ssim"])}
+
+
+def pr_matrix_blocks(seed: int, m: int, n: int):
+    """The PR lane's (m, n) Gaussian matrix as (first row, float32 block of
+    :data:`PR_BLOCK_ROWS` rows), drawn row-major from
+    ``numpy.random.RandomState(seed)``."""
+    rs = np.random.RandomState(seed)
+    for r0 in range(0, m, PR_BLOCK_ROWS):
+        yield r0, rs.standard_normal((min(PR_BLOCK_ROWS, m - r0), n)).astype(np.float32)
+
+
+def pr_matrix(seed: int, m: int, n: int, device=None) -> tuple[torch.Tensor, dict]:
+    """(1, m, n) float32 matrix of :func:`pr_matrix_blocks` on ``device`` and
+    its checksum: ``sum`` (float64) and the ``entries`` at
+    :data:`PR_CHECK_ENTRIES` that lie inside it."""
+    a = torch.empty((1, m, n), dtype=torch.float32, device=resolve_device(device))
+    total = 0.0
+    entries = []
+    for r0, block in pr_matrix_blocks(seed, m, n):
+        a[0, r0 : r0 + block.shape[0]] = torch.from_numpy(block)
+        total += float(block.sum(dtype=np.float64))
+        entries += [float(block[r - r0, c]) for r, c in PR_CHECK_ENTRIES
+                    if r0 <= r < r0 + block.shape[0]]
+    return a, {"sum": total, "entries": entries}
+
+
+def load_pr_problem(device=None, path=PR_FIXTURE) -> PhaseRetrieval:
+    """The one-lane PR + BM3D problem: A rebuilt by :func:`pr_matrix` and
+    checked against the fixture's checksum (raises on a mismatch), ``y``,
+    ``x_init``, ``sigma`` and ``snr`` from the fixture, the ground truth
+    from the port's ``load_image``."""
+    cfg = BENCH_LANES["pr_bm3d"]
+    data = _fixture(path)
+    size = cfg["size"]
+    a, check = pr_matrix(int(data["seed"]), cfg["num_meas"], size * size, device)
+    want = data["a_entries"].tolist()
+    if check["entries"] != want or abs(check["sum"] - float(data["a_sum"])) > 1e-6:
+        raise RuntimeError(f"PR matrix checksum {check} differs from the fixture's "
+                           f"sum {float(data['a_sum'])}, entries {want}")
+    x = torch.as_tensor(load_image(cfg["image"], size, size), device=a.device)[None]
+    lane = lambda k: torch.as_tensor(np.asarray(data[k], np.float32).reshape(1), device=a.device)  # noqa: E731
+    return PhaseRetrieval(a=a, y=torch.as_tensor(data["y"][None], device=a.device), x=x,
+                          x_init=torch.as_tensor(data["x_init"][None], device=a.device),
+                          snr=lane("snr"), sigma=lane("sigma"))
+
+
+def load_pr_indices(device=None, path=PR_FIXTURE) -> torch.Tensor:
+    """(n_outer, t2, 1, k) int64 minibatch row indices of the JAX PR run
+    (``PRNGKey(5)``), for ``pnp_svrg(..., masks=...)``."""
+    return torch.as_tensor(_fixture(path)["indices"].astype(np.int64), device=resolve_device(device))
+
+
+def load_pr_reference(path=PR_FIXTURE) -> dict:
+    """The JAX CPU run of the PR + BM3D lane on those indices:
+    ``psnr_per_iter`` and final ``ssim``."""
+    data = _fixture(path)
+    return {"psnr_per_iter": data["psnr_per_iter"], "ssim": float(data["ssim"])}

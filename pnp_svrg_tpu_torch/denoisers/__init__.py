@@ -1,6 +1,8 @@
-"""Denoisers: the PnP prior step (BM3D and non-local means so far)."""
+"""Denoisers: the PnP prior step (BM3D, non-local means and the wavelet
+BayesShrink "TV" denoiser)."""
 
 from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DDenoiser, BM3DParams, bm3d_denoise
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser, nlm_denoise
+from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 
-__all__ = ["BM3DDenoiser", "BM3DParams", "bm3d_denoise", "NLMDenoiser", "nlm_denoise"]
+__all__ = ["BM3DDenoiser", "BM3DParams", "bm3d_denoise", "NLMDenoiser", "nlm_denoise", "TVDenoiser"]

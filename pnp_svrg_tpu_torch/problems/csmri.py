@@ -86,6 +86,9 @@ class CSMRI:
         res = mbb * (torch.fft.fft2(self._img(z)) - self.y)
         return torch.fft.ifft2(res).real
 
+    def mb_shape(self, k: int) -> tuple:
+        return tuple(self.mask.shape)
+
     def select_mb(self, generator: torch.Generator, k: int) -> torch.Tensor:
         """(B, H, W) 0/1 masks with k ones per lane, drawn from the sampled
         locations."""

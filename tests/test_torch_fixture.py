@@ -16,7 +16,29 @@ files.
 it stores that JAX run's PSNR trace and final SSIM (``NLMDenoiser`` on its
 jnp path, on the CPU), against which the port's run on the card is held.
 
-Regenerate all three with ``python tests/test_torch_fixture.py``.
+``deblur_256.npz`` holds the two Deblur lanes (``bench.py:602-717``) as
+``make_deblur(PRNGKey(0), ...)`` builds them (``y``, ``x_init``, ``sigma``,
+``snr``; for the SR lane also its kernel ``b``, since PIL's default
+resampling of ``kernel25.png`` depends on the Pillow version), each lane's
+minibatch masks of the unbatched ``PRNGKey(2)`` chain, bit-packed, and the
+JAX CPU run's PSNR trace and SSIM of the Minimal lane.
+
+``pr_bm3d_128.npz`` holds the PR + BM3D lane (``bench.py:508-542``) on a
+matrix A drawn from ``numpy.random.RandomState(4)`` (``convert.pr_matrix``;
+A itself is 537 MB and is rebuilt on load): the JAX package's ``y``
+(noise from the second half of ``split(PRNGKey(4))``, as
+``make_phase_retrieval`` splits its key) and ``x_init`` (its
+``spectral_init``) for that A, A's checksum, the minibatch row indices of
+the unbatched ``PRNGKey(5)`` chain, and the JAX CPU run's PSNR trace and
+SSIM.
+
+Regenerate them all with ``python tests/test_torch_fixture.py`` (the PR and
+Deblur reference runs take some minutes on the CPU).
+``python tests/test_torch_fixture.py --cpu-lanes`` writes nothing: it runs
+the port's plain CPU path on the Deblur and PR lanes' fixture problems and
+JAX minibatches against the stored JAX traces, and both sides' PR lane again
+with ``y`` or ``x_init`` moved up one ulp, to show how far rounding alone
+moves that lane's result (about 10 minutes).
 """
 
 from __future__ import annotations
@@ -32,23 +54,47 @@ import torch
 
 from pnp_svrg_tpu.algorithms.loops import pnp_svrg as jax_pnp_svrg
 from pnp_svrg_tpu.core.batched import BatchedProblem
+from pnp_svrg_tpu.core.problem import minmax_normalize as jax_minmax_normalize
+from pnp_svrg_tpu.core.problem import resolve_noise as jax_resolve_noise
+from pnp_svrg_tpu.denoisers.bm3d import BM3DDenoiser as JaxBM3DDenoiser
+from pnp_svrg_tpu.denoisers.bm3d import BM3DParams as JaxBM3DParams
 from pnp_svrg_tpu.denoisers.nlm import NLMDenoiser as JaxNLMDenoiser
 from pnp_svrg_tpu.ops.metrics import ssim as jax_ssim
 from pnp_svrg_tpu.problems import make_csmri
+from pnp_svrg_tpu.problems import make_deblur as jax_make_deblur
 from pnp_svrg_tpu.problems.csmri import CSMRI
+from pnp_svrg_tpu.problems.pr import PhaseRetrieval as JaxPhaseRetrieval
+from pnp_svrg_tpu.problems.pr import _dot as jax_dot
+from pnp_svrg_tpu.problems.pr import spectral_init as jax_spectral_init
 from pnp_svrg_tpu.utils.io import load_image as jax_load_image
+from pnp_svrg_tpu.utils.io import resolve_data_path as jax_resolve_data_path
 from pnp_svrg_tpu.utils.io import set12_paths
 from pnp_svrg_tpu_torch.convert import (
+    BENCH_LANES,
+    DEBLUR_FIXTURE,
+    DEBLUR_LANES,
     HEADLINE_FIXTURE,
     HEADLINE_MASKS,
     NLM_MASKS,
+    PR_CHECK_ENTRIES,
+    PR_FIXTURE,
+    PR_SEED,
+    bench_config,
+    load_deblur_masks,
+    load_deblur_problem,
+    load_deblur_reference,
     load_headline_masks,
     load_headline_problems,
     load_nlm_masks,
     load_nlm_problem,
     load_nlm_reference,
+    load_pr_indices,
+    load_pr_problem,
+    load_pr_reference,
     nlm_params,
+    pr_matrix_blocks,
 )
+from pnp_svrg_tpu_torch.problems.deblur import load_kernel_image
 from pnp_svrg_tpu_torch.utils.io import load_image
 
 SIZE = 128
@@ -137,6 +183,140 @@ def run_jax_nlm() -> dict:
             "ssim": np.float32(jax_ssim(prob.x, out["image"]))}
 
 
+def deblur_problem(lane: str):
+    """A Deblur lane's unbatched JAX problem as bench.py builds it."""
+    cfg = BENCH_LANES[lane]
+    size = cfg["size"]
+    kernel = cfg["kernel"]
+    if kernel.endswith(".png"):
+        kernel = str(jax_resolve_data_path(kernel))
+    img = jnp.asarray(jax_load_image(cfg["image"], size, size))
+    return jax_make_deblur(jax.random.PRNGKey(0), img, kernel=kernel,
+                           scale_percent=cfg["scale_percent"], snr=cfg["snr"])
+
+
+def unbatched_chain(select, n_outer: int, t2: int, key: int) -> np.ndarray:
+    """(n_outer, t2, 1, ...) minibatches of pnp_svrg's unbatched key chain:
+    ``k, k_mb = split(k)`` per inner step, then ``select(k_mb)``."""
+    select = jax.jit(select)
+    k = jax.random.PRNGKey(key)
+    out = []
+    for _ in range(n_outer * t2):
+        k, k_mb = jax.random.split(k)
+        out.append(np.asarray(select(k_mb)))
+    return np.stack(out).reshape((n_outer, t2, 1) + out[0].shape)
+
+
+def deblur_masks(lane: str, prob) -> np.ndarray:
+    """A Deblur lane's packed (n_outer, t2, 1, M/8) masks (PRNGKey(2))."""
+    cfg = bench_config(lane)
+    masks = unbatched_chain(lambda k: prob.select_mb(k, cfg["mini_batch_size"]),
+                            cfg["n_outer"], cfg["t2"], MASK_KEY)
+    return np.packbits(masks.astype(bool), axis=-1)
+
+
+def build_deblur_arrays() -> dict:
+    """Both Deblur lanes' problem arrays and packed masks, keyed
+    ``"<lane>/<field>"``."""
+    arrays = {}
+    for lane in DEBLUR_LANES:
+        prob = deblur_problem(lane)
+        arrays[f"{lane}/y"] = np.asarray(prob.y, np.float32)
+        arrays[f"{lane}/x_init"] = np.asarray(prob.x_init, np.float32)
+        arrays[f"{lane}/sigma"] = np.float32(prob.sigma)
+        arrays[f"{lane}/snr"] = np.float32(prob.snr)
+        if BENCH_LANES[lane]["kernel"] != "Minimal":
+            arrays[f"{lane}/b"] = np.asarray(prob.b, np.float32)
+        arrays[f"{lane}/masks"] = deblur_masks(lane, prob)
+    return arrays
+
+
+def run_jax_deblur() -> dict:
+    """The JAX Minimal Deblur lane (data/deblur_tuned.json, f32 XLA matcher,
+    PRNGKey(2)) on the CPU: PSNR trace and final SSIM."""
+    cfg = bench_config("deblur_bm3d")
+    p = cfg["params"]
+    prob = deblur_problem("deblur_bm3d")
+    den = JaxBM3DDenoiser(sigma_modifier=cfg["sigma_modifier"], params=JaxBM3DParams(
+        search=p.search, search_step=p.search_step, matcher=p.matcher, match_dtype=p.match_dtype))
+    out = jax_pnp_svrg(prob, den, eta=cfg["eta"], n_outer=cfg["n_outer"], t2=cfg["t2"],
+                       mini_batch_size=cfg["mini_batch_size"], lr_decay=cfg["lr_decay"],
+                       key=jax.random.PRNGKey(MASK_KEY))
+    return {"deblur_bm3d/psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32),
+            "deblur_bm3d/ssim": np.float32(jax_ssim(prob.x, out["image"]))}
+
+
+PR_NOISE_KEY, PR_MB_KEY = 4, 5  # bench.py:520-531
+
+
+def pr_matrix_numpy() -> tuple[np.ndarray, dict]:
+    """The PR lane's A (8192 x 16384 float32) and its checksum, summed block
+    by block as ``convert.pr_matrix`` sums it."""
+    cfg = BENCH_LANES["pr_bm3d"]
+    blocks = [blk for _, blk in pr_matrix_blocks(PR_SEED, cfg["num_meas"], cfg["size"] ** 2)]
+    total = 0.0
+    for blk in blocks:
+        total += float(blk.sum(dtype=np.float64))
+    a = np.concatenate(blocks)
+    return a, {"a_sum": np.float64(total),
+               "a_entries": np.asarray([a[r, c] for r, c in PR_CHECK_ENTRIES], np.float64)}
+
+
+def pr_problem(a: np.ndarray) -> JaxPhaseRetrieval:
+    """The JAX PhaseRetrieval of the PR lane on ``a``: what
+    ``make_phase_retrieval(PRNGKey(4), Set12/04, 8192, snr=20)`` does after
+    drawing its own A, with the JAX package's ``_dot``, ``resolve_noise``,
+    ``spectral_init`` and ``minmax_normalize``."""
+    cfg = BENCH_LANES["pr_bm3d"]
+    size = cfg["size"]
+    x = jnp.asarray(jax_load_image(cfg["image"], size, size))
+    aj = jnp.asarray(a)
+    y0 = jnp.abs(jax_dot(aj, x.ravel()))
+    snr, sig = jax_resolve_noise(y0, size, size, cfg["snr"], None)
+    _, k_noise = jax.random.split(jax.random.PRNGKey(PR_NOISE_KEY))
+    y = y0 + sig * jax.random.normal(k_noise, y0.shape)
+    xi = jax_spectral_init(aj, y, jnp.linalg.norm(x.ravel()))
+    return JaxPhaseRetrieval(
+        a=aj, y=y.astype(jnp.float32), x=x,
+        x_init=jax_minmax_normalize(xi).reshape(size, size).astype(jnp.float32),
+        snr=jnp.asarray(float(snr), jnp.float32), sigma=jnp.asarray(float(sig), jnp.float32),
+        h=size, w=size, num_meas=cfg["num_meas"],
+    )
+
+
+def pr_indices(m: int) -> np.ndarray:
+    """(n_outer, t2, 1, k) int16 row indices of the PR lane's unbatched
+    PRNGKey(5) chain."""
+    cfg = bench_config("pr_bm3d")
+    prob = JaxPhaseRetrieval(a=None, y=None, x=None, x_init=None, num_meas=m)
+    idx = unbatched_chain(lambda k: prob.select_mb(k, cfg["mini_batch_size"]),
+                          cfg["n_outer"], cfg["t2"], PR_MB_KEY)
+    return idx.astype(np.int16)
+
+
+def run_jax_pr(prob) -> dict:
+    """The JAX PR + BM3D lane (data/pr_tuned.json, PRNGKey(5)) on the CPU."""
+    cfg = bench_config("pr_bm3d")
+    den = JaxBM3DDenoiser(sigma_modifier=cfg["sigma_modifier"], params=JaxBM3DParams(search=8))
+    out = jax_pnp_svrg(prob, den, eta=cfg["eta"], n_outer=cfg["n_outer"], t2=cfg["t2"],
+                       mini_batch_size=cfg["mini_batch_size"], lr_decay=cfg["lr_decay"],
+                       key=jax.random.PRNGKey(PR_MB_KEY))
+    return {"psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32),
+            "ssim": np.float32(jax_ssim(prob.x, out["image"]))}
+
+
+def build_pr_arrays() -> dict:
+    """The PR fixture's arrays, the JAX reference run included."""
+    a, check = pr_matrix_numpy()
+    prob = pr_problem(a)
+    return {
+        "seed": np.int64(PR_SEED), **check,
+        "y": np.asarray(prob.y, np.float32), "x_init": np.asarray(prob.x_init, np.float32),
+        "sigma": np.float32(prob.sigma), "snr": np.float32(prob.snr),
+        "indices": pr_indices(a.shape[0]), **run_jax_pr(prob),
+    }
+
+
 @pytest.fixture(scope="module")
 def rebuilt():
     return build_headline_arrays()
@@ -211,7 +391,131 @@ def test_nlm_reference_trace_is_a_fresh_jax_run():
     np.testing.assert_allclose(ref["ssim"], fresh["ssim"], atol=1e-5)
 
 
-if __name__ == "__main__":
+@pytest.fixture(scope="module")
+def deblur_rebuilt():
+    return build_deblur_arrays()
+
+
+def test_deblur_fixture_matches_a_fresh_jax_rebuild(deblur_rebuilt):
+    with np.load(DEBLUR_FIXTURE) as f:
+        committed = {k: f[k] for k in f.files}
+    assert set(committed) == set(deblur_rebuilt) | {"deblur_bm3d/psnr_per_iter", "deblur_bm3d/ssim"}
+    for name, arr in deblur_rebuilt.items():
+        assert committed[name].dtype == arr.dtype, name
+        np.testing.assert_array_equal(committed[name], arr, err_msg=name)
+
+
+def test_deblur_sr_kernel_is_the_port_load_kernel_image():
+    with np.load(DEBLUR_FIXTURE) as f:
+        b = f["deblur_sr_bm3d/b"]
+    size = BENCH_LANES["deblur_sr_bm3d"]["size"]
+    want = load_kernel_image("kernel25.png", size, size).reshape(-1) / np.float32(size * size)
+    np.testing.assert_array_equal(b, want)
+
+
+@pytest.mark.parametrize("lane", DEBLUR_LANES)
+def test_load_deblur_problem_and_masks_are_the_bench_lane(lane):
+    want = deblur_problem(lane)
+    got = load_deblur_problem(lane, device="cpu")
+    for name in ("y", "b", "b_adj", "x", "x_init", "ds_idx", "ds_w", "allowed"):
+        np.testing.assert_array_equal(getattr(got, name).numpy().reshape(np.shape(getattr(want, name))),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    np.testing.assert_array_equal(got.sigma.numpy(), [float(want.sigma)])
+    cfg = bench_config(lane)
+    masks = load_deblur_masks(lane, device="cpu")
+    assert masks.shape == (cfg["n_outer"], cfg["t2"]) + got.mb_shape(cfg["mini_batch_size"])
+    assert torch.all(masks.sum(dim=-1) == cfg["mini_batch_size"])
+    p = cfg["params"]
+    assert (p.search, p.search_step, p.matcher, p.match_dtype) == (
+        (8, 1, "xla", "float32") if lane == "deblur_bm3d" else (8, 2, "pallas", "bfloat16"))
+
+
+def test_deblur_reference_trace_is_a_fresh_jax_run():
+    ref = load_deblur_reference()
+    cfg = bench_config("deblur_bm3d")
+    assert ref["psnr_per_iter"].shape == (1 + cfg["n_outer"] * (cfg["t2"] + 1),)
+    fresh = run_jax_deblur()  # 4 x 6 at 256 px: about 20 s on the CPU
+    np.testing.assert_allclose(ref["psnr_per_iter"], fresh["deblur_bm3d/psnr_per_iter"], atol=1e-4)
+    np.testing.assert_allclose(ref["ssim"], fresh["deblur_bm3d/ssim"], atol=1e-5)
+
+
+def test_pr_indices_match_the_replayed_key_chain():
+    cfg = bench_config("pr_bm3d")
+    with np.load(PR_FIXTURE) as f:
+        committed = f["indices"]
+    np.testing.assert_array_equal(committed, pr_indices(BENCH_LANES["pr_bm3d"]["num_meas"]))
+    idx = load_pr_indices(device="cpu")
+    assert idx.shape == (cfg["n_outer"], cfg["t2"], 1, cfg["mini_batch_size"]) and idx.dtype == torch.int64
+    assert all(len(set(step.tolist())) == cfg["mini_batch_size"] for step in idx.reshape(-1, idx.shape[-1]))
+    ref = load_pr_reference()
+    assert ref["psnr_per_iter"].shape == (1 + cfg["n_outer"] * (cfg["t2"] + 1),)
+    assert np.isfinite(ref["psnr_per_iter"]).all() and 0 < ref["ssim"] <= 1
+
+
+def test_load_pr_problem_rebuilds_a_and_the_jax_measurements(tmp_path):
+    # The one test that builds the 8192 x 16384 A (537 MB, about 6 s), twice.
+    prob = load_pr_problem(device="cpu")  # checks A's checksum
+    cfg = BENCH_LANES["pr_bm3d"]
+    assert prob.a.shape == (1, cfg["num_meas"], cfg["size"] ** 2)
+    y0 = prob.forward(prob.x)[0].numpy()
+    sigma = float(jax_resolve_noise(jnp.asarray(y0), cfg["size"], cfg["size"], cfg["snr"], None)[1])
+    np.testing.assert_allclose(prob.sigma.numpy(), [sigma], rtol=1e-5)
+    _, k_noise = jax.random.split(jax.random.PRNGKey(PR_NOISE_KEY))
+    noise = np.asarray(jax.random.normal(k_noise, y0.shape))
+    # |A x| is a sum of 16384 f32 products of order 1 (|y| up to ~200):
+    # the two sides' summation orders differ by f32 rounding.
+    np.testing.assert_allclose(prob.y[0].numpy(), y0 + sigma * noise, rtol=1e-5, atol=1e-3)
+    del prob
+    with np.load(PR_FIXTURE) as f:
+        tampered = {k: f[k] for k in f.files}
+    tampered["a_sum"] = tampered["a_sum"] + 1.0
+    np.savez(tmp_path / "pr.npz", **tampered)
+    with pytest.raises(RuntimeError, match="checksum"):
+        load_pr_problem(device="cpu", path=tmp_path / "pr.npz")
+
+
+def cpu_lanes() -> None:
+    """Print the port's CPU runs of the Deblur and PR lanes on the JAX
+    minibatches against the stored JAX traces, and the PR lane's final PSNR
+    on both sides with ``y`` or ``x_init`` one ulp up."""
+    import dataclasses
+
+    from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
+    from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DDenoiser
+
+    def port_run(lane, prob, mb):
+        cfg = bench_config(lane)
+        den = BM3DDenoiser(sigma_modifier=cfg["sigma_modifier"], params=cfg["params"])
+        return pnp_svrg(prob, den, cfg["eta"], cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"],
+                        masks=mb, lr_decay=cfg["lr_decay"])["psnr_per_iter"][:, 0].numpy()
+
+    for lane in DEBLUR_LANES:
+        trace = port_run(lane, load_deblur_problem(lane, "cpu"), load_deblur_masks(lane, "cpu"))
+        line = f"port CPU {lane}: final {trace[-1]:.4f} dB"
+        if lane == "deblur_bm3d":
+            jax_trace = load_deblur_reference()["psnr_per_iter"]
+            line += f", JAX {jax_trace[-1]:.4f}, trace max |diff| {np.abs(trace - jax_trace).max():.4f}"
+        print(line, flush=True)
+    a, _ = pr_matrix_numpy()
+    jprob = pr_problem(a)
+    tprob = load_pr_problem("cpu")
+    idx = load_pr_indices("cpu")
+    jax_trace = load_pr_reference()["psnr_per_iter"]
+    for name in ("none", "y", "x_init"):
+        jp, tp = jprob, tprob
+        if name != "none":
+            jp = dataclasses.replace(jprob, **{name: jnp.nextafter(getattr(jprob, name), jnp.inf)})
+            tp = dataclasses.replace(tprob, **{name: torch.nextafter(getattr(tprob, name),
+                                                                     torch.tensor(np.inf))})
+        jt = run_jax_pr(jp)["psnr_per_iter"] if name != "none" else jax_trace
+        tt = port_run("pr_bm3d", tp, idx)
+        print(f"PR + BM3D, {name} one ulp up: JAX final {jt[-1]:.4f} dB, port CPU final {tt[-1]:.4f} dB, "
+              f"trace max |diff| {np.abs(tt - jt).max():.4f}", flush=True)
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["--cpu-lanes"]:
+    cpu_lanes()
+elif __name__ == "__main__":
     arrays = build_headline_arrays()
     arrays.pop("x")  # rebuilt by the port's load_image
     HEADLINE_FIXTURE.parent.mkdir(parents=True, exist_ok=True)
@@ -219,7 +523,15 @@ if __name__ == "__main__":
     np.savez_compressed(HEADLINE_MASKS, masks=build_headline_masks(arrays["mask"]))
     ref = run_jax_nlm()
     np.savez_compressed(NLM_MASKS, masks=build_nlm_masks(np.asarray(nlm_problem().mask)), **ref)
-    for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS):
+    deblur = build_deblur_arrays()
+    deblur.update(run_jax_deblur())
+    np.savez_compressed(DEBLUR_FIXTURE, **deblur)
+    pr = build_pr_arrays()
+    np.savez_compressed(PR_FIXTURE, **pr)
+    for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE):
         print(f"wrote {path} ({path.stat().st_size} bytes)", file=sys.stderr)
     print(f"JAX CSMRI + NLM: final PSNR {ref['psnr_per_iter'][-1]:.4f} dB, "
           f"SSIM {float(ref['ssim']):.4f}", file=sys.stderr)
+    print(f"JAX Deblur + BM3D: final PSNR {deblur['deblur_bm3d/psnr_per_iter'][-1]:.4f} dB; "
+          f"JAX PR + BM3D: final PSNR {pr['psnr_per_iter'][-1]:.4f} dB, SSIM {float(pr['ssim']):.4f}",
+          file=sys.stderr)
