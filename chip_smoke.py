@@ -51,11 +51,27 @@ imports no JAX. Phases, each printing one JSON line:
    one lane each (B = 1), in the same pattern (three spread seeds), on the
    problems the JAX package built (``pr_bm3d_128.npz``, ``deblur_256.npz``);
    three runs each on the JAX runs' minibatches, whose mean is held to the
-   lane's quality floor, and each problem is also built once through
+   lane's quality floor (Deblur: 0.5 dB under ``BENCH_r05.json``; PR and
+   Deblur-SR: 0.5 dB under the JAX CPU run on the same problem and
+   minibatches, whose trace is reported beside), and each problem is also
+   built once through
    ``make_phase_retrieval`` or ``make_deblur`` on the card;
-11. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
-   pr_bm3d and deblur_sr_bm3d under ``torch.profiler``: device time by
-   kernel, grouped, and the device's busy share of the run's wall time.
+11. pr_sarah_realsn: ``bench.py``'s PR + PnP-SARAH + RealSN-DnCNN lane (8
+   replicas of the PR problem, A held once, 30 x 8, minibatch 800,
+   RealSN-DnCNN sigma 5): a warm-up and a timed run on the port's own
+   generator (image-iterations/s, peak device memory), then two runs on the
+   JAX run's row indices (``pr_sarah_realsn_128.npz``), whose replica-mean
+   PSNR is held to the JAX CPU run's less 0.5 dB, whose first two outer
+   rounds are held entry by entry to the JAX trace, and which must repeat
+   each other exactly (cuDNN is held to deterministic algorithms);
+12. loops: ``run_pnp`` drives GD, SGD, SAGA and SARAH (both variants) on the
+   CSMRI + NLM lane's problem, each a few steps: finite traces, K3 launched
+   once a denoise, and ``pnp_gd``'s trace held to a JAX CPU ``pnp_gd`` trace
+   stored in the NLM fixture;
+13. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
+   pr_bm3d, deblur_sr_bm3d and pr_sarah_realsn under ``torch.profiler``:
+   device time by kernel, grouped (the CNN denoiser's convolutions and
+   BatchNorm as cuDNN's), and the device's busy share of the run's wall time.
 
 The tuned per-lane step sizes sit at the stability edge of the reference's
 own key stream: on other minibatch streams single lanes diverge, so the
@@ -80,7 +96,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
+from pnp_svrg_tpu_torch.algorithms.loops import pnp_sarah, pnp_svrg, run_pnp
 from pnp_svrg_tpu_torch.convert import (
     BENCH_LANES,
     bench_config,
@@ -90,12 +106,16 @@ from pnp_svrg_tpu_torch.convert import (
     load_deblur_reference,
     load_headline_masks,
     load_headline_problems,
+    load_nlm_gd_reference,
     load_nlm_masks,
     load_nlm_problem,
     load_nlm_reference,
     load_pr_indices,
     load_pr_problem,
     load_pr_reference,
+    load_pr_sarah_indices,
+    load_pr_sarah_problem,
+    load_pr_sarah_reference,
     nlm_params,
 )
 from pnp_svrg_tpu_torch.denoisers.bm3d import (
@@ -111,6 +131,7 @@ from pnp_svrg_tpu_torch.denoisers.bm3d import (
     search_offsets,
     stage1_aggregate_inputs,
 )
+from pnp_svrg_tpu_torch.denoisers.dncnn import DnCNNDenoiser
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import _build
@@ -142,14 +163,37 @@ HEADLINE_FLOOR_DB, TURBO_FLOOR_DB, TURBO4_FLOOR_DB = 25.5, 25.86, 25.20
 NLM_REF_DB, NLM_REF_SSIM = 27.09, 0.8291  # BENCH_r05.json csmri_nlm_*
 NLM_FLOOR_DB, NLM_TRACE_TOL_DB = 26.59, 0.05
 # bench.py's PR and Deblur lanes: the JAX package's (PSNR, SSIM),
-# BENCH_r05.json; the Deblur floors are 0.5 dB under them, the PR floor
-# 0.5 dB under the JAX CPU run on the fixture's problem (another A than
-# BENCH_r05.json's, whose 28.33 dB is reported beside it for information).
+# BENCH_r05.json, reported beside each run for information. The Deblur
+# floor is 0.5 dB under it; the PR and Deblur-SR floors are 0.5 dB under
+# the JAX CPU run on the fixture's problem and minibatches (the PR lane's A
+# is another than BENCH_r05.json's; the SR lane's run takes the Pallas
+# matcher's bf16 rounding, interpreted).
 BENCH_RUNS = ("pr_bm3d", "deblur_bm3d", "deblur_sr_bm3d")
 BENCH_REF = {"pr_bm3d": (28.33, 0.897), "deblur_bm3d": (19.10, 0.4902),
              "deblur_sr_bm3d": (18.69, 0.5149)}
-BENCH_FLOOR_DB = {"deblur_bm3d": 18.60, "deblur_sr_bm3d": 18.19}
+BENCH_FLOOR_DB = {"deblur_bm3d": 18.60}
 BENCH_BELOW_JAX_DB = 0.5
+# The PR + SARAH + RealSN lane (bench.py:544-600): its A is the PR lane's
+# RandomState(4) matrix, not the JAX package's own, so BENCH_r05.json's
+# 20.63 dB replica mean does not apply; the floor is the JAX CPU run's
+# replica mean on the same A and row indices, less BENCH_BELOW_JAX_DB.
+SARAH_BENCH_R05_DB = 20.63
+# The lane amplifies rounding: on the same indices an H100's trace and the
+# JAX CPU trace agree to about 1e-5 dB through the first two outer rounds,
+# then part about tenfold a round (dB apart at the end), so the path is
+# pinned entry by entry over those two rounds.
+SARAH_EARLY_ROUNDS, SARAH_EARLY_TOL_DB = 2, 1e-4
+# The loops phase: run_pnp on the CSMRI + NLM lane's problem, a few steps each
+# (K3 launches: one a denoise; SARAH denoises 1 + t2 times a round).
+LOOP_RUNS = {
+    "gd": ("gd", {}),
+    "sgd": ("sgd", {"n_iters": 10, "mini_batch_size": MINI_BATCH}),
+    "saga": ("saga", {"n_iters": 10, "mini_batch_size": MINI_BATCH, "hist_size": 50}),
+    "sarah": ("sarah", {"n_outer": 2, "t2": 4, "mini_batch_size": MINI_BATCH, "variant": "sarah"}),
+    "sarah_faithful": ("sarah", {"n_outer": 2, "t2": 4, "mini_batch_size": MINI_BATCH,
+                                 "variant": "faithful"}),
+}
+GD_TRACE_TOL_DB = 0.01  # pnp_gd on the card against the JAX CPU trace
 BENCH_SPREAD_SEEDS = (3, 4, 5)
 # K2 adds with f32 atomics, so runs on the same minibatches differ in the
 # last bits, and the PR lane carries such differences to its end (one ulp on
@@ -166,6 +210,11 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("K1 bm3d_match", ("bm3d_match_kernel",)),
     ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel",)),
     ("K3 nlm", ("nlm_kernel",)),
+    # Before the matmul group: cuDNN's implicit-GEMM convolutions
+    # (``sm80_xmma_fprop_implicit_gemm_*``) carry "gemm" too; cuBLAS's
+    # matmuls are ``*_xmma_gemm_*`` with no "fprop". cuDNN's BatchNorm
+    # (``cudnn::bn_fw_inf_*``) counts here as well.
+    ("cuDNN conv, BN (CNN denoiser)", ("fprop", "cudnn", "convolve", "winograd")),
     ("matmul (3-D transform)", ("gemm", "cutlass")),
     ("fft", ("fft",)),
     ("gather/index", ("index", "gather", "Index")),
@@ -717,16 +766,22 @@ def quality(prob, out, lanes, refs, check: bool = True) -> dict:
 
 def drive(prob, den, eta, lr_decay: float = 1.0, n_outer: int = N_OUTER, t2: int = T2,
           mini_batch: int = MINI_BATCH):
-    """A warm-up run, then the timed run on the port's generator (seed 2)
-    with every kernel's launches counted from 0 and any implicit host-device
-    synchronisation an error. Returns (run, output, steady s, first s,
-    launches)."""
+    """:func:`timed` runs of a PnP-SVRG lane. Returns (run, output, steady s,
+    first s, launches)."""
 
     def run(seed=None, masks=None):
         gen = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
         return pnp_svrg(prob, den, eta, n_outer, t2, mini_batch, generator=gen, masks=masks,
                         lr_decay=lr_decay)
 
+    return (run,) + timed(run)
+
+
+def timed(run) -> tuple:
+    """A warm-up ``run(seed=1)``, then the timed ``run(seed=2)`` on the port's
+    generator with every kernel's launches counted from 0 and any implicit
+    host-device synchronisation an error. Returns (output, steady s, first
+    s, launches)."""
     t0 = time.perf_counter()
     run(seed=1)  # warm-up
     torch.cuda.synchronize()
@@ -743,7 +798,7 @@ def drive(prob, den, eta, lr_decay: float = 1.0, n_outer: int = N_OUTER, t2: int
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
     launches = {n: k.launches for n, k in KERNELS.items()}
-    return run, out, steady, first, launches
+    return out, steady, first, launches
 
 
 def run_lane(label: str, tuned_json: str, default_eta: float, default_mod: float,
@@ -850,7 +905,7 @@ def bench_lane(label: str) -> dict:
         prob, ref_mb, jax_ref = load_pr_problem("cuda"), load_pr_indices("cuda"), load_pr_reference()
     else:
         prob, ref_mb = load_deblur_problem(label, "cuda"), load_deblur_masks(label, "cuda")
-        jax_ref = load_deblur_reference() if label == "deblur_bm3d" else None
+        jax_ref = load_deblur_reference(label)
     return {"label": label, "cfg": cfg, "prob": prob, "ref_mb": ref_mb, "jax_ref": jax_ref,
             "den": BM3DDenoiser(sigma_modifier=cfg["sigma_modifier"], params=cfg["params"]),
             "eta": torch.tensor(cfg["eta"], device="cuda")}
@@ -957,6 +1012,130 @@ def run_bench_lane(lane: dict) -> dict:
     return rec
 
 
+def sarah_lane() -> dict:
+    """The PR + SARAH + RealSN lane on the card: its configuration, the 8
+    replicas holding one A, the RealSN-DnCNN denoiser, ``eta`` as a device
+    tensor, the JAX run's row indices and its reference."""
+    cfg = bench_config("pr_sarah_realsn")
+    return {"cfg": cfg, "prob": load_pr_sarah_problem("cuda"),
+            "den": DnCNNDenoiser.from_pretrained("RealSN_DnCNN", cfg["realsn_sigma"], device="cuda"),
+            "eta": torch.tensor(cfg["eta"], device="cuda"), "ref_mb": load_pr_sarah_indices("cuda"),
+            "jax_ref": load_pr_sarah_reference()}
+
+
+def sarah_run(lane: dict, seed=None, masks=None):
+    cfg = lane["cfg"]
+    gen = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
+    return pnp_sarah(lane["prob"], lane["den"], lane["eta"], cfg["n_outer"], cfg["t2"],
+                     cfg["mini_batch_size"], generator=gen, masks=masks, lr_decay=cfg["lr_decay"],
+                     variant=cfg["variant"])
+
+
+def run_sarah_lane(lane: dict, card: str, mem_before_gb: float) -> dict:
+    """PR + SARAH + RealSN at full width: a warm-up and a timed run on the
+    port's generator (launches counted, no host-device sync allowed), then
+    two runs on the JAX run's row indices, whose replica-mean PSNR is held to
+    the JAX CPU run's less :data:`BENCH_BELOW_JAX_DB` and which must agree
+    exactly; the lane's peak device memory above what was allocated before
+    it was built (``mem_before_gb``): one A (537 MB) and the run's working
+    set, under the 4.3 GB that 8 copies of A would take."""
+    cfg, prob = lane["cfg"], lane["prob"]
+    require(prob.a.shape[0] == 1 and prob.batch_size == cfg["replicas"], "pr_sarah_realsn: one A for all lanes")
+    a_gb = prob.a.numel() * 4 / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, steady, first, launches = timed(lambda seed: sarah_run(lane, seed=seed))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    own = lane_quality(prob, out)
+    own_trace = own.pop("_trace")
+    refs = [lane_quality(prob, sarah_run(lane, masks=lane["ref_mb"])) for _ in range(2)]
+    repeat_equal = bool(np.array_equal(refs[0]["_trace"], refs[1]["_trace"]))
+    trace = refs[0].pop("_trace")
+    refs[1].pop("_trace")
+    jax_trace, jax_ssim = lane["jax_ref"]["psnr_per_iter"], lane["jax_ref"]["ssim"]
+    psnr = np.asarray(refs[0]["per_lane_psnr_db"])
+    jax_mean = float(jax_trace[-1].mean())
+    early = 1 + SARAH_EARLY_ROUNDS * (cfg["t2"] + 1)
+    early_diff = float(np.abs(trace[:early] - jax_trace[:early]).max())
+    floor = jax_mean - BENCH_BELOW_JAX_DB
+    iters = cfg["replicas"] * cfg["n_outer"] * (cfg["t2"] + 1)
+    rec = {
+        "phase": "pr_sarah_realsn", "lanes": cfg["replicas"], "card": card,
+        "steady_s": steady, "first_s": first, "image_iters_per_s": iters / steady,
+        "image_iters": iters, "launches": launches, "peak_mem_gb": peak_gb, "a_gb": a_gb,
+        "lane_peak_mem_gb": peak_gb - mem_before_gb, "mem_before_lane_gb": mem_before_gb,
+        "reference_minibatches": {
+            "replica_mean_psnr_db": float(psnr.mean()), "replica_min_psnr_db": float(psnr.min()),
+            "per_replica_psnr_db": refs[0]["per_lane_psnr_db"], "per_replica_ssim": refs[0]["per_lane_ssim"],
+            "mean_ssim": float(np.mean(refs[0]["per_lane_ssim"])),
+            "jax_cpu_replica_mean_psnr_db": jax_mean,
+            "jax_cpu_per_replica_psnr_db": [float(v) for v in jax_trace[-1]],
+            "jax_cpu_per_replica_ssim": [float(v) for v in jax_ssim],
+            "delta_replica_mean_db_vs_jax_cpu": float(psnr.mean()) - jax_mean,
+            "trace_max_abs_db_vs_jax_cpu": float(np.abs(trace - jax_trace).max()),
+            f"trace_max_abs_db_vs_jax_cpu_first_{early}_entries": early_diff,
+            "first_entry_off_by_0.01_db_vs_jax_cpu": int(np.argmax(np.abs(trace - jax_trace).max(1) > 0.01)),
+            "repeat_replica_mean_psnr_db": float(np.mean(refs[1]["per_lane_psnr_db"])),
+            "repeat_trace_equal": repeat_equal,
+            "bench_r05_psnr_db_other_a": SARAH_BENCH_R05_DB,
+        },
+        "floor_db": floor,
+        "port_stream_seed2": {"replica_mean_psnr_db": float(np.mean(own["per_lane_psnr_db"])),
+                              "per_replica_psnr_db": own["per_lane_psnr_db"],
+                              "final_trace_entries": [float(v) for v in own_trace[-1]]},
+        "config": {k: cfg[k] for k in ("eta", "lr_decay", "n_outer", "t2", "mini_batch_size",
+                                       "replicas", "realsn_sigma", "variant")},
+    }
+    emit(rec)
+    require(launches == {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": 0},
+            f"pr_sarah_realsn: launches {launches}, expected none")
+    require(repeat_equal, "pr_sarah_realsn: two runs on the same row indices differ")
+    require(early_diff <= SARAH_EARLY_TOL_DB,
+            f"pr_sarah_realsn: the first {early} trace entries are {early_diff:.2e} dB off the JAX trace")
+    require(float(psnr.mean()) >= floor,
+            f"pr_sarah_realsn: replica mean {psnr.mean():.2f} dB < {floor:.2f} (JAX CPU {jax_mean:.2f})")
+    require(peak_gb - mem_before_gb < cfg["replicas"] * a_gb,
+            f"pr_sarah_realsn: the lane's peak memory {peak_gb - mem_before_gb:.2f} GB "
+            f"is not under {cfg['replicas']} copies of A")
+    return rec
+
+
+def run_loops() -> dict:
+    """``run_pnp`` drives GD, SGD, SAGA and SARAH (both variants) on the
+    CSMRI + NLM lane's problem: finite traces, K3 launched once a denoise,
+    and ``pnp_gd``'s trace held to the JAX CPU ``pnp_gd`` trace entry by
+    entry within :data:`GD_TRACE_TOL_DB`."""
+    prob, den, _, _ = nlm_lane()
+    gd_ref = load_nlm_gd_reference()
+    eta = torch.tensor(gd_ref["eta"], device="cuda")
+    runs = {}
+    for label, (algo, kw) in LOOP_RUNS.items():
+        kw = dict(kw, n_iters=gd_ref["n_iters"]) if algo == "gd" else kw
+        denoises = kw.get("n_iters", kw.get("n_outer", 0) * (1 + kw.get("t2", 0)))
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        for k in KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_pnp(algo, prob, den, eta=eta, generator=gen, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in KERNELS.items()}
+        trace = out["psnr_per_iter"][:, 0].cpu().numpy()
+        runs[label] = {"algo_name": out["algo_name"], "seconds": seconds, "launches": launches,
+                       "expected_k3": denoises, "trace_psnr_db": [float(v) for v in trace], **kw}
+        require(np.isfinite(trace).all(), f"loops/{label}: non-finite trace")
+        require(launches == {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": denoises},
+                f"loops/{label}: launches {launches}, expected K3 = {denoises}")
+        if algo == "gd":
+            dtrace = float(np.abs(trace - gd_ref["psnr_per_iter"]).max())
+            runs[label]["trace_max_abs_db_vs_jax_cpu"] = dtrace
+            runs[label]["jax_cpu_trace_psnr_db"] = [float(v) for v in gd_ref["psnr_per_iter"]]
+            require(dtrace <= GD_TRACE_TOL_DB, f"loops/gd: trace {dtrace:.4f} dB off the JAX trace")
+    emit({"phase": "loops", "eta": gd_ref["eta"], "runs": runs})
+    return runs
+
+
 def phase_profile(label: str, run) -> dict:
     """Device time by kernel over one run of ``run()`` (port stream)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1021,6 +1200,10 @@ def main() -> None:
         "csmri_nlm_grid": run_nlm_grid(),
     }
     lanes_run |= {label: run_bench_lane(lane) for label, lane in bench.items()}
+    mem_before_gb = torch.cuda.memory_allocated() / 1e9
+    sarah = sarah_lane()
+    lanes_run["pr_sarah_realsn"] = run_sarah_lane(sarah, dev["nvidia_smi"], mem_before_gb)
+    lanes_run |= {f"loops/{label}": rec for label, rec in run_loops().items()}
 
     for label, tuned, default_eta, default_mod, params in (
         ("headline", "set12_csmri_tuned.json", 6000.0, 1.0,
@@ -1042,6 +1225,7 @@ def main() -> None:
                   lambda: pnp_svrg(gprob, gden, geta, N_OUTER, T2, MINI_BATCH, generator=ggen))
     for label in ("pr_bm3d", "deblur_sr_bm3d"):
         phase_profile(label, lambda: bench_run(bench[label], 3))
+    phase_profile("pr_sarah_realsn", lambda: sarah_run(sarah, seed=3))
 
     # K3's times are at B = 9, so its launches are the grid lane's (B = 9);
     # its B = 1 record (csmri_nlm) stands beside them. K1's and K2's records

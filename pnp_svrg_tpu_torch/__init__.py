@@ -9,8 +9,8 @@ non-local means denoiser run as hand-written CUDA kernels on the card
 CPU.
 
 Ported so far (the Set12 CSMRI + PnP-SVRG + BM3D path, with its grid-aligned
-dense aggregation, the CSMRI + PnP-SVRG + NLM path, and phase retrieval and
-Deblur/SR with BM3D):
+dense aggregation, the CSMRI + PnP-SVRG + NLM path, phase retrieval and
+Deblur/SR with BM3D, and phase retrieval + PnP-SARAH + RealSN-DnCNN):
 
 * ``problems.csmri`` (``CSMRI``, ``make_csmri``), ``problems.deblur``
   (``Deblur``, ``make_deblur``), ``problems.pr`` (``PhaseRetrieval``,
@@ -18,16 +18,20 @@ Deblur/SR with BM3D):
 * ``denoisers.bm3d`` (``BM3DParams``, ``BM3DDenoiser``, ``bm3d_denoise_batch``)
 * ``denoisers.nlm`` (``NLMDenoiser``; ``nlm_denoise`` in ``ops.cuda.nlm``)
 * ``denoisers.tv`` (``TVDenoiser``, the wavelet BayesShrink denoiser)
-* ``algorithms.loops.pnp_svrg``
+* ``denoisers.dncnn`` (``DnCNNDenoiser``, ``MMODenoiser``) on the models of
+  ``models.dncnn`` with the Flax checkpoints' weights (``models.convert``)
+* ``algorithms.loops``: ``pnp_gd``, ``pnp_sgd``, ``pnp_svrg``, ``pnp_saga``
+  (unsharded table), ``pnp_sarah`` and ``run_pnp``
 * ``ops``: metrics, sampling, wavelets, ``estimate_sigma``, transforms, the
   1-D FFT blur and the bilinear resize pair
 * ``convert``: problem data and tuned per-lane parameters from the JAX side
 """
 
 from pnp_svrg_tpu_torch.device import default_device, resolve_device
-from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
+from pnp_svrg_tpu_torch.algorithms.loops import pnp_gd, pnp_saga, pnp_sarah, pnp_sgd, pnp_svrg, run_pnp
 from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DDenoiser, BM3DParams, bm3d_denoise_batch
+from pnp_svrg_tpu_torch.denoisers.dncnn import DnCNNDenoiser, MMODenoiser
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser, nlm_denoise
 from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.problems.csmri import CSMRI, make_csmri
@@ -37,11 +41,18 @@ from pnp_svrg_tpu_torch.problems.pr import PhaseRetrieval, make_phase_retrieval
 __all__ = [
     "default_device",
     "resolve_device",
+    "pnp_gd",
+    "pnp_sgd",
     "pnp_svrg",
+    "pnp_saga",
+    "pnp_sarah",
+    "run_pnp",
     "stack_problems",
     "BM3DDenoiser",
     "BM3DParams",
     "bm3d_denoise_batch",
+    "DnCNNDenoiser",
+    "MMODenoiser",
     "NLMDenoiser",
     "nlm_denoise",
     "TVDenoiser",

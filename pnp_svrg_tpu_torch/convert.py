@@ -1,5 +1,6 @@
-"""State carried over from the JAX package: problem data and per-lane
-hyperparameters (this path has no learned weights).
+"""State carried over from the JAX package: problem data, per-lane
+hyperparameters and reference runs (the CNN denoisers' weights are read by
+``denoisers/dncnn.py``).
 
 * :func:`csmri_from_numpy` builds the port's batched ``CSMRI`` from the JAX
   ``CSMRI`` fields as numpy arrays.
@@ -18,7 +19,9 @@ hyperparameters (this path has no learned weights).
   :func:`nlm_params` the tuned configuration and its provenance grid from
   ``data/csmri_nlm_tuned.json``, :func:`load_nlm_masks` the minibatch masks
   of the JAX lane's run (``data/csmri_nlm_masks_key2.npz``, an unbatched key
-  chain) and :func:`load_nlm_reference` that run's PSNR trace and SSIM.
+  chain) and :func:`load_nlm_reference` that run's PSNR trace and SSIM;
+  :func:`load_nlm_gd_reference` a short JAX ``pnp_gd`` run on the same
+  problem, against which the port's ``pnp_gd`` is held on the card.
 
 * The Deblur lanes (``bench.py:602-717``): :func:`bench_config` is a lane's
   tuned configuration (``data/deblur_tuned.json``,
@@ -29,7 +32,8 @@ hyperparameters (this path has no learned weights).
   with the SR lane's kernel, whose PIL resampling depends on the Pillow
   version), :func:`load_deblur_masks` the minibatch masks of each lane's
   JAX run (``PRNGKey(2)``, the unbatched key chain) and
-  :func:`load_deblur_reference` the JAX CPU run's trace of the Minimal lane.
+  :func:`load_deblur_reference` the JAX CPU run's trace of either lane (the
+  SR lane's in its own matcher rounding, the Pallas matcher's bf16).
 * The PR + BM3D lane (``bench.py:508-542``): its 8192 x 16384 matrix A is
   too large to commit, so both sides build it from
   ``numpy.random.RandomState(seed)`` (:func:`pr_matrix`), a stream numpy
@@ -40,6 +44,15 @@ hyperparameters (this path has no learned weights).
   (``PRNGKey(5)``) and :func:`load_pr_reference` its PSNR trace and SSIM.
   :func:`pr_from_numpy` builds the port's ``PhaseRetrieval`` from JAX
   fields.
+* The PR + SARAH + RealSN-DnCNN lane (``bench.py:544-600``, 8 replicas of
+  the PR problem): :func:`load_pr_sarah_problem` is the PR fixture's problem
+  in 8 lanes that hold A once, :func:`load_pr_sarah_indices` the replicas'
+  minibatch row indices of the JAX run (``PRNGKey(5)``, the batched key
+  chain with a ``fold_in`` per lane) and :func:`load_pr_sarah_reference`
+  that JAX CPU run's trace and per-replica SSIM
+  (``data/pr_sarah_realsn_128.npz``). ``BENCH_r05.json``'s 20.63 dB for
+  this lane was measured on the JAX package's own A, which the port cannot
+  rebuild; on the ``RandomState(4)`` A the reference is that JAX run.
 
 The fixtures are written by ``python tests/test_torch_fixture.py``.
 """
@@ -53,6 +66,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DParams
 from pnp_svrg_tpu_torch.device import resolve_device
 from pnp_svrg_tpu_torch.ops.fourier import fft_blur_1d_adjoint_kernel
@@ -69,6 +83,7 @@ NLM_TUNED = DATA_DIR / "csmri_nlm_tuned.json"
 NLM_LANE = "13.png"
 DEBLUR_FIXTURE = HEADLINE_FIXTURE.parent / "deblur_256.npz"
 PR_FIXTURE = HEADLINE_FIXTURE.parent / "pr_bm3d_128.npz"
+PR_SARAH_FIXTURE = HEADLINE_FIXTURE.parent / "pr_sarah_realsn_128.npz"
 
 # bench.py's three lanes: the problem, bench.py's defaults and the tuned
 # JSON merged over them (bench.py:508-542, 602-661, 663-717).
@@ -88,6 +103,12 @@ BENCH_LANES = {
         "image": "Set12/01.png", "size": 256, "kernel": "kernel25.png", "scale_percent": 50,
         "snr": 20.0, "tuned": "deblur_sr_tuned.json",
         "defaults": (1.2, 1.0, 12.0, 24, 10, 5000),
+    },
+    # The PR lane's problem in 8 replicas, PnP-SARAH + RealSN-DnCNN.
+    "pr_sarah_realsn": {
+        "image": "Set12/04.png", "size": 128, "num_meas": 8192, "snr": 20.0,
+        "tuned": "pr_sarah_realsn_tuned.json",
+        "defaults": (0.05, 0.99, 1.0, 20, 8, 800),
     },
 }
 DEBLUR_LANES = ("deblur_bm3d", "deblur_sr_bm3d")
@@ -209,12 +230,22 @@ def load_nlm_reference(path=NLM_MASKS) -> dict:
         return {"psnr_per_iter": f["psnr_per_iter"], "ssim": float(f["ssim"])}
 
 
+def load_nlm_gd_reference(path=NLM_MASKS) -> dict:
+    """A JAX CPU ``pnp_gd`` run of the CSMRI + NLM lane's problem and
+    denoiser: its ``eta``, ``n_iters`` and ``psnr_per_iter``
+    (``1 + n_iters`` entries)."""
+    with np.load(path) as f:
+        return {"eta": float(f["gd_eta"]), "n_iters": int(f["gd_n_iters"]),
+                "psnr_per_iter": f["gd_psnr_per_iter"]}
+
+
 def bench_config(lane: str) -> dict:
     """One of :data:`BENCH_LANES` with its run configuration resolved as
     ``bench.py`` resolves it: ``eta``, ``lr_decay``, ``sigma_modifier``,
-    ``n_outer``, ``t2``, ``mini_batch_size`` and ``params``, the
-    ``BM3DParams`` (search 8; the Deblur lanes take ``search_step``,
-    ``matcher`` and ``match_dtype`` from their JSON)."""
+    ``n_outer``, ``t2``, ``mini_batch_size`` and, for a BM3D lane,
+    ``params``, the ``BM3DParams`` (search 8; the Deblur lanes take
+    ``search_step``, ``matcher`` and ``match_dtype`` from their JSON), or for
+    the PR + SARAH lane ``replicas``, ``realsn_sigma`` and ``variant``."""
     spec = dict(BENCH_LANES[lane])
     with open(DATA_DIR / spec["tuned"]) as f:
         tuned = json.load(f)
@@ -222,6 +253,9 @@ def bench_config(lane: str) -> dict:
     cfg.update({k: tuned[k] for k in _RUN_KEYS if k in tuned})
     for k in ("n_outer", "t2", "mini_batch_size"):
         cfg[k] = int(cfg[k])
+    if lane == "pr_sarah_realsn":
+        return {**spec, **cfg, "replicas": int(tuned["replicas"]),
+                "realsn_sigma": int(tuned["realsn_sigma"]), "variant": str(tuned["variant"])}
     extra = {}
     if lane in DEBLUR_LANES:
         extra = {"search_step": int(tuned.get("search_step", 1)),
@@ -300,12 +334,12 @@ def load_deblur_masks(lane: str, device=None, path=DEBLUR_FIXTURE) -> torch.Tens
                            device=resolve_device(device))
 
 
-def load_deblur_reference(path=DEBLUR_FIXTURE) -> dict:
-    """The JAX CPU run of the ``deblur_bm3d`` lane on its masks:
-    ``psnr_per_iter`` (``1 + n_outer*(t2+1)`` entries) and final ``ssim``."""
+def load_deblur_reference(lane: str = "deblur_bm3d", path=DEBLUR_FIXTURE) -> dict:
+    """The JAX CPU run of a Deblur lane on its masks: ``psnr_per_iter``
+    (``1 + n_outer*(t2+1)`` entries) and final ``ssim``. The SR lane's run
+    took its own matcher rounding (the Pallas matcher's bf16, interpreted)."""
     data = _fixture(path)
-    return {"psnr_per_iter": data["deblur_bm3d/psnr_per_iter"],
-            "ssim": float(data["deblur_bm3d/ssim"])}
+    return {"psnr_per_iter": data[f"{lane}/psnr_per_iter"], "ssim": float(data[f"{lane}/ssim"])}
 
 
 def pr_matrix_blocks(seed: int, m: int, n: int):
@@ -363,3 +397,26 @@ def load_pr_reference(path=PR_FIXTURE) -> dict:
     ``psnr_per_iter`` and final ``ssim``."""
     data = _fixture(path)
     return {"psnr_per_iter": data["psnr_per_iter"], "ssim": float(data["ssim"])}
+
+
+def load_pr_sarah_problem(device=None, path=PR_FIXTURE):
+    """The PR + SARAH lane's problem: the PR fixture's one-lane problem
+    (:func:`load_pr_problem`, A from ``RandomState(4)``) as
+    ``replicas`` identical lanes that hold A once, (1, M, N)."""
+    one = load_pr_problem(device, path)
+    return stack_problems([one] * bench_config("pr_sarah_realsn")["replicas"])
+
+
+def load_pr_sarah_indices(device=None, path=PR_SARAH_FIXTURE) -> torch.Tensor:
+    """(n_outer, t2, replicas, k) int64 minibatch row indices of the JAX
+    PR + SARAH run (``PRNGKey(5)``, per lane ``fold_in``), for
+    ``pnp_sarah(..., masks=...)``."""
+    return torch.as_tensor(_fixture(path)["indices"].astype(np.int64), device=resolve_device(device))
+
+
+def load_pr_sarah_reference(path=PR_SARAH_FIXTURE) -> dict:
+    """The JAX CPU run of the PR + SARAH lane on those indices:
+    ``psnr_per_iter`` (1 + n_outer*(t2+1), replicas) and the per-replica
+    final ``ssim`` (replicas,)."""
+    data = _fixture(path)
+    return {"psnr_per_iter": data["psnr_per_iter"], "ssim": data["ssim"]}

@@ -8,6 +8,12 @@ Precision: the JAX reference computes in full float32 (its SSIM filter asks
 for ``Precision.HIGHEST``, ``pnp_svrg_tpu/ops/metrics.py:61-65``). PyTorch runs
 float32 matmuls in full precision by default but lets cuDNN use TF32, so both
 switches are turned off when this module is imported.
+
+cuDNN may also pick its convolution algorithm by timing (``benchmark``) and
+pick ones that add in a varying order. The CNN denoisers' convolutions run
+under PR + SARAH, which turns one ulp into tenths of a dB, so cuDNN is held
+to deterministic algorithms: a card run on the same minibatches repeats
+itself and can be held to a floor.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
 
 
 def default_device() -> torch.device:

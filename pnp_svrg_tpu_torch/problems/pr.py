@@ -2,7 +2,11 @@
 
 Port of ``pnp_svrg_tpu/problems/pr.py``. The problem carries a leading batch
 axis natively: ``a`` is (B, M, N), ``y`` (B, M), images (B, H, W), scalars
-(B,).
+(B,). Lanes that share one matrix (replicas of one problem, as the PR +
+SARAH lane runs 8 of them) hold it once: ``a`` is then (1, M, N), every
+product with it is one matrix product over the lanes, and a minibatch
+gathers each lane's rows from it. ``stack_problems`` keeps ``a`` once when
+every lane holds the same tensor.
 
 * ``y = |A x| + noise``. Every product is a plain f32 ``torch.matmul`` (the
   JAX package leaves them to XLA outside any Pallas kernel); TF32 is off
@@ -34,12 +38,17 @@ MAX_POWER_ITERS = 10_000
 
 
 def _matvec(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, R, N) @ (B, N) -> (B, R)."""
+    """(B, R, N) @ (B, N) -> (B, R); a (1, R, N) ``a`` serves every lane in
+    one (B, N) @ (N, R) product."""
+    if a.shape[0] == 1 < v.shape[0]:
+        return v @ a[0].T
     return torch.matmul(a, v[..., None])[..., 0]
 
 
 def _rmatvec(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """(B, R, N)^T @ (B, R) -> (B, N)."""
+    """(B, R, N)^T @ (B, R) -> (B, N); a (1, R, N) ``a`` as in :func:`_matvec`."""
+    if a.shape[0] == 1 < u.shape[0]:
+        return u @ a[0]
     return torch.matmul(u[..., None, :], a)[..., 0, :]
 
 
@@ -47,7 +56,8 @@ def _rmatvec(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 class PhaseRetrieval:
     """Batched phase retrieval problem."""
 
-    a: torch.Tensor  # float32 (B, M, N), Gaussian measurement matrices
+    # float32 (B, M, N) Gaussian measurement matrices, or (1, M, N) for all lanes
+    a: torch.Tensor = dataclasses.field(metadata={"kept_once_if_same": True})
     y: torch.Tensor  # float32 (B, M), noisy magnitudes
     x: torch.Tensor  # float32 (B, H, W), ground truth
     x_init: torch.Tensor  # float32 (B, H, W), spectral init
@@ -100,8 +110,11 @@ class PhaseRetrieval:
         """Unnormalised minibatch gradient; ``mb`` is a (B, k) index tensor.
         Gathers the k rows of A of each lane (B*k*N floats)."""
         mb = mb.to(torch.int64)
-        lane = torch.arange(self.batch_size, device=mb.device)[:, None]
-        return self._amplitude_grad(self.a[lane, mb], self.y.gather(1, mb), z)
+        if self.a.shape[0] == 1:
+            rows = self.a[0].index_select(0, mb.reshape(-1)).reshape(mb.shape + (self.n,))
+        else:
+            rows = self.a[torch.arange(self.batch_size, device=mb.device)[:, None], mb]
+        return self._amplitude_grad(rows, self.y.gather(1, mb), z)
 
     def mb_shape(self, k: int) -> tuple:
         return (self.batch_size, k)
@@ -133,11 +146,12 @@ def spectral_init(
     ``mu``, so the step at which it falls under ``tol`` depends on the
     products' rounding. Each lane's products are therefore taken on their
     own (``mv`` per lane), so that a lane stops where it would alone."""
-    bsz, m, n = a.shape
+    (bsz, m), n = y.shape, a.shape[-1]
     dev = a.device
+    lane_a = [a[i if a.shape[0] > 1 else 0] for i in range(bsz)]
 
     def dv(v):
-        return torch.stack([torch.mv(a[i].T, y[i] * torch.mv(a[i], v[i])) for i in range(bsz)]) / m
+        return torch.stack([torch.mv(ai.T, y[i] * torch.mv(ai, v[i])) for i, ai in enumerate(lane_a)]) / m
     v = torch.full((bsz, n), 2.0, device=dev)
     v_old = torch.ones((bsz, n), device=dev)
     mu = torch.ones(bsz, device=dev)

@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
+from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg, run_pnp, step_schedule
 from pnp_svrg_tpu_torch.convert import load_nlm_problem
 from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers import bm3d
+from pnp_svrg_tpu_torch.denoisers.dncnn import DnCNNDenoiser, MMODenoiser
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import bm3d_match as k1
@@ -410,3 +411,54 @@ def test_faithful_bench_problems_on_the_card_match_the_cpu(cuda, which):
     # data do not pull the two images back together (mean 1.09e-3 seen once).
     tol = 3e-3 if which == "deblur_sr" else 1e-3
     assert float((b["image"].cpu() - a["image"]).abs().mean()) < tol
+
+
+@pytest.mark.parametrize("model_type,sigma", [("RealSN_DnCNN", 5), ("SimpleCNN", 15), ("MMO", None)])
+def test_cnn_denoiser_on_the_card_matches_the_cpu(cuda, model_type, sigma):
+    # cuDNN in f32 with TF32 off against the CPU's convolutions: only the
+    # summation order differs (max abs 1e-5 on [0, 1] images).
+    x = torch.tensor(_noisy(128))
+    if model_type == "MMO":
+        gpu_den, cpu_den = (MMODenoiser.from_pretrained(1, 0.01, device=d) for d in (cuda, "cpu"))
+    else:
+        gpu_den, cpu_den = (DnCNNDenoiser.from_pretrained(model_type, sigma, device=d) for d in (cuda, "cpu"))
+    gpu = gpu_den.denoise(x.to(cuda)).cpu()
+    assert float((gpu - cpu_den.denoise(x)).abs().max()) <= 1e-5
+    assert torch.equal(gpu, gpu_den.denoise(x.to(cuda)).cpu())  # cuDNN held to deterministic algorithms
+
+
+LOOP_STEPS = {"gd": dict(n_iters=1), "sgd": dict(n_iters=1, mini_batch_size=100),
+              "saga": dict(n_iters=1, mini_batch_size=100, hist_size=3),
+              "sarah": dict(n_outer=1, t2=1, mini_batch_size=100)}
+
+
+@pytest.mark.parametrize("algo", list(LOOP_STEPS))
+def test_one_step_of_each_new_loop_on_the_card_matches_the_cpu(cuda, algo):
+    gen = torch.Generator().manual_seed(0)
+    cpu = stack_problems([make_csmri(load_image(p, 32, 32), gen, 0.5, snr=10, keep_low_freq=4, device="cpu")
+                          for p in ("Set12/01.png", "13.png")])
+    gpu = type(cpu)(**{k: v.to(cuda) for k, v in vars(cpu).items()})
+    kw = dict(LOOP_STEPS[algo])
+    if algo != "gd":  # the same minibatches on both sides, drawn on the CPU
+        mb = lambda: cpu.select_mb(gen, 100)  # noqa: E731
+        lead = (1, 1) if algo == "sarah" else (1,)
+        masks = torch.stack([mb()]).reshape(lead + tuple(cpu.mb_shape(100)))
+        kw["masks"] = masks
+        if algo == "saga":
+            kw |= {"mb0": mb(), "slots": torch.tensor([1])}
+    den = NLMDenoiser(sigma_modifier=1.2)
+    before = k3.nlm_denoise.launches
+    a = run_pnp(algo, cpu, den, eta=400.0, lr_decay=0.9, **kw)
+    b = run_pnp(algo, gpu, den, eta=torch.tensor(400.0, device=cuda), lr_decay=0.9,
+                **{k: v.to(cuda) if torch.is_tensor(v) else v for k, v in kw.items()})
+    assert k3.nlm_denoise.launches - before == (2 if algo == "sarah" else 1)
+    np.testing.assert_allclose(b["psnr_per_iter"].cpu().numpy(), a["psnr_per_iter"].numpy(), atol=0.05)
+    assert float((b["image"].cpu() - a["image"]).abs().mean()) < 1e-3
+
+
+def test_step_schedule_on_the_card_is_the_cpu_schedule(cuda):
+    eta = torch.tensor([0.2, 0.05])
+    want = step_schedule(eta, 0.99, 30, "cpu")
+    for e in (eta, eta.to(cuda)):
+        got = step_schedule(e, 0.99, 30, cuda)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)

@@ -14,14 +14,18 @@ files.
 (``bench.py:465-506``): the one-lane ``13.png`` problem run unbatched with
 ``PRNGKey(2)``, whose key chain has no per-lane ``fold_in``. Beside the masks
 it stores that JAX run's PSNR trace and final SSIM (``NLMDenoiser`` on its
-jnp path, on the CPU), against which the port's run on the card is held.
+jnp path, on the CPU), against which the port's run on the card is held,
+and the trace of a 10-iteration JAX ``pnp_gd`` on the same problem, which
+holds the port's ``pnp_gd`` on the card.
 
 ``deblur_256.npz`` holds the two Deblur lanes (``bench.py:602-717``) as
 ``make_deblur(PRNGKey(0), ...)`` builds them (``y``, ``x_init``, ``sigma``,
 ``snr``; for the SR lane also its kernel ``b``, since PIL's default
 resampling of ``kernel25.png`` depends on the Pillow version), each lane's
-minibatch masks of the unbatched ``PRNGKey(2)`` chain, bit-packed, and the
-JAX CPU run's PSNR trace and SSIM of the Minimal lane.
+minibatch masks of the unbatched ``PRNGKey(2)`` chain, bit-packed, and each
+lane's JAX CPU run's PSNR trace and SSIM; the SR lane's run takes its own
+matcher rounding (``matcher="pallas_interpret"``, bf16: the Pallas matcher,
+interpreted on the CPU).
 
 ``pr_bm3d_128.npz`` holds the PR + BM3D lane (``bench.py:508-542``) on a
 matrix A drawn from ``numpy.random.RandomState(4)`` (``convert.pr_matrix``;
@@ -32,13 +36,23 @@ A itself is 537 MB and is rebuilt on load): the JAX package's ``y``
 the unbatched ``PRNGKey(5)`` chain, and the JAX CPU run's PSNR trace and
 SSIM.
 
-Regenerate them all with ``python tests/test_torch_fixture.py`` (the PR and
-Deblur reference runs take some minutes on the CPU).
+``pr_sarah_realsn_128.npz`` holds the PR + SARAH + RealSN-DnCNN lane
+(``bench.py:544-600``): 8 replicas of the PR fixture's problem (its ``y`` and
+``x_init`` on the ``RandomState(4)`` A), the replicas' minibatch row indices
+of the batched ``PRNGKey(5)`` chain (``k, k_mb = split(k)`` per inner step,
+then ``fold_in(k_mb, lane)`` per lane), and the JAX CPU ``pnp_sarah`` run's
+(1 + n_outer*(t2+1), 8) PSNR trace and per-replica SSIM. That run stacks A
+8 times (4.3 GB).
+
+Regenerate them all with ``python tests/test_torch_fixture.py``, or some
+with ``python tests/test_torch_fixture.py headline nlm deblur pr pr_sarah``
+(the Deblur reference runs take about 10 minutes on the CPU, the PR one 10,
+the PR + SARAH one 5).
 ``python tests/test_torch_fixture.py --cpu-lanes`` writes nothing: it runs
-the port's plain CPU path on the Deblur and PR lanes' fixture problems and
-JAX minibatches against the stored JAX traces, and both sides' PR lane again
-with ``y`` or ``x_init`` moved up one ulp, to show how far rounding alone
-moves that lane's result (about 10 minutes).
+the port's plain CPU path on the Deblur, PR and PR + SARAH lanes' fixture
+problems and JAX minibatches against the stored JAX traces, and both sides'
+PR lane again with ``y`` or ``x_init`` moved up one ulp, to show how far
+rounding alone moves that lane's result (about 30 minutes).
 """
 
 from __future__ import annotations
@@ -52,12 +66,16 @@ import numpy as np
 import pytest
 import torch
 
+from pnp_svrg_tpu.algorithms.loops import pnp_gd as jax_pnp_gd
+from pnp_svrg_tpu.algorithms.loops import pnp_sarah as jax_pnp_sarah
 from pnp_svrg_tpu.algorithms.loops import pnp_svrg as jax_pnp_svrg
 from pnp_svrg_tpu.core.batched import BatchedProblem
+from pnp_svrg_tpu.core.batched import stack_problems as jax_stack_problems
 from pnp_svrg_tpu.core.problem import minmax_normalize as jax_minmax_normalize
 from pnp_svrg_tpu.core.problem import resolve_noise as jax_resolve_noise
 from pnp_svrg_tpu.denoisers.bm3d import BM3DDenoiser as JaxBM3DDenoiser
 from pnp_svrg_tpu.denoisers.bm3d import BM3DParams as JaxBM3DParams
+from pnp_svrg_tpu.denoisers.dncnn import DnCNNDenoiser as JaxDnCNNDenoiser
 from pnp_svrg_tpu.denoisers.nlm import NLMDenoiser as JaxNLMDenoiser
 from pnp_svrg_tpu.ops.metrics import ssim as jax_ssim
 from pnp_svrg_tpu.problems import make_csmri
@@ -78,6 +96,7 @@ from pnp_svrg_tpu_torch.convert import (
     NLM_MASKS,
     PR_CHECK_ENTRIES,
     PR_FIXTURE,
+    PR_SARAH_FIXTURE,
     PR_SEED,
     bench_config,
     load_deblur_masks,
@@ -85,12 +104,16 @@ from pnp_svrg_tpu_torch.convert import (
     load_deblur_reference,
     load_headline_masks,
     load_headline_problems,
+    load_nlm_gd_reference,
     load_nlm_masks,
     load_nlm_problem,
     load_nlm_reference,
     load_pr_indices,
     load_pr_problem,
     load_pr_reference,
+    load_pr_sarah_indices,
+    load_pr_sarah_problem,
+    load_pr_sarah_reference,
     nlm_params,
     pr_matrix_blocks,
 )
@@ -183,6 +206,19 @@ def run_jax_nlm() -> dict:
             "ssim": np.float32(jax_ssim(prob.x, out["image"]))}
 
 
+NLM_GD_ITERS = 10  # the short pnp_gd run stored beside the NLM masks
+
+
+def run_jax_nlm_gd() -> dict:
+    """JAX ``pnp_gd`` on the CSMRI + NLM lane's problem and denoiser (jnp
+    NLM path) at the tuned eta, ``NLM_GD_ITERS`` iterations."""
+    cfg = nlm_params()
+    out = jax_pnp_gd(nlm_problem(), JaxNLMDenoiser(sigma_modifier=cfg["sigma_modifier"], use_pallas=False),
+                     eta=cfg["eta"], n_iters=NLM_GD_ITERS)
+    return {"gd_eta": np.float32(cfg["eta"]), "gd_n_iters": np.int64(NLM_GD_ITERS),
+            "gd_psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32)}
+
+
 def deblur_problem(lane: str):
     """A Deblur lane's unbatched JAX problem as bench.py builds it."""
     cfg = BENCH_LANES[lane]
@@ -231,19 +267,21 @@ def build_deblur_arrays() -> dict:
     return arrays
 
 
-def run_jax_deblur() -> dict:
-    """The JAX Minimal Deblur lane (data/deblur_tuned.json, f32 XLA matcher,
-    PRNGKey(2)) on the CPU: PSNR trace and final SSIM."""
-    cfg = bench_config("deblur_bm3d")
+def run_jax_deblur(lane: str = "deblur_bm3d") -> dict:
+    """A JAX Deblur lane (its tuned JSON, PRNGKey(2)) on the CPU: PSNR trace
+    and final SSIM. The Minimal lane takes the f32 XLA matcher; the SR lane's
+    Pallas matcher runs interpreted, in its own bf16 rounding."""
+    cfg = bench_config(lane)
     p = cfg["params"]
-    prob = deblur_problem("deblur_bm3d")
+    prob = deblur_problem(lane)
+    matcher = "pallas_interpret" if p.matcher == "pallas" else p.matcher
     den = JaxBM3DDenoiser(sigma_modifier=cfg["sigma_modifier"], params=JaxBM3DParams(
-        search=p.search, search_step=p.search_step, matcher=p.matcher, match_dtype=p.match_dtype))
+        search=p.search, search_step=p.search_step, matcher=matcher, match_dtype=p.match_dtype))
     out = jax_pnp_svrg(prob, den, eta=cfg["eta"], n_outer=cfg["n_outer"], t2=cfg["t2"],
                        mini_batch_size=cfg["mini_batch_size"], lr_decay=cfg["lr_decay"],
                        key=jax.random.PRNGKey(MASK_KEY))
-    return {"deblur_bm3d/psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32),
-            "deblur_bm3d/ssim": np.float32(jax_ssim(prob.x, out["image"]))}
+    return {f"{lane}/psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32),
+            f"{lane}/ssim": np.float32(jax_ssim(prob.x, out["image"]))}
 
 
 PR_NOISE_KEY, PR_MB_KEY = 4, 5  # bench.py:520-531
@@ -315,6 +353,57 @@ def build_pr_arrays() -> dict:
         "sigma": np.float32(prob.sigma), "snr": np.float32(prob.snr),
         "indices": pr_indices(a.shape[0]), **run_jax_pr(prob),
     }
+
+
+def pr_fixture_problem(a: np.ndarray) -> JaxPhaseRetrieval:
+    """The JAX PhaseRetrieval of the PR lane on ``a`` with the PR fixture's
+    ``y``, ``x_init``, ``snr`` and ``sigma`` (what :func:`pr_problem` made)."""
+    cfg = BENCH_LANES["pr_bm3d"]
+    size = cfg["size"]
+    with np.load(PR_FIXTURE) as f:
+        data = {k: f[k] for k in ("y", "x_init", "snr", "sigma")}
+    return JaxPhaseRetrieval(
+        a=jnp.asarray(a), y=jnp.asarray(data["y"]), x=jnp.asarray(jax_load_image(cfg["image"], size, size)),
+        x_init=jnp.asarray(data["x_init"]), snr=jnp.asarray(data["snr"]), sigma=jnp.asarray(data["sigma"]),
+        h=size, w=size, num_meas=cfg["num_meas"])
+
+
+def pr_sarah_indices(m: int) -> np.ndarray:
+    """(n_outer, t2, replicas, k) int16 row indices of the PR + SARAH lane's
+    batched PRNGKey(5) chain: ``k, k_mb = split(k)`` per inner step (SARAH's
+    outer round draws none), then ``BatchedProblem.select_mb``, which takes
+    ``fold_in(k_mb, lane)`` per lane."""
+    cfg = bench_config("pr_sarah_realsn")
+    r, k_mb_size = cfg["replicas"], cfg["mini_batch_size"]
+    prob = BatchedProblem(JaxPhaseRetrieval(a=None, y=jnp.zeros((r, m)), x=None, x_init=None,
+                                            snr=jnp.zeros(r), sigma=jnp.zeros(r), num_meas=m))
+    select = jax.jit(lambda k: prob.select_mb(k, k_mb_size))
+    k = jax.random.PRNGKey(PR_MB_KEY)
+    out = []
+    for _ in range(cfg["n_outer"] * cfg["t2"]):
+        k, k_mb = jax.random.split(k)
+        out.append(np.asarray(select(k_mb)))
+    return np.stack(out).reshape((cfg["n_outer"], cfg["t2"], r, k_mb_size)).astype(np.int16)
+
+
+def run_jax_pr_sarah(prob) -> dict:
+    """The JAX PR + SARAH + RealSN-DnCNN lane as bench.py runs it: ``replicas``
+    copies of ``prob`` stacked (A 8 times), data/pr_sarah_realsn_tuned.json,
+    PRNGKey(5), on the CPU: the (T, replicas) PSNR trace and per-replica SSIM."""
+    cfg = bench_config("pr_sarah_realsn")
+    batch = jax_stack_problems([prob] * cfg["replicas"])
+    den = JaxDnCNNDenoiser.from_pretrained("RealSN_DnCNN", sigma=cfg["realsn_sigma"])
+    out = jax_pnp_sarah(batch, den, eta=cfg["eta"], n_outer=cfg["n_outer"], t2=cfg["t2"],
+                        mini_batch_size=cfg["mini_batch_size"], lr_decay=cfg["lr_decay"],
+                        key=jax.random.PRNGKey(PR_MB_KEY), variant=cfg["variant"])
+    return {"psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32),
+            "ssim": np.asarray(jax.vmap(jax_ssim)(batch.x, out["image"]), np.float32)}
+
+
+def build_pr_sarah_arrays() -> dict:
+    """The PR + SARAH fixture's arrays, the JAX reference run included."""
+    a, _ = pr_matrix_numpy()
+    return {"indices": pr_sarah_indices(a.shape[0]), **run_jax_pr_sarah(pr_fixture_problem(a))}
 
 
 @pytest.fixture(scope="module")
@@ -391,6 +480,21 @@ def test_nlm_reference_trace_is_a_fresh_jax_run():
     np.testing.assert_allclose(ref["ssim"], fresh["ssim"], atol=1e-5)
 
 
+def test_nlm_gd_reference_is_a_fresh_jax_run_and_the_port_follows_it():
+    ref = load_nlm_gd_reference()
+    assert ref["n_iters"] == NLM_GD_ITERS and ref["psnr_per_iter"].shape == (1 + NLM_GD_ITERS,)
+    fresh = run_jax_nlm_gd()  # about 10 s on the CPU
+    np.testing.assert_allclose(ref["psnr_per_iter"], fresh["gd_psnr_per_iter"], atol=1e-4)
+    from pnp_svrg_tpu_torch.algorithms.loops import pnp_gd
+    from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
+
+    out = pnp_gd(load_nlm_problem("cpu"), NLMDenoiser(sigma_modifier=nlm_params()["sigma_modifier"]),
+                 ref["eta"], ref["n_iters"])
+    # The same tolerance as the card run of chip_smoke.py's loops phase.
+    np.testing.assert_allclose(out["psnr_per_iter"][:, 0].numpy(), ref["psnr_per_iter"], atol=0.01)
+    assert ref["psnr_per_iter"][-1] > ref["psnr_per_iter"][0] + 5
+
+
 @pytest.fixture(scope="module")
 def deblur_rebuilt():
     return build_deblur_arrays()
@@ -399,7 +503,8 @@ def deblur_rebuilt():
 def test_deblur_fixture_matches_a_fresh_jax_rebuild(deblur_rebuilt):
     with np.load(DEBLUR_FIXTURE) as f:
         committed = {k: f[k] for k in f.files}
-    assert set(committed) == set(deblur_rebuilt) | {"deblur_bm3d/psnr_per_iter", "deblur_bm3d/ssim"}
+    runs = {f"{lane}/{f}" for lane in DEBLUR_LANES for f in ("psnr_per_iter", "ssim")}
+    assert set(committed) == set(deblur_rebuilt) | runs
     for name, arr in deblur_rebuilt.items():
         assert committed[name].dtype == arr.dtype, name
         np.testing.assert_array_equal(committed[name], arr, err_msg=name)
@@ -439,6 +544,52 @@ def test_deblur_reference_trace_is_a_fresh_jax_run():
     np.testing.assert_allclose(ref["ssim"], fresh["deblur_bm3d/ssim"], atol=1e-5)
 
 
+def test_deblur_sr_reference_is_stored():
+    """The SR lane's JAX CPU run (too slow to repeat here: 240 BM3D denoises
+    with the Pallas matcher interpreted; ``python tests/test_torch_fixture.py
+    deblur`` makes it)."""
+    ref = load_deblur_reference("deblur_sr_bm3d")
+    cfg = bench_config("deblur_sr_bm3d")
+    trace = ref["psnr_per_iter"]
+    assert trace.shape == (1 + cfg["n_outer"] * (cfg["t2"] + 1),) and trace.dtype == np.float32
+    assert np.isfinite(trace).all() and 0 < ref["ssim"] <= 1
+    assert trace[-1] > trace[0] + 5  # the run reconstructs
+    assert load_deblur_reference()["psnr_per_iter"].shape == (1 + 4 * (6 + 1),)
+
+
+def test_pr_sarah_indices_match_the_batched_key_chain():
+    cfg = bench_config("pr_sarah_realsn")
+    assert (cfg["eta"], cfg["lr_decay"], cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"]) == (
+        0.05, 0.99, 30, 8, 800)
+    assert (cfg["replicas"], cfg["realsn_sigma"], cfg["variant"]) == (8, 5, "sarah")
+    with np.load(PR_SARAH_FIXTURE) as f:
+        committed = f["indices"]
+    np.testing.assert_array_equal(committed, pr_sarah_indices(BENCH_LANES["pr_bm3d"]["num_meas"]))
+    idx = load_pr_sarah_indices(device="cpu")
+    assert idx.shape == (30, 8, 8, 800) and idx.dtype == torch.int64
+    flat = idx.reshape(-1, 800)
+    assert all(len(set(step.tolist())) == 800 for step in flat[::37])
+    # fold_in gives each replica its own rows.
+    assert not torch.equal(idx[0, 0, 0], idx[0, 0, 1])
+    ref = load_pr_sarah_reference()
+    assert ref["psnr_per_iter"].shape == (1 + 30 * 9, 8) and ref["ssim"].shape == (8,)
+    assert np.isfinite(ref["psnr_per_iter"]).all() and np.all((ref["ssim"] > 0) & (ref["ssim"] <= 1))
+    np.testing.assert_array_equal(ref["psnr_per_iter"][0], ref["psnr_per_iter"][0, 0])  # one x_init
+
+
+def test_load_pr_sarah_problem_holds_one_a():
+    # Builds the 8192 x 16384 A (537 MB, about 6 s) once for all 8 lanes.
+    prob = load_pr_sarah_problem(device="cpu")
+    cfg = BENCH_LANES["pr_sarah_realsn"]
+    assert prob.batch_size == 8 and prob.a.shape == (1, cfg["num_meas"], cfg["size"] ** 2)
+    assert prob.y.shape == (8, cfg["num_meas"]) and prob.x_init.shape == (8, 128, 128)
+    with np.load(PR_FIXTURE) as f:
+        np.testing.assert_array_equal(prob.y.numpy(), np.broadcast_to(f["y"], (8, cfg["num_meas"])))
+    # One full gradient over the 8 lanes through the shared A equals one lane's.
+    g = prob.grad_full(prob.x_init.reshape(8, -1))
+    assert torch.allclose(g, g[:1].expand_as(g), rtol=1e-5, atol=1e-6)
+
+
 def test_pr_indices_match_the_replayed_key_chain():
     cfg = bench_config("pr_bm3d")
     with np.load(PR_FIXTURE) as f:
@@ -475,13 +626,14 @@ def test_load_pr_problem_rebuilds_a_and_the_jax_measurements(tmp_path):
 
 
 def cpu_lanes() -> None:
-    """Print the port's CPU runs of the Deblur and PR lanes on the JAX
-    minibatches against the stored JAX traces, and the PR lane's final PSNR
-    on both sides with ``y`` or ``x_init`` one ulp up."""
+    """Print the port's CPU runs of the Deblur, PR and PR + SARAH lanes on the
+    JAX minibatches against the stored JAX traces, and the PR lane's final
+    PSNR on both sides with ``y`` or ``x_init`` one ulp up."""
     import dataclasses
 
-    from pnp_svrg_tpu_torch.algorithms.loops import pnp_svrg
+    from pnp_svrg_tpu_torch.algorithms.loops import pnp_sarah, pnp_svrg
     from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DDenoiser
+    from pnp_svrg_tpu_torch.denoisers.dncnn import DnCNNDenoiser
 
     def port_run(lane, prob, mb):
         cfg = bench_config(lane)
@@ -491,11 +643,20 @@ def cpu_lanes() -> None:
 
     for lane in DEBLUR_LANES:
         trace = port_run(lane, load_deblur_problem(lane, "cpu"), load_deblur_masks(lane, "cpu"))
-        line = f"port CPU {lane}: final {trace[-1]:.4f} dB"
-        if lane == "deblur_bm3d":
-            jax_trace = load_deblur_reference()["psnr_per_iter"]
-            line += f", JAX {jax_trace[-1]:.4f}, trace max |diff| {np.abs(trace - jax_trace).max():.4f}"
-        print(line, flush=True)
+        jax_trace = load_deblur_reference(lane)["psnr_per_iter"]
+        print(f"port CPU {lane}: final {trace[-1]:.4f} dB, JAX {jax_trace[-1]:.4f}, "
+              f"trace max |diff| {np.abs(trace - jax_trace).max():.4f}", flush=True)
+    cfg = bench_config("pr_sarah_realsn")
+    sprob = load_pr_sarah_problem("cpu")
+    out = pnp_sarah(sprob, DnCNNDenoiser.from_pretrained("RealSN_DnCNN", cfg["realsn_sigma"], device="cpu"),
+                    cfg["eta"], cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"],
+                    lr_decay=cfg["lr_decay"], variant=cfg["variant"], masks=load_pr_sarah_indices("cpu"))
+    trace, jax_trace = out["psnr_per_iter"].numpy(), load_pr_sarah_reference()["psnr_per_iter"]
+    del sprob, out
+    print(f"PR + SARAH + RealSN: port CPU replica mean {trace[-1].mean():.4f} dB, "
+          f"JAX {jax_trace[-1].mean():.4f}; per replica port {np.round(trace[-1], 4).tolist()}, "
+          f"JAX {np.round(jax_trace[-1], 4).tolist()}; trace max |diff| {np.abs(trace - jax_trace).max():.4f}",
+          flush=True)
     a, _ = pr_matrix_numpy()
     jprob = pr_problem(a)
     tprob = load_pr_problem("cpu")
@@ -513,25 +674,52 @@ def cpu_lanes() -> None:
               f"trace max |diff| {np.abs(tt - jt).max():.4f}", flush=True)
 
 
+def build(names) -> None:
+    """Write the named fixtures (``headline``, ``nlm``, ``deblur``, ``pr``,
+    ``pr_sarah``)."""
+    if "headline" in names or "nlm" in names:
+        arrays = build_headline_arrays()
+        arrays.pop("x")  # rebuilt by the port's load_image
+    if "headline" in names:
+        HEADLINE_FIXTURE.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(HEADLINE_FIXTURE, **arrays)
+        np.savez_compressed(HEADLINE_MASKS, masks=build_headline_masks(arrays["mask"]))
+    if "nlm" in names:
+        ref = run_jax_nlm()
+        np.savez_compressed(NLM_MASKS, masks=build_nlm_masks(np.asarray(nlm_problem().mask)), **ref,
+                            **run_jax_nlm_gd())
+        print(f"JAX CSMRI + NLM: final PSNR {ref['psnr_per_iter'][-1]:.4f} dB, "
+              f"SSIM {float(ref['ssim']):.4f}", file=sys.stderr)
+    if "deblur" in names:
+        deblur = build_deblur_arrays()
+        for lane in DEBLUR_LANES:
+            deblur.update(run_jax_deblur(lane))
+            print(f"JAX {lane}: final PSNR {deblur[f'{lane}/psnr_per_iter'][-1]:.4f} dB, "
+                  f"SSIM {float(deblur[f'{lane}/ssim']):.4f}", file=sys.stderr, flush=True)
+        np.savez_compressed(DEBLUR_FIXTURE, **deblur)
+    if "pr" in names:
+        pr = build_pr_arrays()
+        np.savez_compressed(PR_FIXTURE, **pr)
+        print(f"JAX PR + BM3D: final PSNR {pr['psnr_per_iter'][-1]:.4f} dB, SSIM {float(pr['ssim']):.4f}",
+              file=sys.stderr)
+    if "pr_sarah" in names:
+        sarah = build_pr_sarah_arrays()
+        np.savez_compressed(PR_SARAH_FIXTURE, **sarah)
+        final = sarah["psnr_per_iter"][-1]
+        print(f"JAX PR + SARAH + RealSN: replica-mean final PSNR {final.mean():.4f} dB "
+              f"(per replica {np.round(final, 4).tolist()}), mean SSIM {sarah['ssim'].mean():.4f}",
+              file=sys.stderr)
+    for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE, PR_SARAH_FIXTURE):
+        if path.exists():
+            print(f"{path} ({path.stat().st_size} bytes)", file=sys.stderr)
+
+
+FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah")
+
 if __name__ == "__main__" and sys.argv[1:] == ["--cpu-lanes"]:
     cpu_lanes()
 elif __name__ == "__main__":
-    arrays = build_headline_arrays()
-    arrays.pop("x")  # rebuilt by the port's load_image
-    HEADLINE_FIXTURE.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(HEADLINE_FIXTURE, **arrays)
-    np.savez_compressed(HEADLINE_MASKS, masks=build_headline_masks(arrays["mask"]))
-    ref = run_jax_nlm()
-    np.savez_compressed(NLM_MASKS, masks=build_nlm_masks(np.asarray(nlm_problem().mask)), **ref)
-    deblur = build_deblur_arrays()
-    deblur.update(run_jax_deblur())
-    np.savez_compressed(DEBLUR_FIXTURE, **deblur)
-    pr = build_pr_arrays()
-    np.savez_compressed(PR_FIXTURE, **pr)
-    for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE):
-        print(f"wrote {path} ({path.stat().st_size} bytes)", file=sys.stderr)
-    print(f"JAX CSMRI + NLM: final PSNR {ref['psnr_per_iter'][-1]:.4f} dB, "
-          f"SSIM {float(ref['ssim']):.4f}", file=sys.stderr)
-    print(f"JAX Deblur + BM3D: final PSNR {deblur['deblur_bm3d/psnr_per_iter'][-1]:.4f} dB; "
-          f"JAX PR + BM3D: final PSNR {pr['psnr_per_iter'][-1]:.4f} dB, SSIM {float(pr['ssim']):.4f}",
-          file=sys.stderr)
+    unknown = set(sys.argv[1:]) - set(FIXTURES)
+    if unknown:
+        raise SystemExit(f"unknown fixtures {sorted(unknown)}; have {FIXTURES}")
+    build(sys.argv[1:] or FIXTURES)

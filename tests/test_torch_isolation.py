@@ -53,3 +53,14 @@ def test_no_import_of_jax_or_the_jax_package(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), f"{path}:{node.lineno} imports {names}"
+
+
+def test_the_scan_covers_every_slice_module():
+    """The scans above take every module of the port; these are the ones
+    each slice added, so a module moved out of the package shows here."""
+    scanned = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("algorithms/loops.py", "convert.py", "core/batched.py", "denoisers/bm3d.py",
+                "denoisers/nlm.py", "denoisers/tv.py", "denoisers/dncnn.py", "models/dncnn.py",
+                "models/convert.py", "problems/pr.py", "problems/deblur.py", "problems/csmri.py"):
+        assert f"pnp_svrg_tpu_torch/{rel}" in scanned, rel
+    assert "chip_smoke.py" in scanned
