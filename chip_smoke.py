@@ -68,10 +68,34 @@ imports no JAX. Phases, each printing one JSON line:
    CSMRI + NLM lane's problem, each a few steps: finite traces, K3 launched
    once a denoise, and ``pnp_gd``'s trace held to a JAX CPU ``pnp_gd`` trace
    stored in the NLM fixture;
-13. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
-   pr_bm3d, deblur_sr_bm3d and pr_sarah_realsn under ``torch.profiler``:
-   device time by kernel, grouped (the CNN denoiser's convolutions and
-   BatchNorm as cuDNN's), and the device's busy share of the run's wall time.
+13. compat: the wall-clock compat API on the CSMRI + NLM lane's problem:
+   ``compat.pnp_svrg`` for 40 inner steps against ``pnp_svrg`` 4 x 10 on
+   the same minibatches (the JAX lane's), traces within 0.011 dB and
+   iterates within 1e-4; ``tune_pnp_svrg`` for a 3 s budget (its inner
+   steps, gradient/denoise split and loss; K3 once a denoise); and
+   ``tune_pnp_svrg`` for 3 s with BM3D on the headline's ``13.png`` lane
+   (K1 and K2 twice a denoise);
+14. checks: ``grad_full_check`` and ``grad_stoch_check`` in float64 at
+   their default tolerances on CSMRI (128 px), phase retrieval (M = 8192,
+   N = 16384), Deblur (256 px) and Deblur-SR (256 -> 128 px);
+15. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
+   pr_bm3d, deblur_sr_bm3d and pr_sarah_realsn, and one BM3D round of the
+   sweep, under ``torch.profiler``: device time by kernel, grouped (the CNN
+   denoiser's convolutions and BatchNorm as cuDNN's), and the device's busy
+   share of the run's wall time.
+
+Before the kernel checks, the ``sweep`` phase drives the tuning path at full
+width: ``python -m pnp_svrg_tpu_torch.examples.sweep_sampratio`` (its
+``main``) over the 12 Set12 images at 128 px, ratio 0.5, SNR 20, PnP-SVRG
+with BM3D and with NLM, 6 TPE evaluations a cell in 2 lockstep rounds of 3
+candidates: 36 lanes a round (``BASELINE.json`` configs[4], the reference's
+Set12 sweep). It checks the CSV (24 cells, every best inside its space and
+better than ``x_init``) and each round's launches (K1 = K2 = 2 x n_outer x
+t2 under BM3D, K3 = n_outer x t2 under NLM), and reports seconds a round,
+trials/s and image-iterations/s a group. The kernel checks then also hold
+K1 and K2 on a BM3D round's first denoise input (B = 36) and K3 on an NLM
+round's (B = 36, each lane its own h and sigma) against their plain
+versions.
 
 The tuned per-lane step sizes sit at the stability edge of the reference's
 own key stream: on other minibatch streams single lanes diverge, so the
@@ -85,6 +109,7 @@ failed check raises, and the script exits non-zero without the last line.
 from __future__ import annotations
 
 import collections
+import csv
 import itertools
 import json
 import math
@@ -96,9 +121,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pnp_svrg_tpu_torch.algorithms import compat
 from pnp_svrg_tpu_torch.algorithms.loops import pnp_sarah, pnp_svrg, run_pnp
 from pnp_svrg_tpu_torch.convert import (
     BENCH_LANES,
+    NLM_LANE,
     bench_config,
     lane_params,
     load_deblur_masks,
@@ -153,6 +180,9 @@ from pnp_svrg_tpu_torch.problems.csmri import make_csmri
 from pnp_svrg_tpu_torch.problems.deblur import make_deblur
 from pnp_svrg_tpu_torch.problems.pr import make_phase_retrieval
 from pnp_svrg_tpu_torch.core.batched import stack_problems
+from pnp_svrg_tpu_torch.core.checks import grad_full_check, grad_stoch_check, widen
+from pnp_svrg_tpu_torch.examples import sweep_sampratio
+from pnp_svrg_tpu_torch.tuning import sweep as sweep_module
 from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image, resolve_data_path
 
 N_OUTER, T2, MINI_BATCH = 16, 10, 4000
@@ -194,6 +224,21 @@ LOOP_RUNS = {
                                  "variant": "faithful"}),
 }
 GD_TRACE_TOL_DB = 0.01  # pnp_gd on the card against the JAX CPU trace
+# The sweep phase: sweep_sampratio's arguments (12 images x 3 candidates =
+# 36 lanes a round; BM3D and NLM, 2 rounds each) and the script's CSMRI
+# search space at 128 px, which every cell's best must lie in.
+SWEEP_CSV = Path(__file__).resolve().parent / "build" / "tuning" / "sweep_smoke.csv"
+SWEEP_ARGV = ["--images", "12", "--size", "128", "--ratios", "0.5", "--snr", "20",
+              "--algos", "svrg", "--denoisers", "bm3d", "nlm", "--max-evals", "6", "--cand", "3",
+              "--n-iters", "60", "--search", "8", "--out", str(SWEEP_CSV)]
+SWEEP_CELLS, SWEEP_ROUNDS, SWEEP_LANES = 24, 2, 36
+SWEEP_SPACE = {"eta": (1.0, 3e4), "dstrength": (0.3, 2.0), "t2": (5, 10),
+               "mini_batch_size": tuple(sorted({max(50, int(f * 128 * 128)) for f in (0.15, 0.3, 0.6)}))}
+# The compat phase, on the CSMRI + NLM lane's problem and configuration: (a)
+# COMPAT_ITERS inner steps against the loop (compat rounds PSNRs to 2
+# decimals), (b) and (c) the tuner adapter with a COMPAT_TT-second budget.
+COMPAT_ITERS, COMPAT_TRACE_TOL_DB, COMPAT_Z_TOL, COMPAT_TT = 40, 0.011, 1e-4, 3.0
+CHECK_TOL = {"grad_full": 1e-4, "grad_stoch": 1e-6}  # the checks' default tolerances
 BENCH_SPREAD_SEEDS = (3, 4, 5)
 # K2 adds with f32 atomics, so runs on the same minibatches differ in the
 # last bits, and the PR lane carries such differences to its end (one ulp on
@@ -561,12 +606,13 @@ def check_aggregate(agg_in) -> dict:
 
 
 def first_denoise_input(lane: dict) -> tuple:
-    """A bench lane's first BM3D input and sigma: ``x_init`` after the first
-    PnP-SVRG step (``v = mu`` there, whatever the minibatch), and the
-    estimate times the lane's modifier."""
+    """A lane's first denoise input and sigma: ``x_init`` after the first
+    PnP-SVRG step (``v = mu`` there, whatever the minibatch) with the lane's
+    ``eta`` (a scalar, or (B, 1) for one a lane), and the estimate times the
+    lane's modifier."""
     prob, cfg = lane["prob"], lane["cfg"]
     x = prob.x_init.reshape(prob.batch_size, -1)
-    z = (x - lane["eta"] * prob.grad_full(x)).reshape(prob.x_init.shape).contiguous()
+    z = (x - lane["eta"] * prob.grad_full(x).reshape(x.shape)).reshape(prob.x_init.shape).contiguous()
     return z, estimate_sigma(z) * cfg["sigma_modifier"]
 
 
@@ -659,6 +705,18 @@ def nlm_check_inputs() -> dict:
             "b9": (z9, torch.cat([h for _, h in lanes]))}
 
 
+def nlm_times(z, h, sigma, clock_hz: float) -> dict:
+    """K3's device and event times on (z, h, sigma), its plain version's,
+    and the bound."""
+    _, hh, ww = z.shape
+    return {
+        "ms": device_ms(lambda: nlm_denoise(z, h, sigma)),
+        "event_ms": cuda_ms(lambda: nlm_denoise(z, h, sigma)),
+        "plain_ms": cuda_ms(lambda: nlm_denoise_plain(z, h, sigma), reps=10, warmup=3),
+        **nlm_bound(z.shape[0], hh, ww, 0, hh, 5, clock_hz),
+    }
+
+
 def check_nlm(clock_hz: float) -> dict:
     """K3 against its plain version on :func:`nlm_check_inputs` with and
     without row bounds, and NaN at h = 0; then its times at both shapes
@@ -678,14 +736,7 @@ def check_nlm(clock_hz: float) -> dict:
     nan_equal = bool(torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(got).all())
     require(nan_equal, "K3 at h = 0: NaN where the plain version has NaN")
     b, hh, ww = z9.shape
-    times = {}
-    for name, (z, h) in inputs.items():
-        times[name] = {
-            "ms": device_ms(lambda: nlm_denoise(z, h, h)),
-            "event_ms": cuda_ms(lambda: nlm_denoise(z, h, h)),
-            "plain_ms": cuda_ms(lambda: nlm_denoise_plain(z, h, h), reps=10, warmup=3),
-            **nlm_bound(z.shape[0], hh, ww, 0, hh, 5, clock_hz),
-        }
+    times = {name: nlm_times(z, h, h, clock_hz) for name, (z, h) in inputs.items()}
     return {
         "name": "nlm", "max_abs_err": max(errs.values()), "max_abs_err_by_case": errs,
         "nan_equal_at_h0": nan_equal, **times["b9"],
@@ -1136,6 +1187,206 @@ def run_loops() -> dict:
     return runs
 
 
+def run_sweep(card: str) -> dict:
+    """The tuning path at full width: ``sweep_sampratio.main`` on the card,
+    every ``run_pnp`` call of the sweep observed (its group, lanes,
+    arguments, seconds until its PSNRs are on the host, and launches). The
+    launch counts are set to 0 just before the sweep and read just after;
+    each round must launch K1 = K2 = 2 x n_outer x t2 (BM3D) or K3 =
+    n_outer x t2 (NLM) and nothing else."""
+    calls = []
+    real = sweep_module.run_pnp
+
+    def observed(algo, problem, den, **kw):
+        before = {n: k.launches for n, k in KERNELS.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(algo, problem, den, **kw)
+        out["final_psnr"].cpu()
+        calls.append({"group": "bm3d" if isinstance(den, BM3DDenoiser) else "nlm",
+                      "lanes": problem.batch_size, "seconds": time.perf_counter() - t0,
+                      "n_outer": kw["n_outer"], "t2": kw["t2"], "mini_batch_size": kw["mini_batch_size"],
+                      "launches": {n: k.launches - before[n] for n, k in KERNELS.items()},
+                      "args": (algo, problem, den, kw)})
+        return out
+
+    for k in KERNELS.values():
+        k.launches = 0
+    sweep_module.run_pnp = observed
+    try:
+        t0 = time.perf_counter()
+        results = sweep_sampratio.main(SWEEP_ARGV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sweep_module.run_pnp = real
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    with open(SWEEP_CSV, newline="") as f:
+        rows = list(csv.DictReader(f))
+    groups = {}
+    for g in ("bm3d", "nlm"):
+        rounds = [c for c in calls if c["group"] == g]
+        cells = [r for r in results if r.denoiser_name == g]
+        seconds = sum(c["seconds"] for c in rounds)
+        iters = sum(c["lanes"] * c["n_outer"] * (c["t2"] + 1) for c in rounds)
+        groups[g] = {
+            "rounds": len(rounds), "lanes": [c["lanes"] for c in rounds],
+            "seconds_per_round": [c["seconds"] for c in rounds],
+            "trials_per_s": sum(c["lanes"] for c in rounds) / seconds,
+            "image_iters_per_s": iters / seconds, "image_iters": iters,
+            "round_config": [{k: c[k] for k in ("n_outer", "t2", "mini_batch_size")} for c in rounds],
+            "launches_per_round": [c["launches"] for c in rounds],
+            "launches": {n: sum(c["launches"][n] for c in rounds) for n in KERNELS},
+            "best_loss_db": {r.image: r.best_loss for r in cells},
+            "best_psnr_db": {r.image: r.best_psnr for r in cells},
+            "best_params": {r.image: r.best_params for r in cells},
+        }
+    rec = {"phase": "sweep", "card": card, "argv": SWEEP_ARGV[:-2], "wall_s": wall,
+           "cells": len(results), "csv_rows": len(rows), "launches": launches, "groups": groups}
+    emit(rec)
+    require(len(results) == SWEEP_CELLS and len(rows) == SWEEP_CELLS,
+            f"sweep: {len(results)} cells, {len(rows)} CSV rows, expected {SWEEP_CELLS}")
+    for c in calls:
+        d = c["n_outer"] * c["t2"]
+        want = ({"bm3d_match": 2 * d, "bm3d_aggregate": 2 * d, "nlm": 0} if c["group"] == "bm3d"
+                else {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": d})
+        require(c["launches"] == want, f"sweep/{c['group']}: round launches {c['launches']}, expected {want}")
+    require(launches == {n: sum(c["launches"][n] for c in calls) for n in KERNELS},
+            f"sweep: launches {launches} outside its rounds")
+    for g, rec_g in groups.items():
+        require(rec_g["rounds"] == SWEEP_ROUNDS and set(rec_g["lanes"]) == {SWEEP_LANES},
+                f"sweep/{g}: rounds {rec_g['rounds']} of lanes {rec_g['lanes']}")
+    for r in results:
+        p = r.best_params
+        inside = (SWEEP_SPACE["eta"][0] <= p["eta"] <= SWEEP_SPACE["eta"][1]
+                  and SWEEP_SPACE["dstrength"][0] <= p["dstrength"] <= SWEEP_SPACE["dstrength"][1]
+                  and p["t2"] in SWEEP_SPACE["t2"] and p["mini_batch_size"] in SWEEP_SPACE["mini_batch_size"])
+        require(inside, f"sweep/{r.denoiser_name}/{r.image}: best {p} outside the space")
+        require(math.isfinite(r.best_psnr) and r.best_loss < 0,
+                f"sweep/{r.denoiser_name}/{r.image}: best PSNR {r.best_psnr}, loss {r.best_loss}")
+    rec["_first_round"] = {g: next(c["args"] for c in calls if c["group"] == g) for g in groups}
+    return rec
+
+
+def sweep_lane(args) -> dict:
+    """A sweep round's first call as a lane for :func:`first_denoise_input`:
+    its stacked problems, denoiser, (B, 1) eta on the card and params."""
+    _, prob, den, kw = args
+    return {"label": f"sweep_{'bm3d' if isinstance(den, BM3DDenoiser) else 'nlm'}", "prob": prob,
+            "cfg": {"params": getattr(den, "params", None), "sigma_modifier": den.sigma_modifier},
+            "eta": kw["eta"].to("cuda")[:, None]}
+
+
+def check_nlm_at_sweep(args, clock_hz: float) -> dict:
+    """K3 against its plain version on an NLM round's first denoise input
+    (B = 36, each lane its own h = sigma), with its times and bound."""
+    z, h = first_denoise_input(sweep_lane(args))
+    require(len(set(h.tolist())) == z.shape[0], "K3 at the sweep shape: two lanes share h")
+    got, want = nlm_denoise(z, h, h), nlm_denoise_plain(z, h, h)
+    err = (got - want).abs().max().item()
+    require(err <= 1e-5, f"K3 max abs err {err} at the sweep shape")
+    return {"shape": {"images": list(z.shape), "patch_size": 4, "patch_distance": 5},
+            "max_abs_err": err, **nlm_times(z, h, h, clock_hz), "library_ms": None,
+            "h": h.tolist()}
+
+
+def run_compat(card: str) -> dict:
+    """The compat API on the card, on the CSMRI + NLM lane's problem: (a)
+    ``compat.pnp_svrg`` against the loop on the JAX lane's first 4 x 10
+    minibatches; (b) ``tune_pnp_svrg`` for a 3 s budget (the divergence
+    check on, the convergence check off); (c) the same with BM3D (the
+    headline's parameters and the ``13.png`` lane's tuned eta and
+    modifier). Launches are counted from 0 over each call."""
+    prob, den, _, cfg = nlm_lane()
+    eta, mb, t2, decay = float(cfg["eta"]), int(cfg["mini_batch_size"]), int(cfg["t2"]), cfg["lr_decay"]
+    n_outer = COMPAT_ITERS // t2
+    masks = load_nlm_masks("cuda")[:n_outer]
+    loop = pnp_svrg(prob, den, torch.tensor(eta, device="cuda"), n_outer, t2, mb, masks=masks,
+                    lr_decay=decay)
+
+    def counted(fn):
+        for k in KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {n: k.launches for n, k in KERNELS.items()}
+
+    a, a_s, a_launches = counted(lambda: compat.pnp_svrg(
+        prob, den, eta=eta, tt=1e9, T2=t2, mini_batch_size=mb, lr_decay=decay,
+        max_iters=COMPAT_ITERS, converge_check=False, diverge_check=False,
+        masks=masks.reshape((-1,) + tuple(masks.shape[2:]))))
+    loop_trace = loop["psnr_per_iter"][:, 0].cpu().numpy()
+    dtrace = float(np.abs(np.asarray(a["psnr_per_iter"]) - loop_trace).max())
+    dz = (a["z"] - loop["z"].reshape(-1)).abs().max().item()
+
+    def tuner_record(out, seconds, launches, denoises):
+        entries = len(out["time_per_iter"]) - 1
+        return {"inner_iters": denoises, "snapshots": entries - denoises, "seconds": seconds,
+                "gradient_time_s": out["gradient_time"], "denoise_time_s": out["denoise_time"],
+                "time_per_iter_sum_s": float(np.sum(out["time_per_iter"])), "loss_db": out["loss"],
+                "psnr_first_last_db": [out["psnr_per_iter"][0], out["psnr_per_iter"][-1]],
+                "launches": launches, "tt_s": COMPAT_TT}
+
+    # The convergence check off: with it the reference's rounded-PSNR test
+    # stops within a second, and the budget is what (b) and (c) measure.
+    b, b_s, b_launches = counted(lambda: compat.tune_pnp_svrg(
+        [eta, mb, t2, 1.0], prob, den, tt=COMPAT_TT, converge_check=False))
+    eta13, mod13 = lane_params(DATA_DIR / "set12_csmri_tuned.json", [NLM_LANE], 6000.0, 1.0, "cpu")
+    bden = BM3DDenoiser(params=BM3DParams(search=8, match_dtype="bfloat16"))
+    c, c_s, c_launches = counted(lambda: compat.tune_pnp_svrg(
+        [float(eta13[0]), mb, t2, float(mod13[0])], prob, bden, tt=COMPAT_TT, converge_check=False))
+    rec = {
+        "phase": "compat", "card": card,
+        "a_vs_loop": {"inner_iters": COMPAT_ITERS, "trace_max_abs_db_vs_loop": dtrace,
+                      "z_max_abs_diff_vs_loop": dz, "seconds": a_s, "launches": a_launches,
+                      "gradient_time_s": a["gradient_time"], "denoise_time_s": a["denoise_time"],
+                      "psnr_last_db": a["psnr_per_iter"][-1], "loop_psnr_last_db": float(loop_trace[-1])},
+        "b_tune_nlm": tuner_record(b, b_s, b_launches, b_launches["nlm"]),
+        "c_tune_bm3d": tuner_record(c, c_s, c_launches, c_launches["bm3d_match"] // 2)
+        | {"eta": float(eta13[0]), "dstrength": float(mod13[0])},
+    }
+    emit(rec)
+    require(dtrace <= COMPAT_TRACE_TOL_DB, f"compat (a): trace {dtrace} dB off the loop's")
+    require(dz <= COMPAT_Z_TOL, f"compat (a): iterate {dz} off the loop's")
+    require(a_launches == {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": COMPAT_ITERS},
+            f"compat (a): launches {a_launches}")
+    for name, r in (("b", rec["b_tune_nlm"]), ("c", rec["c_tune_bm3d"])):
+        n = r["inner_iters"]
+        require(n > 0 and r["snapshots"] in (-(-n // t2), -(-n // t2) + 1),
+                f"compat ({name}): {n} inner steps and {r['snapshots']} snapshots")
+        require(math.isfinite(r["loss_db"]), f"compat ({name}): loss {r['loss_db']}")
+    require(b_launches == {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": b_launches["nlm"]},
+            f"compat (b): launches {b_launches}")
+    n_c = rec["c_tune_bm3d"]["inner_iters"]
+    require(c_launches == {"bm3d_match": 2 * n_c, "bm3d_aggregate": 2 * n_c, "nlm": 0},
+            f"compat (c): launches {c_launches}")
+    return rec
+
+
+def run_checks(bench: dict, card: str) -> dict:
+    """The gradient checks in float64 on the card, on each problem at its
+    lane's size: CSMRI (the ``13.png`` lane, 128 px), phase retrieval (M =
+    8192, N = 16384: A widened is 1.07 GB), Deblur (256 px) and Deblur-SR
+    (256 -> 128 px)."""
+    probs = {"csmri_128": load_nlm_problem("cuda"), "pr_8192x16384": bench["pr_bm3d"]["prob"],
+             "deblur_256": bench["deblur_bm3d"]["prob"],
+             "deblur_sr_256_to_128": bench["deblur_sr_bm3d"]["prob"]}
+    errs = {}
+    for name, prob in probs.items():
+        t0 = time.perf_counter()
+        full = grad_full_check(prob, raise_on_fail=False)
+        stoch = grad_stoch_check(widen(prob), raise_on_fail=False)
+        errs[name] = {"grad_full": full, "grad_stoch": stoch, "seconds": time.perf_counter() - t0,
+                      "n": prob.n, "m": prob.m}
+    emit({"phase": "checks", "card": card, "dtype": "float64", "tol": CHECK_TOL, "problems": errs})
+    for name, e in errs.items():
+        for check, tol in CHECK_TOL.items():
+            require(e[check] <= tol, f"checks/{name}: {check} error {e[check]} > {tol}")
+    return errs
+
+
 def phase_profile(label: str, run) -> dict:
     """Device time by kernel over one run of ``run()`` (port stream)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1171,12 +1422,16 @@ def main() -> None:
     card = dev["kind"]
     phase_build()
     bench = {label: bench_lane(label) for label in BENCH_RUNS}
+    sweep = run_sweep(dev["nvidia_smi"])
+    first_round = sweep.pop("_first_round")
     k1 = check_match()
     k2 = check_aggregate(k1.pop("_agg_in"))
     at_lanes = {label: check_bench_kernels(lane) for label, lane in bench.items()}
+    at_lanes["sweep_bm3d"] = check_bench_kernels(sweep_lane(first_round["bm3d"]))
     k1["bench_shapes"] = {label: r[0] for label, r in at_lanes.items()}
     k2["bench_shapes"] = {label: r[1] for label, r in at_lanes.items()}
     k3 = check_nlm(dev["max_sm_clock_mhz"] * 1e6)
+    k3["bench_shapes"] = {"sweep_nlm": check_nlm_at_sweep(first_round["nlm"], dev["max_sm_clock_mhz"] * 1e6)}
     emit({"phase": "kernels_checked", "bm3d_match": k1, "bm3d_aggregate": k2, "nlm": k3})
     phase_parity()
 
@@ -1204,6 +1459,10 @@ def main() -> None:
     sarah = sarah_lane()
     lanes_run["pr_sarah_realsn"] = run_sarah_lane(sarah, dev["nvidia_smi"], mem_before_gb)
     lanes_run |= {f"loops/{label}": rec for label, rec in run_loops().items()}
+    lanes_run |= {f"sweep_{g}": rec for g, rec in sweep["groups"].items()}
+    compat_rec = run_compat(dev["nvidia_smi"])
+    lanes_run |= {f"compat/{k}": compat_rec[k] for k in ("a_vs_loop", "b_tune_nlm", "c_tune_bm3d")}
+    run_checks(bench, dev["nvidia_smi"])
 
     for label, tuned, default_eta, default_mod, params in (
         ("headline", "set12_csmri_tuned.json", 6000.0, 1.0,
@@ -1226,10 +1485,14 @@ def main() -> None:
     for label in ("pr_bm3d", "deblur_sr_bm3d"):
         phase_profile(label, lambda: bench_run(bench[label], 3))
     phase_profile("pr_sarah_realsn", lambda: sarah_run(sarah, seed=3))
+    algo, sprob, sden, skw = first_round["bm3d"]
+    gen = torch.Generator(device="cuda").manual_seed(skw["generator"].initial_seed())
+    phase_profile("sweep_bm3d_round", lambda: run_pnp(algo, sprob, sden, **(skw | {"generator": gen})))
 
     # K3's times are at B = 9, so its launches are the grid lane's (B = 9);
-    # its B = 1 record (csmri_nlm) stands beside them. K1's and K2's records
-    # at the PR and Deblur lanes' shapes (B = 1) carry those lanes' launches.
+    # its B = 1 record (csmri_nlm) stands beside them. The records at the PR
+    # and Deblur lanes' shapes (K1, K2; B = 1) and at the sweep's (K1, K2 and
+    # K3; B = 36) carry those lanes' launches.
     main_lane = {"bm3d_match": "headline", "bm3d_aggregate": "headline", "nlm": "csmri_nlm_grid"}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -1242,10 +1505,9 @@ def main() -> None:
             "launches": by_lane[main_lane[name]], "launches_by_lane": by_lane,
             **{k: rec[k] for k in fields}, "card": dev["nvidia_smi"],
         })
-        if name != "nlm":
-            kernels[-1]["bench_shapes"] = {
-                label: {"launches": by_lane[label], "shape": r["shape"], **{k: r[k] for k in fields}}
-                for label, r in rec["bench_shapes"].items()}
+        kernels[-1]["bench_shapes"] = {
+            label: {"launches": by_lane[label], "shape": r["shape"], **{k: r[k] for k in fields}}
+            for label, r in rec["bench_shapes"].items()}
     kernels[-1]["b1"] = {"launches": lanes_run["csmri_nlm"]["launches"]["nlm"],
                          **{k: k3["b1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
     for k in kernels:

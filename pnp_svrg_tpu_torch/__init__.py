@@ -10,7 +10,8 @@ CPU.
 
 Ported so far (the Set12 CSMRI + PnP-SVRG + BM3D path, with its grid-aligned
 dense aggregation, the CSMRI + PnP-SVRG + NLM path, phase retrieval and
-Deblur/SR with BM3D, and phase retrieval + PnP-SARAH + RealSN-DnCNN):
+Deblur/SR with BM3D, phase retrieval + PnP-SARAH + RealSN-DnCNN, and the
+tuning path):
 
 * ``problems.csmri`` (``CSMRI``, ``make_csmri``), ``problems.deblur``
   (``Deblur``, ``make_deblur``), ``problems.pr`` (``PhaseRetrieval``,
@@ -22,13 +23,29 @@ Deblur/SR with BM3D, and phase retrieval + PnP-SARAH + RealSN-DnCNN):
   ``models.dncnn`` with the Flax checkpoints' weights (``models.convert``)
 * ``algorithms.loops``: ``pnp_gd``, ``pnp_sgd``, ``pnp_svrg``, ``pnp_saga``
   (unsharded table), ``pnp_sarah`` and ``run_pnp``
+* ``algorithms.compat``: the reference-shaped wall-clock API (one-lane
+  problems) and its ``tune_pnp_*`` adapters
+* ``core.checks``: ``grad_full_check``, ``grad_stoch_check``
+* ``tuning``: TPE (``tpe.py``, a copy of the numpy original) and the sweeps
+  (``sweep_grid``, ``sweep_grid_lockstep``); the sweep and tuner scripts are
+  ``python -m pnp_svrg_tpu_torch.examples.<name>``
+* ``utils.profiling``: only ``fence``
 * ``ops``: metrics, sampling, wavelets, ``estimate_sigma``, transforms, the
   1-D FFT blur and the bilinear resize pair
 * ``convert``: problem data and tuned per-lane parameters from the JAX side
 """
 
 from pnp_svrg_tpu_torch.device import default_device, resolve_device
+from pnp_svrg_tpu_torch.algorithms import compat
+from pnp_svrg_tpu_torch.algorithms.compat import (
+    tune_pnp_gd,
+    tune_pnp_saga,
+    tune_pnp_sarah,
+    tune_pnp_sgd,
+    tune_pnp_svrg,
+)
 from pnp_svrg_tpu_torch.algorithms.loops import pnp_gd, pnp_saga, pnp_sarah, pnp_sgd, pnp_svrg, run_pnp
+from pnp_svrg_tpu_torch.core.checks import GradientCheckError, grad_full_check, grad_stoch_check
 from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DDenoiser, BM3DParams, bm3d_denoise_batch
 from pnp_svrg_tpu_torch.denoisers.dncnn import DnCNNDenoiser, MMODenoiser
@@ -47,6 +64,15 @@ __all__ = [
     "pnp_saga",
     "pnp_sarah",
     "run_pnp",
+    "compat",
+    "tune_pnp_gd",
+    "tune_pnp_sgd",
+    "tune_pnp_svrg",
+    "tune_pnp_saga",
+    "tune_pnp_sarah",
+    "grad_full_check",
+    "grad_stoch_check",
+    "GradientCheckError",
     "stack_problems",
     "BM3DDenoiser",
     "BM3DParams",

@@ -24,8 +24,11 @@ scatter-free ``_aggregate_dense`` instead: a one-hot contraction over group
 slots and a clamp-shift contraction, both ``torch.einsum`` as the JAX package
 leaves them to XLA; K2 does not run there.
 
-Not ported: ``row_valid_bounds`` (the spatial-sharding path) and
-``topk="approx"``; both raise ``NotImplementedError``.
+``topk="approx"`` takes the exact top-k: off the TPU the JAX package's
+``jax.lax.approx_min_k`` returns the exact k smallest distances, and only the
+order of tied indices may differ from ``exact``'s; here ties go to the lowest
+offset index, as with ``exact``. Not ported: ``row_valid_bounds`` (the
+spatial-sharding path), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ class BM3DParams:
     lam: float = 2.7  # hard threshold = lam * sigma
     kaiser_beta: float = 2.0
     match_dtype: str = "float32"  # "bfloat16": bf16 match distances
-    topk: str = "exact"  # only "exact" is ported
+    topk: str = "exact"  # "approx" takes the exact top-k (ties to the lowest offset)
     matcher: str = "xla"  # "xla"/"auto" or "pallas"/"pallas_interpret":
     # names which JAX matcher's bf16 rounding the port follows
     search_step: int = 1  # candidate-offset stride within the window
@@ -236,8 +239,8 @@ def _aggregate_dense(est_groups, weights, top_idx, block, step, h, w, kaiser,
 def _check_supported(p: BM3DParams, row_valid_bounds):
     if row_valid_bounds is not None:
         raise NotImplementedError("row_valid_bounds (spatial sharding) is not ported")
-    if p.topk != "exact":
-        raise NotImplementedError(f"topk={p.topk!r} is not ported; use 'exact'")
+    if p.topk not in ("exact", "approx"):
+        raise ValueError(f"unknown topk {p.topk!r}; have 'exact' and 'approx'")
 
 
 def _stage1(x, sigma, p: BM3DParams, g: _Geometry):

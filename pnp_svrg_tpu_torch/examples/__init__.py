@@ -1,0 +1,34 @@
+"""The tuning scripts of the port, run as modules:
+
+    python -m pnp_svrg_tpu_torch.examples.sweep_sampratio [--cpu] ...
+    python -m pnp_svrg_tpu_torch.examples.sweep_snr
+    python -m pnp_svrg_tpu_torch.examples.tune_set12
+    python -m pnp_svrg_tpu_torch.examples.tune_csmri_nlm
+    python -m pnp_svrg_tpu_torch.examples.tune_deblur
+    python -m pnp_svrg_tpu_torch.examples.tune_pr
+
+Each is a port of the JAX script of the same name under ``examples/``, with
+its arguments and output format; ``--cpu`` runs it on the CPU (the kernels'
+plain versions), else it runs on the CUDA card. Outputs go under
+``build/tuning/`` at the repository root by default (``build/`` is not
+committed), never over the committed tuned files under ``data/`` or
+``hyperparam-tuning/``.
+"""
+
+from pathlib import Path
+
+OUT_DIR = Path(__file__).resolve().parents[2] / "build" / "tuning"
+
+
+
+def per_decay(chunk, evaluate) -> list:
+    """Scores of a chunk of (eta, lr_decay, sigma_modifier) configurations,
+    in chunk order, from one ``evaluate(sub_chunk)`` run per lr_decay: the
+    port's loops take one scalar lr_decay a run (the JAX loops take one a
+    lane)."""
+    scores = [None] * len(chunk)
+    for dec in dict.fromkeys(c[1] for c in chunk):
+        idx = [j for j, c in enumerate(chunk) if c[1] == dec]
+        for j, s in zip(idx, evaluate([chunk[j] for j in idx])):
+            scores[j] = float(s)
+    return scores

@@ -100,6 +100,12 @@ class CSMRI:
     def m_total(self) -> torch.Tensor:
         return self.m0
 
+    def grad_scale(self) -> torch.Tensor:
+        """(B,) factor s with ``autodiff(f) == s * grad_full``: the DFT
+        adjoint's N cancels f's 1/M (M = N), leaving ``grad_full``'s 1/m0
+        as the only mismatch (the reference's rescaled gradient)."""
+        return self.m0
+
     def psnr(self, z: torch.Tensor) -> torch.Tensor:
         """(B,) PSNR of ``z`` against the ground truth."""
         return psnr(self.x, self._img(z))

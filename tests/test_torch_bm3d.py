@@ -158,6 +158,29 @@ def test_bm3d_denoise_batch_matches_jax(rng, match_dtype, tol, stages):
     assert float(np.abs(got - want).mean()) < tol
 
 
+@pytest.mark.parametrize("match_dtype,tol", [("float32", 1e-3), ("bfloat16", 5e-3)])
+def test_approx_topk_matches_jax(rng, match_dtype, tol):
+    """``topk="approx"``: off the TPU JAX's ``approx_min_k`` returns the exact
+    top-k, so on JAX's own distances the port's top-k picks the same index
+    set per reference block; the port's approx denoise is its exact one, and
+    within the exact path's tolerance of JAX's approx denoise."""
+    _, x = _noisy_batch(rng)
+    rows, offs = _grid(x.shape[-1], 6, 1)
+    dists = jbm3d._match_distances(jnp.asarray(x), rows, rows, offs, 8, match_dtype=match_dtype)
+    want = np.sort(np.asarray(jbm3d._top_k_offsets(dists, K, "approx")), axis=-1)
+    got = np.sort(k1.top_k_offsets_plain(torch.tensor(np.asarray(dists)), K).numpy(), axis=-1)
+    np.testing.assert_array_equal(got, want)
+    sig = np.asarray([0.1, 0.12], np.float32)
+    jp = jbm3d.BM3DParams(search=6, match_dtype=match_dtype, topk="approx")
+    want_img = np.asarray(jbm3d.bm3d_denoise_batch(jnp.asarray(x), jnp.asarray(sig), params=jp))
+    approx, exact = (
+        bm3d.bm3d_denoise_batch(torch.tensor(x), torch.tensor(sig),
+                                params=bm3d.BM3DParams(search=6, match_dtype=match_dtype, topk=t))
+        for t in ("approx", "exact"))
+    assert torch.equal(approx, exact)
+    assert float(np.abs(approx.numpy() - want_img).mean()) < tol
+
+
 def test_bm3d_turbo_rounding_matches_jax_pallas_matcher(rng):
     _, x = _noisy_batch(rng, size=34)  # (34 - 8) % 4 != 0: stride 2 keeps the scatter
     kw = dict(search=6, search_step=2, match_dtype="bfloat16")
@@ -264,8 +287,8 @@ def test_unported_paths_raise(rng):
     xt = torch.tensor(x)
     with pytest.raises(NotImplementedError):
         bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4), row_valid_bounds=(0, 32))
-    with pytest.raises(NotImplementedError):
-        bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4, topk="approx"))
+    with pytest.raises(ValueError, match="topk"):  # "approx" is ported; a misspelling is not
+        bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4, topk="aprox"))
 
 
 def test_cpu_tensors_take_plain_versions_and_count_no_launch(rng):

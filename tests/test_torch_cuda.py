@@ -462,3 +462,94 @@ def test_step_schedule_on_the_card_is_the_cpu_schedule(cuda):
     for e in (eta, eta.to(cuda)):
         got = step_schedule(e, 0.99, 30, cuda)
         assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# The tuning path: the lockstep sweep's 36-lane shapes, compat, the checks.
+# ---------------------------------------------------------------------------
+
+SWEEP_LANES = 36  # a lockstep round: 12 Set12 images x 3 TPE candidates
+
+
+def _sweep_images(cuda):
+    """36 distinct 128-px images: the 12 Set12 images at three noise levels."""
+    rng = np.random.default_rng(36)
+    clean = np.stack([load_image(f"Set12/{i:02d}.png", 128, 128) for i in range(1, 13)] * 3)
+    sig = np.repeat([0.05, 0.1, 0.15], 12)[:, None, None]
+    return torch.tensor((clean + sig * rng.standard_normal(clean.shape)).astype(np.float32), device=cuda)
+
+
+def test_k1_and_k2_match_plain_at_the_sweep_shape(cuda):
+    x = _sweep_images(cuda)
+    rows = bm3d._ref_grid(128, 8, 4)
+    offs = bm3d.search_offsets(8, 1)
+    before = k1.bm3d_match.launches
+    got = k1.bm3d_match(x, rows, rows, offs, 8, 16, "f32")
+    torch.cuda.synchronize()
+    assert k1.bm3d_match.launches == before + 1 and got.shape == (SWEEP_LANES, 31, 31, 16)
+    want = k1.bm3d_match_plain(x, rows, rows, offs, 8, 16, "f32")
+    assert _multiset_agreement(got, want) >= 0.999
+    dists = k1.match_distances_plain(x, rows, rows, offs, 8, "f32")
+    assert float(_slot_gaps(got, want, dists).max()) <= NEAR_TIE
+    sig = torch.tensor(np.repeat([0.05, 0.1, 0.15], 12), dtype=torch.float32, device=cuda)
+    _, args = bm3d.stage1_aggregate_inputs(x, sig, bm3d.BM3DParams(search=8))
+    before = k2.bm3d_aggregate.launches
+    num, den = k2.bm3d_aggregate(*args)
+    torch.cuda.synchronize()
+    assert k2.bm3d_aggregate.launches == before + 1 and num.shape == (SWEEP_LANES, 128, 128)
+    want_num, want_den = k2.bm3d_aggregate_plain(*args[:6])
+    for g, w in ((num, want_num), (den, want_den)):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_k3_matches_plain_at_the_sweep_shape_with_per_lane_h(cuda):
+    z = _sweep_images(cuda)
+    h = torch.linspace(0.04, 0.3, SWEEP_LANES, device=cuda)  # every lane its own (h, sigma)
+    sigma = torch.linspace(0.02, 0.2, SWEEP_LANES, device=cuda).flip(0)
+    before = k3.nlm_denoise.launches
+    got = k3.nlm_denoise(z, h, sigma)
+    torch.cuda.synchronize()
+    assert k3.nlm_denoise.launches == before + 1
+    want = k3.nlm_denoise_plain(z, h, sigma)
+    assert float((got - want).abs().max()) <= 1e-5
+    # A lane's result depends on its own (h, sigma) only.
+    alone = k3.nlm_denoise(z[17:18].contiguous(), h[17:18].contiguous(), sigma[17:18].contiguous())
+    assert float((alone - got[17:18]).abs().max()) <= 1e-6
+
+
+def test_compat_steps_on_the_card_match_the_cpu(cuda):
+    from pnp_svrg_tpu_torch.algorithms import compat
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = make_csmri(load_image("13.png", 32, 32), gen, 0.5, snr=10, device="cpu")
+    gpu = type(cpu)(**{k: v.to(cuda) for k, v in vars(cpu).items()})
+    masks = torch.stack([cpu.select_mb(gen, 100) for _ in range(4)])
+    kw = dict(eta=400.0, tt=1e9, T2=2, mini_batch_size=100, max_iters=4, converge_check=False)
+    den = NLMDenoiser(sigma_modifier=1.2)
+    a = compat.pnp_svrg(cpu, den, masks=masks, **kw)
+    before = k3.nlm_denoise.launches
+    b = compat.pnp_svrg(gpu, den, masks=masks.to(cuda), **kw)
+    assert k3.nlm_denoise.launches - before == 4
+    np.testing.assert_allclose(b["psnr_per_iter"], a["psnr_per_iter"], atol=0.011)
+    assert float((b["z"].cpu() - a["z"]).abs().max()) < 1e-3
+    assert b["gradient_time"] > 0 and b["denoise_time"] > 0
+
+
+def test_gradient_checks_pass_on_the_card_in_float64(cuda):
+    from pnp_svrg_tpu_torch.core import checks
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    img = load_image("13.png", 32, 32)
+    for prob in (make_csmri(img, gen, 0.5, snr=10, device=cuda),
+                 make_deblur(img, gen, kernel="Minimal", scale_percent=50, snr=5, device=cuda),
+                 make_phase_retrieval(img, gen, 512, snr=20, device=cuda)):
+        assert checks.grad_full_check(prob) < 1e-4
+        assert checks.grad_stoch_check(checks.widen(prob)) < 1e-6
+
+
+def test_tune_set12_on_the_headline_fixture(cuda, tmp_path):
+    from pnp_svrg_tpu_torch.examples import tune_set12
+
+    rec = tune_set12.main(["--from-fixture", "--n-outer", "1", "--t2", "1", "--mb", "4000",
+                           "--etas", "6000", "--mods", "1.0", "--out", str(tmp_path / "t.json")])
+    assert len(rec["lanes"]) == 13 and np.isfinite(rec["tuned_psnr"]).all()

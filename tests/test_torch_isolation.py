@@ -1,5 +1,6 @@
-"""The port stands alone: neither ``pnp_svrg_tpu_torch`` nor ``chip_smoke.py``
-imports jax or anything of the JAX package ``pnp_svrg_tpu``."""
+"""The port stands alone: neither ``pnp_svrg_tpu_torch`` (its scripts under
+``examples/`` included) nor ``chip_smoke.py`` imports jax, flax, anything of
+the JAX package ``pnp_svrg_tpu`` or the repository's ``tools/``."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "pnp_svrg_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "pnp_svrg_tpu", "tools")
 
 
 def test_importing_the_port_and_chip_smoke_loads_no_jax():
@@ -30,7 +31,7 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pnp_svrg_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pnp_svrg_tpu', 'tools'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -61,6 +62,10 @@ def test_the_scan_covers_every_slice_module():
     scanned = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for rel in ("algorithms/loops.py", "convert.py", "core/batched.py", "denoisers/bm3d.py",
                 "denoisers/nlm.py", "denoisers/tv.py", "denoisers/dncnn.py", "models/dncnn.py",
-                "models/convert.py", "problems/pr.py", "problems/deblur.py", "problems/csmri.py"):
+                "models/convert.py", "problems/pr.py", "problems/deblur.py", "problems/csmri.py",
+                "algorithms/compat.py", "core/checks.py", "tuning/tpe.py", "tuning/sweep.py",
+                "utils/profiling.py", "examples/sweep_sampratio.py", "examples/sweep_snr.py",
+                "examples/tune_set12.py", "examples/tune_csmri_nlm.py", "examples/tune_deblur.py",
+                "examples/tune_pr.py"):
         assert f"pnp_svrg_tpu_torch/{rel}" in scanned, rel
     assert "chip_smoke.py" in scanned
