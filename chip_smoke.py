@@ -78,7 +78,27 @@ imports no JAX. Phases, each printing one JSON line:
 14. checks: ``grad_full_check`` and ``grad_stoch_check`` in float64 at
    their default tolerances on CSMRI (128 px), phase retrieval (M = 8192,
    N = 16384), Deblur (256 px) and Deblur-SR (256 -> 128 px);
-15. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
+15. train: RealSN-DnCNN training at full width (depth 17, 64 features,
+   BatchNorm, lip 0.3, sigma 40/255, batch 128, 40 x 40 patches; the config
+   of ``checkpoints/exp_realsn_noise40/``), in three parts. (a) The committed
+   JAX training state through the port's ``load_checkpoint``: the 17
+   per-layer sigmas after 30 power iterations against the JAX CPU values of
+   ``train_realsn_noise40.npz`` (relative 1e-4), and ``evaluate`` of the
+   effective network on Set12 against the JAX CPU ``evaluate`` (PSNR within
+   0.01 dB, SSIM within 1e-4). (b) From that raw state with a fresh Adam at
+   lr 1e-4, 3 steps on the first 3 batches of the ``data/RGB`` patch set
+   (seed 0), rebuilt on the card, whose checksums and losses (relative
+   1e-4) are held to the fixture; then 50 timed steps (steps/s, patches/s,
+   peak memory), a profile of 10 steps (device time by cuDNN conv forward /
+   dgrad / wgrad, BatchNorm, elementwise, reductions, Adam; busy share) and
+   the power iteration's device time alone. (c) ``train()`` end to end from
+   a fresh init, 1 epoch of 100 steps into ``build/train_smoke/``; the
+   config guard refusing ``epochs=2`` on that directory; a directory seeded
+   with its epoch-1 state under ``epochs=2``, which ``train()`` resumes at
+   epoch 1 for 10 steps (the mean of those last 10 losses under the
+   zero-predictor loss); the effective network exported in the Flax layout,
+   reloaded through ``flax_model`` and evaluated to ``train()``'s PSNR;
+16. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
    pr_bm3d, deblur_sr_bm3d and pr_sarah_realsn, and one BM3D round of the
    sweep, under ``torch.profiler``: device time by kernel, grouped (the CNN
    denoiser's convolutions and BatchNorm as cuDNN's), and the device's busy
@@ -110,10 +130,12 @@ from __future__ import annotations
 
 import collections
 import csv
+import dataclasses
 import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -144,6 +166,15 @@ from pnp_svrg_tpu_torch.convert import (
     load_pr_sarah_problem,
     load_pr_sarah_reference,
     nlm_params,
+    TRAIN_BATCH_SEED,
+    TRAIN_DIR,
+    TRAIN_EXP,
+    TRAIN_SN_ITERS,
+    TRAIN_STEP_LR,
+    TRAIN_STEPS,
+    VAL_DIR,
+    checksum,
+    load_train_reference,
 )
 from pnp_svrg_tpu_torch.denoisers.bm3d import (
     BM3DDenoiser,
@@ -158,7 +189,7 @@ from pnp_svrg_tpu_torch.denoisers.bm3d import (
     search_offsets,
     stage1_aggregate_inputs,
 )
-from pnp_svrg_tpu_torch.denoisers.dncnn import DnCNNDenoiser
+from pnp_svrg_tpu_torch.denoisers.dncnn import CHECKPOINT_DIR, DnCNNDenoiser, flax_model
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import _build
@@ -182,6 +213,19 @@ from pnp_svrg_tpu_torch.problems.pr import make_phase_retrieval
 from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.core.checks import grad_full_check, grad_stoch_check, widen
 from pnp_svrg_tpu_torch.examples import sweep_sampratio
+from pnp_svrg_tpu_torch.models import (
+    DnCNN,
+    flax_variables_from_torch,
+    load_flax_npz,
+    save_flax_npz,
+    torch_state_dict_from_flax,
+    u_state_from_flax,
+)
+from pnp_svrg_tpu_torch.models.convert import flax_layers
+from pnp_svrg_tpu_torch.models.spectral_norm import sigma_uv
+from pnp_svrg_tpu_torch.training import ConfigMismatch, TrainConfig, evaluate, load_checkpoint, save_checkpoint, train
+from pnp_svrg_tpu_torch.training.data import batches, build_patch_dataset, load_gray
+from pnp_svrg_tpu_torch.training.train_dncnn import effective_variables, new_optimizer, sn_pairs, train_step
 from pnp_svrg_tpu_torch.tuning import sweep as sweep_module
 from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image, resolve_data_path
 
@@ -240,6 +284,31 @@ SWEEP_SPACE = {"eta": (1.0, 3e4), "dstrength": (0.3, 2.0), "t2": (5, 10),
 COMPAT_ITERS, COMPAT_TRACE_TOL_DB, COMPAT_Z_TOL, COMPAT_TT = 40, 0.011, 1e-4, 3.0
 CHECK_TOL = {"grad_full": 1e-4, "grad_stoch": 1e-6}  # the checks' default tolerances
 BENCH_SPREAD_SEEDS = (3, 4, 5)
+# The train phase: (a) the committed state's sigmas and Set12 scores against
+# the JAX CPU run, (b) TRAIN_STEPS steps against its losses and then timed
+# and profiled steps, (c) train() end to end under build/ (never under
+# checkpoints/ or data/). TRAIN_ZERO_PRED_LOSS is the loss of predicting a
+# zero residual: patch pixels x sigma^2 / 2.
+TRAIN_SIGMA_RTOL, TRAIN_PSNR_TOL_DB, TRAIN_SSIM_TOL, TRAIN_LOSS_RTOL = 1e-4, 0.01, 1e-4, 1e-4
+TRAIN_TIMED_STEPS, TRAIN_PROFILE_STEPS = 50, 10
+TRAIN_E2E_STEPS, TRAIN_RESUME_STEPS = 100, 10
+TRAIN_BUILD = Path(__file__).resolve().parent / "build" / "train_smoke"
+TRAIN_ZERO_PRED_LOSS = 40 * 40 * (40.0 / 255.0) ** 2 / 2
+# The train step's profile groups (group, substrings of the device kernel's
+# name). Under deterministic algorithms cuDNN also convolves by FFT (cuFFT's
+# fft2d_* and a complex GEMM) and by plain GEMMs; nothing else in the step
+# multiplies matrices, so those count as convolution.
+TRAIN_GROUPS = (
+    ("conv wgrad", ("wgrad", "Wgrad")),
+    ("conv dgrad (and conv_transpose)", ("dgrad", "Dgrad")),
+    ("conv fprop", ("fprop", "convolve", "winograd", "implicit_gemm", "conv2d")),
+    ("conv by FFT and GEMM (cuDNN)", ("fft", "gemm")),
+    ("BatchNorm", ("bn_", "batch_norm", "batchnorm", "welford")),
+    ("Adam", ("multi_tensor", "adam", "Adam")),
+    ("reductions (loss, BN statistics, norms)", ("reduce",)),
+    ("elementwise (ReLU, scaling, loss)", ("elementwise",)),
+    ("fill/copy", ("fill", "copy", "Copy")),
+)
 # K2 adds with f32 atomics, so runs on the same minibatches differ in the
 # last bits, and the PR lane carries such differences to its end (one ulp on
 # y or x_init moves the JAX package's own final PSNR by up to 0.25 dB,
@@ -1387,8 +1456,167 @@ def run_checks(bench: dict, card: str) -> dict:
     return errs
 
 
-def phase_profile(label: str, run) -> dict:
-    """Device time by kernel over one run of ``run()`` (port stream)."""
+def conv_flop_per_step(model, batch: int, hw: int) -> float:
+    """Operations of one training step's convolutions: each conv's forward
+    product (2 x B x H x W x C_in x C_out x 9), the same again for its weight
+    gradient and for its input gradient, except the first conv's, whose input
+    needs none."""
+    per = [2.0 * batch * hw * hw * c.in_channels * c.out_channels * c.kernel_size[0] * c.kernel_size[1]
+           for _, _, c in flax_layers(model) if isinstance(c, torch.nn.Conv2d)]
+    return 3 * sum(per) - per[0]
+
+
+def run_train(card: str) -> dict:
+    """RealSN-DnCNN training at full width, parts (a), (b) and (c) of the
+    module docstring. Every check raises; returns the three parts' records
+    (each with its kernel launches, which must be none)."""
+    ref = load_train_reference()
+    cfg = TrainConfig(**json.loads((TRAIN_EXP / "config.json").read_text()))
+    val_images = [load_gray(p) for p in sorted(VAL_DIR.glob("*.png"))]
+    sigma = cfg.noise_level / 255.0
+    host = json.loads((CHECKPOINT_DIR / "realsn_dncnn_noise40.val.json").read_text())
+    parts = {}
+
+    # (a) Resume the committed JAX training state.
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    ckpt = load_checkpoint(TRAIN_EXP, cfg.as_dict())
+    model = DnCNN(cfg.channels, cfg.depth, cfg.features, cfg.use_bn)
+    model.load_state_dict(torch_state_dict_from_flax(ckpt["variables"], model))
+    model.to("cuda")
+    u_state = u_state_from_flax(ckpt["u_state"], "cuda")
+    uv = sn_pairs(model, u_state, TRAIN_SN_ITERS)
+    sigmas = np.array([float(sigma_uv(layer.weight, *uv[name]).detach())
+                       for name, _, layer in flax_layers(model) if isinstance(layer, torch.nn.Conv2d)])
+    sigma_rel = float(np.abs(sigmas / ref["sigmas"] - 1).max())
+    eff = effective_variables(model, u_state, cfg, n_iters=TRAIN_SN_ITERS)
+    psnr_db, ssim_v = evaluate(eff, val_images, sigma)
+    parts["resume"] = {
+        "seconds": time.perf_counter() - t0, "epoch": ckpt["epoch"], "sigmas": sigmas.tolist(),
+        "sigma_max_rel_vs_jax_cpu": sigma_rel, "set12_psnr_db": psnr_db, "set12_ssim": ssim_v,
+        "jax_cpu_set12_psnr_db": float(ref["val_psnr"]), "jax_cpu_set12_ssim": float(ref["val_ssim"]),
+        "delta_psnr_db_vs_jax_cpu": psnr_db - float(ref["val_psnr"]),
+        "delta_ssim_vs_jax_cpu": ssim_v - float(ref["val_ssim"]),
+        "training_host_set12_psnr_db": host["val_psnr_db"], "training_host_set12_ssim": host["val_ssim"],
+        "launches": {n: k.launches for n, k in KERNELS.items()},
+    }
+    emit({"phase": "train", "part": "a_resume", "card": card, **parts["resume"]})
+    require(sigma_rel <= TRAIN_SIGMA_RTOL, f"train/a: sigmas {sigma_rel:.2e} relative off the JAX CPU's")
+    require(abs(psnr_db - float(ref["val_psnr"])) <= TRAIN_PSNR_TOL_DB,
+            f"train/a: Set12 PSNR {psnr_db:.4f} dB, JAX CPU {float(ref['val_psnr']):.4f}")
+    require(abs(ssim_v - float(ref["val_ssim"])) <= TRAIN_SSIM_TOL,
+            f"train/a: Set12 SSIM {ssim_v:.5f}, JAX CPU {float(ref['val_ssim']):.5f}")
+
+    # (b) Steps at full width from the raw state, a fresh Adam at lr 1e-4.
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    patches = build_patch_dataset(TRAIN_DIR, seed=cfg.seed, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(len(patches) == int(ref["n_patches"]) and checksum(patches) == str(ref["patches_sha256"]),
+            f"train/b: the data/RGB patch set ({len(patches)} patches) differs from the JAX package's")
+    perm = np.random.default_rng(TRAIN_BATCH_SEED).permutation(len(patches))
+    gen = batches(patches, cfg.batch_size, sigma, seed=TRAIN_BATCH_SEED)
+    opt = new_optimizer(model, TRAIN_STEP_LR)
+    losses = []
+    for b in range(TRAIN_STEPS):
+        noisy, noise = next(gen)
+        clean = patches[torch.from_numpy(perm[b * cfg.batch_size:(b + 1) * cfg.batch_size]).cuda()]
+        require(checksum(clean) == ref["batch_clean_sha256"][b] and checksum(noise) == ref["batch_noise_sha256"][b],
+                f"train/b: batch {b}'s clean patches or noise differ from the JAX package's")
+        losses.append(float(train_step(model, opt, u_state, noisy, noise, cfg)))
+    loss_rel = float(np.abs(np.array(losses) / ref["losses"] - 1).max())
+    step = lambda: train_step(model, opt, u_state, *next(gen), cfg)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        last = step()
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flop = conv_flop_per_step(model, cfg.batch_size, patches.shape[-1])
+    prof = phase_profile("train_step", lambda: [step() for _ in range(TRAIN_PROFILE_STEPS)], TRAIN_GROUPS)
+    # cuDNN's FFT algorithms launch a varying number of kernels a call, so the
+    # power iteration's device time is read from one profiled window of
+    # calls, not through device_ms's per-call record count.
+    sn_records = device_records(lambda: sn_pairs(model, u_state, cfg.sn_iters), TRAIN_PROFILE_STEPS)
+    sn_ms = sum(e.time_range.elapsed_us() for e in sn_records) / TRAIN_PROFILE_STEPS / 1e3
+    conv_ms = sum(v for g, v in prof["groups_ms"].items() if g.startswith("conv")) / TRAIN_PROFILE_STEPS
+    parts["steps"] = {
+        "batch_size": cfg.batch_size, "n_patches": len(patches), "patch_set_gb": patches.numel() * 4 / 1e9,
+        "patch_set_build_s": build_s, "losses": losses, "jax_cpu_losses": ref["losses"].tolist(),
+        "loss_max_rel_vs_jax_cpu": loss_rel, "batch_checksums_equal": True,
+        "timed_steps": TRAIN_TIMED_STEPS, "timed_s": timed_s, "steps_per_s": TRAIN_TIMED_STEPS / timed_s,
+        "patches_per_s": TRAIN_TIMED_STEPS * cfg.batch_size / timed_s, "last_loss": float(last),
+        "peak_mem_gb": peak_gb, "mem_held_before_steps_gb": held_gb,
+        "conv_tflop_per_step": flop / 1e12,
+        "device_ms_per_step": prof["device_kernel_ms"] / TRAIN_PROFILE_STEPS,
+        "conv_device_ms_per_step": conv_ms, "conv_tflops": flop / conv_ms / 1e9,
+        "conv_share_of_f32_peak": flop / conv_ms / 1e-3 / F32_PEAK,
+        "sn_power_iteration_device_ms_per_step": sn_ms, "busy_share": prof["device_busy_share"],
+        "launches": {n: k.launches for n, k in KERNELS.items()},
+    }
+    emit({"phase": "train", "part": "b_steps", "card": card, **parts["steps"]})
+    require(loss_rel <= TRAIN_LOSS_RTOL, f"train/b: losses {losses} {loss_rel:.2e} relative off the JAX CPU's")
+    require(math.isfinite(float(last)), "train/b: non-finite loss in the timed steps")
+    del patches, gen, model, opt, eff
+
+    # (c) train() end to end from a fresh init, under build/.
+    for k in KERNELS.values():
+        k.launches = 0
+    shutil.rmtree(TRAIN_BUILD, ignore_errors=True)
+    cfg1, cfg2 = (dataclasses.replace(cfg, epochs=e) for e in (1, 2))
+    run_kw = {"train_dir": TRAIN_DIR, "val_dir": VAL_DIR, "verbose": False, "device": "cuda"}
+    t0 = time.perf_counter()
+    _, hist1 = train(cfg1, TRAIN_BUILD / "epochs1", max_steps_per_epoch=TRAIN_E2E_STEPS, **run_kw)
+    first_s = time.perf_counter() - t0
+    try:
+        train(cfg2, TRAIN_BUILD / "epochs1", **run_kw)
+        refused = False
+    except ConfigMismatch:
+        refused = True
+    save_checkpoint(TRAIN_BUILD / "epochs2", load_checkpoint(TRAIN_BUILD / "epochs1", cfg1.as_dict()),
+                    cfg2.as_dict())
+    t0 = time.perf_counter()
+    eff2, hist2 = train(cfg2, TRAIN_BUILD / "epochs2", max_steps_per_epoch=TRAIN_RESUME_STEPS, **run_kw)
+    resume_s = time.perf_counter() - t0
+    export = TRAIN_BUILD / "realsn_dncnn_noise40_smoke.npz"
+    save_flax_npz(flax_variables_from_torch(eff2), export)
+    reloaded = flax_model(DnCNN(cfg.channels, cfg.depth, cfg.features, cfg.use_bn), load_flax_npz(export), "cuda")
+    export_psnr, export_ssim = evaluate(reloaded, val_images, sigma)
+    parts["train"] = {
+        "steps_epoch0": TRAIN_E2E_STEPS, "history_first_call": hist1, "first_call_s": first_s,
+        "guard_refused_epochs2": refused, "history_resumed_call": hist2, "resumed_call_s": resume_s,
+        "resumed_at_epoch": hist2[0]["epoch"] if hist2 else None,
+        "zero_predictor_loss": TRAIN_ZERO_PRED_LOSS, "export": str(export.relative_to(TRAIN_BUILD.parents[1])),
+        "export_set12_psnr_db": export_psnr, "export_set12_ssim": export_ssim,
+        "launches": {n: k.launches for n, k in KERNELS.items()},
+    }
+    emit({"phase": "train", "part": "c_train", "card": card, **parts["train"]})
+    require(len(hist1) == 1 and hist1[0]["epoch"] == 0, f"train/c: first call's history {hist1}")
+    require(refused, "train/c: the config guard let epochs=2 resume an epochs=1 experiment")
+    require(len(hist2) == 1 and hist2[0]["epoch"] == 1, f"train/c: the resumed call's history {hist2}")
+    l0, l1 = hist1[0]["train_loss"], hist2[0]["train_loss"]
+    require(math.isfinite(l0) and math.isfinite(l1) and l1 < l0,
+            f"train/c: mean losses {l0} (epoch 0) then {l1} (its last {TRAIN_RESUME_STEPS} steps) do not fall")
+    require(l1 < TRAIN_ZERO_PRED_LOSS, f"train/c: last {TRAIN_RESUME_STEPS} steps' mean loss {l1} is not "
+            f"under the zero predictor's {TRAIN_ZERO_PRED_LOSS:.3f}")
+    require(abs(export_psnr - hist2[0]["val_psnr"]) <= 1e-6,
+            f"train/c: the reloaded export gives {export_psnr} dB, train() {hist2[0]['val_psnr']}")
+    for part in parts.values():
+        require(part["launches"] == {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": 0},
+                f"train: kernel launches {part['launches']}, expected none")
+    return parts
+
+
+def phase_profile(label: str, run, table=KERNEL_GROUPS) -> dict:
+    """Device time by kernel over one run of ``run()`` (port stream), summed
+    by the first group of ``table`` whose substrings the kernel's name
+    holds."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1401,7 +1629,7 @@ def phase_profile(label: str, run) -> dict:
     total_us = sum(e.time_range.elapsed_us() for e in kernels)
     groups: dict[str, float] = {}
     for e in kernels:
-        group = next((g for g, keys in KERNEL_GROUPS if any(k in e.name for k in keys)), "other")
+        group = next((g for g, keys in table if any(k in e.name for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us()
     by_name: dict[str, float] = {}
     for e in kernels:
@@ -1411,7 +1639,7 @@ def phase_profile(label: str, run) -> dict:
         "device_kernel_ms": total_us / 1e3,
         "device_busy_share": total_us / wall_us, "kernel_launches": len(kernels),
         "groups_ms": {g: v / 1e3 for g, v in sorted(groups.items(), key=lambda kv: -kv[1])},
-        "top_kernels_ms": {n: v / 1e3 for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]},
+        "top_kernels_ms": {n: v / 1e3 for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]},
     }
     emit(rec)
     return rec
@@ -1463,6 +1691,7 @@ def main() -> None:
     compat_rec = run_compat(dev["nvidia_smi"])
     lanes_run |= {f"compat/{k}": compat_rec[k] for k in ("a_vs_loop", "b_tune_nlm", "c_tune_bm3d")}
     run_checks(bench, dev["nvidia_smi"])
+    lanes_run |= {f"train/{part}": rec for part, rec in run_train(dev["nvidia_smi"]).items()}
 
     for label, tuned, default_eta, default_mod, params in (
         ("headline", "set12_csmri_tuned.json", 6000.0, 1.0,

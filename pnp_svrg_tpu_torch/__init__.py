@@ -10,8 +10,8 @@ CPU.
 
 Ported so far (the Set12 CSMRI + PnP-SVRG + BM3D path, with its grid-aligned
 dense aggregation, the CSMRI + PnP-SVRG + NLM path, phase retrieval and
-Deblur/SR with BM3D, phase retrieval + PnP-SARAH + RealSN-DnCNN, and the
-tuning path):
+Deblur/SR with BM3D, phase retrieval + PnP-SARAH + RealSN-DnCNN, the
+tuning path and denoiser training):
 
 * ``problems.csmri`` (``CSMRI``, ``make_csmri``), ``problems.deblur``
   (``Deblur``, ``make_deblur``), ``problems.pr`` (``PhaseRetrieval``,
@@ -29,6 +29,11 @@ tuning path):
 * ``tuning``: TPE (``tpe.py``, a copy of the numpy original) and the sweeps
   (``sweep_grid``, ``sweep_grid_lockstep``); the sweep and tuner scripts are
   ``python -m pnp_svrg_tpu_torch.examples.<name>``
+* ``training``: RealSN-DnCNN training (``TrainConfig``, ``train``,
+  ``evaluate``, the patch pipeline, config-guarded checkpoints in the JAX
+  package's layout) on ``models.spectral_norm`` (the conv-operator spectral
+  norm) and ``models.dncnn`` in training mode; the script is
+  ``python -m pnp_svrg_tpu_torch.examples.train_realsn``
 * ``utils.profiling``: only ``fence``
 * ``ops``: metrics, sampling, wavelets, ``estimate_sigma``, transforms, the
   1-D FFT blur and the bilinear resize pair

@@ -54,11 +54,23 @@ hyperparameters and reference runs (the CNN denoisers' weights are read by
   this lane was measured on the JAX package's own A, which the port cannot
   rebuild; on the ``RandomState(4)`` A the reference is that JAX run.
 
+* The training state (``checkpoints/exp_realsn_noise40/``, the raw state
+  the JAX package's RealSN-DnCNN sigma-40 run ended on):
+  :func:`load_train_reference` reads ``data/train_realsn_noise40.npz``, the
+  JAX CPU run on that state: the 17 per-layer sigmas after
+  :data:`TRAIN_SN_ITERS` power iterations, ``evaluate``'s Set12 PSNR/SSIM
+  per image and their means at sigma 40/255, the losses of
+  :data:`TRAIN_STEPS` steps from the raw state with a fresh Adam at
+  :data:`TRAIN_STEP_LR` on the first batches (seed :data:`TRAIN_BATCH_SEED`)
+  of the ``data/RGB`` patch set, and :func:`checksum` of that patch set and
+  of each batch's clean patches and noise.
+
 The fixtures are written by ``python tests/test_torch_fixture.py``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from pathlib import Path
@@ -84,6 +96,11 @@ NLM_LANE = "13.png"
 DEBLUR_FIXTURE = HEADLINE_FIXTURE.parent / "deblur_256.npz"
 PR_FIXTURE = HEADLINE_FIXTURE.parent / "pr_bm3d_128.npz"
 PR_SARAH_FIXTURE = HEADLINE_FIXTURE.parent / "pr_sarah_realsn_128.npz"
+TRAIN_FIXTURE = HEADLINE_FIXTURE.parent / "train_realsn_noise40.npz"
+TRAIN_EXP = DATA_DIR.parent / "checkpoints" / "exp_realsn_noise40"
+TRAIN_DIR, VAL_DIR = DATA_DIR / "RGB", DATA_DIR / "Set12"
+TRAIN_SN_ITERS = 30  # effective_variables' power iterations
+TRAIN_STEPS, TRAIN_STEP_LR, TRAIN_BATCH_SEED = 3, 1e-4, 0  # lr: the epochs after the milestone
 
 # bench.py's three lanes: the problem, bench.py's defaults and the tuned
 # JSON merged over them (bench.py:508-542, 602-661, 663-717).
@@ -420,3 +437,17 @@ def load_pr_sarah_reference(path=PR_SARAH_FIXTURE) -> dict:
     final ``ssim`` (replicas,)."""
     data = _fixture(path)
     return {"psnr_per_iter": data["psnr_per_iter"], "ssim": data["ssim"]}
+
+
+def checksum(a) -> str:
+    """SHA-256 of an array's values as C-ordered f32 bytes (numpy array or
+    tensor on any device)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(a, dtype=np.float32).tobytes()).hexdigest()
+
+
+def load_train_reference(path=TRAIN_FIXTURE) -> dict:
+    """The JAX CPU run on the committed training state (see the module
+    docstring): numpy arrays, checksums as strings."""
+    return {k: (str(v) if v.dtype.kind == "U" and v.ndim == 0 else v) for k, v in _fixture(path).items()}

@@ -1,4 +1,4 @@
-"""The tuning scripts of the port, run as modules:
+"""The tuning and training scripts of the port, run as modules:
 
     python -m pnp_svrg_tpu_torch.examples.sweep_sampratio [--cpu] ...
     python -m pnp_svrg_tpu_torch.examples.sweep_snr
@@ -6,13 +6,16 @@
     python -m pnp_svrg_tpu_torch.examples.tune_csmri_nlm
     python -m pnp_svrg_tpu_torch.examples.tune_deblur
     python -m pnp_svrg_tpu_torch.examples.tune_pr
+    python -m pnp_svrg_tpu_torch.examples.train_realsn --exp DIR [--cpu] ...
 
 Each is a port of the JAX script of the same name under ``examples/``, with
 its arguments and output format; ``--cpu`` runs it on the CPU (the kernels'
-plain versions), else it runs on the CUDA card. Outputs go under
+plain versions), else it runs on the CUDA card. The tuners' outputs go under
 ``build/tuning/`` at the repository root by default (``build/`` is not
 committed), never over the committed tuned files under ``data/`` or
-``hyperparam-tuning/``.
+``hyperparam-tuning/``; the training script writes its ``--exp`` directory
+and, with ``--export``, ``checkpoints/<EXPORT>.npz`` as the JAX script
+does.
 """
 
 from pathlib import Path

@@ -1,9 +1,11 @@
-"""Flax checkpoints (``checkpoints/*.npz``) into the port's ``torch.nn`` models.
+"""Flax checkpoints (``checkpoints/*.npz``) to and from the port's ``torch.nn`` models.
 
-:func:`load_flax_npz` and :func:`_unflatten` are copies of the numpy-only
-helpers of ``pnp_svrg_tpu/models/convert.py`` (importing that module would
-pull in the JAX package). :func:`torch_state_dict_from_flax` carries Flax
-variables onto a model of ``models/dncnn.py``:
+:func:`load_flax_npz`, :func:`save_flax_npz`, :func:`_flatten` and
+:func:`_unflatten` are copies of the numpy-only helpers of
+``pnp_svrg_tpu/models/convert.py`` (importing that module would pull in the
+JAX package). :func:`torch_state_dict_from_flax` carries Flax variables onto
+a model of ``models/dncnn.py``, and :func:`flax_variables_from_torch` is its
+inverse, so the port's weights load in the JAX package's loaders:
 
 * Flax numbers ``Conv_i`` and ``BatchNorm_i`` by order of appearance; the
   model's ``net`` holds its layers in that order, so the i-th ``Conv2d`` takes
@@ -14,6 +16,10 @@ variables onto a model of ``models/dncnn.py``:
   become ``weight``, ``bias``, ``running_mean`` and ``running_var``.
 
 A Flax variable that no layer takes, or a layer that finds none, raises.
+
+The spectral-norm vectors of training (``u_state/Conv_i``) are NHWC
+``(1, hw, hw, C_out)`` in Flax and NCHW ``(1, C_out, hw, hw)`` in the port:
+:func:`u_state_from_flax` and :func:`u_state_to_flax` carry them across.
 """
 
 from __future__ import annotations
@@ -53,6 +59,32 @@ def load_flax_npz(path: Path) -> dict:
         return _unflatten({k: data[k] for k in data.files})
 
 
+def save_flax_npz(variables: dict, path: Path) -> None:
+    """Write nested numpy arrays as an ``.npz`` of ``/``-joined keys, as the
+    JAX package writes them."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **_flatten(variables))
+
+
+def flax_layers(model: nn.Module) -> list[tuple[str, str, nn.Module]]:
+    """``(flax name, torch prefix, layer)`` for each conv and BatchNorm of
+    ``model.net`` in order: ``("Conv_0", "net.0", conv)``, ...,
+    ``("BatchNorm_0", "net.3", bn)``, ..."""
+    out = []
+    counts = {"Conv": 0, "BatchNorm": 0}
+    for pos, layer in enumerate(model.net):
+        kind = "Conv" if isinstance(layer, nn.Conv2d) else "BatchNorm" if isinstance(layer, nn.BatchNorm2d) else None
+        if kind is not None:
+            out.append((f"{kind}_{counts[kind]}", f"net.{pos}", layer))
+            counts[kind] += 1
+    return out
+
+
+def _kernel_to_flax(weight: torch.Tensor) -> np.ndarray:
+    """torch (O, I, kh, kw) to Flax (kh, kw, I, O)."""
+    return np.ascontiguousarray(weight.detach().cpu().numpy().transpose(2, 3, 1, 0))
+
+
 def torch_state_dict_from_flax(variables: dict, model: nn.Module) -> dict:
     """A ``state_dict`` for ``model`` (its layers in ``model.net``) from Flax
     variables ``{"params": ..., "batch_stats": ...}``; raises ``KeyError``
@@ -67,24 +99,49 @@ def torch_state_dict_from_flax(variables: dict, model: nn.Module) -> dict:
         return torch.tensor(np.asarray(flat[key], dtype=np.float32))
 
     sd: dict[str, torch.Tensor] = {}
-    n_conv = n_bn = 0
-    for pos, layer in enumerate(model.net):
-        name = f"net.{pos}"
+    for base, name, layer in flax_layers(model):
         if isinstance(layer, nn.Conv2d):
-            base = f"params/Conv_{n_conv}"
-            sd[f"{name}.weight"] = take(f"{base}/kernel").permute(3, 2, 0, 1).contiguous()
+            sd[f"{name}.weight"] = take(f"params/{base}/kernel").permute(3, 2, 0, 1).contiguous()
             if layer.bias is not None:
-                sd[f"{name}.bias"] = take(f"{base}/bias")
-            n_conv += 1
-        elif isinstance(layer, nn.BatchNorm2d):
-            base = f"BatchNorm_{n_bn}"
+                sd[f"{name}.bias"] = take(f"params/{base}/bias")
+        else:
             sd[f"{name}.weight"] = take(f"params/{base}/scale")
             sd[f"{name}.bias"] = take(f"params/{base}/bias")
             sd[f"{name}.running_mean"] = take(f"batch_stats/{base}/mean")
             sd[f"{name}.running_var"] = take(f"batch_stats/{base}/var")
             sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
-            n_bn += 1
     left = sorted(set(flat) - used)
     if left:
         raise KeyError(f"Flax variables left over after mapping onto {type(model).__name__}: {left}")
     return sd
+
+
+def flax_variables_from_torch(model: nn.Module) -> dict:
+    """Flax variables ``{"params": ..., "batch_stats": ...}`` (numpy f32) of
+    ``model``: the inverse of :func:`torch_state_dict_from_flax`. The
+    ``batch_stats`` collection is there only when the model has
+    BatchNorm layers, as in Flax."""
+    params: dict = {}
+    batch_stats: dict = {}
+    as_np = lambda t: t.detach().cpu().numpy().astype(np.float32)  # noqa: E731
+    for base, _, layer in flax_layers(model):
+        if isinstance(layer, nn.Conv2d):
+            params[base] = {"kernel": _kernel_to_flax(layer.weight)}
+            if layer.bias is not None:
+                params[base]["bias"] = as_np(layer.bias)
+        else:
+            params[base] = {"scale": as_np(layer.weight), "bias": as_np(layer.bias)}
+            batch_stats[base] = {"mean": as_np(layer.running_mean), "var": as_np(layer.running_var)}
+    return {"params": params, "batch_stats": batch_stats} if batch_stats else {"params": params}
+
+
+def u_state_from_flax(u_state: dict, device=None) -> dict[str, torch.Tensor]:
+    """Flax ``u_state`` (``Conv_i`` -> NHWC (1, hw, hw, C)) as NCHW tensors."""
+    return {name: torch.tensor(np.asarray(u, dtype=np.float32)).permute(0, 3, 1, 2).contiguous().to(device)
+            for name, u in u_state.items()}
+
+
+def u_state_to_flax(u_state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The port's NCHW ``u_state`` in Flax's NHWC layout (numpy f32)."""
+    return {name: np.ascontiguousarray(u.detach().cpu().numpy().transpose(0, 2, 3, 1))
+            for name, u in u_state.items()}

@@ -553,3 +553,72 @@ def test_tune_set12_on_the_headline_fixture(cuda, tmp_path):
     rec = tune_set12.main(["--from-fixture", "--n-outer", "1", "--t2", "1", "--mb", "4000",
                            "--etas", "6000", "--mods", "1.0", "--out", str(tmp_path / "t.json")])
     assert len(rec["lanes"]) == 13 and np.isfinite(rec["tuned_psnr"]).all()
+
+
+def _numpy_patch_set(image_dir, max_images, seed, patch=40, stride=10):
+    """The patch pipeline written with numpy loops (the JAX package's numpy
+    path), the reference for the device's unfold, rot90 and flip."""
+    from pnp_svrg_tpu_torch.training.data import SCALES, load_gray
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for path in sorted(image_dir.glob("*.png"))[:max_images]:
+        for scale in SCALES:
+            img = load_gray(path, scale)
+            ps = np.stack([img[y:y + patch, x:x + patch] for y in range(0, img.shape[0] - patch + 1, stride)
+                           for x in range(0, img.shape[1] - patch + 1, stride)])
+            modes = rng.integers(0, 8, size=len(ps))
+            aug = [np.rot90(q, int(m) // 2) for q, m in zip(ps, modes)]
+            out.append(np.stack([np.flipud(q) if m % 2 else q for q, m in zip(aug, modes)]))
+    return np.concatenate(out)
+
+
+def test_patch_pipeline_on_the_card_is_the_numpy_pipeline(cuda):
+    from pnp_svrg_tpu_torch.training import data
+    from pnp_svrg_tpu_torch.utils.io import SET12_DIR
+
+    got = data.build_patch_dataset(SET12_DIR, max_images=2, seed=3, device=cuda)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), _numpy_patch_set(SET12_DIR, 2, 3))
+    cpu = got.cpu()
+    for sigma in (25 / 255.0, (0.0, 55 / 255.0)):
+        for (a, na), (b, nb) in zip(data.batches(got, 64, sigma, seed=5), data.batches(cpu, 64, sigma, seed=5)):
+            assert a.device.type == "cuda"
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+            torch.testing.assert_close(na.cpu(), nb, rtol=0, atol=0)
+
+
+def test_train_step_and_evaluate_on_the_card_match_the_cpu(cuda):
+    """3 steps (BatchNorm, lip and the BN clamp on) from one start on the same
+    batches, then the effective network's Set12 scores, on the card and on
+    the CPU: losses to 1e-5 relative, weights and statistics to 5e-6,
+    PSNR to 1e-4 dB."""
+    from pnp_svrg_tpu_torch.models import flax_variables_from_torch, u_state_to_flax
+    from pnp_svrg_tpu_torch.training import TrainConfig, evaluate
+    from pnp_svrg_tpu_torch.training.data import batches, load_gray
+    from pnp_svrg_tpu_torch.training.train_dncnn import (
+        effective_variables, init_u_state, new_model, new_optimizer, train_step)
+    from pnp_svrg_tpu_torch.utils.io import SET12_DIR
+
+    cfg = TrainConfig(depth=4, features=16, use_bn=True, lip=0.5, bn_sn=1.0, batch_size=8, sn_probe_hw=12)
+    runs = {}
+    patches = torch.tensor(np.random.default_rng(0).uniform(0, 1, (40, 24, 24)).astype(np.float32))
+    val = [load_gray(p) for p in sorted(SET12_DIR.glob("*.png"))[:2]]
+    for dev in ("cpu", cuda):
+        gen = torch.Generator().manual_seed(0)
+        model = new_model(cfg, gen).to(dev)
+        u_state = init_u_state(model, cfg.sn_probe_hw, gen)
+        opt = new_optimizer(model, cfg.lr)
+        losses = [float(train_step(model, opt, u_state, noisy, noise, cfg))
+                  for noisy, noise in list(batches(patches.to(dev), 8, 25 / 255.0, seed=1))[:3]]
+        runs[str(dev)] = (losses, flax_variables_from_torch(model), u_state_to_flax(u_state),
+                          evaluate(effective_variables(model, u_state, cfg), val, 25 / 255.0))
+    (lc, vc, uc, ec), (lg, vg, ug, eg) = runs["cpu"], runs[str(cuda)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for tree_g, tree_c in ((vg["params"], vc["params"]), (vg["batch_stats"], vc["batch_stats"]), (ug, uc)):
+        for name in tree_c:
+            for leaf in (tree_c[name] if isinstance(tree_c[name], dict) else {"": tree_c[name]}):
+                g = tree_g[name][leaf] if leaf else tree_g[name]
+                c = tree_c[name][leaf] if leaf else tree_c[name]
+                np.testing.assert_allclose(g, c, rtol=0, atol=5e-6, err_msg=f"{name}/{leaf}")
+    np.testing.assert_allclose(eg, ec, atol=1e-4)

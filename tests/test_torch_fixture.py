@@ -44,10 +44,19 @@ then ``fold_in(k_mb, lane)`` per lane), and the JAX CPU ``pnp_sarah`` run's
 (1 + n_outer*(t2+1), 8) PSNR trace and per-replica SSIM. That run stacks A
 8 times (4.3 GB).
 
+``train_realsn_noise40.npz`` holds the JAX CPU run on the committed raw
+training state ``checkpoints/exp_realsn_noise40/`` (RealSN-DnCNN, depth 17,
+64 features, BatchNorm, lip 0.3, sigma 40): the 17 per-layer sigmas after 30
+power iterations from its ``u_state``, ``evaluate``'s Set12 PSNR/SSIM per
+image and their means, the losses of 3 steps from the raw state with a fresh
+Adam at lr 1e-4 on the first 3 batches (seed 0, 128 patches) of the
+``data/RGB`` patch set, and SHA-256 checksums of that patch set and of each
+batch's clean patches and noise.
+
 Regenerate them all with ``python tests/test_torch_fixture.py``, or some
-with ``python tests/test_torch_fixture.py headline nlm deblur pr pr_sarah``
-(the Deblur reference runs take about 10 minutes on the CPU, the PR one 10,
-the PR + SARAH one 5).
+with ``python tests/test_torch_fixture.py headline nlm deblur pr pr_sarah
+train`` (the Deblur reference runs take about 10 minutes on the CPU, the PR
+one 10, the PR + SARAH one 5, the training one 2).
 ``python tests/test_torch_fixture.py --cpu-lanes`` writes nothing: it runs
 the port's plain CPU path on the Deblur, PR and PR + SARAH lanes' fixture
 problems and JAX minibatches against the stored JAX traces, and both sides'
@@ -57,6 +66,7 @@ rounding alone moves that lane's result (about 30 minutes).
 
 from __future__ import annotations
 
+import json
 import sys
 from pathlib import Path
 
@@ -84,6 +94,16 @@ from pnp_svrg_tpu.problems.csmri import CSMRI
 from pnp_svrg_tpu.problems.pr import PhaseRetrieval as JaxPhaseRetrieval
 from pnp_svrg_tpu.problems.pr import _dot as jax_dot
 from pnp_svrg_tpu.problems.pr import spectral_init as jax_spectral_init
+from pnp_svrg_tpu.models.dncnn import DnCNN as JaxDnCNN
+from pnp_svrg_tpu.models.spectral_norm import power_iteration_uv as jax_power_iteration_uv
+from pnp_svrg_tpu.models.spectral_norm import sigma_uv as jax_sigma_uv
+from pnp_svrg_tpu.ops.metrics import psnr as jax_psnr
+from pnp_svrg_tpu.training import data as jax_train_data
+from pnp_svrg_tpu.training.checkpoint import load_checkpoint as jax_load_checkpoint
+from pnp_svrg_tpu.training.train_dncnn import TrainConfig as JaxTrainConfig
+from pnp_svrg_tpu.training.train_dncnn import effective_variables as jax_effective_variables
+from pnp_svrg_tpu.training.train_dncnn import evaluate as jax_evaluate
+from pnp_svrg_tpu.training.train_dncnn import make_train_step as jax_make_train_step
 from pnp_svrg_tpu.utils.io import load_image as jax_load_image
 from pnp_svrg_tpu.utils.io import resolve_data_path as jax_resolve_data_path
 from pnp_svrg_tpu.utils.io import set12_paths
@@ -98,7 +118,16 @@ from pnp_svrg_tpu_torch.convert import (
     PR_FIXTURE,
     PR_SARAH_FIXTURE,
     PR_SEED,
+    TRAIN_BATCH_SEED,
+    TRAIN_DIR,
+    TRAIN_EXP,
+    TRAIN_FIXTURE,
+    TRAIN_SN_ITERS,
+    TRAIN_STEP_LR,
+    TRAIN_STEPS,
+    VAL_DIR,
     bench_config,
+    checksum,
     load_deblur_masks,
     load_deblur_problem,
     load_deblur_reference,
@@ -114,6 +143,7 @@ from pnp_svrg_tpu_torch.convert import (
     load_pr_sarah_indices,
     load_pr_sarah_problem,
     load_pr_sarah_reference,
+    load_train_reference,
     nlm_params,
     pr_matrix_blocks,
 )
@@ -406,6 +436,95 @@ def build_pr_sarah_arrays() -> dict:
     return {"indices": pr_sarah_indices(a.shape[0]), **run_jax_pr_sarah(pr_fixture_problem(a))}
 
 
+def jax_train_state():
+    """The committed raw training state through the JAX package's loader:
+    (config, model, variables, u_state)."""
+    cfg = JaxTrainConfig(**json.loads((TRAIN_EXP / "config.json").read_text()))
+    ckpt = jax_load_checkpoint(TRAIN_EXP, cfg.as_dict())
+    model = JaxDnCNN(channels=cfg.channels, depth=cfg.depth, features=cfg.features, use_bn=cfg.use_bn)
+    as_jnp = lambda tree: jax.tree_util.tree_map(jnp.asarray, tree)  # noqa: E731
+    return cfg, model, as_jnp(ckpt["variables"]), as_jnp(ckpt["u_state"])
+
+
+def jax_train_sigmas(variables, u_state) -> np.ndarray:
+    """Per conv (``Conv_0`` .. ``Conv_16``), sigma of the raw kernel after
+    :data:`TRAIN_SN_ITERS` power iterations from the stored ``u``."""
+    out = []
+    for i in range(len(u_state)):
+        kernel = variables["params"][f"Conv_{i}"]["kernel"]
+        u, v = jax_power_iteration_uv(kernel, u_state[f"Conv_{i}"], TRAIN_SN_ITERS)
+        out.append(float(jax_sigma_uv(kernel, u, v)))
+    return np.asarray(out, np.float32)
+
+
+def jax_evaluate_per_image(model, variables, images, sigma: float, seed: int = 1234) -> np.ndarray:
+    """(n, 2) PSNR and SSIM of each image as the JAX ``evaluate`` makes them
+    (its noise draws in order, the same jitted forward pass and metrics);
+    ``evaluate`` itself returns only their means."""
+    rng = np.random.default_rng(seed)
+
+    @jax.jit
+    def eval_one(v, clean, noisy):
+        den = jnp.clip(noisy - model.apply(v, noisy[None, ..., None])[0, ..., 0], 0.0, 1.0)
+        return jnp.stack([jax_psnr(clean, den), jax_ssim(clean, den)])
+
+    out = []
+    for img in images:
+        clean = jnp.asarray(img, jnp.float32)
+        noisy = clean + sigma * jnp.asarray(rng.standard_normal(clean.shape), jnp.float32)
+        out.append(np.asarray(eval_one(variables, clean, noisy), np.float64))
+    return np.stack(out)
+
+
+def jax_train_batches(patches: np.ndarray, cfg) -> list:
+    """The first :data:`TRAIN_STEPS` (clean, noisy, noise) NHWC batches of the
+    JAX pipeline (seed :data:`TRAIN_BATCH_SEED`); the clean patches are
+    those the batch's permutation selects."""
+    perm = np.random.default_rng(TRAIN_BATCH_SEED).permutation(len(patches))
+    gen = jax_train_data.batches(patches, cfg.batch_size, cfg.noise_level / 255.0, seed=TRAIN_BATCH_SEED)
+    out = []
+    for b in range(TRAIN_STEPS):
+        noisy, noise = next(gen)
+        out.append((patches[perm[b * cfg.batch_size : (b + 1) * cfg.batch_size]], noisy, noise))
+    return out
+
+
+def build_train_arrays() -> dict:
+    """The training fixture (module docstring) from the JAX package on the
+    CPU."""
+    import optax
+
+    cfg, model, variables, u_state = jax_train_state()
+    sigma = cfg.noise_level / 255.0
+    eff = jax_effective_variables(variables, u_state, cfg, n_iters=TRAIN_SN_ITERS)
+    images = [jax_train_data.load_gray(p) for p in sorted(VAL_DIR.glob("*.png"))]
+    per_image = jax_evaluate_per_image(model, eff, images, sigma)
+    psnr_mean, ssim_mean = jax_evaluate(model, eff, images, sigma)
+    assert np.isclose(per_image[:, 0].mean(), psnr_mean, rtol=0, atol=1e-9), (per_image[:, 0].mean(), psnr_mean)
+    patches = jax_train_data.build_patch_dataset(TRAIN_DIR, seed=cfg.seed)
+    tx = optax.inject_hyperparams(optax.adam)(learning_rate=cfg.lr)
+    opt_state = tx.init(variables["params"])
+    opt_state.hyperparams["learning_rate"] = jnp.asarray(TRAIN_STEP_LR)
+    step = jax_make_train_step(model, tx, cfg)
+    losses, sums = [], {"clean": [], "noise": []}
+    for clean, noisy, noise in jax_train_batches(patches, cfg):
+        variables, opt_state, u_state, loss = step(variables, opt_state, u_state, jnp.asarray(noisy),
+                                                   jnp.asarray(noise))
+        losses.append(float(loss))
+        sums["clean"].append(checksum(clean))
+        sums["noise"].append(checksum(noise))
+    return {
+        "sigmas": jax_train_sigmas(*jax_train_state()[2:]),
+        "val_psnr_per_image": per_image[:, 0], "val_ssim_per_image": per_image[:, 1],
+        "val_psnr": np.float64(psnr_mean), "val_ssim": np.float64(ssim_mean),
+        "val_sigma": np.float64(sigma),
+        "losses": np.asarray(losses, np.float32),
+        "n_patches": np.int64(len(patches)), "patches_sha256": np.array(checksum(patches)),
+        "batch_clean_sha256": np.array(sums["clean"]), "batch_noise_sha256": np.array(sums["noise"]),
+        "batch_size": np.int64(cfg.batch_size),
+    }
+
+
 @pytest.fixture(scope="module")
 def rebuilt():
     return build_headline_arrays()
@@ -625,6 +744,25 @@ def test_load_pr_problem_rebuilds_a_and_the_jax_measurements(tmp_path):
         load_pr_problem(device="cpu", path=tmp_path / "pr.npz")
 
 
+def test_train_reference_is_a_fresh_jax_run():
+    """The stored sigmas and the first Set12 image's PSNR/SSIM are what the
+    JAX package computes now from the committed state (the other images'
+    runs are the same code on other images; their mean is the stored
+    ``evaluate`` mean)."""
+    cfg, model, variables, u_state = jax_train_state()
+    ref = load_train_reference()
+    np.testing.assert_allclose(jax_train_sigmas(variables, u_state), ref["sigmas"], rtol=1e-6)
+    eff = jax_effective_variables(variables, u_state, cfg, n_iters=TRAIN_SN_ITERS)
+    first = jax_train_data.load_gray(sorted(VAL_DIR.glob("*.png"))[0])
+    psnr, ssim = jax_evaluate(model, eff, [first], float(ref["val_sigma"]))
+    np.testing.assert_allclose(psnr, ref["val_psnr_per_image"][0], atol=1e-4)
+    np.testing.assert_allclose(ssim, ref["val_ssim_per_image"][0], atol=1e-6)
+    np.testing.assert_allclose(ref["val_psnr_per_image"].mean(), ref["val_psnr"], atol=1e-9)
+    np.testing.assert_allclose(ref["val_ssim_per_image"].mean(), ref["val_ssim"], atol=1e-9)
+    assert len(ref["losses"]) == len(ref["batch_clean_sha256"]) == len(ref["batch_noise_sha256"]) == TRAIN_STEPS
+    assert TRAIN_FIXTURE.stat().st_size < 100_000
+
+
 def cpu_lanes() -> None:
     """Print the port's CPU runs of the Deblur, PR and PR + SARAH lanes on the
     JAX minibatches against the stored JAX traces, and the PR lane's final
@@ -676,7 +814,7 @@ def cpu_lanes() -> None:
 
 def build(names) -> None:
     """Write the named fixtures (``headline``, ``nlm``, ``deblur``, ``pr``,
-    ``pr_sarah``)."""
+    ``pr_sarah``, ``train``)."""
     if "headline" in names or "nlm" in names:
         arrays = build_headline_arrays()
         arrays.pop("x")  # rebuilt by the port's load_image
@@ -709,12 +847,19 @@ def build(names) -> None:
         print(f"JAX PR + SARAH + RealSN: replica-mean final PSNR {final.mean():.4f} dB "
               f"(per replica {np.round(final, 4).tolist()}), mean SSIM {sarah['ssim'].mean():.4f}",
               file=sys.stderr)
-    for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE, PR_SARAH_FIXTURE):
+    if "train" in names:
+        train = build_train_arrays()
+        np.savez_compressed(TRAIN_FIXTURE, **train)
+        print(f"JAX RealSN-DnCNN sigma 40 state: Set12 PSNR {float(train['val_psnr']):.4f} dB, SSIM "
+              f"{float(train['val_ssim']):.4f}, sigmas {np.round(train['sigmas'], 4).tolist()}, "
+              f"losses {train['losses'].tolist()}, {int(train['n_patches'])} patches", file=sys.stderr)
+    for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE, PR_SARAH_FIXTURE,
+                 TRAIN_FIXTURE):
         if path.exists():
             print(f"{path} ({path.stat().st_size} bytes)", file=sys.stderr)
 
 
-FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah")
+FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah", "train")
 
 if __name__ == "__main__" and sys.argv[1:] == ["--cpu-lanes"]:
     cpu_lanes()

@@ -66,6 +66,8 @@ def test_the_scan_covers_every_slice_module():
                 "algorithms/compat.py", "core/checks.py", "tuning/tpe.py", "tuning/sweep.py",
                 "utils/profiling.py", "examples/sweep_sampratio.py", "examples/sweep_snr.py",
                 "examples/tune_set12.py", "examples/tune_csmri_nlm.py", "examples/tune_deblur.py",
-                "examples/tune_pr.py"):
+                "examples/tune_pr.py", "models/spectral_norm.py", "training/__init__.py",
+                "training/data.py", "training/utils.py", "training/checkpoint.py",
+                "training/train_dncnn.py", "examples/train_realsn.py"):
         assert f"pnp_svrg_tpu_torch/{rel}" in scanned, rel
     assert "chip_smoke.py" in scanned
