@@ -23,7 +23,10 @@ imports no JAX. Phases, each printing one JSON line:
    K3 (non-local means) against its plain version on real NLM inputs (the
    ``13.png`` lane's ``x_init`` after one gradient step) at B = 1 and at
    B = 9 on distinct lanes (each grid pair's own step and h), with and
-   without row bounds, and NaN at ``h = 0``;
+   without row bounds, and NaN at ``h = 0``; K1 with row bounds at the
+   spatial path's shapes (the deblur_bm3d lane's 256 px input cut into its
+   two shards' halo-extended 192 x 256 blocks, bounds (32, 192) and
+   (0, 160));
 4. parity: small faithful-variant reconstructions (BM3D, NLM and the
    wavelet "TV" denoiser) on the card against the same runs on the CPU
    (plain kernel versions), and a standalone BM3D denoise on the card;
@@ -98,7 +101,27 @@ imports no JAX. Phases, each printing one JSON line:
    epoch 1 for 10 steps (the mean of those last 10 losses under the
    zero-predictor loss); the effective network exported in the Flax layout,
    reloaded through ``flax_model`` and evaluated to ``train()``'s PSNR;
-16. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
+16. parallel (``parallel/``): (a) the headline batch meas-split in two
+   shards in this process, on the JAX masks split by the two row blocks,
+   against the unsharded run on the same masks (its first two outer rounds,
+   within 1e-3 dB plus twice the spread of four unsharded runs, which K2's
+   atomics make differ; Set12-VD mean >= 25.5 dB), with both runs' device
+   time; then two ranks on the one card over gloo, spawned once: (b) the
+   same program, each rank one shard (the ranks bit for bit equal, and held
+   to (a) as (a) to the unsharded run), with its ``all_reduce`` count and
+   their host and device time; (c) phase retrieval with A's rows split,
+   half on each rank: ``pr_grad_full_sharded`` (1e-5 relative), one
+   ``sharded_pnp_step`` on two lanes (1e-3 dB) and two outer rounds of the
+   meas-split PnP-SVRG on stratified row indices against the unsharded run
+   on their union; (d) ``pnp_saga`` with its table sharded against the
+   unsharded table, bit for bit, in one process and on the two ranks; (e)
+   ``run_batch(..., image_shards=2)``: NLM on the csmri_nlm lane (1e-4 dB),
+   BM3D on the deblur_bm3d lane (0.05 dB, >= 18.60 dB), and the row-sharded
+   NLM and BM3D denoise of a 256 px image against the unsharded one; (g)
+   ``examples/scaling.py`` at one rank and at two ranks on the one card (no
+   scaling claim); (h) ``dryrun_multichip(2)``. Every rank's failure,
+   time-out or disagreement fails the phase;
+17. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
    pr_bm3d, deblur_sr_bm3d and pr_sarah_realsn, and one BM3D round of the
    sweep, under ``torch.profiler``: device time by kernel, grouped (the CNN
    denoiser's convolutions and BatchNorm as cuDNN's), and the device's busy
@@ -122,6 +145,7 @@ own key stream: on other minibatch streams single lanes diverge, so the
 port-stream quality is reported and checked for NaN, and the quality floor
 applies to the reference-minibatch run.
 
+Every phase's record carries ``t_s``, the seconds since the script started.
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``. Any
 failed check raises, and the script exits non-zero without the last line.
 """
@@ -131,6 +155,7 @@ from __future__ import annotations
 import collections
 import csv
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -144,7 +169,7 @@ import numpy as np
 import torch
 
 from pnp_svrg_tpu_torch.algorithms import compat
-from pnp_svrg_tpu_torch.algorithms.loops import pnp_sarah, pnp_svrg, run_pnp
+from pnp_svrg_tpu_torch.algorithms.loops import pnp_saga, pnp_sarah, pnp_svrg, run_pnp
 from pnp_svrg_tpu_torch.convert import (
     BENCH_LANES,
     NLM_LANE,
@@ -179,6 +204,7 @@ from pnp_svrg_tpu_torch.convert import (
 from pnp_svrg_tpu_torch.denoisers.bm3d import (
     BM3DDenoiser,
     BM3DParams,
+    bm3d_denoise,
     _aggregate,
     _aggregate_dense,
     _geometry,
@@ -227,6 +253,21 @@ from pnp_svrg_tpu_torch.training import ConfigMismatch, TrainConfig, evaluate, l
 from pnp_svrg_tpu_torch.training.data import batches, build_patch_dataset, load_gray
 from pnp_svrg_tpu_torch.training.train_dncnn import effective_variables, new_optimizer, sn_pairs, train_step
 from pnp_svrg_tpu_torch.tuning import sweep as sweep_module
+from pnp_svrg_tpu_torch.examples import scaling
+from pnp_svrg_tpu_torch.parallel import (
+    bm3d_denoise_spatial,
+    make_mesh,
+    make_spatial_mesh,
+    nlm_denoise_spatial,
+    pr_grad_full_sharded,
+    run_batch,
+    run_batch_meas_emulated,
+    shard_pr_problem,
+    sharded_pnp_step,
+)
+from pnp_svrg_tpu_torch.parallel.dryrun import dryrun_multichip
+from pnp_svrg_tpu_torch.parallel.meas import run_local
+from pnp_svrg_tpu_torch.parallel.mesh import BATCH_AXIS, MEAS_AXIS, LocalAxis, spawn
 from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image, resolve_data_path
 
 N_OUTER, T2, MINI_BATCH = 16, 10, 4000
@@ -315,6 +356,26 @@ TRAIN_GROUPS = (
 # `python tests/test_torch_fixture.py --cpu-lanes`): the reference-minibatch
 # run is repeated and the floor holds their mean.
 BENCH_REF_REPEATS = 3
+# The parallel phase (``parallel/``): two ranks share the one card over gloo
+# (NCCL refuses two ranks on one device), spawned once for every two-rank
+# part. Tolerances: the CPU identity tests hold a sharded loop to the
+# unsharded one on the union of the shards' minibatches within 1e-3 dB
+# (the psum reorders sums). On the card K2's atomics also make two unsharded
+# runs on the same minibatches differ, by 0.7 dB in a headline lane's trace
+# (the tuned etas sit at the stability edge), and by 0.1 dB in the PR
+# lane's first two outer rounds, so (a), (b) and the PR run are held over
+# their first two outer rounds, within 1e-3 dB plus twice the largest
+# difference among PAR_REPEATS unsharded runs there; the two ranks of (b) must agree bit
+# for bit (the first meas shard denoises and broadcasts). PR gradient within
+# 1e-5 relative, step within 1e-3 dB; the SAGA table bit for bit; spatial
+# NLM within 1e-4 dB (K3 splits warps by shape); spatial BM3D within 0.05 dB.
+PAR_WORLD, PAR_TIMEOUT_S = 2, 300
+PAR_IDENTITY_DB, PAR_EARLY_ROUNDS, PAR_REPEATS = 1e-3, 2, 4
+PAR_PR_ROUNDS, PAR_PR_TOL_DB, PAR_PR_GRAD_RTOL = 2, 1e-3, 1e-5
+PAR_SAGA_ITERS, PAR_SAGA_HIST = 10, 50
+PAR_NLM_TOL_DB, PAR_BM3D_TOL_DB = 1e-4, 0.05
+PAR_SCALING_ARGV = ["--size", "128", "--images-per-device", "2", "--n-outer", "4", "--t2", "10",
+                    "--eta", "6000", "--mb", "4000", "--search", "8"]
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM bytes/s. Bounds are stated beside the card's name and limit.
 F32_PEAK, HBM_PEAK = 67e12, 3.35e12
@@ -336,6 +397,8 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("fold (unfold-add)", ("col2im", "im2col")),
     ("fill/copy", ("fill", "copy", "Copy")),
 )
+# gloo stages a CUDA tensor's collective through the host: its copies.
+PAR_GROUPS = (("memcpy (gloo host staging)", ("Memcpy", "memcpy")),) + KERNEL_GROUPS
 SOURCES = {
     "bm3d_match": ("pnp_svrg_tpu_torch/csrc/bm3d_match.cu",
                    "pnp_svrg_tpu/ops/pallas/bm3d_match.py:52"),
@@ -346,7 +409,14 @@ SOURCES = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
+    """One JSON line; a phase's record also gets ``t_s``, the seconds since
+    the script started."""
+    if "phase" in record:
+        record = record | {"t_s": time.perf_counter() - T_START}
     print(json.dumps(record), flush=True)
 
 
@@ -514,18 +584,20 @@ def sass_loop_mix(text: str, marker: str) -> dict:
     return {"instructions": len(body), "opcodes": dict(collections.Counter(body).most_common())}
 
 
-def match_bounds(b: int, h: int, w: int, rows, cols, offs) -> dict:
+def match_bounds(b: int, h: int, w: int, rows, cols, offs, lo: int = 0, hi: int | None = None) -> dict:
     """K1's least time two ways, over the valid (reference block, offset)
     pairs of this geometry. Direct: sub, mul, add for each of a pair's 64
     patch terms. Separable (the Pallas kernel's form): per (image, offset)
     the squared-difference plane (sub, mul a pixel), 8-wide row sums at the
     reference columns (7 adds each) and 8-tall column sums at the reference
     rows (7 adds each), shared among that offset's reference blocks; counted
-    for the valid share of them. Bytes: the images in, the indices out."""
+    for the valid share of them. Bytes: the images in, the indices out. Row
+    bounds ``[lo, hi)`` count only the candidates inside them."""
     nr, nc = len(rows), len(cols)
+    hi = h if hi is None else hi
     valid = sum(
         1 for r in rows for c in cols for dy, dx in offs
-        if 0 <= r + dy <= h - 8 and 0 <= c + dx <= w - 8
+        if max(0, lo) <= r + dy <= min(h, hi) - 8 and 0 <= c + dx <= w - 8
     ) * b
     direct = valid * 64 * 3
     separable = valid * (2 * h * w + 7 * h * nc + 7 * nr * nc) / (nr * nc)
@@ -1613,14 +1685,390 @@ def run_train(card: str) -> dict:
     return parts
 
 
+def check_match_bounded(lane: dict) -> dict:
+    """K1 with row bounds at both shards' spatial shapes of the deblur_bm3d
+    lane (256 px, search 8, halo 32): the halo-extended 192 x 256 blocks of
+    its first denoise input, shard 0 with bounds (32, 192) and shard 1 with
+    (0, 160), held to the plain version slot by slot; time, plain time and
+    bound at shard 0's."""
+    z, _ = first_denoise_input(lane)
+    p = lane["cfg"]["params"]
+    mode = match_mode(p, bounded=True)
+    halo = BM3DDenoiser(params=p).spatial_halo()
+    h, w = z.shape[-2:]
+    rows_ = h // PAR_WORLD
+    xp = torch.nn.functional.pad(z, (0, 0, halo, halo), mode="reflect")
+    ext_h = rows_ + 2 * halo
+    offs = search_offsets(p.search, p.search_step)
+    rows, cols = _ref_grid(ext_h, 8, 4), _ref_grid(w, 8, 4)
+    shards = {}
+    for s_ in range(PAR_WORLD):
+        ext = xp[:, s_ * rows_:s_ * rows_ + ext_h].contiguous()
+        bounds = (halo if s_ == 0 else 0, ext_h - halo if s_ == PAR_WORLD - 1 else ext_h)
+        got = bm3d_match(ext, rows, cols, offs, 8, 16, mode, row_valid_bounds=bounds)
+        want = bm3d_match_plain(ext, rows, cols, offs, 8, 16, mode, row_valid_bounds=bounds)
+        dists = match_distances_plain(ext, rows, cols, offs, 8, mode, row_valid_bounds=bounds)
+        gaps = slot_gaps(got, want, dists)
+        err = (dists.gather(-1, got.long()) - dists.gather(-1, want.long())).abs()
+        err = torch.nan_to_num(err, nan=0.0).max().item()  # inf - inf: both picked invalid fills
+        rec = {"shape": [1, ext_h, w], "bounds": list(bounds), "mode": mode,
+               "multiset_agreement": multiset_agreement(got, want),
+               "equal_share": float((got == want).float().mean()),
+               "max_rel_gap": gaps.max().item(), "max_abs_err": err}
+        require(rec["multiset_agreement"] >= 0.999, f"bounded K1 multiset agreement {rec}")
+        require(rec["max_rel_gap"] <= NEAR_TIE, f"bounded K1 slot gap {rec}")
+        require(math.isfinite(err), f"bounded K1 picked an invalid candidate {rec}")
+        geom = match_geometry(rows, cols, offs, 8, z.device)
+        call = lambda: bm3d_match(ext, rows, cols, offs, 8, 16, mode, geometry=geom,  # noqa: E731
+                                  row_valid_bounds=bounds)
+        bnd = match_bounds(1, ext_h, w, rows, cols, offs, *bounds)
+        rec |= {"ms": device_ms(call), "event_ms": cuda_ms(call),
+                "plain_ms": cuda_ms(lambda: bm3d_match_plain(ext, rows, cols, offs, 8, 16, mode,
+                                                             row_valid_bounds=bounds), reps=10),
+                "bound_ms": min(bnd["bound_direct_ms"], bnd["bound_separable_ms"]),
+                "bound_by": bnd["bound_separable_by"], "library_ms": None, **bnd}
+        shards[f"shard{s_}"] = rec
+    # The unbounded call at the whole image (256 x 256) beside it.
+    rows_full = _ref_grid(h, 8, 4)
+    geom = match_geometry(rows_full, cols, offs, 8, z.device)
+    full_ms = device_ms(lambda: bm3d_match(z, rows_full, cols, offs, 8, 16, mode, geometry=geom))
+    return {**shards["shard0"], "shards": shards, "unsharded_256_ms": full_ms}
+
+
+def meas_split_masks(masks: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) + masks.shape: 0/1 minibatch masks (..., H, W) split into the
+    meas shards' blocks of rows (each shard's the mask and its rows)."""
+    h = masks.shape[-2]
+    owner = torch.arange(h, device=masks.device) // (h // n)
+    return torch.stack([masks * (owner == s_).to(masks.dtype)[:, None] for s_ in range(n)])
+
+
+def pr_stratified_indices(m: int, n: int, lead: tuple, k: int, seed: int = 0) -> tuple:
+    """Row indices for a meas-split PR run: per step, ``k / n`` of each
+    shard's ``m / n`` rows (numpy ``RandomState(seed)``), local to the shard,
+    (n,) + lead + (1, k / n); and their union in global rows, lead + (1, k)."""
+    rs = np.random.RandomState(seed)
+    steps, rows = int(np.prod(lead)), m // n
+    local = np.stack([[rs.choice(rows, k // n, replace=False) for _ in range(steps)]
+                      for _ in range(n)]).reshape((n,) + lead + (1, k // n))
+    union = np.concatenate([local[s_] + s_ * rows for s_ in range(n)], axis=-1)
+    dev = torch.device("cuda")
+    return torch.as_tensor(local, device=dev), torch.as_tensor(union, device=dev)
+
+
+def headline_config(lanes) -> tuple:
+    """The headline lane's per-lane eta and its BM3D denoiser."""
+    eta, mod = lane_params(DATA_DIR / "set12_csmri_tuned.json", lanes, 6000.0, 1.0, device="cuda")
+    return eta, BM3DDenoiser(sigma_modifier=mod, params=BM3DParams(search=8, match_dtype="bfloat16"))
+
+
+def saga_injection(nlm_masks: torch.Tensor, n: int) -> dict:
+    """SAGA's injected minibatches for the meas-split csmri_nlm problem: the
+    JAX lane's masks of the first outer round as the steps, the next
+    round's first as ``mb0``, split into the shards' rows, and the slots."""
+    slots = np.random.RandomState(0).randint(0, PAR_SAGA_HIST, PAR_SAGA_ITERS)
+    return {"masks": meas_split_masks(nlm_masks[0, :PAR_SAGA_ITERS], n),
+            "mb0": meas_split_masks(nlm_masks[1, 0], n),
+            "slots": torch.as_tensor(slots, device="cuda")}
+
+
+def _counts() -> dict:
+    return {n: k.launches for n, k in KERNELS.items()}
+
+
+def _zero_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+
+
+def _counted(run) -> tuple:
+    """(output, launches, seconds) of one ``run()``, counts set to 0 just before."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, _counts(), time.perf_counter() - t0
+
+
+def _parallel_rank(rank: int, pr_inputs: dict) -> dict:
+    """Every two-rank part of the parallel phase on one rank; both ranks on
+    card 0. Returns numpy and numbers only."""
+    torch.cuda.set_device(0)
+    mesh = make_mesh((1, PAR_WORLD))
+    meas = mesh.axis(MEAS_AXIS)
+    out = {}
+    # (b) the headline batch, meas-split over the two ranks
+    prob, lanes = load_headline_problems("cuda")
+    eta, den = headline_config(lanes)
+    masks = meas_split_masks(load_headline_masks("cuda"), PAR_WORLD)
+    run = lambda: run_batch("svrg", prob, den, mesh=mesh, masks=masks, eta=eta,  # noqa: E731
+                            n_outer=N_OUTER, t2=T2, mini_batch_size=MINI_BATCH)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    meas.reset()
+    o, launches, wall = _counted(run)
+    b = {"trace": o["psnr_per_iter"].cpu().numpy(), "wall_s": wall, "launches": launches,
+         "calls": dict(meas.calls), "host_s": dict(meas.host_s)}
+    meas.reset()
+    if rank == 0:
+        b["profile"] = profile_run("parallel_b_meas_rank0", run, PAR_GROUPS, host_ops=False)
+    else:
+        run()
+        torch.cuda.synchronize()
+    b["profiled_calls"], b["profiled_host_s"] = dict(meas.calls), dict(meas.host_s)
+    out["b"] = b
+    del prob, masks, o
+    # (c) phase retrieval: A's rows split, half a rank
+    lane = bench_lane("pr_bm3d")
+    cfg = lane["cfg"]
+    mine = shard_pr_problem(lane["prob"], mesh)
+    mine2 = [stack_problems([mine[0]] * 2)]  # two lanes on the same half of A, held once
+    m_total = lane["prob"].m
+    del lane["prob"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    z = torch.as_tensor(pr_inputs["z"], device="cuda")
+    z2 = torch.as_tensor(pr_inputs["z2"], device="cuda")
+    c = {"a_gb_on_rank": sum(p.a.numel() for p in mine) * 4 / 1e9,
+         "grad": pr_grad_full_sharded(mine, z, mesh).cpu().numpy()}
+    zs, psnr = sharded_pnp_step(mesh, lane["den"], cfg["eta"])(mine2, z2)
+    c["step_psnr"], c["step_z"] = psnr.cpu().numpy(), zs.cpu().numpy()
+    idx = torch.as_tensor(pr_inputs["idx"], device="cuda")
+    o = run_local(pnp_svrg, mine, meas, LocalAxis(BATCH_AXIS, 1), lane["den"], 0, 2.0 * m_total,
+                  dict(masks=idx, eta=lane["eta"], n_outer=PAR_PR_ROUNDS, t2=cfg["t2"],
+                       mini_batch_size=cfg["mini_batch_size"], lr_decay=cfg["lr_decay"]))
+    c["trace"] = o["psnr_per_iter"].cpu().numpy()[:, 0]
+    out["c"] = c
+    del mine, mine2, lane
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) SAGA's table over the two ranks
+    nprob, nden, neta, ncfg = nlm_lane()
+    nmasks = load_nlm_masks("cuda")
+    inj = saga_injection(nmasks, PAR_WORLD)
+    d = {}
+    for shards_ in (PAR_WORLD, 1):
+        o, launches, _ = _counted(lambda: run_batch(
+            "saga", nprob, nden, mesh=mesh, eta=neta, n_iters=PAR_SAGA_ITERS,
+            mini_batch_size=MINI_BATCH, hist_size=PAR_SAGA_HIST,
+            table_axis=MEAS_AXIS if shards_ > 1 else None, table_shards=shards_, **inj))
+        d[f"table_shards_{shards_}"] = {"z": o["z"].cpu().numpy(), "launches": launches}
+    out["d"] = d
+    # (e) row-sharded denoising over a (1, 2) (batch, spatial) mesh
+    smesh = make_spatial_mesh((1, PAR_WORLD))
+    spatial = smesh.axis("spatial")
+    o, launches, wall = _counted(lambda: run_batch(
+        "svrg", nprob, nden, mesh=smesh, image_shards=PAR_WORLD, masks=nmasks[None], eta=neta,
+        lr_decay=ncfg["lr_decay"], n_outer=N_OUTER, t2=T2, mini_batch_size=MINI_BATCH))
+    e = {"nlm": {"trace": o["psnr_per_iter"].cpu().numpy()[:, 0], "launches": launches,
+                 "wall_s": wall, "all_gather_calls": spatial.calls["all_gather"]}}
+    dl = bench_lane("deblur_bm3d")
+    dcfg = dl["cfg"]
+    spatial.reset()
+    o, launches, wall = _counted(lambda: run_batch(
+        "svrg", dl["prob"], dl["den"], mesh=smesh, image_shards=PAR_WORLD, masks=dl["ref_mb"][None],
+        eta=dl["eta"], lr_decay=dcfg["lr_decay"], n_outer=dcfg["n_outer"], t2=dcfg["t2"],
+        mini_batch_size=dcfg["mini_batch_size"]))
+    e["bm3d"] = {"final_psnr": float(o["final_psnr"][0]), "launches": launches, "wall_s": wall,
+                 "all_gather_calls": spatial.calls["all_gather"]}
+    zd, sig = first_denoise_input(dl)
+    nlm_sp = nlm_denoise_spatial(zd[0], sig[0], sig[0], smesh)
+    bm_sp = bm3d_denoise_spatial(zd[0], sig[0], smesh, params=dcfg["params"])
+    e["denoise_256"] = {
+        "nlm_max_abs_diff": (nlm_sp - nlm_denoise(zd[0], sig[0], sig[0])).abs().max().item(),
+        "bm3d_max_abs_diff": (bm_sp - bm3d_denoise(zd[0], sig[0], dcfg["params"])).abs().max().item(),
+    }
+    out["e"] = e
+    # (g) the scaling driver, at widths 1 and 2 (ranks on the one card)
+    out["g"] = scaling.run(rank, scaling._parser().parse_args(PAR_SCALING_ARGV + ["--devices", "1", "2"]))
+    # (h) the dry run
+    out["h"] = dryrun_multichip(PAR_WORLD)
+    return out
+
+
+def _max_db(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def _spread(traces) -> float:
+    """The largest difference between any two of the runs' traces."""
+    return max(_max_db(a, b) for a, b in itertools.combinations(traces, 2))
+
+
+def run_parallel(card: str, prob, lanes, ref_masks, bench: dict) -> dict:
+    """The ``parallel`` phase: (a) the headline meas-split in this process
+    (emulated) against the unsharded run on the same JAX masks; references
+    for the two-rank parts; then one spawn of two ranks on the card for
+    (b)-(e), (g) and (h), each held to its reference. Returns the parts'
+    launches for the ``kernels`` line."""
+    clock = [time.perf_counter()]
+    seconds = {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - clock[0]
+        clock[0] = time.perf_counter()
+
+    eta, den = headline_config(lanes)
+    split = meas_split_masks(ref_masks, PAR_WORLD)
+    unsharded = lambda: pnp_svrg(prob, den, eta, N_OUTER, T2, MINI_BATCH, masks=ref_masks)  # noqa: E731
+    emulated = lambda: run_batch_meas_emulated(  # noqa: E731
+        pnp_svrg, prob, den, PAR_WORLD, masks=split, eta=eta, n_outer=N_OUTER, t2=T2,
+        mini_batch_size=MINI_BATCH)
+    us = [unsharded()["psnr_per_iter"].cpu().numpy() for _ in range(PAR_REPEATS)]
+    u1, u2 = us[:2]
+    o, launches_a, wall_a = _counted(emulated)
+    trace_a = o["psnr_per_iter"].cpu().numpy()
+    early = 1 + PAR_EARLY_ROUNDS * (T2 + 1)
+    tol_ab = PAR_IDENTITY_DB + 2 * _spread([u[:early] for u in us])
+    q_a = quality(prob, o, lanes, REF_DB["headline"])
+    prof_u = profile_run("headline_unsharded_ref_masks", unsharded, host_ops=False)
+    prof_a = profile_run("parallel_a_meas_emulated", emulated, host_ops=False)
+    a = {"early_trace_max_abs_db_vs_unsharded": _max_db(trace_a[:early], u1[:early]),
+         "early_unsharded_repeat_max_abs_db": _spread([u[:early] for u in us]),
+         "trace_max_abs_db_vs_unsharded": _max_db(trace_a, u1),
+         "unsharded_repeat_max_abs_db": _spread(us), "early_entries": early,
+         "tolerance_db": tol_ab, "set12_vd_mean_psnr_db": q_a["set12_vd_mean_psnr_db"],
+         "flagship_psnr_db": q_a["flagship_psnr_db"], "launches": launches_a, "wall_s": wall_a,
+         "device_ms": prof_a["device_kernel_ms"], "unsharded_device_ms": prof_u["device_kernel_ms"],
+         "groups_ms": prof_a["groups_ms"], "unsharded_groups_ms": prof_u["groups_ms"],
+         "busy_share": prof_a["device_busy_share"], "unsharded_busy_share": prof_u["device_busy_share"]}
+    lap("a")
+    # References of the two-rank parts, in this process.
+    pr = bench["pr_bm3d"]
+    full, pcfg = pr["prob"], pr["cfg"]
+    z = full.x_init.reshape(1, -1)
+    z2 = torch.cat([z, 0.5 * z + 0.25])
+    one = make_mesh((1, 1), emulate=True)
+    step_z, step_psnr = sharded_pnp_step(one, pr["den"], pcfg["eta"])(
+        shard_pr_problem(stack_problems([full] * 2), one), z2)
+    idx_local, idx_union = pr_stratified_indices(full.m, PAR_WORLD, (PAR_PR_ROUNDS, pcfg["t2"]),
+                                                 pcfg["mini_batch_size"])
+    pr_traces = [pnp_svrg(full, pr["den"], pr["eta"], PAR_PR_ROUNDS, pcfg["t2"], pcfg["mini_batch_size"],
+                          masks=idx_union, lr_decay=pcfg["lr_decay"])["psnr_per_iter"].cpu().numpy()[:, 0]
+                 for _ in range(PAR_REPEATS)]
+    pr_trace = pr_traces[0]
+    tol_c = PAR_PR_TOL_DB + 2 * _spread(pr_traces)
+    pr_grad = full.grad_full(z).cpu().numpy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("c_references")
+    nprob, nden, neta, ncfg = nlm_lane()
+    nmasks = load_nlm_masks("cuda")
+    inj = saga_injection(nmasks, PAR_WORLD)
+    saga_emu = {}
+    for shards_ in (PAR_WORLD, 1):
+        o, launches, _ = _counted(lambda: run_batch_meas_emulated(
+            pnp_saga, nprob, nden, PAR_WORLD, eta=neta,
+            n_iters=PAR_SAGA_ITERS, mini_batch_size=MINI_BATCH, hist_size=PAR_SAGA_HIST,
+            table_axis=MEAS_AXIS if shards_ > 1 else None, table_shards=shards_, **inj))
+        saga_emu[shards_] = (o["z"].cpu().numpy(), launches)
+    nlm_ref = pnp_svrg(nprob, nden, neta, N_OUTER, T2, MINI_BATCH, masks=nmasks,
+                       lr_decay=ncfg["lr_decay"])["psnr_per_iter"].cpu().numpy()[:, 0]
+    dl = bench["deblur_bm3d"]
+    dcfg = dl["cfg"]
+    deblur_ref = float(pnp_svrg(dl["prob"], dl["den"], dl["eta"], dcfg["n_outer"], dcfg["t2"],
+                                dcfg["mini_batch_size"], masks=dl["ref_mb"],
+                                lr_decay=dcfg["lr_decay"])["final_psnr"][0])
+    lap("d_e_references")
+    scaling_1 = scaling.run(0, scaling._parser().parse_args(PAR_SCALING_ARGV + ["--devices", "1"]))
+    lap("g_world_1")
+    # The two ranks.
+    ranks = spawn(_parallel_rank, PAR_WORLD, "gloo",
+                  ({"z": z.cpu().numpy(), "z2": z2.cpu().numpy(), "idx": idx_local.cpu().numpy()},),
+                  PAR_TIMEOUT_S)
+    lap("two_ranks")
+    r0 = ranks[0]
+    b = {k: v for k, v in r0["b"].items() if k not in ("trace", "profile")}
+    b |= {"early_trace_max_abs_db_vs_emulated": max(_max_db(r["b"]["trace"][:early], trace_a[:early])
+                                                     for r in ranks),
+          "trace_max_abs_db_vs_emulated": max(_max_db(r["b"]["trace"], trace_a) for r in ranks),
+          "trace_max_abs_db_vs_unsharded": max(_max_db(r["b"]["trace"], u1) for r in ranks),
+          "set12_vd_mean_psnr_db": float(r0["b"]["trace"][-1, :len(lanes) - 1].mean()),
+          "ranks_equal": bool(np.array_equal(ranks[0]["b"]["trace"], ranks[1]["b"]["trace"])),
+          "device_ms": r0["b"]["profile"]["device_kernel_ms"],
+          "busy_share": r0["b"]["profile"]["device_busy_share"],
+          "groups_ms": r0["b"]["profile"]["groups_ms"], "wall_ms_profiled": r0["b"]["profile"]["wall_ms"]}
+    c = {"a_gb_on_rank": r0["c"]["a_gb_on_rank"],
+         "grad_max_rel_err": max(float(np.abs(r["c"]["grad"] - pr_grad).max() / np.abs(pr_grad).max())
+                                 for r in ranks),
+         "step_psnr_db": [float(v) for v in r0["c"]["step_psnr"]],
+         "step_unsharded_psnr_db": [float(v) for v in step_psnr.cpu().numpy()],
+         "step_max_abs_db": max(_max_db(r["c"]["step_psnr"], step_psnr.cpu().numpy()) for r in ranks),
+         "run_rounds": PAR_PR_ROUNDS, "run_tolerance_db": tol_c,
+         "run_unsharded_repeat_max_abs_db": _spread(pr_traces),
+         "run_trace_max_abs_db": max(_max_db(r["c"]["trace"], pr_trace) for r in ranks),
+         "run_trace_abs_db_by_entry": np.abs(r0["c"]["trace"] - pr_trace).tolist(),
+         "run_repeat_abs_db_by_entry": np.abs(pr_traces[1] - pr_trace).tolist(),
+         "run_unsharded_trace_db": pr_trace.tolist(),
+         "run_final_psnr_db": float(r0["c"]["trace"][-1]), "run_unsharded_final_psnr_db": float(pr_trace[-1])}
+    d = {"emulated_bitwise": bool(np.array_equal(saga_emu[PAR_WORLD][0], saga_emu[1][0])),
+         "ranks_bitwise": all(np.array_equal(r["d"][f"table_shards_{PAR_WORLD}"]["z"],
+                                             r["d"]["table_shards_1"]["z"]) for r in ranks),
+         "ranks_equal_emulated": all(np.array_equal(r["d"][f"table_shards_{PAR_WORLD}"]["z"],
+                                                    saga_emu[PAR_WORLD][0]) for r in ranks),
+         "ranks_max_abs_vs_emulated": max(float(np.abs(r["d"][f"table_shards_{PAR_WORLD}"]["z"]
+                                                      - saga_emu[PAR_WORLD][0]).max()) for r in ranks),
+         "launches_emulated": saga_emu[PAR_WORLD][1],
+         "launches_rank0": r0["d"][f"table_shards_{PAR_WORLD}"]["launches"]}
+    e = {"nlm_trace_max_abs_db": max(_max_db(r["e"]["nlm"]["trace"], nlm_ref) for r in ranks),
+         "nlm_launches_rank0": r0["e"]["nlm"]["launches"], "nlm_wall_s": r0["e"]["nlm"]["wall_s"],
+         "nlm_all_gather_calls": r0["e"]["nlm"]["all_gather_calls"],
+         "bm3d_final_psnr_db": [r["e"]["bm3d"]["final_psnr"] for r in ranks],
+         "bm3d_unsharded_final_psnr_db": deblur_ref,
+         "bm3d_launches_rank0": r0["e"]["bm3d"]["launches"], "bm3d_wall_s": r0["e"]["bm3d"]["wall_s"],
+         "bm3d_all_gather_calls": r0["e"]["bm3d"]["all_gather_calls"],
+         "denoise_256": [r["e"]["denoise_256"] for r in ranks]}
+    rec = {"phase": "parallel", "card": card, "world": PAR_WORLD, "backend": "gloo",
+           "seconds": seconds, "a_meas_emulated": a, "b_meas_two_ranks": b, "c_pr_two_ranks": c,
+           "d_saga_table": d, "e_spatial_two_ranks": e,
+           "g_scaling": {"world_1": scaling_1, "two_ranks_one_card": r0["g"],
+                         "label": "two ranks on one card: no scaling claim"},
+           "h_dryrun_multichip_2": r0["h"]}
+    emit(rec)
+    require(a["early_trace_max_abs_db_vs_unsharded"] <= tol_ab, f"parallel/a: trace {a} off the unsharded run")
+    require(a["set12_vd_mean_psnr_db"] >= HEADLINE_FLOOR_DB, f"parallel/a: Set12-VD mean {a}")
+    require(b["ranks_equal"], "parallel/b: the two ranks' traces differ")
+    require(b["early_trace_max_abs_db_vs_emulated"] <= tol_ab, f"parallel/b: trace {b} off (a)")
+    require(c["grad_max_rel_err"] <= PAR_PR_GRAD_RTOL, f"parallel/c: gradient {c}")
+    require(c["step_max_abs_db"] <= PAR_PR_TOL_DB, f"parallel/c: step {c}")
+    require(c["run_trace_max_abs_db"] <= tol_c, f"parallel/c: run {c}")
+    require(d["emulated_bitwise"] and d["ranks_bitwise"], f"parallel/d: SAGA table {d}")
+    require(e["nlm_trace_max_abs_db"] <= PAR_NLM_TOL_DB, f"parallel/e: NLM {e}")
+    require(all(abs(v - deblur_ref) <= PAR_BM3D_TOL_DB and v >= BENCH_FLOOR_DB["deblur_bm3d"]
+                for v in e["bm3d_final_psnr_db"]), f"parallel/e: BM3D {e}")
+    require(len(r0["g"]) == 2 and len(scaling_1) == 1, f"parallel/g: scaling rows {r0['g']}, {scaling_1}")
+    denoises, bm3d_denoises = N_OUTER * T2, dcfg["n_outer"] * dcfg["t2"]
+    expect = {
+        "a_meas_emulated": (launches_a, 2 * denoises, 2 * denoises, 0),
+        "b_meas_rank0": (r0["b"]["launches"], 2 * denoises, 2 * denoises, 0),
+        "d_saga_rank0": (d["launches_rank0"], 0, 0, PAR_SAGA_ITERS),
+        "e_nlm_rank0": (r0["e"]["nlm"]["launches"], 0, 0, denoises),
+        "e_bm3d_rank0": (r0["e"]["bm3d"]["launches"], 2 * bm3d_denoises, 2 * bm3d_denoises, 0),
+    }
+    for part, (got, k1_, k2_, k3_) in expect.items():
+        want = {"bm3d_match": k1_, "bm3d_aggregate": k2_, "nlm": k3_}
+        require(got == want, f"parallel/{part}: launches {got}, expected {want}")
+    return {f"parallel/{part}": {"launches": got} for part, (got, *_rest) in expect.items()}
+
+
 def phase_profile(label: str, run, table=KERNEL_GROUPS) -> dict:
     """Device time by kernel over one run of ``run()`` (port stream), summed
     by the first group of ``table`` whose substrings the kernel's name
-    holds."""
+    holds; emitted."""
+    rec = profile_run(label, run, table)
+    emit(rec)
+    return rec
+
+
+def profile_run(label: str, run, table=KERNEL_GROUPS, host_ops: bool = True) -> dict:
+    """:func:`phase_profile`'s record, not emitted; ``host_ops=False`` traces
+    the device only (less to record and sort afterwards)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1641,7 +2089,6 @@ def phase_profile(label: str, run, table=KERNEL_GROUPS) -> dict:
         "groups_ms": {g: v / 1e3 for g, v in sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms": {n: v / 1e3 for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]},
     }
-    emit(rec)
     return rec
 
 
@@ -1657,6 +2104,7 @@ def main() -> None:
     at_lanes = {label: check_bench_kernels(lane) for label, lane in bench.items()}
     at_lanes["sweep_bm3d"] = check_bench_kernels(sweep_lane(first_round["bm3d"]))
     k1["bench_shapes"] = {label: r[0] for label, r in at_lanes.items()}
+    k1["bounded"] = check_match_bounded(bench["deblur_bm3d"])
     k2["bench_shapes"] = {label: r[1] for label, r in at_lanes.items()}
     k3 = check_nlm(dev["max_sm_clock_mhz"] * 1e6)
     k3["bench_shapes"] = {"sweep_nlm": check_nlm_at_sweep(first_round["nlm"], dev["max_sm_clock_mhz"] * 1e6)}
@@ -1692,6 +2140,7 @@ def main() -> None:
     lanes_run |= {f"compat/{k}": compat_rec[k] for k in ("a_vs_loop", "b_tune_nlm", "c_tune_bm3d")}
     run_checks(bench, dev["nvidia_smi"])
     lanes_run |= {f"train/{part}": rec for part, rec in run_train(dev["nvidia_smi"]).items()}
+    lanes_run |= run_parallel(dev["nvidia_smi"], prob, lanes, ref_masks, bench)
 
     for label, tuned, default_eta, default_mod, params in (
         ("headline", "set12_csmri_tuned.json", 6000.0, 1.0,
@@ -1737,10 +2186,14 @@ def main() -> None:
         kernels[-1]["bench_shapes"] = {
             label: {"launches": by_lane[label], "shape": r["shape"], **{k: r[k] for k in fields}}
             for label, r in rec["bench_shapes"].items()}
+    kernels[0]["bounded"] = {  # K1 with row bounds: the spatial BM3D path's, per rank
+        "launches": lanes_run["parallel/e_bm3d_rank0"]["launches"]["bm3d_match"],
+        "shape": {k: k1["bounded"][k] for k in ("shape", "bounds", "mode")},
+        **{k: k1["bounded"][k] for k in fields}}
     kernels[-1]["b1"] = {"launches": lanes_run["csmri_nlm"]["launches"]["nlm"],
                          **{k: k3["b1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
     for k in kernels:
-        shapes = [k] + list(k.get("bench_shapes", {}).values())
+        shapes = [k] + list(k.get("bench_shapes", {}).values()) + [k.get("bounded", k)]
         require(all(math.isfinite(r[f]) for r in shapes for f in ("ms", "plain_ms", "bound_ms")),
                 f"{k['name']} times")
     emit({"kernels": kernels})

@@ -11,7 +11,7 @@ CPU.
 Ported so far (the Set12 CSMRI + PnP-SVRG + BM3D path, with its grid-aligned
 dense aggregation, the CSMRI + PnP-SVRG + NLM path, phase retrieval and
 Deblur/SR with BM3D, phase retrieval + PnP-SARAH + RealSN-DnCNN, the
-tuning path and denoiser training):
+tuning path, denoiser training and the distributed layer):
 
 * ``problems.csmri`` (``CSMRI``, ``make_csmri``), ``problems.deblur``
   (``Deblur``, ``make_deblur``), ``problems.pr`` (``PhaseRetrieval``,
@@ -22,7 +22,7 @@ tuning path and denoiser training):
 * ``denoisers.dncnn`` (``DnCNNDenoiser``, ``MMODenoiser``) on the models of
   ``models.dncnn`` with the Flax checkpoints' weights (``models.convert``)
 * ``algorithms.loops``: ``pnp_gd``, ``pnp_sgd``, ``pnp_svrg``, ``pnp_saga``
-  (unsharded table), ``pnp_sarah`` and ``run_pnp``
+  (its table sharded or not), ``pnp_sarah`` and ``run_pnp``
 * ``algorithms.compat``: the reference-shaped wall-clock API (one-lane
   problems) and its ``tune_pnp_*`` adapters
 * ``core.checks``: ``grad_full_check``, ``grad_stoch_check``
@@ -34,6 +34,10 @@ tuning path and denoiser training):
   package's layout) on ``models.spectral_norm`` (the conv-operator spectral
   norm) and ``models.dncnn`` in training mode; the script is
   ``python -m pnp_svrg_tpu_torch.examples.train_realsn``
+* ``parallel``: meshes over ``torch.distributed`` (or emulated in one
+  process), measurement-split and row-sharded (halo) loops, the sharded
+  phase retrieval step, ``run_batch``, ``dryrun_multichip``; the scaling
+  script is ``python -m pnp_svrg_tpu_torch.examples.scaling``
 * ``utils.profiling``: only ``fence``
 * ``ops``: metrics, sampling, wavelets, ``estimate_sigma``, transforms, the
   1-D FFT blur and the bilinear resize pair

@@ -246,7 +246,7 @@ def pnp_saga(
     masks: torch.Tensor | None = None,
     slots: torch.Tensor | None = None,
     mb0: torch.Tensor | None = None,
-    table_axis: str | None = None,
+    table_axis=None,
     table_shards: int = 1,
 ) -> dict:
     """Table-based approximate SAGA with a (hist_size, B, N) gradient history
@@ -256,9 +256,26 @@ def pnp_saga(
     Injected minibatches: ``mb0`` (``problem.mb_shape(k)``, the one that fills
     the table), ``masks`` ``(n_iters,) + mb_shape(k)`` and ``slots``
     (n_iters,) int, one slot a step shared by every lane, as the JAX package
-    draws it. The sharded table (``table_axis``) is not ported yet."""
-    if table_axis is not None or table_shards != 1:
-        raise NotImplementedError("pnp_saga's sharded table (table_axis) is not ported yet")
+    draws it.
+
+    ``table_axis`` / ``table_shards`` shard the table over an axis object of
+    ``parallel/mesh.py`` (the meas axis of ``parallel/meas.py``, whose
+    gradients are already replicated): each shard holds ``hist_size //
+    table_shards`` slots, on a leading axis of its process's shards. The
+    slot is drawn from the global range with the replicated generator (or
+    injected); only its owner rewrites the row, and the evicted row reaches
+    every shard through one psum of (row where mine, else 0), so the update
+    sequence is the unsharded table's, bit for bit. The running sum stays
+    replicated."""
+    if hist_size % table_shards:
+        raise ValueError(f"hist_size {hist_size} not divisible by {table_shards} table shards")
+    if table_shards > 1 and table_axis is None:
+        raise ValueError("table_shards > 1 requires a bound table_axis")
+    if isinstance(table_axis, str):
+        raise TypeError(f"table_axis must be an axis object (parallel/mesh.py), not the name "
+                        f"{table_axis!r}; run_batch resolves a mesh axis's name")
+    if table_axis is not None and table_axis.size != table_shards:
+        raise ValueError(f"table_axis has {table_axis.size} shards, table_shards is {table_shards}")
     injected = (masks is not None, slots is not None, mb0 is not None)
     if any(injected) and not all(injected):
         raise ValueError("inject masks, slots and mb0 together")
@@ -273,22 +290,29 @@ def pnp_saga(
     if mb0 is None:
         mb0 = problem.select_mb(generator, mini_batch_size)
         slots = torch.randint(0, hist_size, (n_iters,), generator=generator, device=dev)
+    hist_local = hist_size // table_shards
     slots = slots.to(device=dev, dtype=torch.int64).reshape(n_iters, 1)
+    local_slots, owners = slots % hist_local, slots // hist_local
+    held = table_axis.shards if table_axis is not None else range(1)
+    shard_ids = torch.arange(held.start, held.stop, device=dev)
     z = run.z
     g0 = problem.grad_stoch(z, mb0).reshape(z.shape) / b
-    table = g0[None].repeat(hist_size, 1, 1)
+    table = g0[None, None].repeat(len(shard_ids), hist_local, 1, 1)  # (shards here, slots, B, N)
     tsum = g0 * hist_size
     prev = g0
     for i in range(n_iters):
         mb = _minibatch(problem, masks, i, generator, mini_batch_size)
         g = problem.grad_stoch(run.z, mb).reshape(z.shape) / b
-        old = table.index_select(0, slots[i])[0]
-        table_new = table.index_copy(0, slots[i], g[None])
+        mine = (owners[i] == shard_ids)[:, None, None]  # (shards here, 1, 1)
+        row = table.index_select(1, local_slots[i])[:, 0]
+        mine_rows = torch.where(mine, row, 0.0)
+        old = table_axis.psum(mine_rows) if table_axis is not None else mine_rows[0]
+        table_new = table.index_copy(1, local_slots[i], torch.where(mine, g, row)[:, None])
         tsum_new = tsum + g - old
         v = g - prev + tsum_new / hist_size
         done = run.done[:, None]  # the latch before this step
         run.step(v, run.sched[i])
-        table = torch.where(done[None], table, table_new)
+        table = torch.where(done[None, None], table, table_new)
         tsum = torch.where(done, tsum, tsum_new)
         prev = torch.where(done, prev, g)
     return run.result("PnP SAGA", (n_iters,))

@@ -39,3 +39,15 @@ def stack_problems(problems):
 def _same_tensor(a: torch.Tensor, b: torch.Tensor) -> bool:
     return (a.data_ptr() == b.data_ptr() and a.shape == b.shape and a.stride() == b.stride()
             and a.device == b.device and a.dtype == b.dtype)
+
+
+def take_lanes(problem, lanes: slice):
+    """The lanes ``lanes`` of a batched problem: every field sliced along
+    axis 0, except a ``shared`` field and a ``kept_once_if_same`` field
+    held once for all lanes (leading axis 1), which stay as they are."""
+    fields = {}
+    for f in dataclasses.fields(problem):
+        v = getattr(problem, f.name)
+        once = f.metadata.get("shared") or (f.metadata.get("kept_once_if_same") and v.shape[0] == 1)
+        fields[f.name] = v if once else v[lanes]
+    return type(problem)(**fields)

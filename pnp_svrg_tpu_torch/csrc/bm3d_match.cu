@@ -8,8 +8,11 @@
 // For every image b, reference block (r, c) on the reference grid and search
 // offset s (ascending index order): the sum over the block x block patch of
 // the squared difference between the reference patch and the candidate patch
-// at (rows[r] + dy_s, cols[c] + dx_s). A candidate that leaves the image is
-// +inf. The K smallest are kept, ascending, ties to the lowest offset index;
+// at (rows[r] + dy_s, cols[c] + dx_s). A candidate that leaves the image, or
+// whose top row lies outside [cand_lo, cand_hi], is +inf: the row-sharded
+// spatial path passes the rows of its halo-extended block that are image
+// rows (`row_valid_bounds` of `_match_distances`, bm3d.py:213-219); the
+// default (0, H - block) is the image itself. The K smallest are kept, ascending, ties to the lowest offset index;
 // when fewer than K candidates are valid the spare slots hold index 0, which
 // is what both JAX matchers return.
 //
@@ -167,7 +170,7 @@ bm3d_match_kernel(const float* __restrict__ img, const int* __restrict__ rows,
                   const int* __restrict__ cols, const int* __restrict__ offsets,
                   const int* __restrict__ col_plan, int* __restrict__ out, int H, int W,
                   int nR, int nC, int S, int search, int smem_h, int smem_w, int pitch,
-                  int d_pitch) {
+                  int d_pitch, int cand_lo, int cand_hi) {
   extern __shared__ float smem[];
   float* region = smem;                            // smem_h x pitch
   float* dist = region + smem_h * pitch;           // 32 x d_pitch
@@ -224,7 +227,6 @@ bm3d_match_kernel(const float* __restrict__ img, const int* __restrict__ rows,
   const int qa = plan[1 + kMaxCols + 2 * j];
   const int qb = plan[2 + kMaxCols + 2 * j];
   float* hs = hsum + warp * kInFlight * kItems;
-  const int last_r = H - kBlock;
   const int last_c = W - kBlock;
   const int2* offs2 = reinterpret_cast<const int2*>(offsets);
   for (int s0 = warp; s0 < S; s0 += kInFlight * kWarps) {
@@ -260,7 +262,7 @@ bm3d_match_kernel(const float* __restrict__ img, const int* __restrict__ rows,
         for (int ky = 0; ky < kBlock; ++ky) d = __fadd_rn(d, __fadd_rn(q[ky * nb + qa], q[ky * nb + qb]));
         const int cy = ry + o[f].x;
         const int cx = rx + o[f].y;
-        const bool valid = cy >= 0 && cy <= last_r && cx >= 0 && cx <= last_c;
+        const bool valid = cy >= cand_lo && cy <= cand_hi && cx >= 0 && cx <= last_c;
         if (s0 + f * kWarps < S) dist[lane * d_pitch + s0 + f * kWarps] = valid ? d : inf;
       }
     }
@@ -289,7 +291,7 @@ template <int MODE, int PER>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* img,
                    const int* rows, const int* cols, const int* offsets, const int* col_plan,
                    int* out, int H, int W, int nR, int nC, int S, int search, int smem_h,
-                   int smem_w, int pitch, int d_pitch) {
+                   int smem_w, int pitch, int d_pitch, int cand_lo, int cand_hi) {
   auto fn = bm3d_match_kernel<MODE, PER>;
   static size_t granted = 48 * 1024;  // dynamic shared memory opted into so far
   if (smem > granted) {
@@ -299,7 +301,8 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* img
     granted = smem;
   }
   fn<<<grid, kWarps * 32, smem, stream>>>(img, rows, cols, offsets, col_plan, out, H, W, nR,
-                                          nC, S, search, smem_h, smem_w, pitch, d_pitch);
+                                          nC, S, search, smem_h, smem_w, pitch, d_pitch,
+                                          cand_lo, cand_hi);
   return cudaGetLastError();
 }
 
@@ -308,11 +311,13 @@ template <int MODE>
 cudaError_t launch_mode(int S, dim3 grid, size_t smem, cudaStream_t st, const float* img,
                         const int* rows, const int* cols, const int* offsets,
                         const int* col_plan, int* out, int H, int W, int nR, int nC,
-                        int search, int smem_h, int smem_w, int pitch, int d_pitch) {
+                        int search, int smem_h, int smem_w, int pitch, int d_pitch,
+                        int cand_lo, int cand_hi) {
 #define PNP_LAUNCH(PER)                                                                  \
   if (S <= 32 * PER)                                                                    \
     return launch<MODE, PER>(grid, smem, st, img, rows, cols, offsets, col_plan, out, H, \
-                             W, nR, nC, S, search, smem_h, smem_w, pitch, d_pitch);
+                             W, nR, nC, S, search, smem_h, smem_w, pitch, d_pitch, cand_lo, \
+                             cand_hi);
   PNP_LAUNCH(1)
   PNP_LAUNCH(3)
   PNP_LAUNCH(10)
@@ -330,13 +335,16 @@ cudaError_t launch_mode(int S, dim3 grid, size_t smem, cudaStream_t st, const fl
 // largest tile region, stored with row pitch `pitch` (odd, >= smem_w), and
 // `d_pitch` (odd, >= S) the distance buffer's row pitch (host-computed;
 // every tile's reference rows span at most kRefRows pixels, S <= 640).
-// Returns the launch's cudaError_t (0 on success).
+// Candidates count only with a top row in [cand_lo, cand_hi] (within
+// [0, H - block]; (0, H - block) for the whole image). Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int bm3d_match_launch(const float* img, const int* rows, const int* cols,
                                  const int* offsets, const int* col_plan, int* out, int B,
                                  int H, int W, int nR, int nC, int S, int block_size, int K,
                                  int mode, int search, int smem_h, int smem_w, int pitch,
-                                 int d_pitch, void* stream) {
-  if (block_size != kBlock || K != kK || pitch < smem_w || d_pitch < S || S < 1)
+                                 int d_pitch, int cand_lo, int cand_hi, void* stream) {
+  if (block_size != kBlock || K != kK || pitch < smem_w || d_pitch < S || S < 1 ||
+      cand_lo < 0 || cand_hi > H - kBlock)
     return cudaErrorInvalidValue;
   const dim3 grid((nC + kTileC - 1) / kTileC, (nR + kTileR - 1) / kTileR, B);
   const size_t smem = sizeof(float) * ((size_t)smem_h * pitch + (size_t)kTileR * kTileC * d_pitch +
@@ -345,13 +353,13 @@ extern "C" int bm3d_match_launch(const float* img, const int* rows, const int* c
   switch (mode) {
     case 0:
       return launch_mode<0>(S, grid, smem, st, img, rows, cols, offsets, col_plan, out, H, W,
-                            nR, nC, search, smem_h, smem_w, pitch, d_pitch);
+                            nR, nC, search, smem_h, smem_w, pitch, d_pitch, cand_lo, cand_hi);
     case 1:
       return launch_mode<1>(S, grid, smem, st, img, rows, cols, offsets, col_plan, out, H, W,
-                            nR, nC, search, smem_h, smem_w, pitch, d_pitch);
+                            nR, nC, search, smem_h, smem_w, pitch, d_pitch, cand_lo, cand_hi);
     case 2:
       return launch_mode<2>(S, grid, smem, st, img, rows, cols, offsets, col_plan, out, H, W,
-                            nR, nC, search, smem_h, smem_w, pitch, d_pitch);
+                            nR, nC, search, smem_h, smem_w, pitch, d_pitch, cand_lo, cand_hi);
     default:
       return cudaErrorInvalidValue;
   }

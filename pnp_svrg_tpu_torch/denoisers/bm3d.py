@@ -27,8 +27,14 @@ leaves them to XLA; K2 does not run there.
 ``topk="approx"`` takes the exact top-k: off the TPU the JAX package's
 ``jax.lax.approx_min_k`` returns the exact k smallest distances, and only the
 order of tied indices may differ from ``exact``'s; here ties go to the lowest
-offset index, as with ``exact``. Not ported: ``row_valid_bounds`` (the
-spatial-sharding path), which raises ``NotImplementedError``.
+offset index, as with ``exact``.
+
+``row_valid_bounds=(lo, hi)`` (the row-sharded spatial path,
+``parallel/spatial.py``) marks the rows outside ``[lo, hi)`` as padding, as
+the JAX package does (``bm3d.py:423-450``): K1 matches no candidate there,
+reference blocks there get aggregation weight 0 in both stages, the dense
+aggregation is off, and the matching rounds as the XLA matcher does
+(``bf16_xla`` for a bf16 ``match_dtype``, whatever ``matcher`` says).
 """
 
 from __future__ import annotations
@@ -67,13 +73,14 @@ class BM3DParams:
     search_step: int = 1  # candidate-offset stride within the window
 
 
-def match_mode(p: BM3DParams) -> str:
-    """The K1 rounding mode for these parameters (see ``ops/cuda/bm3d_match.py``)."""
+def match_mode(p: BM3DParams, bounded: bool = False) -> str:
+    """The K1 rounding mode for these parameters (see ``ops/cuda/bm3d_match.py``);
+    row bounds always take the XLA matcher's."""
     if p.match_dtype == "float32":
         return "f32"
     if p.match_dtype != "bfloat16":
         raise ValueError(f"unknown match_dtype {p.match_dtype!r}")
-    if p.matcher in ("xla", "auto"):
+    if bounded or p.matcher in ("xla", "auto"):
         return "bf16_xla"
     if p.matcher in ("pallas", "pallas_interpret"):
         return "bf16_pallas"
@@ -138,9 +145,11 @@ def _clamp_shift_mats(q_list: tuple, n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _geometry(h: int, w: int, p: BM3DParams, device: torch.device) -> _Geometry:
+def _geometry(h: int, w: int, p: BM3DParams, device: torch.device,
+              bounded: bool = False) -> _Geometry:
     """Grid, offsets and transform matrices, made once per shape and device so
-    the reconstruction loop copies nothing from the host."""
+    the reconstruction loop copies nothing from the host. Row bounds turn
+    the dense aggregation off (``bm3d.py:423-429``)."""
     rows = _ref_grid(h, p.block, p.step)
     cols = _ref_grid(w, p.block, p.step)
     offsets = search_offsets(p.search, p.search_step)
@@ -152,7 +161,7 @@ def _geometry(h: int, w: int, p: BM3DParams, device: torch.device) -> _Geometry:
 
     on_card = torch.device(device).type == "cuda"
     shift_y = shift_x = agg = None
-    if dense_aggregation(h, w, p):
+    if dense_aggregation(h, w, p) and not bounded:
         q = offsets // p.step
         shift_y = dev(_clamp_shift_mats(tuple(q[:, 0].tolist()), len(rows)))
         shift_x = dev(_clamp_shift_mats(tuple(q[:, 1].tolist()), len(cols)))
@@ -236,45 +245,55 @@ def _aggregate_dense(est_groups, weights, top_idx, block, step, h, w, kaiser,
     return num / torch.clamp(den, min=1e-12)
 
 
-def _check_supported(p: BM3DParams, row_valid_bounds):
-    if row_valid_bounds is not None:
-        raise NotImplementedError("row_valid_bounds (spatial sharding) is not ported")
+def _check_supported(p: BM3DParams):
     if p.topk not in ("exact", "approx"):
         raise ValueError(f"unknown topk {p.topk!r}; have 'exact' and 'approx'")
 
 
-def _stage1(x, sigma, p: BM3DParams, g: _Geometry):
+def _ref_weight(g: _Geometry, p: BM3DParams, bounds):
+    """1, or under row bounds (1, nR, 1) with 0 for the reference blocks
+    that are not wholly inside ``[lo, hi)`` (``bm3d.py:437-442``)."""
+    if bounds is None:
+        return 1.0
+    lo, hi = bounds
+    return ((g.rows_t >= lo) & (g.rows_t <= hi - p.block)).to(torch.float32)[None, :, None]
+
+
+def _match(x, p: BM3DParams, g: _Geometry, k: int, bounds):
+    return bm3d_match(x, g.rows, g.cols, g.offsets, p.block, k, match_mode(p, bounds is not None),
+                      geometry=g.match, row_valid_bounds=bounds)
+
+
+def _stage1(x, sigma, p: BM3DParams, g: _Geometry, bounds=None):
     """Hard-thresholding stage up to aggregation: (est, weights, top_idx, py, px)."""
     sig_g = sigma[:, None, None]
     sig_c = sigma[:, None, None, None]
     bb = p.block * p.block
-    top_idx = bm3d_match(x, g.rows, g.cols, g.offsets, p.block, p.group_ht, match_mode(p),
-                         geometry=g.match)
+    top_idx = _match(x, p, g, p.group_ht, bounds)
     groups, py, px = _gather_groups(x, g, top_idx, p.block)
     coeffs = _transform_3d(groups.reshape(*groups.shape[:3], -1), g.t3_ht)
     keep = coeffs.abs() > p.lam * sig_c
     coeffs_ht = torch.where(keep, coeffs, 0.0)
     n_kept = torch.clamp(keep.sum(dim=-1), min=1).to(torch.float32)
     est = _itransform_3d(coeffs_ht, g.t3_ht).reshape(*groups.shape[:3], -1, bb)
-    wgt = 1.0 / (sig_g * sig_g * n_kept + 1e-12)
+    wgt = _ref_weight(g, p, bounds) / (sig_g * sig_g * n_kept + 1e-12)
     return est, wgt, top_idx, py, px
 
 
-def _stage2(x, basic, sigma, p: BM3DParams, g: _Geometry):
+def _stage2(x, basic, sigma, p: BM3DParams, g: _Geometry, bounds=None):
     """Wiener stage up to aggregation, matching on the stage-1 estimate:
     (est, weights, top_idx, py, px)."""
     sig_g = sigma[:, None, None]
     sig_c = sigma[:, None, None, None]
     bb = p.block * p.block
-    top_idx = bm3d_match(basic, g.rows, g.cols, g.offsets, p.block, p.group_wie, match_mode(p),
-                         geometry=g.match)
+    top_idx = _match(basic, p, g, p.group_wie, bounds)
     g_basic, py, px = _gather_groups(basic, g, top_idx, p.block)
     g_noisy, _, _ = _gather_groups(x, g, top_idx, p.block)
     c_basic = _transform_3d(g_basic.reshape(*g_basic.shape[:3], -1), g.t3_wie)
     c_noisy = _transform_3d(g_noisy.reshape(*g_noisy.shape[:3], -1), g.t3_wie)
     wien = c_basic**2 / (c_basic**2 + sig_c * sig_c + 1e-12)
     est = _itransform_3d(wien * c_noisy, g.t3_wie).reshape(*g_basic.shape[:3], -1, bb)
-    wgt = 1.0 / (sig_g * sig_g * (wien**2).sum(dim=-1) + 1e-12)
+    wgt = _ref_weight(g, p, bounds) / (sig_g * sig_g * (wien**2).sum(dim=-1) + 1e-12)
     return est, wgt, top_idx, py, px
 
 
@@ -292,13 +311,14 @@ def _denoise(images, sigma, p: BM3DParams, stages: int, row_valid_bounds):
     """(estimate, stage-1 K2 arguments or None)."""
     x = images.to(torch.float32)
     b, h, w = x.shape
-    _check_supported(p, row_valid_bounds)
+    _check_supported(p)
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device).expand(b)
-    g = _geometry(h, w, p, x.device)
-    basic, agg_in = _aggregate_stage(_stage1(x, sigma, p, g), p, g, h, w)
+    bounds = row_valid_bounds
+    g = _geometry(h, w, p, x.device, bounds is not None)
+    basic, agg_in = _aggregate_stage(_stage1(x, sigma, p, g, bounds), p, g, h, w)
     if stages == 1:
         return basic, agg_in
-    out, _ = _aggregate_stage(_stage2(x, basic, sigma, p, g), p, g, h, w)
+    out, _ = _aggregate_stage(_stage2(x, basic, sigma, p, g, bounds), p, g, h, w)
     return out, agg_in
 
 
@@ -310,7 +330,8 @@ def bm3d_denoise_batch(
     row_valid_bounds: tuple | None = None,
 ) -> torch.Tensor:
     """Two-stage BM3D over (B, H, W) ``images`` with per-image ``sigma``
-    ((B,) or scalar). ``stages=1`` runs hard thresholding only."""
+    ((B,) or scalar). ``stages=1`` runs hard thresholding only;
+    ``row_valid_bounds``: integer ``(lo, hi)``, rows outside are padding."""
     return _denoise(images, sigma, params, stages, row_valid_bounds)[0]
 
 
@@ -339,9 +360,29 @@ class BM3DDenoiser:
     params: BM3DParams = BM3DParams()
     stages: int = 2
 
-    def denoise(self, x: torch.Tensor, sigma_est: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def _sigma(self, sigma_est, t):
         fallback = self.denoise_strength * self.decay**t
-        sigma = torch.where(sigma_est > 0, sigma_est * self.sigma_modifier, fallback)
+        return torch.where(sigma_est > 0, sigma_est * self.sigma_modifier, fallback)
+
+    def denoise(self, x: torch.Tensor, sigma_est: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        sigma = self._sigma(sigma_est, t)
         if x.dim() == 3:
             return bm3d_denoise_batch(x, sigma, params=self.params, stages=self.stages)
         return bm3d_denoise(x, sigma, params=self.params, stages=self.stages)
+
+    def denoise_bounded(self, x, sigma_est, t, row_valid_bounds: tuple) -> torch.Tensor:
+        """The same step with the rows outside ``row_valid_bounds = (lo, hi)``
+        as padding (a halo-extended block of the row-sharded spatial path)."""
+        xb = x if x.dim() == 3 else x[None]
+        out = bm3d_denoise_batch(xb, self._sigma(sigma_est, t), params=self.params,
+                                 stages=self.stages, row_valid_bounds=row_valid_bounds)
+        return out if x.dim() == 3 else out[0]
+
+    def spatial_halo(self) -> int:
+        """Rows of halo for row-sharded denoising: each stage is exact only
+        ``search + block`` rows inside the halo and the Wiener stage matches
+        again on the stage-1 estimate, so the halo adds up over the stages;
+        rounded up to the reference step so that the shards' reference grids
+        are the global one's (``bm3d.py:584-594``)."""
+        halo = self.stages * (self.params.search + self.params.block)
+        return halo + (-halo) % self.params.step

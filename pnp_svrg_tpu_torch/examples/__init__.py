@@ -1,4 +1,4 @@
-"""The tuning and training scripts of the port, run as modules:
+"""The tuning, training and scaling scripts of the port, run as modules:
 
     python -m pnp_svrg_tpu_torch.examples.sweep_sampratio [--cpu] ...
     python -m pnp_svrg_tpu_torch.examples.sweep_snr
@@ -7,6 +7,7 @@
     python -m pnp_svrg_tpu_torch.examples.tune_deblur
     python -m pnp_svrg_tpu_torch.examples.tune_pr
     python -m pnp_svrg_tpu_torch.examples.train_realsn --exp DIR [--cpu] ...
+    python -m pnp_svrg_tpu_torch.examples.scaling [--world-size N] [--cpu] ...
 
 Each is a port of the JAX script of the same name under ``examples/``, with
 its arguments and output format; ``--cpu`` runs it on the CPU (the kernels'

@@ -6,6 +6,10 @@ Replaces the Pallas kernel ``bm3d_match_pallas`` (``_match_kernel``,
 reference block, the indices of the ``k`` search offsets with the smallest
 patch SSD, ascending, ties to the lowest index, with +inf for candidates that
 leave the image and index 0 in spare slots when fewer than ``k`` are valid.
+``row_valid_bounds=(lo, hi)`` also makes +inf every candidate whose rows leave
+``[lo, hi)`` (the row-sharded spatial path's halo padding, the bounds of
+``_match_distances``, ``pnp_svrg_tpu/denoisers/bm3d.py:213-219``); the
+default ``(0, H)`` changes nothing.
 
 ``mode`` selects where bf16 rounding happens, because the two JAX matchers
 round at different points:
@@ -53,7 +57,7 @@ def _band_select(size: int, grid: tuple, block: int) -> np.ndarray:
 
 def match_distances_plain(
     imgs: torch.Tensor, rows, cols, offsets, block: int, mode: str = "f32",
-    chunk: int = 72,
+    chunk: int = 72, row_valid_bounds: tuple | None = None,
 ) -> torch.Tensor:
     """(B, nR, nC, S) patch SSDs, +inf at invalid candidates.
 
@@ -64,6 +68,7 @@ def match_distances_plain(
         raise ValueError(f"unknown match mode {mode!r}; have {tuple(MODES)}")
     b, h, w = imgs.shape
     dev = imgs.device
+    lo, hi = _check_bounds(row_valid_bounds, h)
     rows_np = np.asarray(rows, np.int64)
     cols_np = np.asarray(cols, np.int64)
     offsets = np.asarray(offsets, np.int64).reshape(-1, 2)
@@ -90,6 +95,8 @@ def match_distances_plain(
         valid = (
             (rows_np[:, None, None] + offs[:, 0][None, None, :] >= 0)
             & (rows_np[:, None, None] + offs[:, 0][None, None, :] <= last_r)
+            & (rows_np[:, None, None] + offs[:, 0][None, None, :] >= lo)
+            & (rows_np[:, None, None] + offs[:, 0][None, None, :] <= hi - block)
             & (cols_np[None, :, None] + offs[:, 1][None, None, :] >= 0)
             & (cols_np[None, :, None] + offs[:, 1][None, None, :] <= last_c)
         )  # (nR, nC, c)
@@ -112,11 +119,21 @@ def top_k_offsets_plain(dists: torch.Tensor, k: int) -> torch.Tensor:
     return torch.stack(idxs, dim=-1).to(torch.int32)
 
 
-def bm3d_match_plain(imgs, rows, cols, offsets, block, k, mode="f32"):
+def bm3d_match_plain(imgs, rows, cols, offsets, block, k, mode="f32", row_valid_bounds=None):
     """The plain PyTorch version of K1: (B, nR, nC, k) int32."""
     return top_k_offsets_plain(
-        match_distances_plain(imgs, rows, cols, offsets, block, mode), k
+        match_distances_plain(imgs, rows, cols, offsets, block, mode,
+                              row_valid_bounds=row_valid_bounds), k
     )
+
+
+def _check_bounds(row_valid_bounds, h: int) -> tuple:
+    """``(lo, hi)`` as ints with ``0 <= lo <= hi <= h``; ``(0, h)`` for None."""
+    lo, hi = (0, h) if row_valid_bounds is None else row_valid_bounds
+    if not (isinstance(lo, int) and isinstance(hi, int) and 0 <= lo <= hi <= h):
+        raise ValueError(f"row_valid_bounds must be ints with 0 <= lo <= hi <= {h}, "
+                         f"got {row_valid_bounds!r}")
+    return lo, hi
 
 
 def tile_regions(rows, cols, search: int, block: int):
@@ -204,14 +221,14 @@ def _lib():
     lib = _build.load("bm3d_match")
     fn = lib.bm3d_match_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def bm3d_match(
     imgs: torch.Tensor, rows, cols, offsets, block: int, k: int, mode: str = "f32",
-    geometry: MatchGeometry | None = None,
+    geometry: MatchGeometry | None = None, row_valid_bounds: tuple | None = None,
 ) -> torch.Tensor:
     """Top-``k`` offset indices (B, nR, nC, k) int32 for every reference block.
 
@@ -219,8 +236,9 @@ def bm3d_match(
     ascending index order; ``geometry``: their :func:`match_geometry` on the
     tensor's device, made once by a caller that matches many times (without
     it the wrapper looks it up from the arguments; with it, its numbers of
-    rows, columns and offsets must be the arguments'). A CPU tensor takes
-    the plain version; a CUDA tensor launches K1 (counted in
+    rows, columns and offsets must be the arguments'); ``row_valid_bounds``:
+    integer ``(lo, hi)``, the rows that count as image rows. A CPU tensor
+    takes the plain version; a CUDA tensor launches K1 (counted in
     ``bm3d_match.launches``)."""
     if mode not in MODES:
         raise ValueError(f"unknown match mode {mode!r}; have {tuple(MODES)}")
@@ -231,8 +249,9 @@ def bm3d_match(
         if sizes != (len(rows), len(cols), len(offsets)):
             raise ValueError(f"geometry for {sizes} rows, columns and offsets, called with "
                              f"{(len(rows), len(cols), len(offsets))}")
+    lo, hi = _check_bounds(row_valid_bounds, imgs.shape[1])
     if imgs.device.type == "cpu":
-        return bm3d_match_plain(imgs, rows, cols, offsets, block, k, mode)
+        return bm3d_match_plain(imgs, rows, cols, offsets, block, k, mode, row_valid_bounds)
     if imgs.device.type != "cuda":
         raise ValueError(f"bm3d_match runs on cpu or cuda, not {imgs.device}")
     if (block, k) != (KERNEL_BLOCK, KERNEL_K):
@@ -254,7 +273,7 @@ def bm3d_match(
     err = _lib()(
         x.data_ptr(), g.rows_t.data_ptr(), g.cols_t.data_ptr(), g.offsets_t.data_ptr(),
         g.col_plan.data_ptr(), out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k), MODES[mode],
-        g.search, g.smem_h, g.smem_w, g.pitch, g.d_pitch,
+        g.search, g.smem_h, g.smem_w, g.pitch, g.d_pitch, lo, hi - block,
         torch.cuda.current_stream(imgs.device).cuda_stream,
     )
     _build.check(err, f"bm3d_match (block={block}, k={k}, mode={mode})")

@@ -97,6 +97,10 @@ class CSMRI:
     def full_mb(self) -> torch.Tensor:
         return self.mask
 
+    def grad_sum(self, z: torch.Tensor) -> torch.Tensor:
+        """``grad_stoch`` over every sampled coefficient."""
+        return self.grad_stoch(z, self.mask)
+
     def m_total(self) -> torch.Tensor:
         return self.m0
 

@@ -107,6 +107,10 @@ class Deblur:
     def full_mb(self) -> torch.Tensor:
         return self.allowed
 
+    def grad_sum(self, z: torch.Tensor) -> torch.Tensor:
+        """``grad_stoch`` over every owned measurement."""
+        return self.grad_stoch(z, self.allowed)
+
     def m_total(self) -> torch.Tensor:
         return self.allowed.sum(dim=-1)
 

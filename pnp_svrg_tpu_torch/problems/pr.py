@@ -103,8 +103,12 @@ class PhaseRetrieval:
         at = t.abs()
         return _rmatvec(a_rows, (at - y_rows) / at * t)
 
+    def grad_sum(self, z: torch.Tensor) -> torch.Tensor:
+        """The unnormalised gradient over every row, without gathering A."""
+        return self._amplitude_grad(self.a, self.y, z)
+
     def grad_full(self, z: torch.Tensor) -> torch.Tensor:
-        return self._amplitude_grad(self.a, self.y, z) / self.m
+        return self.grad_sum(z) / self.m
 
     def grad_stoch(self, z: torch.Tensor, mb: torch.Tensor) -> torch.Tensor:
         """Unnormalised minibatch gradient; ``mb`` is a (B, k) index tensor.

@@ -285,8 +285,13 @@ def test_cpu_path_takes_steps_the_kernels_are_not_built_for(rng):
 def test_unported_paths_raise(rng):
     _, x = _noisy_batch(rng, size=32)
     xt = torch.tensor(x)
-    with pytest.raises(NotImplementedError):
-        bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4), row_valid_bounds=(0, 32))
+    p = bm3d.BM3DParams(search=4)
+    # row_valid_bounds is ported: the whole image as bounds changes nothing,
+    # and bounds outside the image are refused.
+    assert torch.equal(bm3d.bm3d_denoise_batch(xt, 0.1, p, row_valid_bounds=(0, 32)),
+                       bm3d.bm3d_denoise_batch(xt, 0.1, p))
+    with pytest.raises(ValueError, match="row_valid_bounds"):
+        bm3d.bm3d_denoise_batch(xt, 0.1, p, row_valid_bounds=(0, 40))
     with pytest.raises(ValueError, match="topk"):  # "approx" is ported; a misspelling is not
         bm3d.bm3d_denoise_batch(xt, 0.1, bm3d.BM3DParams(search=4, topk="aprox"))
 

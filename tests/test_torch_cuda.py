@@ -622,3 +622,64 @@ def test_train_step_and_evaluate_on_the_card_match_the_cpu(cuda):
                 c = tree_c[name][leaf] if leaf else tree_c[name]
                 np.testing.assert_allclose(g, c, rtol=0, atol=5e-6, err_msg=f"{name}/{leaf}")
     np.testing.assert_allclose(eg, ec, atol=1e-4)
+
+
+# Row bounds (the spatial path): the shards' halo-extended blocks of a
+# 256 px image (192 rows, bounds (32, 192) and (0, 160)) and an odd pair.
+K1_BOUNDS = [(192, (32, 192)), (192, (0, 160)), (64, (13, 50))]
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("rows_,bounds", K1_BOUNDS)
+def test_bounded_k1_equals_plain_exactly_on_dyadic_images(cuda, mode, rows_, bounds):
+    x = torch.tensor(_dyadic(np.random.default_rng(rows_), (2, rows_, 256), 4, 0.25), device=cuda)
+    rows, cols = bm3d._ref_grid(rows_, 8, 4), bm3d._ref_grid(256, 8, 4)
+    offs = bm3d.search_offsets(8, 1)
+    got = k1.bm3d_match(x, rows, cols, offs, 8, 16, mode, row_valid_bounds=bounds)
+    want = k1.bm3d_match_plain(x, rows, cols, offs, 8, 16, mode, row_valid_bounds=bounds)
+    assert torch.equal(got, want)
+    # the whole image as bounds leaves every call as it was
+    full = k1.bm3d_match(x, rows, cols, offs, 8, 16, mode, row_valid_bounds=(0, rows_))
+    assert torch.equal(full, k1.bm3d_match(x, rows, cols, offs, 8, 16, mode))
+
+
+def test_bounded_bm3d_on_the_card_matches_the_cpu(cuda):
+    x = _noisy(48)
+    p = bm3d.BM3DParams(search=6, match_dtype="bfloat16")
+    gpu = bm3d.bm3d_denoise_batch(torch.tensor(x, device=cuda), 0.1, p, row_valid_bounds=(8, 40)).cpu()
+    cpu = bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, p, row_valid_bounds=(8, 40))
+    assert float((gpu - cpu).abs().mean()) < 1e-4
+
+
+def test_spatial_nlm_on_the_card_matches_unsharded(cuda):
+    from pnp_svrg_tpu_torch.parallel import make_spatial_mesh, nlm_denoise_spatial
+
+    z, h = _nlm_input(cuda, 1)
+    mesh = make_spatial_mesh((1, 2), device=cuda, emulate=True)
+    got = nlm_denoise_spatial(z[0], h[0], h[0], mesh)
+    assert float((got - k3.nlm_denoise(z[0], h[0], h[0])).abs().max()) <= 1e-5
+
+
+def test_emulated_meas_run_on_the_card_matches_the_cpu(cuda):
+    """The meas-split loop (two shards in one process) on the card against
+    the same program on the CPU, on the same per-shard minibatches."""
+    from pnp_svrg_tpu_torch.parallel import run_batch_meas_emulated, split_meas
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = stack_problems([make_csmri(load_image(p, 32, 32), gen, 0.5, snr=10, device="cpu")
+                          for p in ("Set12/01.png", "13.png")])
+    gpu = type(cpu)(**{k: v.to(cuda) for k, v in vars(cpu).items()})
+    rng = np.random.default_rng(1)
+    masks = np.zeros((2, 2, 3, 2, 32 * 32), np.float32)  # (shards, n_outer, t2, B, H*W)
+    for s, shard in enumerate(split_meas(cpu, 2)):
+        allowed = shard.mask.numpy().reshape(2, -1)
+        for i in range(2):
+            for j in range(3):
+                for b in range(2):
+                    masks[s, i, j, b, rng.choice(np.flatnonzero(allowed[b]), 50, replace=False)] = 1.0
+    masks = torch.tensor(masks.reshape(2, 2, 3, 2, 32, 32))
+    den = NLMDenoiser(sigma_modifier=1.2)
+    a, b = (run_batch_meas_emulated(pnp_svrg, p, den, 2, masks=masks.to(p.device), eta=400.0,
+                                    n_outer=2, t2=3, mini_batch_size=100) for p in (cpu, gpu))
+    np.testing.assert_allclose(b["psnr_per_iter"].cpu().numpy(), a["psnr_per_iter"].numpy(), atol=0.05)
+    assert float((b["image"].cpu() - a["image"]).abs().mean()) < 1e-3

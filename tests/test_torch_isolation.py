@@ -68,6 +68,9 @@ def test_the_scan_covers_every_slice_module():
                 "examples/tune_set12.py", "examples/tune_csmri_nlm.py", "examples/tune_deblur.py",
                 "examples/tune_pr.py", "models/spectral_norm.py", "training/__init__.py",
                 "training/data.py", "training/utils.py", "training/checkpoint.py",
-                "training/train_dncnn.py", "examples/train_realsn.py"):
+                "training/train_dncnn.py", "examples/train_realsn.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/meas.py", "parallel/sharded.py",
+                "parallel/spatial.py", "parallel/runner.py", "parallel/dryrun.py",
+                "examples/scaling.py"):
         assert f"pnp_svrg_tpu_torch/{rel}" in scanned, rel
     assert "chip_smoke.py" in scanned

@@ -289,7 +289,7 @@ def test_run_pnp_dispatches_and_tags(problems):
         loops.pnp_sgd(tp, den, 1.0, 2, MB)  # neither a generator nor masks
     with pytest.raises(ValueError, match="together"):
         loops.pnp_saga(tp, den, 1.0, 2, MB, masks=torch.zeros((2, 2, SIZE, SIZE)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="axis object"):
         loops.pnp_saga(tp, den, 1.0, 2, MB, generator=gen(), table_axis="meas")
     with pytest.raises(ValueError, match="variant"):
         loops.pnp_sarah(tp, den, 1.0, 1, 1, MB, generator=gen(), variant="svrg")
