@@ -121,7 +121,28 @@ imports no JAX. Phases, each printing one JSON line:
    ``examples/scaling.py`` at one rank and at two ranks on the one card (no
    scaling claim); (h) ``dryrun_multichip(2)``. Every rank's failure,
    time-out or disagreement fails the phase;
-17. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
+17. drivers: the paper and demo drivers (``python -m
+   pnp_svrg_tpu_torch.examples.<name>``) at their full default sizes: (a)
+   paper_csmri under both ``--eta-scale`` tables (13.png at 128 px, BM3D),
+   paper_deblur (Set12/01 at 256 px, BM3D), paper_pr under both
+   ``--config`` tables (Set12/04 at 128 px, M = 8192; BM3D, MMO and RealSN
+   rows), the demo (13.png at 256 px, RealSN) and rgb_csmri (128 px, TV),
+   each on the port's own problem through its ``main`` (the demo's and RGB's
+   compute parts where the card's Python has no matplotlib), every row's
+   final PSNR and SSIM, seconds and launches (K1 = K2 = 2 a BM3D denoise, 0
+   on the other rows; K3 = 0) beside the JAX CPU row of
+   ``paper_drivers.npz``; finite, and above its init PSNR wherever the JAX
+   row is; (b) the deterministic anchor rows (paper_csmri's ``gd`` under
+   both tables, paper_deblur's ``gd+bm3d``, the demo's ``PnP-GD``) three
+   times each on the JAX driver's own problem, through the driver's row
+   table, every trace entry within 0.05 dB of the JAX CPU trace, or within
+   1e-3 dB plus twice the spread of the three card runs where that is
+   wider (K2's atomics); (c) the utilities on the card: ``PhaseTimers``
+   in both fence modes around a 128 px BM3D denoise (each total at least
+   that call's device time, the stream idle after it), ``trace`` over one
+   denoise in ``annotate("bm3d")`` naming K1, K2 and the region, and
+   ``scalar_fence`` leaving the stream idle;
+18. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
    pr_bm3d, deblur_sr_bm3d and pr_sarah_realsn, and one BM3D round of the
    sweep, under ``torch.profiler``: device time by kernel, grouped (the CNN
    denoiser's convolutions and BatchNorm as cuDNN's), and the device's busy
@@ -153,9 +174,12 @@ failed check raises, and the script exits non-zero without the last line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import csv
 import dataclasses
 import gc
+import importlib
+import importlib.util
 import itertools
 import json
 import math
@@ -191,6 +215,11 @@ from pnp_svrg_tpu_torch.convert import (
     load_pr_sarah_problem,
     load_pr_sarah_reference,
     nlm_params,
+    PAPER_ANCHORS,
+    PAPER_TABLES,
+    load_paper_csmri_problem,
+    load_paper_deblur_problem,
+    load_paper_reference,
     TRAIN_BATCH_SEED,
     TRAIN_DIR,
     TRAIN_EXP,
@@ -269,6 +298,7 @@ from pnp_svrg_tpu_torch.parallel.dryrun import dryrun_multichip
 from pnp_svrg_tpu_torch.parallel.meas import run_local
 from pnp_svrg_tpu_torch.parallel.mesh import BATCH_AXIS, MEAS_AXIS, LocalAxis, spawn
 from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image, resolve_data_path
+from pnp_svrg_tpu_torch.utils.profiling import PhaseTimers, annotate, scalar_fence, trace
 
 N_OUTER, T2, MINI_BATCH = 16, 10, 4000
 SPREAD_SEEDS = (3, 4, 5, 6, 7, 8)
@@ -376,6 +406,18 @@ PAR_SAGA_ITERS, PAR_SAGA_HIST = 10, 50
 PAR_NLM_TOL_DB, PAR_BM3D_TOL_DB = 1e-4, 0.05
 PAR_SCALING_ARGV = ["--size", "128", "--images-per-device", "2", "--n-outer", "4", "--t2", "10",
                     "--eta", "6000", "--mb", "4000", "--search", "8"]
+# The drivers phase: the five paper and demo drivers at their default sizes
+# on the port's own problems (gaps to the JAX CPU rows reported, not held),
+# then the deterministic anchor rows DRIVER_REPEATS times on the JAX
+# drivers' problems, every trace entry within DRIVER_ANCHOR_TOL_DB of the
+# JAX CPU trace, or within PAR_IDENTITY_DB plus twice the spread of the
+# card's repeats where that is wider: K2's atomics make BM3D rows differ
+# from run to run (0.027 dB over paper_csmri's 198 gd steps on an H100),
+# and the port's CPU path already lies 0.031 dB from the JAX one there.
+DRIVERS = ("paper_csmri", "paper_deblur", "paper_pr", "pnp_csmri_demo", "rgb_csmri")
+DRIVER_BM3D = {"paper_csmri": True, "paper_deblur": True, "pnp_csmri_demo": False, "rgb_csmri": False}
+DRIVER_REPEATS, DRIVER_ANCHOR_TOL_DB = 3, 0.05
+DRIVERS_BUILD = Path(__file__).resolve().parent / "build" / "figures"
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM bytes/s. Bounds are stated beside the card's name and limit.
 F32_PEAK, HBM_PEAK = 67e12, 3.35e12
@@ -2052,6 +2094,235 @@ def run_parallel(card: str, prob, lanes, ref_masks, bench: dict) -> dict:
     return {f"parallel/{part}": {"launches": got} for part, (got, *_rest) in expect.items()}
 
 
+def _denoises(out) -> int:
+    """Denoise calls of one loop run: one a logged step, plus SARAH's
+    step-1 point a round."""
+    sig = out["sigma_est"]
+    steps = sig.numel() // sig.shape[-1]
+    return steps + (sig.shape[0] if out["algo_name"] == "PnP SARAH" else 0)
+
+
+@contextlib.contextmanager
+def _counted_rows(mod):
+    """Within the block, every row of the driver ``mod``'s table (the
+    callables of ``make_runs``; rgb_csmri's ``run``) runs under
+    :func:`_counted`. Yields the dict row -> (output, launches, seconds),
+    which also gets the rows' problem under ``"_problem"``."""
+    got = {}
+    entry = "make_runs" if hasattr(mod, "make_runs") else "run"
+    real = getattr(mod, entry)
+
+    def keep(name, fn):
+        got[name] = _counted(fn)
+        return got[name][0]
+
+    def make_runs(prob, args, device):
+        got["_problem"] = prob
+        return {name: (lambda name=name, fn=fn: keep(name, fn)) for name, fn in real(prob, args, device).items()}
+
+    def run(args, device=None):
+        return keep(args.algo, lambda: real(args, device))
+
+    setattr(mod, entry, make_runs if entry == "make_runs" else run)
+    try:
+        yield got
+    finally:
+        setattr(mod, entry, real)
+
+
+def _driver_table(driver: str, mod, table: str, flags: list, dev, figures: bool) -> dict:
+    """One table of a driver on the card through its ``main`` (the demo's
+    and rgb_csmri's compute parts without matplotlib); its rows' records."""
+    figure = driver in ("pnp_csmri_demo", "rgb_csmri")
+    with _counted_rows(mod) as got:
+        if figure and not figures:
+            args = mod.parse_args(flags)
+            if driver == "rgb_csmri":
+                mod.run(args, dev)
+            else:
+                prob = mod.make_problem(args, dev)
+                for fn in mod.make_runs(prob, args, dev).values():
+                    fn()
+        else:
+            out = DRIVERS_BUILD / f"{driver}_{table}.{'png' if figure else 'csv'}"
+            mod.main(flags + ["--out" if figure else "--save", str(out)])
+    return got
+
+
+def _driver_rows(driver: str, table: str, got: dict, ref: dict) -> dict:
+    """The records of one table's rows, each held to its checks."""
+    records = {}
+    if driver == "rgb_csmri":
+        jax = ref["rgb_csmri"]["default"]
+        for name, (res, launches, sec) in got.items():
+            label = f"{driver}/{table}/{name}"
+            rec = {"psnr_init_db": res["psnr_init"], "psnr_recon_db": res["psnr_recon"],
+                   "channels_init_db": res["channels_init"], "channels_recon_db": res["channels_recon"],
+                   "seconds": sec, "launches": launches,
+                   "jax_cpu": {"channels_init_db": jax["channels_init"].tolist(),
+                               "channels_recon_db": jax["channels_recon"].tolist()},
+                   "gap_db_vs_jax_cpu": (np.asarray(res["channels_recon"]) - jax["channels_recon"]).tolist()}
+            require(np.isfinite(res["channels_recon"] + res["channels_init"] + [sec]).all(),
+                    f"drivers/{label}: non-finite")
+            require(all(r > i for r, i, jr, ji in zip(res["channels_recon"], res["channels_init"],
+                                                      jax["channels_recon"], jax["channels_init"]) if jr > ji),
+                    f"drivers/{label}: a channel not above its zero-filled PSNR")
+            require(launches == {n: 0 for n in KERNELS}, f"drivers/{label}: launches {launches}, expected none")
+            records[name] = rec
+        return records
+    prob = got.pop("_problem")
+    init = float(prob.psnr(prob.x_init)[0])
+    jref = ref[driver][table]
+    for name, (out, launches, sec) in got.items():
+        label = f"{driver}/{table}/{name}"
+        final = float(out["final_psnr"][0])
+        ssim_v = float(ssim(prob.x, out["image"])[0])
+        jax = jref["rows"][name]
+        bm3d = DRIVER_BM3D.get(driver, name.endswith("+bm3d"))
+        k12 = 2 * _denoises(out) if bm3d else 0
+        want = {"bm3d_match": k12, "bm3d_aggregate": k12, "nlm": 0}
+        records[name] = {
+            "algo_name": out["algo_name"], "final_psnr_db": final, "final_ssim": ssim_v, "init_psnr_db": init,
+            "iters": out["psnr_per_iter"].shape[0] - 1, "denoises": _denoises(out), "seconds": sec,
+            "launches": launches,
+            "jax_cpu": {"final_psnr_db": jax["final_psnr"], "final_ssim": jax["final_ssim"],
+                        "init_psnr_db": jref["init_psnr"]},
+            "gap_db_vs_jax_cpu": final - jax["final_psnr"]}
+        if hasattr(prob, "mask"):  # CSMRI: the uniform mask may miss the zero frequency
+            records[name]["dc_sampled"] = bool(prob.mask[0, 0, 0])
+        require(all(math.isfinite(v) for v in (final, ssim_v, init, sec)), f"drivers/{label}: non-finite")
+        if jax["final_psnr"] > jref["init_psnr"]:
+            require(final > init, f"drivers/{label}: {final:.4f} dB, not above its init {init:.4f} "
+                                  f"(the JAX CPU row is)")
+        require(launches == want, f"drivers/{label}: launches {launches}, expected {want}")
+    return records
+
+
+def _driver_anchors(ref: dict, dev) -> dict:
+    """(b): each deterministic anchor row :data:`DRIVER_REPEATS` times on the
+    JAX driver's own problem through the port driver's table, against the
+    JAX CPU trace."""
+    anchors = {}
+    for (driver, table), row in PAPER_ANCHORS.items():
+        mod = importlib.import_module(f"pnp_svrg_tpu_torch.examples.{driver}")
+        args = mod.parse_args(PAPER_TABLES[driver][table])
+        prob = (load_paper_deblur_problem(dev) if driver == "paper_deblur"
+                else load_paper_csmri_problem(driver, dev))
+        want = ref[driver][table]["rows"][row]["psnr_per_iter"]
+        traces, launches, seconds = [], [], []
+        for _ in range(DRIVER_REPEATS):
+            out, counts, sec = _counted(mod.make_runs(prob, args, dev)[row])
+            traces.append(out["psnr_per_iter"][:, 0].cpu().numpy())
+            launches.append(counts)
+            seconds.append(sec)
+        label = f"{driver}/{table}/{row}"
+        require(len(traces[0]) == len(want), f"drivers/{label}: {len(traces[0])} entries, JAX {len(want)}")
+        spread = _spread(traces)
+        widened = PAR_IDENTITY_DB + 2 * spread > DRIVER_ANCHOR_TOL_DB
+        tol = PAR_IDENTITY_DB + 2 * spread if widened else DRIVER_ANCHOR_TOL_DB
+        off = [_max_db(t, want) for t in traces]
+        anchors[label] = {
+            "entries": len(want), "max_abs_db_vs_jax_cpu": off, "spread_db": spread, "tolerance_db": tol,
+            "rule": "1e-3 dB + 2 x spread of the card runs" if widened else "0.05 dB",
+            "final_psnr_db": [float(t[-1]) for t in traces], "jax_cpu_final_psnr_db": float(want[-1]),
+            "seconds": seconds, "launches": launches[0]}
+        require(max(off) <= tol, f"drivers/{label}: trace {max(off):.4f} dB off the JAX CPU trace "
+                                 f"(tolerance {tol:.4f}, spread {spread:.4f})")
+        require(all(c == launches[0] for c in launches), f"drivers/{label}: launches {launches}")
+    return anchors
+
+
+def _driver_utilities(dev) -> dict:
+    """(c): ``PhaseTimers`` in both fence modes, ``trace`` + ``annotate`` and
+    ``scalar_fence`` around 128 px BM3D denoises on the card."""
+    x = load_paper_csmri_problem("paper_csmri", dev).x_init
+    sigma = estimate_sigma(x)
+    params = BM3DParams(search=8)
+    fn = lambda: bm3d_denoise_batch(x, sigma, params)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    rec = {}
+    for mode in ("scalar", "block"):
+        timers = PhaseTimers(fence_mode=mode)
+        box = []
+
+        def timed():
+            with timers.phase("bm3d", fence=lambda: box[-1]):
+                box.append(fn())
+            box.append(torch.cuda.current_stream().query())
+
+        records = device_records(timed, 1)  # that call's device records
+        call_ms = sum(e.time_range.elapsed_us() for e in records) / 1e3
+        with timers.phase("bm3d_unfenced"):  # for contrast: the host's enqueue only
+            fn()
+        torch.cuda.synchronize()
+        total_ms = timers.totals()["bm3d"] * 1e3
+        rec[f"phase_timers_{mode}"] = {"total_ms": total_ms, "call_device_ms": call_ms,
+                                       "device_records": len(records), "stream_idle_after": box[-1],
+                                       "unfenced_total_ms": timers.totals()["bm3d_unfenced"] * 1e3,
+                                       "summary": timers.summary()}
+        require(len(records) > 0 and total_ms >= call_ms and box[-1],
+                f"drivers/utilities: PhaseTimers({mode!r}) {total_ms:.4f} ms against the call's device "
+                f"{call_ms:.4f} ms, stream idle after: {box[-1]}")
+    logdir = DRIVERS_BUILD.parent / "drivers_trace"
+    shutil.rmtree(logdir, ignore_errors=True)
+    with trace(logdir):
+        with annotate("bm3d"):
+            fn()
+    files = sorted(logdir.glob("*.pt.trace.json"))
+    require(len(files) == 1, f"drivers/utilities: trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {k: sum(k in e.get("name", "") for e in events if e.get("cat") == "kernel")
+               for k in ("bm3d_match_kernel", "bm3d_aggregate_kernel")}
+    rec["trace"] = {"file": str(files[0].relative_to(DRIVERS_BUILD.parents[1])), "bytes": files[0].stat().st_size,
+                    "kernel_events": kernels, "region": "bm3d" in names}
+    require("bm3d" in names and all(kernels.values()), f"drivers/utilities: trace {rec['trace']}")
+    a = torch.randn(2048, 2048, device=dev)
+    b = a @ a @ a @ a
+    c = torch.zeros(2, dtype=torch.complex64, device=dev) + 1j
+    busy = not torch.cuda.current_stream().query()
+    scalar_fence({"b": [b], "c": (c,), "n": 3})
+    rec["scalar_fence"] = {"stream_busy_before": busy, "stream_idle_after": torch.cuda.current_stream().query()}
+    require(rec["scalar_fence"]["stream_idle_after"], "drivers/utilities: scalar_fence left the stream busy")
+    return rec
+
+
+def run_drivers(card: str) -> dict:
+    """The ``drivers`` phase (see the module docstring): (a) every driver's
+    tables at its default size, (b) the anchors, (c) the utilities. Returns
+    the rows' launches for the ``kernels`` line, as ``drivers/<driver>/<row>``
+    (``... (ref)`` for the ``ref`` tables)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    ref = load_paper_reference()
+    figures = importlib.util.find_spec("matplotlib") is not None
+    rows, seconds, lanes = {}, {}, {}
+    for driver in DRIVERS:
+        mod = importlib.import_module(f"pnp_svrg_tpu_torch.examples.{driver}")
+        for table, flags in PAPER_TABLES.get(driver, {"default": []}).items():
+            t_table = time.perf_counter()
+            got = _driver_table(driver, mod, table, flags, dev, figures)
+            seconds[f"{driver}/{table}"] = time.perf_counter() - t_table
+            rows[f"{driver}/{table}"] = _driver_rows(driver, table, got, ref)
+            suffix = "" if table in ("auto", "default") else f" ({table})"
+            lanes |= {f"drivers/{driver}/{name}{suffix}": {"launches": r["launches"]}
+                      for name, r in rows[f"{driver}/{table}"].items()}
+            del got
+            gc.collect()
+            torch.cuda.empty_cache()
+    t_rows = time.perf_counter() - t0
+    anchors = _driver_anchors(ref, dev)
+    t_anchors = time.perf_counter() - t0 - t_rows
+    utilities = _driver_utilities(dev)
+    emit({"phase": "drivers", "card": card,
+          "figures": f"written under {DRIVERS_BUILD.relative_to(DRIVERS_BUILD.parents[1])}/" if figures
+          else "matplotlib absent on the card",
+          "rows": rows, "table_seconds": seconds, "anchors": anchors, "utilities": utilities,
+          "seconds": {"rows": t_rows, "anchors": t_anchors, "total": time.perf_counter() - t0}})
+    return lanes
+
+
 def phase_profile(label: str, run, table=KERNEL_GROUPS) -> dict:
     """Device time by kernel over one run of ``run()`` (port stream), summed
     by the first group of ``table`` whose substrings the kernel's name
@@ -2141,6 +2412,7 @@ def main() -> None:
     run_checks(bench, dev["nvidia_smi"])
     lanes_run |= {f"train/{part}": rec for part, rec in run_train(dev["nvidia_smi"]).items()}
     lanes_run |= run_parallel(dev["nvidia_smi"], prob, lanes, ref_masks, bench)
+    lanes_run |= run_drivers(dev["nvidia_smi"])
 
     for label, tuned, default_eta, default_mod, params in (
         ("headline", "set12_csmri_tuned.json", 6000.0, 1.0,

@@ -8,10 +8,13 @@ non-local means denoiser run as hand-written CUDA kernels on the card
 (``csrc/``, built on first use) and as their plain PyTorch versions on the
 CPU.
 
-Ported so far (the Set12 CSMRI + PnP-SVRG + BM3D path, with its grid-aligned
+Ported: the Set12 CSMRI + PnP-SVRG + BM3D path, with its grid-aligned
 dense aggregation, the CSMRI + PnP-SVRG + NLM path, phase retrieval and
 Deblur/SR with BM3D, phase retrieval + PnP-SARAH + RealSN-DnCNN, the
-tuning path, denoiser training and the distributed layer):
+tuning path, denoiser training, the distributed layer, the utilities and
+the paper and demo drivers -- everything the JAX package does, except
+training on the reference's 400-image set (not in the repository) and
+NCCL across several cards:
 
 * ``problems.csmri`` (``CSMRI``, ``make_csmri``), ``problems.deblur``
   (``Deblur``, ``make_deblur``), ``problems.pr`` (``PhaseRetrieval``,
@@ -38,7 +41,12 @@ tuning path, denoiser training and the distributed layer):
   process), measurement-split and row-sharded (halo) loops, the sharded
   phase retrieval step, ``run_batch``, ``dryrun_multichip``; the scaling
   script is ``python -m pnp_svrg_tpu_torch.examples.scaling``
-* ``utils.profiling``: only ``fence``
+* ``utils``: ``config`` (``Params``, ``ExperimentConfig``), ``log``
+  (``set_logger``), ``profiling`` (``fence``, ``scalar_fence``,
+  ``PhaseTimers``, ``trace`` and ``annotate`` on ``torch.profiler``) and
+  ``viz`` (the metrics CSV, the figures, ``reconstruct_rgb``)
+* the paper and demo drivers: ``python -m
+  pnp_svrg_tpu_torch.examples.{paper_csmri,paper_deblur,paper_pr,pnp_csmri_demo,rgb_csmri}``
 * ``ops``: metrics, sampling, wavelets, ``estimate_sigma``, transforms, the
   1-D FFT blur and the bilinear resize pair
 * ``convert``: problem data and tuned per-lane parameters from the JAX side

@@ -65,6 +65,19 @@ hyperparameters and reference runs (the CNN denoisers' weights are read by
   of the ``data/RGB`` patch set, and :func:`checksum` of that patch set and
   of each batch's clean patches and noise.
 
+* The paper and demo drivers (``examples/paper_csmri.py``,
+  ``paper_deblur.py``, ``paper_pr.py``, ``pnp_csmri_demo.py``,
+  ``rgb_csmri.py``), from ``data/paper_drivers.npz``, which holds the JAX
+  package's CPU runs of them: :func:`load_paper_csmri_problem` is the
+  problem paper_csmri or the demo builds (``make_csmri(PRNGKey(3))`` at 128
+  px, ``PRNGKey(0)`` at 256), :func:`load_paper_deblur_problem`
+  paper_deblur's (the ``deblur_bm3d`` lane of ``deblur_256.npz``, checked
+  against the checksums this fixture keeps of the JAX driver's ``y`` and
+  ``x_init``), and :func:`load_paper_reference` every row's final PSNR and
+  SSIM and each table's init PSNR under the tables of
+  :data:`PAPER_TABLES`, the PSNR traces of the deterministic rows of
+  :data:`PAPER_ANCHORS`, and rgb_csmri's per-channel PSNRs.
+
 The fixtures are written by ``python tests/test_torch_fixture.py``.
 """
 
@@ -101,6 +114,19 @@ TRAIN_EXP = DATA_DIR.parent / "checkpoints" / "exp_realsn_noise40"
 TRAIN_DIR, VAL_DIR = DATA_DIR / "RGB", DATA_DIR / "Set12"
 TRAIN_SN_ITERS = 30  # effective_variables' power iterations
 TRAIN_STEPS, TRAIN_STEP_LR, TRAIN_BATCH_SEED = 3, 1e-4, 0  # lr: the epochs after the milestone
+PAPER_DRIVERS_FIXTURE = HEADLINE_FIXTURE.parent / "paper_drivers.npz"
+# The drivers' row tables held by the fixture: driver -> {table: its flags}.
+PAPER_TABLES = {
+    "paper_csmri": {"auto": [], "ref": ["--eta-scale", "ref"]},
+    "paper_deblur": {"default": []},
+    "paper_pr": {"auto": [], "ref": ["--config", "ref"]},
+    "pnp_csmri_demo": {"default": []},
+}
+# The deterministic rows whose JAX CPU traces the fixture keeps: (driver, table) -> row.
+PAPER_ANCHORS = {("paper_csmri", "auto"): "gd", ("paper_csmri", "ref"): "gd",
+                 ("paper_deblur", "default"): "gd+bm3d", ("pnp_csmri_demo", "default"): "PnP-GD"}
+# The CSMRI problems the fixture keeps: driver -> (image, size).
+PAPER_PROBLEMS = {"paper_csmri": ("13.png", 128), "pnp_csmri_demo": ("13.png", 256)}
 
 # bench.py's three lanes: the problem, bench.py's defaults and the tuned
 # JSON merged over them (bench.py:508-542, 602-661, 663-717).
@@ -445,6 +471,53 @@ def checksum(a) -> str:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return hashlib.sha256(np.ascontiguousarray(a, dtype=np.float32).tobytes()).hexdigest()
+
+
+def load_paper_csmri_problem(driver: str, device=None, path=PAPER_DRIVERS_FIXTURE) -> CSMRI:
+    """The one-lane CSMRI problem the JAX driver ``driver`` (a key of
+    :data:`PAPER_PROBLEMS`) builds, the ground truth from the port's
+    ``load_image``."""
+    image, size = PAPER_PROBLEMS[driver]
+    data = _fixture(path)
+    field = lambda k: data[f"{driver}/{k}"][None]  # noqa: E731
+    mask = np.unpackbits(field("mask"), axis=-1).astype(np.float32)
+    return csmri_from_numpy({"y": field("y"), "mask": mask, "x": load_image(image, size, size)[None],
+                             "x_init": field("x_init"), "m0": field("m0"), "snr": field("snr"),
+                             "sigma": field("sigma")}, device)
+
+
+def load_paper_deblur_problem(device=None, path=PAPER_DRIVERS_FIXTURE, deblur_path=DEBLUR_FIXTURE) -> Deblur:
+    """paper_deblur's problem (``make_deblur(PRNGKey(0), Set12/01 256,
+    "Minimal", 100, snr=5)``): the ``deblur_bm3d`` lane of the Deblur
+    fixture, whose ``y`` and ``x_init`` must have the checksums the drivers'
+    fixture keeps of the JAX driver's (raises otherwise)."""
+    prob = load_deblur_problem("deblur_bm3d", device, deblur_path)
+    data = _fixture(path)
+    for name in ("y", "x_init"):
+        want = str(data[f"paper_deblur/{name}_sha256"])
+        if checksum(getattr(prob, name)) != want:
+            raise RuntimeError(f"paper_deblur's {name} checksum differs from the JAX driver's {want}")
+    return prob
+
+
+def load_paper_reference(path=PAPER_DRIVERS_FIXTURE) -> dict:
+    """The JAX CPU runs of the drivers: ``{driver: {table: {"init_psnr":
+    float, "rows": {row: {"final_psnr", "final_ssim"[, "psnr_per_iter"]}}}}}``
+    in the tables' row order, and ``["rgb_csmri"]["default"]``'s
+    ``channels_init`` and ``channels_recon`` (3,) PSNRs."""
+    data = _fixture(path)
+    ref = {}
+    for driver, tables in PAPER_TABLES.items():
+        for table in tables:
+            key = f"{driver}/{table}"
+            rows = {}
+            for name in data[f"{key}/rows"].tolist():
+                fields = {f: data[f"{key}/{name}/{f}"] for f in ("final_psnr", "final_ssim", "psnr_per_iter")
+                          if f"{key}/{name}/{f}" in data}
+                rows[name] = {f: float(v) if v.ndim == 0 else v for f, v in fields.items()}
+            ref.setdefault(driver, {})[table] = {"init_psnr": float(data[f"{key}/init_psnr"]), "rows": rows}
+    ref["rgb_csmri"] = {"default": {k: data[f"rgb_csmri/default/{k}"] for k in ("channels_init", "channels_recon")}}
+    return ref
 
 
 def load_train_reference(path=TRAIN_FIXTURE) -> dict:

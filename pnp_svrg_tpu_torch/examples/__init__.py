@@ -1,4 +1,12 @@
-"""The tuning, training and scaling scripts of the port, run as modules:
+"""The scripts of the port, run as modules: the paper and demo drivers,
+
+    python -m pnp_svrg_tpu_torch.examples.paper_csmri [--cpu] [--eta-scale auto|ref]
+    python -m pnp_svrg_tpu_torch.examples.paper_deblur [--cpu] [--small]
+    python -m pnp_svrg_tpu_torch.examples.paper_pr [--cpu] [--small] [--config auto|ref]
+    python -m pnp_svrg_tpu_torch.examples.pnp_csmri_demo [--cpu] [--small]
+    python -m pnp_svrg_tpu_torch.examples.rgb_csmri [--cpu] [--size N] [--algo A]
+
+and the tuning, training and scaling scripts:
 
     python -m pnp_svrg_tpu_torch.examples.sweep_sampratio [--cpu] ...
     python -m pnp_svrg_tpu_torch.examples.sweep_snr
@@ -11,18 +19,19 @@
 
 Each is a port of the JAX script of the same name under ``examples/``, with
 its arguments and output format; ``--cpu`` runs it on the CPU (the kernels'
-plain versions), else it runs on the CUDA card. The tuners' outputs go under
-``build/tuning/`` at the repository root by default (``build/`` is not
-committed), never over the committed tuned files under ``data/`` or
-``hyperparam-tuning/``; the training script writes its ``--exp`` directory
-and, with ``--export``, ``checkpoints/<EXPORT>.npz`` as the JAX script
-does.
+plain versions), else it runs on the CUDA card. By default the drivers'
+figures and metrics CSVs go under ``build/figures/`` and the tuners'
+outputs under ``build/tuning/``, at the repository root (``build/`` is not
+committed), never into ``figures/`` or over the committed tuned files
+under ``data/`` or ``hyperparam-tuning/``; the training script writes
+its ``--exp`` directory and, with ``--export``,
+``checkpoints/<EXPORT>.npz`` as the JAX script does.
 """
 
 from pathlib import Path
 
 OUT_DIR = Path(__file__).resolve().parents[2] / "build" / "tuning"
-
+FIGURES_DIR = OUT_DIR.parent / "figures"
 
 
 def per_decay(chunk, evaluate) -> list:

@@ -13,6 +13,10 @@ from pathlib import Path
 import numpy as np
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
+# The reference implementation's data directory, in its checkout beside this
+# repository (the JAX package's REFERENCE_DATA_DIR); nothing in the port
+# reads it.
+REFERENCE_DATA_DIR = _REPO_ROOT.parent / "reference" / "data"
 DATA_DIR = _REPO_ROOT / "data"
 SET12_DIR = DATA_DIR / "Set12"
 

@@ -683,3 +683,81 @@ def test_emulated_meas_run_on_the_card_matches_the_cpu(cuda):
                                     n_outer=2, t2=3, mini_batch_size=100) for p in (cpu, gpu))
     np.testing.assert_allclose(b["psnr_per_iter"].cpu().numpy(), a["psnr_per_iter"].numpy(), atol=0.05)
     assert float((b["image"].cpu() - a["image"]).abs().mean()) < 1e-3
+
+
+def _bm3d_call(cuda):
+    """A 128 px BM3D denoise (K1 and K2) on the card, built and warmed."""
+    x = torch.tensor(_noisy(128, b=1), device=cuda)
+    sigma = estimate_sigma(x)
+    fn = lambda: bm3d.bm3d_denoise_batch(x, sigma, bm3d.BM3DParams(search=8))  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    return fn
+
+
+@pytest.mark.parametrize("mode", ["scalar", "block"])
+def test_phase_timers_fence_waits_for_the_card(cuda, mode):
+    """Each fence mode holds the clock until the denoise has run on the card:
+    the stream is idle after the phase, and the phase's host time covers the
+    device time between two events recorded inside it."""
+    from pnp_svrg_tpu_torch.utils.profiling import PhaseTimers
+
+    fn = _bm3d_call(cuda)
+    timers = PhaseTimers(fence_mode=mode)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    box = []
+    with timers.phase("bm3d", fence=lambda: box[-1]):
+        start.record()
+        box.append(fn())
+        end.record()
+    assert torch.cuda.current_stream().query()
+    assert timers.totals()["bm3d"] * 1e3 >= start.elapsed_time(end) > 0
+    assert timers.counts() == {"bm3d": 1}
+
+
+def test_scalar_fence_leaves_the_stream_idle(cuda):
+    from pnp_svrg_tpu_torch.utils.profiling import scalar_fence
+
+    a = torch.randn(2048, 2048, device=cuda)
+    b = a @ a @ a
+    c = torch.zeros(3, dtype=torch.complex64, device=cuda) + 1j
+    scalar_fence({"b": [b], "c": (c, torch.empty(0, device=cuda))})
+    assert torch.cuda.current_stream().query()
+
+
+def test_trace_names_k1_k2_and_the_annotated_region(cuda, tmp_path):
+    import json
+
+    from pnp_svrg_tpu_torch.utils.profiling import annotate, trace
+
+    fn = _bm3d_call(cuda)
+    with trace(tmp_path / "tb"):
+        with annotate("bm3d"):
+            fn()
+    (path,) = (tmp_path / "tb").glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("bm3d_match_kernel" in n for n in kernels)
+    assert any("bm3d_aggregate_kernel" in n for n in kernels)
+    assert any(e.get("name") == "bm3d" for e in events)
+
+
+def test_paper_csmri_gd_anchor_starts_on_the_jax_trace_on_the_card(cuda):
+    """The first entries of paper_csmri's ``gd`` row on the JAX driver's
+    problem, through the driver's table, against the JAX CPU trace."""
+    from pnp_svrg_tpu_torch.algorithms import loops
+    from pnp_svrg_tpu_torch.convert import load_paper_csmri_problem, load_paper_reference
+    from pnp_svrg_tpu_torch.examples import paper_csmri
+
+    prob = load_paper_csmri_problem("paper_csmri", cuda)
+    calls = []
+    real = paper_csmri.pnp_gd
+    paper_csmri.pnp_gd = lambda p, den, **kw: calls.append((p, den, kw))
+    try:
+        paper_csmri.make_runs(prob, paper_csmri.parse_args([]), cuda)["gd"]()
+    finally:
+        paper_csmri.pnp_gd = real
+    p, den, kw = calls[0]
+    out = loops.pnp_gd(p, den, **(kw | {"n_iters": 5}))
+    want = load_paper_reference()["paper_csmri"]["auto"]["rows"]["gd"]["psnr_per_iter"][:6]
+    np.testing.assert_allclose(out["psnr_per_iter"][:, 0].cpu().numpy(), want, atol=0.05)

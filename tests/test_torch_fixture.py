@@ -53,21 +53,44 @@ Adam at lr 1e-4 on the first 3 batches (seed 0, 128 patches) of the
 ``data/RGB`` patch set, and SHA-256 checksums of that patch set and of each
 batch's clean patches and noise.
 
+``paper_drivers.npz`` holds what the five paper and demo drivers
+(``examples/paper_csmri.py``, ``paper_deblur.py``, ``paper_pr.py``,
+``pnp_csmri_demo.py``, ``rgb_csmri.py``) do on the JAX package's CPU: the
+problems of paper_csmri (``make_csmri(PRNGKey(3), 13.png 128, 0.5, snr=10)``)
+and of the demo (``PRNGKey(0)``, 256 px, SNR 30) as ``csmri_from_numpy``
+takes them (the mask bit-packed, the image rebuilt by ``load_image``);
+SHA-256 checksums of paper_deblur's ``y`` and ``x_init``, which are those of
+``deblur_256.npz``'s ``deblur_bm3d`` lane (not stored again); every row's
+final PSNR and SSIM and each table's init PSNR, under each driver's default
+flags and under ``--eta-scale ref`` / ``--config ref``; the PSNR traces of
+the deterministic anchor rows (paper_csmri's ``gd`` under both tables,
+paper_deblur's ``gd+bm3d``, the demo's ``PnP-GD``); and rgb_csmri's
+per-channel PSNRs at its defaults. Each driver's ``main`` runs as the user
+would run it, its loops recorded on the way (:func:`recorded_jax_loops`).
+
 Regenerate them all with ``python tests/test_torch_fixture.py``, or some
 with ``python tests/test_torch_fixture.py headline nlm deblur pr pr_sarah
-train`` (the Deblur reference runs take about 10 minutes on the CPU, the PR
-one 10, the PR + SARAH one 5, the training one 2).
+train drivers`` (the Deblur reference runs take about 10 minutes on the CPU,
+the PR one 10, the PR + SARAH one 5, the training one 2, the drivers one
+about 20).
 ``python tests/test_torch_fixture.py --cpu-lanes`` writes nothing: it runs
 the port's plain CPU path on the Deblur, PR and PR + SARAH lanes' fixture
 problems and JAX minibatches against the stored JAX traces, and both sides'
 PR lane again with ``y`` or ``x_init`` moved up one ulp, to show how far
 rounding alone moves that lane's result (about 30 minutes).
+``python tests/test_torch_fixture.py --cpu-anchors`` writes nothing either:
+it runs the drivers' anchor rows on the port's plain CPU path, on the JAX
+drivers' problems, against the stored JAX traces (a few minutes).
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import importlib.util
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 import jax
@@ -107,6 +130,8 @@ from pnp_svrg_tpu.training.train_dncnn import make_train_step as jax_make_train_
 from pnp_svrg_tpu.utils.io import load_image as jax_load_image
 from pnp_svrg_tpu.utils.io import resolve_data_path as jax_resolve_data_path
 from pnp_svrg_tpu.utils.io import set12_paths
+import pnp_svrg_tpu
+from pnp_svrg_tpu.utils import viz as jax_viz
 from pnp_svrg_tpu_torch.convert import (
     BENCH_LANES,
     DEBLUR_FIXTURE,
@@ -118,6 +143,10 @@ from pnp_svrg_tpu_torch.convert import (
     PR_FIXTURE,
     PR_SARAH_FIXTURE,
     PR_SEED,
+    PAPER_ANCHORS,
+    PAPER_DRIVERS_FIXTURE,
+    PAPER_PROBLEMS,
+    PAPER_TABLES,
     TRAIN_BATCH_SEED,
     TRAIN_DIR,
     TRAIN_EXP,
@@ -434,6 +463,130 @@ def build_pr_sarah_arrays() -> dict:
     """The PR + SARAH fixture's arrays, the JAX reference run included."""
     a, _ = pr_matrix_numpy()
     return {"indices": pr_sarah_indices(a.shape[0]), **run_jax_pr_sarah(pr_fixture_problem(a))}
+
+
+REPO = Path(__file__).resolve().parents[1]
+JAX_LOOPS = ("pnp_gd", "pnp_sgd", "pnp_svrg", "pnp_saga", "pnp_sarah")
+
+
+def jax_driver(name: str):
+    """The JAX script ``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"jax_example_{name}", REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def recorded_jax_loops(stub=None):
+    """The JAX package's ``pnp_svrg_tpu.pnp_{gd,sgd,svrg,saga,sarah}`` (which
+    the drivers import inside ``main``) replaced by recorders for the block.
+    Yields the list of calls ``(loop, problem, denoiser, kwargs, output)``
+    in call order; each recorder runs the real loop, or returns
+    ``stub(loop, problem, kwargs)`` when ``stub`` is given."""
+    calls = []
+    real = {n: getattr(pnp_svrg_tpu, n) for n in JAX_LOOPS}
+
+    def recorder(name):
+        def run(problem, denoiser, **kw):
+            out = real[name](problem, denoiser, **kw) if stub is None else stub(name, problem, kw)
+            calls.append((name, problem, denoiser, kw, out))
+            return out
+        return run
+
+    try:
+        for name in JAX_LOOPS:
+            setattr(pnp_svrg_tpu, name, recorder(name))
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(pnp_svrg_tpu, name, fn)
+
+
+def run_jax_driver(driver: str, argv: list, out_dir, stub=None) -> tuple:
+    """(row names, recorded calls, result) of the JAX driver's ``main`` with
+    ``--cpu`` and ``argv``; the demo's figure goes into ``out_dir``."""
+    extra = ["--out", str(Path(out_dir) / f"{driver}.png")] if driver == "pnp_csmri_demo" else []
+    with recorded_jax_loops(stub) as calls:
+        result = jax_driver(driver).main(["--cpu", *argv, *extra])
+    return row_names(driver, result), calls, result
+
+
+def row_names(driver: str, result) -> list:
+    """The row names, in order, of what a driver's ``main`` returns (either
+    package's): the demo's dict keys, paper_csmri's algorithms ("PnP GD" ->
+    "gd"), the other drivers' ``run`` fields."""
+    if driver == "pnp_csmri_demo":
+        return list(result)
+    if driver == "paper_csmri":
+        return [r["algorithm"].split()[-1].lower() for r in result]
+    return [r["run"] for r in result]
+
+
+def run_jax_rgb(argv: list, out_dir) -> tuple:
+    """(original, zero-filled, reconstruction) of the JAX rgb_csmri's
+    ``main`` with ``--cpu`` and ``argv``, recorded from its
+    ``reconstruct_rgb`` call; the figure goes into ``out_dir``."""
+    got = []
+    real = jax_viz.reconstruct_rgb
+
+    def recorder(*args, **kw):
+        got.append(real(*args, **kw))
+        return got[-1]
+
+    jax_viz.reconstruct_rgb = recorder
+    try:
+        jax_driver("rgb_csmri").main(["--cpu", *argv, "--out", str(Path(out_dir) / "rgb.png")])
+    finally:
+        jax_viz.reconstruct_rgb = real
+    return got[0]
+
+
+def channel_psnrs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(3,) PSNRs of (H, W, 3) ``a`` against ``b``, as rgb_csmri prints them."""
+    return np.asarray([-10 * np.log10(float(np.mean((a[..., c] - b[..., c]) ** 2))) for c in range(3)])
+
+
+def build_drivers_arrays() -> dict:
+    """The drivers' fixture arrays (see the module docstring)."""
+    import time
+
+    arrays = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for driver, tables in PAPER_TABLES.items():
+            for table, argv in tables.items():
+                t0 = time.time()
+                names, calls, _ = run_jax_driver(driver, argv, tmp)
+                prob = calls[0][1]
+                key = f"{driver}/{table}"
+                arrays[f"{key}/rows"] = np.asarray(names)
+                arrays[f"{key}/init_psnr"] = np.float32(prob.psnr(prob.x_init))
+                for name, (_, p, _, _, out) in zip(names, calls):
+                    arrays[f"{key}/{name}/final_psnr"] = np.float32(out["final_psnr"])
+                    arrays[f"{key}/{name}/final_ssim"] = np.float32(jax_ssim(p.x, out["image"]))
+                    if PAPER_ANCHORS.get((driver, table)) == name:
+                        arrays[f"{key}/{name}/psnr_per_iter"] = np.asarray(out["psnr_per_iter"], np.float32)
+                if driver in PAPER_PROBLEMS:
+                    arrays |= {f"{driver}/{k}": v for k, v in csmri_arrays(prob).items()}
+                if driver == "paper_deblur":
+                    for name in ("y", "x_init"):
+                        arrays[f"paper_deblur/{name}_sha256"] = np.asarray(checksum(np.asarray(getattr(prob, name))))
+                del calls, prob
+                print(f"JAX {key}: init {float(arrays[f'{key}/init_psnr']):.4f} dB, rows "
+                      + ", ".join(f"{n} {float(arrays[f'{key}/{n}/final_psnr']):.4f}" for n in names)
+                      + f" ({time.time() - t0:.0f} s)", file=sys.stderr, flush=True)
+        orig, init, recon = run_jax_rgb([], tmp)
+    arrays["rgb_csmri/default/channels_init"] = channel_psnrs(init, orig)
+    arrays["rgb_csmri/default/channels_recon"] = channel_psnrs(recon, orig)
+    return arrays
+
+
+def csmri_arrays(prob) -> dict:
+    """A one-lane JAX CSMRI's fields as ``load_paper_csmri_problem`` reads
+    them: the mask bit-packed, no image."""
+    return {"mask": np.packbits(np.asarray(prob.mask).astype(bool), axis=-1),
+            "y": np.asarray(prob.y, np.complex64), "x_init": np.asarray(prob.x_init, np.float32),
+            "m0": np.float32(prob.m0), "snr": np.float32(prob.snr), "sigma": np.float32(prob.sigma)}
 
 
 def jax_train_state():
@@ -814,7 +967,7 @@ def cpu_lanes() -> None:
 
 def build(names) -> None:
     """Write the named fixtures (``headline``, ``nlm``, ``deblur``, ``pr``,
-    ``pr_sarah``, ``train``)."""
+    ``pr_sarah``, ``train``, ``drivers``)."""
     if "headline" in names or "nlm" in names:
         arrays = build_headline_arrays()
         arrays.pop("x")  # rebuilt by the port's load_image
@@ -847,6 +1000,8 @@ def build(names) -> None:
         print(f"JAX PR + SARAH + RealSN: replica-mean final PSNR {final.mean():.4f} dB "
               f"(per replica {np.round(final, 4).tolist()}), mean SSIM {sarah['ssim'].mean():.4f}",
               file=sys.stderr)
+    if "drivers" in names:
+        np.savez_compressed(PAPER_DRIVERS_FIXTURE, **build_drivers_arrays())
     if "train" in names:
         train = build_train_arrays()
         np.savez_compressed(TRAIN_FIXTURE, **train)
@@ -854,15 +1009,36 @@ def build(names) -> None:
               f"{float(train['val_ssim']):.4f}, sigmas {np.round(train['sigmas'], 4).tolist()}, "
               f"losses {train['losses'].tolist()}, {int(train['n_patches'])} patches", file=sys.stderr)
     for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE, PR_SARAH_FIXTURE,
-                 TRAIN_FIXTURE):
+                 TRAIN_FIXTURE, PAPER_DRIVERS_FIXTURE):
         if path.exists():
             print(f"{path} ({path.stat().st_size} bytes)", file=sys.stderr)
 
 
-FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah", "train")
+FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah", "train", "drivers")
+
+def cpu_anchors() -> None:
+    """Print the port's plain CPU runs of the drivers' anchor rows
+    (:data:`PAPER_ANCHORS`, on the JAX drivers' problems, through the port
+    drivers' tables) against the stored JAX CPU traces."""
+    from pnp_svrg_tpu_torch.convert import load_paper_csmri_problem, load_paper_deblur_problem, load_paper_reference
+
+    cpu = torch.device("cpu")
+    ref = load_paper_reference()
+    for (driver, table), row in PAPER_ANCHORS.items():
+        mod = importlib.import_module(f"pnp_svrg_tpu_torch.examples.{driver}")
+        prob = load_paper_deblur_problem(cpu) if driver == "paper_deblur" else load_paper_csmri_problem(driver, cpu)
+        trace = mod.make_runs(prob, mod.parse_args(PAPER_TABLES[driver][table] + ["--cpu"]), cpu)[row]()
+        got = trace["psnr_per_iter"][:, 0].numpy()
+        want = ref[driver][table]["rows"][row]["psnr_per_iter"]
+        diff = np.abs(got - want)
+        print(f"port CPU {driver}/{table}/{row}: {len(got)} entries, max |diff| {diff.max():.6f} dB at entry "
+              f"{int(diff.argmax())}, final {got[-1]:.4f} (JAX {want[-1]:.4f})", flush=True)
+
 
 if __name__ == "__main__" and sys.argv[1:] == ["--cpu-lanes"]:
     cpu_lanes()
+elif __name__ == "__main__" and sys.argv[1:] == ["--cpu-anchors"]:
+    cpu_anchors()
 elif __name__ == "__main__":
     unknown = set(sys.argv[1:]) - set(FIXTURES)
     if unknown:
