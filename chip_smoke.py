@@ -26,7 +26,10 @@ imports no JAX. Phases, each printing one JSON line:
    without row bounds, and NaN at ``h = 0``; K1 with row bounds at the
    spatial path's shapes (the deblur_bm3d lane's 256 px input cut into its
    two shards' halo-extended 192 x 256 blocks, bounds (32, 192) and
-   (0, 160));
+   (0, 160)); K1 at search 12 (625 offsets, its ``PER=20`` instantiation)
+   at the search12 lane's shape, equal to its plain version on dyadic
+   images and slot by slot on the lane's first BM3D input, in every mode,
+   with ptxas's registers and spills for ``PER=20``;
 4. parity: small faithful-variant reconstructions (BM3D, NLM and the
    wavelet "TV" denoiser) on the card against the same runs on the CPU
    (plain kernel versions), and a standalone BM3D denoise on the card;
@@ -37,11 +40,21 @@ imports no JAX. Phases, each printing one JSON line:
    synchronisation); then one run on the JAX reference's minibatch
    masks (``headline_masks_key2.npz``), whose quality is comparable lane by
    lane with the reference's and is held to the floor; then the port's own
-   stream on six more seeds, for the spread of quality across streams;
+   stream on six more seeds, for the spread of quality across streams; then
+   one more run under ``torch.profiler`` (every lane of 5-7a: its
+   ``profile`` record and device ms);
 6. turbo: the same with ``search_step=2`` and the Pallas matcher's bf16
    rounding;
 7. turbo4: the same with ``search_step=4``, where the aggregation is the
    scatter-free dense one (no K2);
+7a. set12_uniform, f32_match, search12: ``bench.py``'s other lanes on a
+   13-lane batch (``bench.py:383-463``) in the headline's pattern, each held
+   on the JAX run's masks to the JAX CPU run there less 0.5 dB, with its
+   rate and device time beside the headline's: set12_uniform on its own problems
+   (``keep_low_freq=0`` on every lane, ``set12_uniform_*.npz``; per lane the
+   init PSNR, the final PSNR and whether the mask lost the zero frequency;
+   the spread seeds), f32_match (f32 match distances) and search12 (625
+   offsets, f32) on the headline's, without the spread seeds;
 8. csmri_nlm: the one-lane ``13.png`` CSMRI + PnP-SVRG + NLM lane
    (``bench.py:465-506``) in the same pattern; its run on the JAX lane's
    minibatch masks (``csmri_nlm_masks_key2.npz``) is held entry by entry to
@@ -141,8 +154,15 @@ imports no JAX. Phases, each printing one JSON line:
    in both fence modes around a 128 px BM3D denoise (each total at least
    that call's device time, the stream idle after it), ``trace`` over one
    denoise in ``annotate("bm3d")`` naming K1, K2 and the region, and
-   ``scalar_fence`` leaving the stream idle;
-18. profile: one more run each of headline, turbo4, csmri_nlm, the grid,
+   ``scalar_fence`` leaving the stream idle; a CSMRI row's gap to the JAX
+   row is compared only where both problems' masks hold the zero frequency;
+17a. check_realsn_export: ``python -m
+   pnp_svrg_tpu_torch.examples.check_realsn_export`` (its ``main``) on the
+   three committed RealSN-DnCNN exports, writing under ``build/``: every
+   layer's spectral norm within 1.05 of its target and the product within
+   1.1 of ``lip``; Set12 PSNR and SSIM and the dense SVD against the JAX
+   CPU run of the JAX tool's functions (``realsn_export_jax.npz``);
+18. profile: one more run each of csmri_nlm, the grid,
    pr_bm3d, deblur_sr_bm3d and pr_sarah_realsn, and one BM3D round of the
    sweep, under ``torch.profiler``: device time by kernel, grouped (the CNN
    denoiser's convolutions and BatchNorm as cuDNN's), and the device's busy
@@ -196,12 +216,14 @@ from pnp_svrg_tpu_torch.algorithms import compat
 from pnp_svrg_tpu_torch.algorithms.loops import pnp_saga, pnp_sarah, pnp_svrg, run_pnp
 from pnp_svrg_tpu_torch.convert import (
     BENCH_LANES,
+    CSMRI_BATCH_LANES,
     NLM_LANE,
     bench_config,
     lane_params,
     load_deblur_masks,
     load_deblur_problem,
     load_deblur_reference,
+    load_batch_lane_reference,
     load_headline_masks,
     load_headline_problems,
     load_nlm_gd_reference,
@@ -228,7 +250,10 @@ from pnp_svrg_tpu_torch.convert import (
     TRAIN_STEPS,
     VAL_DIR,
     checksum,
+    load_realsn_export_reference,
     load_train_reference,
+    load_uniform_masks,
+    load_uniform_problems,
 )
 from pnp_svrg_tpu_torch.denoisers.bm3d import (
     BM3DDenoiser,
@@ -267,7 +292,7 @@ from pnp_svrg_tpu_torch.problems.deblur import make_deblur
 from pnp_svrg_tpu_torch.problems.pr import make_phase_retrieval
 from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.core.checks import grad_full_check, grad_stoch_check, widen
-from pnp_svrg_tpu_torch.examples import sweep_sampratio
+from pnp_svrg_tpu_torch.examples import check_realsn_export, sweep_sampratio
 from pnp_svrg_tpu_torch.models import (
     DnCNN,
     flax_variables_from_torch,
@@ -304,6 +329,16 @@ N_OUTER, T2, MINI_BATCH = 16, 10, 4000
 SPREAD_SEEDS = (3, 4, 5, 6, 7, 8)
 # (Set12-VD mean, flagship) PSNR of the JAX package per lane, BENCH_r05.json
 REF_DB = {"headline": (26.50, 25.54), "turbo": (26.86, 25.00), "turbo4": (26.20, 24.63)}
+# The CSMRI lanes on a 13-lane batch: label -> (tuned JSON, default eta,
+# default sigma_modifier, BM3DParams); bench.py's other three come from
+# convert.CSMRI_BATCH_LANES.
+CSMRI_LANES = {
+    "headline": ("set12_csmri_tuned.json", 6000.0, 1.0, BM3DParams(search=8, match_dtype="bfloat16")),
+    "turbo": ("set12_csmri_turbo_tuned.json", 4000.0, 1.0,
+              BM3DParams(search=8, search_step=2, matcher="pallas", match_dtype="bfloat16")),
+    "turbo4": ("set12_csmri_turbo4_tuned.json", 4000.0, 1.5,
+               BM3DParams(search=8, search_step=4, matcher="pallas", match_dtype="bfloat16")),
+} | CSMRI_BATCH_LANES
 HEADLINE_FLOOR_DB, TURBO_FLOOR_DB, TURBO4_FLOOR_DB = 25.5, 25.86, 25.20
 NLM_REF_DB, NLM_REF_SSIM = 27.09, 0.8291  # BENCH_r05.json csmri_nlm_*
 NLM_FLOOR_DB, NLM_TRACE_TOL_DB = 26.59, 0.05
@@ -418,6 +453,23 @@ DRIVERS = ("paper_csmri", "paper_deblur", "paper_pr", "pnp_csmri_demo", "rgb_csm
 DRIVER_BM3D = {"paper_csmri": True, "paper_deblur": True, "pnp_csmri_demo": False, "rgb_csmri": False}
 DRIVER_REPEATS, DRIVER_ANCHOR_TOL_DB = 3, 0.05
 DRIVERS_BUILD = Path(__file__).resolve().parent / "build" / "figures"
+# bench.py's other lanes on a 13-lane CSMRI batch (convert.CSMRI_BATCH_LANES),
+# through run_lane: set12_uniform on its own problems (keep_low_freq 0 on
+# every lane) and masks, with the spread seeds; f32_match and search12 on the
+# headline's, without them. Each is held on the JAX run's masks to the JAX
+# CPU run there (its 12 Set12 lanes' mean) less BENCH_BELOW_JAX_DB, and
+# set12_uniform's per-lane init PSNR within UNIFORM_INIT_TOL_DB of the JAX
+# trace's first entry (one PSNR of the same x_init) and its lost zero
+# frequencies to BENCH_r05.json's list, whose other fields are reported
+# beside.
+UNIFORM_INIT_TOL_DB = 1e-4
+BENCH_R05 = Path(__file__).resolve().parent / "BENCH_r05.json"
+# check_realsn_export on the committed RealSN-DnCNN exports: Set12 PSNR and
+# SSIM against the JAX CPU evaluation (realsn_export_jax.npz), the dense SVD
+# (float64 on the card, numpy on the CPU) against the JAX tool's numpy SVD.
+REALSN_EXPORTS = ("realsn_dncnn_noise5", "realsn_dncnn_noise15", "realsn_dncnn_noise40")
+REALSN_PSNR_TOL_DB, REALSN_SSIM_TOL, REALSN_DENSE_RTOL = 1e-3, 1e-5, 1e-6
+REALSN_BUILD = Path(__file__).resolve().parent / "build" / "realsn_export"
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM bytes/s. Bounds are stated beside the card's name and limit.
 F32_PEAK, HBM_PEAK = 67e12, 3.35e12
@@ -565,14 +617,16 @@ def phase_device() -> dict:
     return rec
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds the kernels; returns ptxas's summary per library."""
     t0 = time.perf_counter()
     paths = _build.build()
+    ptxas = {n: ptxas_summary(log) for n, log in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {n: p.name for n, p in paths.items()},
-          "ptxas": {n: ptxas_summary(log) for n, log in _build.BUILD_LOG.items()},
+          "libraries": {n: p.name for n, p in paths.items()}, "ptxas": ptxas,
           "sass_atomics": sass_atomics(sass(paths["bm3d_aggregate"])),
           "nlm_shift_loop_sass": sass_loop_mix(sass(paths["nlm"]), "MUFU.EX2")})
+    return ptxas
 
 
 def ptxas_summary(log: str) -> dict:
@@ -715,6 +769,65 @@ def check_match() -> dict:
         "by_offsets": by_offsets, "modes_289_offsets_ms": modes_ms,
         "shape": {"images": list(x.shape), "offsets": len(offs), "k": 16},
         "_agg_in": agg_in,
+    }
+
+
+def check_match_search12(ptxas: dict) -> dict:
+    """K1 at search 12 (625 offsets, its ``PER=20`` instantiation) at the
+    search12 lane's shape (B = 13, 128 px) against its plain version: equal
+    on dyadic images in every rounding mode; slot by slot (near-ties
+    allowed) on the lane's first BM3D input (``x_init`` after the first
+    step) and its stage-1 estimate, every mode; the fill of spare slots
+    never reached (no reference block has fewer than 16 valid candidates).
+    Then its device time in the lane's mode and in each mode, the plain
+    version's, the bounds, its shared memory and ptxas's line for the
+    ``PER=20`` instantiations."""
+    prob, lanes = load_headline_problems("cuda")
+    eta, den = csmri_lane("search12", lanes)
+    lane = {"prob": prob, "eta": eta[:, None],  # one a lane against the (B, N) gradient
+            "cfg": {"params": den.params, "sigma_modifier": den.sigma_modifier}}
+    z, sig = first_denoise_input(lane)
+    p = lane["cfg"]["params"]
+    basic, _ = stage1_aggregate_inputs(z, sig, p)
+    b, h, w = z.shape
+    rows = _ref_grid(h, 8, 4)
+    offs = search_offsets(p.search, p.search_step)
+    require(len(offs) == 625, f"search 12 gives {len(offs)} offsets, not 625")
+    rng = np.random.default_rng(128)
+    dyadic = torch.tensor((0.25 * rng.integers(0, 5, (b, h, w))).astype(np.float32), device="cuda")
+    exact, checks, errs = {}, {}, {}
+    for mode in ("f32", "bf16_xla", "bf16_pallas"):
+        got = bm3d_match(dyadic, rows, rows, offs, 8, 16, mode)
+        exact[mode] = bool(torch.equal(got, bm3d_match_plain(dyadic, rows, rows, offs, 8, 16, mode)))
+        require(exact[mode], f"K1 at 625 offsets differs from its plain version on dyadic images ({mode})")
+        for name, img in (("input", z), ("basic", basic.contiguous())):
+            got = bm3d_match(img, rows, rows, offs, 8, 16, mode)
+            want = bm3d_match_plain(img, rows, rows, offs, 8, 16, mode)
+            dists = match_distances_plain(img, rows, rows, offs, 8, mode)
+            key = f"{name}/{mode}"
+            errs[key] = (dists.gather(-1, got.long()) - dists.gather(-1, want.long())).abs().max().item()
+            checks[key] = {"multiset_agreement": multiset_agreement(got, want),
+                           "equal_share": float((got == want).float().mean()),
+                           "max_rel_gap": slot_gaps(got, want, dists).max().item(),
+                           "invalid_picked": int(torch.isinf(dists.gather(-1, got.long())).sum())}
+            require(checks[key]["max_rel_gap"] <= NEAR_TIE and checks[key]["invalid_picked"] == 0,
+                    f"K1 at 625 offsets {checks[key]} ({key})")
+    mode = match_mode(p)
+    geom = match_geometry(rows, rows, offs, 8, z.device)
+    call = lambda m=mode: bm3d_match(z, rows, rows, offs, 8, 16, m, geometry=geom)  # noqa: E731
+    bounds = match_bounds(b, h, w, rows, rows, offs)
+    return {
+        "shape": {"images": [b, h, w], "offsets": len(offs), "k": 16, "mode": mode},
+        "max_abs_err": errs[f"input/{mode}"],
+        "ms": device_ms(call), "event_ms": cuda_ms(call),
+        "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, rows, offs, 8, 16, mode), reps=10),
+        "bound_ms": min(bounds["bound_direct_ms"], bounds["bound_separable_ms"]),
+        "bound_by": bounds["bound_separable_by"], "library_ms": None,
+        "modes_ms": {m: device_ms(lambda m=m: call(m)) for m in ("f32", "bf16_xla", "bf16_pallas")},
+        "smem_bytes": geom.smem_bytes, "ctas_per_sm_by_smem": (228 * 1024) // (geom.smem_bytes + 1024),
+        "exact_on_dyadic": exact, "checks": checks, "near_tie": NEAR_TIE,
+        "ptxas_per20": {k: v for k, v in ptxas.get("bm3d_match", {}).items() if k.endswith(", 20>")},
+        **bounds,
     }
 
 
@@ -1035,30 +1148,100 @@ def timed(run) -> tuple:
     return out, steady, first, launches
 
 
-def run_lane(label: str, tuned_json: str, default_eta: float, default_mod: float,
-             params: BM3DParams, floor_db: float, expect: dict, prob, lanes, ref_masks) -> dict:
-    eta, mod = lane_params(DATA_DIR / tuned_json, lanes, default_eta, default_mod, device="cuda")
-    den = BM3DDenoiser(sigma_modifier=mod, params=params)
+def csmri_lane(label: str, lanes) -> tuple:
+    """A :data:`CSMRI_LANES` lane's per-lane eta (on the card) and its BM3D
+    denoiser."""
+    tuned, default_eta, default_mod, params = CSMRI_LANES[label]
+    eta, mod = lane_params(DATA_DIR / tuned, lanes, default_eta, default_mod, device="cuda")
+    return eta, BM3DDenoiser(sigma_modifier=mod, params=params)
+
+
+def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float | None = None,
+             seeds=SPREAD_SEEDS, headline: dict | None = None, extra=None) -> dict:
+    """A :data:`CSMRI_LANES` lane in the headline's pattern: a warm-up, the
+    timed run on the port's stream (launches counted, no host sync), the run
+    on the JAX run's masks ``ref_masks``, the spread ``seeds``, and the
+    profile of one more run (emitted; the record's device ms); every run's
+    PSNR and SSIM must be finite but the spread seeds'. With a
+    ``floor_db`` the quality is reported against :data:`REF_DB`; without,
+    against the JAX CPU run on ``ref_masks`` (a lane of
+    ``CSMRI_BATCH_LANES``), and the floor is that run's Set12 mean less
+    :data:`BENCH_BELOW_JAX_DB`. ``headline`` (the headline's record) puts
+    its rate and device ms beside; ``extra(prob, lanes, ref, jax_trace)``
+    returns more fields and the checks on them, as (condition, message)
+    pairs."""
+    eta, den = csmri_lane(label, lanes)
     run, out, steady, first, launches = drive(prob, den, eta)
-    refs = REF_DB[label]
+    jax_trace = None
+    if floor_db is None:
+        jax_trace = load_batch_lane_reference(label)["psnr_per_iter"]
+        refs = (float(jax_trace[-1, :-1].mean()), float(jax_trace[-1, -1]))
+        floor_db = refs[0] - BENCH_BELOW_JAX_DB
+    else:
+        refs = REF_DB[label]
     own = quality(prob, out, lanes, refs)
-    ref = quality(prob, run(masks=ref_masks), lanes, refs)
-    spread = {2: own} | {s: quality(prob, run(seed=s), lanes, refs, check=False) for s in SPREAD_SEEDS}
+    ref_out = run(masks=ref_masks)
+    ref = quality(prob, ref_out, lanes, refs)
+    if jax_trace is not None:
+        trace = ref_out["psnr_per_iter"].cpu().numpy()
+        ref |= {"jax_cpu_set12_mean_psnr_db": refs[0], "jax_cpu_per_lane_psnr_db": jax_trace[-1].tolist(),
+                "trace_max_abs_db_vs_jax_cpu": float(np.abs(trace - jax_trace).max())}
+    spread = {2: own} | {s: quality(prob, run(seed=s), lanes, refs, check=False) for s in seeds}
     keys = ("set12_vd_mean_psnr_db", "set12_vd_min_psnr_db", "flagship_psnr_db")
     rec = {
         "phase": label, "lanes": len(lanes), "steady_s": steady, "first_s": first,
         "image_iters_per_s": len(lanes) * N_OUTER * (T2 + 1) / steady,
-        "launches": launches, "reference_minibatches": ref, "port_stream_seed2": own,
+        "launches": launches, "reference_minibatches": ref, "floor_db": floor_db, "port_stream_seed2": own,
         "port_stream_seeds": {s: [q[k] for k in keys] for s, q in spread.items()},
         "port_stream_seeds_fields": keys,
         "port_stream_mean_of_set12_vd_means": float(np.mean([q[keys[0]] for q in spread.values()])),
-        "params": params.__dict__, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "params": den.params.__dict__, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    prof = phase_profile(label, lambda: run(seed=3))
+    rec |= {"device_ms": prof["device_kernel_ms"], "device_busy_share": prof["device_busy_share"]}
+    if headline is not None:
+        rec["headline"] = {k: headline[k] for k in ("image_iters_per_s", "device_ms")}
+    checks = []
+    if extra is not None:
+        fields, checks = extra(prob, lanes, ref, jax_trace)
+        rec |= fields
     emit(rec)
     require(launches == expect, f"{label}: launches {launches}, expected {expect}")
     require(ref["set12_vd_mean_psnr_db"] >= floor_db,
-            f"{label}: Set12-VD mean {ref['set12_vd_mean_psnr_db']:.2f} dB < {floor_db}")
+            f"{label}: Set12-VD mean {ref['set12_vd_mean_psnr_db']:.4f} dB on the JAX masks < {floor_db:.4f}")
+    for cond, what in checks:
+        require(cond, f"{label}: {what}")
     return rec
+
+
+def uniform_fields(prob, lanes, ref, jax_trace) -> tuple:
+    """set12_uniform's per-lane record as ``bench.py:439-455`` makes it:
+    init PSNR, final PSNR (on the JAX masks) and whether the mask lost the
+    zero frequency, with the means and BENCH_r05.json's fields beside; and
+    its checks: init PSNR within :data:`UNIFORM_INIT_TOL_DB` of the JAX
+    trace's first entry, the lost zero frequencies equal to BENCH_r05.json's."""
+    n_set12 = len(lanes) - 1
+    init = prob.psnr(prob.x_init).cpu().numpy()[:n_set12]
+    final = np.asarray(ref["per_lane_psnr_db"][:n_set12])
+    bench = json.loads(BENCH_R05.read_text())["parsed"]
+    u = {
+        "lanes": lanes[:n_set12], "psnr_db_per_image": final.tolist(), "init_psnr_db_per_image": init.tolist(),
+        "dc_lost_per_image": [bool(v) for v in (prob.mask[:n_set12, 0, 0] == 0).cpu()],
+        "mean_psnr_db": float(final.mean()), "min_psnr_db": float(final.min()),
+        "mean_ssim": ref["set12_vd_mean_ssim"], "mean_init_psnr_db": float(init.mean()),
+        "mean_delta_db": float((final - init).mean()),
+        "init_max_abs_db_vs_jax_cpu": float(np.abs(init - jax_trace[0, :n_set12]).max()),
+        "bench_r05": {k.removeprefix("set12_uniform_"): v for k, v in bench.items()
+                      if k.startswith("set12_uniform_")},
+    }
+    checks = [
+        (u["init_max_abs_db_vs_jax_cpu"] <= UNIFORM_INIT_TOL_DB,
+         f"init PSNR {u['init_max_abs_db_vs_jax_cpu']:.2e} dB off the JAX trace's"),
+        (u["dc_lost_per_image"] == u["bench_r05"]["dc_lost_per_image"],
+         f"lost zero frequencies {u['dc_lost_per_image']}, BENCH_r05.json "
+         f"{u['bench_r05']['dc_lost_per_image']}"),
+    ]
+    return {"set12_uniform": u}, checks
 
 
 def nlm_lane():
@@ -1570,6 +1753,54 @@ def run_checks(bench: dict, card: str) -> dict:
     return errs
 
 
+def run_realsn_export(card: str) -> dict:
+    """The ``check_realsn_export`` phase: the checker's ``main`` on each
+    committed RealSN-DnCNN export, on the card, into ``build/``. Each must
+    pass its own check (every layer within 1.05 of its target, the product
+    within 1.1 of ``lip``: ``main`` raises otherwise) and lie within
+    :data:`REALSN_PSNR_TOL_DB` / :data:`REALSN_SSIM_TOL` of the JAX CPU
+    evaluation's Set12 means and within :data:`REALSN_DENSE_RTOL` of its
+    dense singular values; its sigmas' distance from JAX's (other start
+    vectors) and the committed ``.val.json`` values are reported beside.
+    Returns the launches (none: cuDNN) for the ``kernels`` line."""
+    recs, lanes = {}, {}
+    for name in REALSN_EXPORTS:
+        rec, launches, seconds = _counted(lambda name=name: check_realsn_export.main(
+            [name, "--lip", "0.3", "--out-dir", str(REALSN_BUILD)]))
+        jax = load_realsn_export_reference(name)
+        committed = json.loads((CHECKPOINT_DIR / f"{name}.val.json").read_text())
+        dense = np.asarray(list(rec["dense_valid_svd"].values()))
+        target, sigmas = rec["per_layer_target"], np.asarray(rec["per_layer_sigma"])
+        recs[name] = {
+            "seconds": seconds, "launches": launches, "ok": rec["ok"],
+            "max_sigma_over_target": float(sigmas.max() / target),
+            "lipschitz_product_bound": rec["lipschitz_product_bound"], "lip": rec["lip"],
+            "sigmas_max_rel_vs_jax_cpu": float(np.abs(sigmas / jax["sigmas"] - 1).max()),
+            "dense_valid_svd": rec["dense_valid_svd"],
+            "dense_max_rel_vs_jax_cpu": float(np.abs(dense / jax["dense"] - 1).max()),
+            "val_psnr_db": rec["val_psnr_db"], "val_ssim": rec["val_ssim"],
+            "jax_cpu_val_psnr_db": float(jax["val_psnr_per_image"].mean()),
+            "jax_cpu_val_ssim": float(jax["val_ssim_per_image"].mean()),
+            "committed_val_json": {k: committed[k] for k in ("val_psnr_db", "val_ssim")},
+            "psnr_db_vs_committed": rec["val_psnr_db"] - committed["val_psnr_db"],
+        }
+        lanes[f"check_realsn_export/{name}"] = {"launches": launches}
+    emit({"phase": "check_realsn_export", "card": card, "exports": recs})
+    for name, r in recs.items():
+        require(r["max_sigma_over_target"] <= check_realsn_export.LAYER_SLACK
+                and r["lipschitz_product_bound"] <= r["lip"] * check_realsn_export.PRODUCT_SLACK,
+                f"check_realsn_export/{name}: {r['max_sigma_over_target']:.4f} x target, product "
+                f"{r['lipschitz_product_bound']:.5f}")
+        require(abs(r["val_psnr_db"] - r["jax_cpu_val_psnr_db"]) <= REALSN_PSNR_TOL_DB
+                and abs(r["val_ssim"] - r["jax_cpu_val_ssim"]) <= REALSN_SSIM_TOL,
+                f"check_realsn_export/{name}: Set12 {r['val_psnr_db']:.5f} dB / {r['val_ssim']:.6f}, JAX CPU "
+                f"{r['jax_cpu_val_psnr_db']:.5f} / {r['jax_cpu_val_ssim']:.6f}")
+        require(r["dense_max_rel_vs_jax_cpu"] <= REALSN_DENSE_RTOL,
+                f"check_realsn_export/{name}: dense SVD {r['dense_max_rel_vs_jax_cpu']:.2e} off JAX's")
+        require(r["launches"] == {n: 0 for n in KERNELS}, f"check_realsn_export/{name}: {r['launches']}")
+    return lanes
+
+
 def conv_flop_per_step(model, batch: int, hw: int) -> float:
     """Operations of one training step's convolutions: each conv's forward
     product (2 x B x H x W x C_in x C_out x 9), the same again for its weight
@@ -1798,12 +2029,6 @@ def pr_stratified_indices(m: int, n: int, lead: tuple, k: int, seed: int = 0) ->
     return torch.as_tensor(local, device=dev), torch.as_tensor(union, device=dev)
 
 
-def headline_config(lanes) -> tuple:
-    """The headline lane's per-lane eta and its BM3D denoiser."""
-    eta, mod = lane_params(DATA_DIR / "set12_csmri_tuned.json", lanes, 6000.0, 1.0, device="cuda")
-    return eta, BM3DDenoiser(sigma_modifier=mod, params=BM3DParams(search=8, match_dtype="bfloat16"))
-
-
 def saga_injection(nlm_masks: torch.Tensor, n: int) -> dict:
     """SAGA's injected minibatches for the meas-split csmri_nlm problem: the
     JAX lane's masks of the first outer round as the steps, the next
@@ -1842,7 +2067,7 @@ def _parallel_rank(rank: int, pr_inputs: dict) -> dict:
     out = {}
     # (b) the headline batch, meas-split over the two ranks
     prob, lanes = load_headline_problems("cuda")
-    eta, den = headline_config(lanes)
+    eta, den = csmri_lane("headline", lanes)
     masks = meas_split_masks(load_headline_masks("cuda"), PAR_WORLD)
     run = lambda: run_batch("svrg", prob, den, mesh=mesh, masks=masks, eta=eta,  # noqa: E731
                             n_outer=N_OUTER, t2=T2, mini_batch_size=MINI_BATCH)
@@ -1951,7 +2176,7 @@ def run_parallel(card: str, prob, lanes, ref_masks, bench: dict) -> dict:
         seconds[part] = time.perf_counter() - clock[0]
         clock[0] = time.perf_counter()
 
-    eta, den = headline_config(lanes)
+    eta, den = csmri_lane("headline", lanes)
     split = meas_split_masks(ref_masks, PAR_WORLD)
     unsharded = lambda: pnp_svrg(prob, den, eta, N_OUTER, T2, MINI_BATCH, masks=ref_masks)  # noqa: E731
     emulated = lambda: run_batch_meas_emulated(  # noqa: E731
@@ -2173,6 +2398,14 @@ def _driver_rows(driver: str, table: str, got: dict, ref: dict) -> dict:
     prob = got.pop("_problem")
     init = float(prob.psnr(prob.x_init)[0])
     jref = ref[driver][table]
+    # A CSMRI row's gap to JAX's is compared only where both problems' masks
+    # hold the zero frequency (a uniform mask misses it by coin flip, which
+    # costs about 4 dB, bench.py:439-455).
+    dc = {}
+    if hasattr(prob, "mask"):
+        dc = {"dc_sampled": bool(prob.mask[0, 0, 0]),
+              "jax_dc_sampled": bool(load_paper_csmri_problem(driver, "cpu").mask[0, 0, 0])}
+    comparable = all(dc.values())
     for name, (out, launches, sec) in got.items():
         label = f"{driver}/{table}/{name}"
         final = float(out["final_psnr"][0])
@@ -2186,10 +2419,11 @@ def _driver_rows(driver: str, table: str, got: dict, ref: dict) -> dict:
             "iters": out["psnr_per_iter"].shape[0] - 1, "denoises": _denoises(out), "seconds": sec,
             "launches": launches,
             "jax_cpu": {"final_psnr_db": jax["final_psnr"], "final_ssim": jax["final_ssim"],
-                        "init_psnr_db": jref["init_psnr"]},
-            "gap_db_vs_jax_cpu": final - jax["final_psnr"]}
-        if hasattr(prob, "mask"):  # CSMRI: the uniform mask may miss the zero frequency
-            records[name]["dc_sampled"] = bool(prob.mask[0, 0, 0])
+                        "init_psnr_db": jref["init_psnr"]}, **dc}
+        if comparable:
+            records[name]["gap_db_vs_jax_cpu"] = final - jax["final_psnr"]
+        else:
+            records[name]["gap_not_compared"] = "a mask misses the zero frequency"
         require(all(math.isfinite(v) for v in (final, ssim_v, init, sec)), f"drivers/{label}: non-finite")
         if jax["final_psnr"] > jref["init_psnr"]:
             require(final > init, f"drivers/{label}: {final:.4f} dB, not above its init {init:.4f} "
@@ -2366,7 +2600,7 @@ def profile_run(label: str, run, table=KERNEL_GROUPS, host_ops: bool = True) -> 
 def main() -> None:
     dev = phase_device()
     card = dev["kind"]
-    phase_build()
+    ptxas = phase_build()
     bench = {label: bench_lane(label) for label in BENCH_RUNS}
     sweep = run_sweep(dev["nvidia_smi"])
     first_round = sweep.pop("_first_round")
@@ -2376,6 +2610,7 @@ def main() -> None:
     at_lanes["sweep_bm3d"] = check_bench_kernels(sweep_lane(first_round["bm3d"]))
     k1["bench_shapes"] = {label: r[0] for label, r in at_lanes.items()}
     k1["bounded"] = check_match_bounded(bench["deblur_bm3d"])
+    k1["bench_shapes"]["search12"] = check_match_search12(ptxas)
     k2["bench_shapes"] = {label: r[1] for label, r in at_lanes.items()}
     k3 = check_nlm(dev["max_sm_clock_mhz"] * 1e6)
     k3["bench_shapes"] = {"sweep_nlm": check_nlm_at_sweep(first_round["nlm"], dev["max_sm_clock_mhz"] * 1e6)}
@@ -2385,22 +2620,20 @@ def main() -> None:
     prob, lanes = load_headline_problems("cuda")
     ref_masks = load_headline_masks("cuda")
     with_k2 = {"bm3d_match": 2 * N_OUTER * T2, "bm3d_aggregate": 2 * N_OUTER * T2, "nlm": 0}
+    head = run_lane("headline", with_k2, prob, lanes, ref_masks, HEADLINE_FLOOR_DB)
     lanes_run = {
-        "headline": run_lane("headline", "set12_csmri_tuned.json", 6000.0, 1.0,
-                             BM3DParams(search=8, match_dtype="bfloat16"), HEADLINE_FLOOR_DB,
-                             with_k2, prob, lanes, ref_masks),
-        "turbo": run_lane("turbo", "set12_csmri_turbo_tuned.json", 4000.0, 1.0,
-                          BM3DParams(search=8, search_step=2, matcher="pallas",
-                                     match_dtype="bfloat16"),
-                          TURBO_FLOOR_DB, with_k2, prob, lanes, ref_masks),
-        "turbo4": run_lane("turbo4", "set12_csmri_turbo4_tuned.json", 4000.0, 1.5,
-                           BM3DParams(search=8, search_step=4, matcher="pallas",
-                                      match_dtype="bfloat16"),
-                           TURBO4_FLOOR_DB, with_k2 | {"bm3d_aggregate": 0}, prob, lanes,
-                           ref_masks),
-        "csmri_nlm": run_nlm_lane(),
-        "csmri_nlm_grid": run_nlm_grid(),
+        "headline": head,
+        "turbo": run_lane("turbo", with_k2, prob, lanes, ref_masks, TURBO_FLOOR_DB),
+        "turbo4": run_lane("turbo4", with_k2 | {"bm3d_aggregate": 0}, prob, lanes, ref_masks, TURBO4_FLOOR_DB),
     }
+    uprob, ulanes = load_uniform_problems("cuda")
+    lanes_run["set12_uniform"] = run_lane("set12_uniform", with_k2, uprob, ulanes, load_uniform_masks("cuda"),
+                                          headline=head, extra=uniform_fields)
+    del uprob
+    for label in ("f32_match", "search12"):
+        lanes_run[label] = run_lane(label, with_k2, prob, lanes, ref_masks, seeds=(), headline=head)
+    lanes_run["csmri_nlm"] = run_nlm_lane()
+    lanes_run["csmri_nlm_grid"] = run_nlm_grid()
     lanes_run |= {label: run_bench_lane(lane) for label, lane in bench.items()}
     mem_before_gb = torch.cuda.memory_allocated() / 1e9
     sarah = sarah_lane()
@@ -2413,17 +2646,8 @@ def main() -> None:
     lanes_run |= {f"train/{part}": rec for part, rec in run_train(dev["nvidia_smi"]).items()}
     lanes_run |= run_parallel(dev["nvidia_smi"], prob, lanes, ref_masks, bench)
     lanes_run |= run_drivers(dev["nvidia_smi"])
+    lanes_run |= run_realsn_export(dev["nvidia_smi"])
 
-    for label, tuned, default_eta, default_mod, params in (
-        ("headline", "set12_csmri_tuned.json", 6000.0, 1.0,
-         BM3DParams(search=8, match_dtype="bfloat16")),
-        ("turbo4", "set12_csmri_turbo4_tuned.json", 4000.0, 1.5,
-         BM3DParams(search=8, search_step=4, matcher="pallas", match_dtype="bfloat16")),
-    ):
-        eta, mod = lane_params(DATA_DIR / tuned, lanes, default_eta, default_mod, device="cuda")
-        den = BM3DDenoiser(sigma_modifier=mod, params=params)
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        phase_profile(label, lambda: pnp_svrg(prob, den, eta, N_OUTER, T2, MINI_BATCH, generator=gen))
     nprob, nden, neta, ncfg = nlm_lane()
     ngen = torch.Generator(device="cuda").manual_seed(3)
     phase_profile("csmri_nlm", lambda: pnp_svrg(nprob, nden, neta, N_OUTER, T2, MINI_BATCH,

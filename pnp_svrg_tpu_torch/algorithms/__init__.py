@@ -18,9 +18,10 @@ from pnp_svrg_tpu_torch.algorithms.loops import (
     pnp_svrg,
     run_pnp,
     step_schedule,
+    TOL,
 )
 
 __all__ = [
-    "pnp_gd", "pnp_sgd", "pnp_svrg", "pnp_saga", "pnp_sarah", "run_pnp", "step_schedule",
+    "pnp_gd", "pnp_sgd", "pnp_svrg", "pnp_saga", "pnp_sarah", "run_pnp", "TOL", "step_schedule",
     "compat", "tune_pnp_gd", "tune_pnp_sgd", "tune_pnp_svrg", "tune_pnp_saga", "tune_pnp_sarah",
 ]

@@ -14,6 +14,18 @@ hyperparameters and reference runs (the CNN denoisers' weights are read by
 * :func:`load_headline_masks` reads ``data/headline_masks_key2.npz``: the
   minibatch masks the JAX ``pnp_svrg`` draws in ``bench.py``'s timed
   headline run (``PRNGKey(2)``), for runs comparable lane by lane.
+* ``bench.py``'s other lanes on a 13-lane CSMRI batch
+  (:data:`CSMRI_BATCH_LANES`): :func:`load_uniform_problems` reads
+  ``data/set12_uniform_csmri_128.npz``, the set12_uniform lane's problems
+  (``bench.py:402-463``: the headline's keys with ``keep_low_freq=0`` on
+  every lane, so each mask keeps or loses the zero frequency by coin flip),
+  :func:`load_uniform_masks` the minibatch masks of the JAX run on them
+  (``data/set12_uniform_masks_key2.npz``, ``PRNGKey(2)``; they differ from
+  the headline's because a minibatch samples only measured coefficients),
+  and :func:`load_batch_lane_reference` the JAX CPU run of set12_uniform,
+  f32_match or search12 (``bench.py:383-400``, on the headline problems
+  and masks; ``data/headline_variants_jax.npz``): its PSNR trace and
+  per-lane SSIM.
 * The CSMRI + NLM lane (``bench.py:465-506``): :func:`load_nlm_problem` is
   the one-lane problem of ``13.png`` from the headline fixture,
   :func:`nlm_params` the tuned configuration and its provenance grid from
@@ -103,6 +115,9 @@ from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image, resolve_data_path
 
 HEADLINE_FIXTURE = Path(__file__).resolve().parent / "data" / "headline_csmri_128.npz"
 HEADLINE_MASKS = HEADLINE_FIXTURE.parent / "headline_masks_key2.npz"
+UNIFORM_FIXTURE = HEADLINE_FIXTURE.parent / "set12_uniform_csmri_128.npz"
+UNIFORM_MASKS = HEADLINE_FIXTURE.parent / "set12_uniform_masks_key2.npz"
+HEADLINE_VARIANTS_FIXTURE = HEADLINE_FIXTURE.parent / "headline_variants_jax.npz"
 NLM_MASKS = HEADLINE_FIXTURE.parent / "csmri_nlm_masks_key2.npz"
 NLM_TUNED = DATA_DIR / "csmri_nlm_tuned.json"
 NLM_LANE = "13.png"
@@ -115,6 +130,7 @@ TRAIN_DIR, VAL_DIR = DATA_DIR / "RGB", DATA_DIR / "Set12"
 TRAIN_SN_ITERS = 30  # effective_variables' power iterations
 TRAIN_STEPS, TRAIN_STEP_LR, TRAIN_BATCH_SEED = 3, 1e-4, 0  # lr: the epochs after the milestone
 PAPER_DRIVERS_FIXTURE = HEADLINE_FIXTURE.parent / "paper_drivers.npz"
+REALSN_EXPORT_FIXTURE = HEADLINE_FIXTURE.parent / "realsn_export_jax.npz"
 # The drivers' row tables held by the fixture: driver -> {table: its flags}.
 PAPER_TABLES = {
     "paper_csmri": {"auto": [], "ref": ["--eta-scale", "ref"]},
@@ -127,6 +143,18 @@ PAPER_ANCHORS = {("paper_csmri", "auto"): "gd", ("paper_csmri", "ref"): "gd",
                  ("paper_deblur", "default"): "gd+bm3d", ("pnp_csmri_demo", "default"): "PnP-GD"}
 # The CSMRI problems the fixture keeps: driver -> (image, size).
 PAPER_PROBLEMS = {"paper_csmri": ("13.png", 128), "pnp_csmri_demo": ("13.png", 256)}
+
+# bench.py's lanes on a 13-lane CSMRI batch besides the headline: lane ->
+# (tuned JSON, default eta, default sigma_modifier, BM3DParams), as
+# bench.py:402-463 (set12_uniform, on its own problems) and bench.py:383-400
+# (f32_match and search12, on the headline's) run them. bench.py's
+# ``timed(12)`` leaves search12 at its default match_dtype, float32.
+CSMRI_BATCH_LANES = {
+    "set12_uniform": ("set12_csmri_uniform_tuned.json", 6000.0, 1.0,
+                      BM3DParams(search=8, match_dtype="bfloat16")),
+    "f32_match": ("set12_csmri_tuned.json", 6000.0, 1.0, BM3DParams(search=8, match_dtype="float32")),
+    "search12": ("set12_csmri_tuned.json", 6000.0, 1.0, BM3DParams(search=12, match_dtype="float32")),
+}
 
 # bench.py's three lanes: the problem, bench.py's defaults and the tuned
 # JSON merged over them (bench.py:508-542, 602-661, 663-717).
@@ -238,6 +266,26 @@ def load_headline_masks(device=None, path=HEADLINE_MASKS) -> torch.Tensor:
     """(n_outer, t2, B, H, W) float32 minibatch masks of the JAX headline run,
     for ``pnp_svrg(..., masks=...)``."""
     return _unpack_masks(path, device)
+
+
+def load_uniform_problems(device=None, path=UNIFORM_FIXTURE):
+    """(CSMRI, lane names) of the set12_uniform lane: the 13 headline lanes
+    with ``keep_low_freq=0`` on every one, as the JAX package builds them."""
+    return load_headline_problems(device, path)
+
+
+def load_uniform_masks(device=None, path=UNIFORM_MASKS) -> torch.Tensor:
+    """(n_outer, t2, B, H, W) float32 minibatch masks of the JAX set12_uniform
+    run (``PRNGKey(2)``), for ``pnp_svrg(..., masks=...)``."""
+    return _unpack_masks(path, device)
+
+
+def load_batch_lane_reference(lane: str) -> dict:
+    """The JAX CPU run of a :data:`CSMRI_BATCH_LANES` lane on its fixture
+    problems and masks: ``psnr_per_iter`` (1 + n_outer*(t2+1), B) and the
+    per-lane final ``ssim`` (B,)."""
+    data = _fixture(UNIFORM_FIXTURE if lane == "set12_uniform" else HEADLINE_VARIANTS_FIXTURE)
+    return {"psnr_per_iter": data[f"{lane}/psnr_per_iter"], "ssim": data[f"{lane}/ssim"]}
 
 
 def load_nlm_problem(device=None, path=HEADLINE_FIXTURE) -> CSMRI:
@@ -518,6 +566,17 @@ def load_paper_reference(path=PAPER_DRIVERS_FIXTURE) -> dict:
             ref.setdefault(driver, {})[table] = {"init_psnr": float(data[f"{key}/init_psnr"]), "rows": rows}
     ref["rgb_csmri"] = {"default": {k: data[f"rgb_csmri/default/{k}"] for k in ("channels_init", "channels_recon")}}
     return ref
+
+
+def load_realsn_export_reference(name: str, path=REALSN_EXPORT_FIXTURE) -> dict:
+    """What the JAX package's ``tools/check_realsn_export.py`` computes on the
+    CPU for ``checkpoints/<name>.npz``: ``sigmas`` (per layer, its power
+    iterations from JAX's start vectors), ``dense`` (the dense VALID
+    operator's top singular value of the first 3 layers and the last, probe
+    10), ``val_psnr_per_image`` and ``val_ssim_per_image`` (Set12, sorted),
+    float64."""
+    data = _fixture(path)
+    return {k: data[f"{name}/{k}"] for k in ("sigmas", "dense", "val_psnr_per_image", "val_ssim_per_image")}
 
 
 def load_train_reference(path=TRAIN_FIXTURE) -> dict:

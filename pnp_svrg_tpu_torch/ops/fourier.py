@@ -1,7 +1,8 @@
-"""The 1-D circular "fft_blur" convolution of the Deblur problem.
+"""Fourier-domain operators: 2-D FFTs and the 1-D circular "fft_blur"
+convolution of the Deblur problem.
 
-Port of ``fft_blur_1d`` and ``fft_blur_1d_adjoint_kernel`` from
-``pnp_svrg_tpu/ops/fourier.py``. The Deblur forward model treats an H*W image
+Port of ``pnp_svrg_tpu/ops/fourier.py``. ``fft2`` and ``ifft2`` transform the
+last two axes, as ``jnp.fft.fft2`` does. The Deblur forward model treats an H*W image
 as one periodic signal of length N and convolves it with a raveled kernel:
 ``real(ifft(fft(a) * fft(b))) * sqrt(N)`` over the last axis, so a (B, N)
 stack holds one signal per lane. ``torch.fft`` follows numpy's unnormalised
@@ -13,6 +14,14 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def fft2(x: torch.Tensor) -> torch.Tensor:
+    return torch.fft.fft2(x)
+
+
+def ifft2(x: torch.Tensor) -> torch.Tensor:
+    return torch.fft.ifft2(x)
 
 
 def fft_blur_1d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,18 @@ def psnr(
     return 10.0 * torch.log10((data_range * data_range) / mse(image_true, image_test))
 
 
+def psnr_rounded(
+    image_true: torch.Tensor, image_test: torch.Tensor, data_range: float = 1.0
+) -> torch.Tensor:
+    """PSNR rounded to 2 decimals, the reference's reporting convention, as
+    ``jnp.round(x, 2)`` computes it under XLA: ``x * 100`` rounded half to
+    even, times the f32 constant 0.01 (XLA turns the division by 100 into
+    that product, which can differ from ``torch.round(x, decimals=2)`` in
+    the last bit)."""
+    p = psnr(image_true, image_test, data_range)
+    return torch.round(p * 100.0) * p.new_tensor(0.01)
+
+
 def _gaussian_kernel1d(sigma: float, truncate: float = 3.5) -> np.ndarray:
     radius = int(truncate * sigma + 0.5)
     x = np.arange(-radius, radius + 1)

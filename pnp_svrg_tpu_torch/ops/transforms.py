@@ -37,6 +37,20 @@ def hadamard_matrix(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def haar_matrix(n: int) -> np.ndarray:
+    """Orthonormal Haar matrix (n must be a power of two)."""
+    if n & (n - 1):
+        raise ValueError(f"Haar size must be a power of 2, got {n}")
+    h = np.array([[1.0]])
+    while h.shape[0] < n:
+        m = h.shape[0]
+        top = np.kron(h, [1.0, 1.0])
+        bot = np.kron(np.eye(m), [1.0, -1.0])
+        h = np.vstack([top, bot]) / math.sqrt(2.0)
+    return h.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def kaiser2d(n: int, beta: float = 2.0) -> np.ndarray:
     """2-D separable Kaiser window (BM3D aggregation weighting)."""
     w = np.kaiser(n, beta)

@@ -40,11 +40,13 @@ _DB_LO = {
     ],
 }
 
+WAVELETS = tuple(_DB_LO)
+
 
 def _filters(wavelet: str) -> tuple[np.ndarray, np.ndarray]:
     """(dec_lo, dec_hi) as float32; ``hi[i] = (-1)^(i+1) lo[L-1-i]``."""
     if wavelet not in _DB_LO:
-        raise ValueError(f"unknown wavelet {wavelet!r}; have {tuple(_DB_LO)}")
+        raise ValueError(f"unknown wavelet {wavelet!r}; have {WAVELETS}")
     lo = np.asarray(_DB_LO[wavelet], dtype=np.float64)
     n = lo.shape[0]
     hi = np.array([(-1.0) ** (i + 1) * lo[n - 1 - i] for i in range(n)])
@@ -106,6 +108,16 @@ def _idwt_along_last(ca: torch.Tensor, cd: torch.Tensor, wavelet: str, out_len: 
         term = ua[..., s : s + out_len] * float(lo[j]) + ud[..., s : s + out_len] * float(hi[j])
         out = term if out is None else out + term
     return out
+
+
+def dwt1(x: torch.Tensor, wavelet: str = "db1") -> tuple[torch.Tensor, torch.Tensor]:
+    """1-D single-level DWT along the last axis -> (cA, cD)."""
+    return _dwt_along_last(x, wavelet)
+
+
+def idwt1(ca: torch.Tensor, cd: torch.Tensor, wavelet: str, out_len: int) -> torch.Tensor:
+    """Inverse of :func:`dwt1`."""
+    return _idwt_along_last(ca, cd, wavelet, out_len)
 
 
 def dwt2(

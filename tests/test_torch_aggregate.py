@@ -86,7 +86,7 @@ def _members(rows, offsets, size):
 
 
 GEOMETRIES = [(size, search, step) for size in (34, 48, 128) for search in (6, 8)
-              for step in (1, 2)]
+              for step in (1, 2)] + [(128, 12, 1)]  # the search12 lane: 625 offsets
 
 
 @pytest.mark.parametrize("size,search,search_step", GEOMETRIES)

@@ -113,6 +113,24 @@ def test_k1_equals_plain_exactly_on_dyadic_images(cuda, mode, search_step, size)
         assert len(set(corner[:9])) == 9 and np.all(corner[9:] == 0)
 
 
+@pytest.mark.parametrize("mode", list(k1.MODES))
+def test_k1_equals_plain_exactly_at_625_offsets(cuda, mode):
+    """Search 12 (625 offsets: the kernel's PER=20 instantiation) at the
+    search12 lane's shape, B = 13 at 128 px; every block keeps at least 16
+    valid candidates, so no spare slot is filled."""
+    x = torch.tensor(_dyadic(np.random.default_rng(625), (13, 128, 128), 4, 0.25), device=cuda)
+    rows = bm3d._ref_grid(128, 8, 4)
+    offs = bm3d.search_offsets(12, 1)
+    assert len(offs) == 625
+    geom = k1.match_geometry(rows, rows, offs, 8, cuda)
+    assert geom.smem_bytes <= k1._MAX_SMEM
+    got = k1.bm3d_match(x, rows, rows, offs, 8, 16, mode, geometry=geom)
+    want = k1.bm3d_match_plain(x, rows, rows, offs, 8, 16, mode)
+    assert torch.equal(got, want)
+    dists = k1.match_distances_plain(x, rows, rows, offs, 8, mode)
+    assert torch.isfinite(dists.gather(-1, got.long())).all()
+
+
 def _k2_inputs(cuda, size, rng, dyadic, search=8):
     """K2 arguments at ``size`` px: rows of members clipped as
     ``_gather_groups`` clips them (random offsets within ``search``, so rows

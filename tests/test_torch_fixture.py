@@ -68,19 +68,35 @@ paper_deblur's ``gd+bm3d``, the demo's ``PnP-GD``); and rgb_csmri's
 per-channel PSNRs at its defaults. Each driver's ``main`` runs as the user
 would run it, its loops recorded on the way (:func:`recorded_jax_loops`).
 
+``set12_uniform_csmri_128.npz`` holds ``bench.py``'s set12_uniform lane
+(``bench.py:402-463``): the headline's keys with ``keep_low_freq=0`` on every
+lane, laid out as the headline fixture, plus the JAX CPU run of the lane
+(``PRNGKey(2)``; its (177, 13) PSNR trace and per-lane SSIM);
+``set12_uniform_masks_key2.npz`` that run's minibatch masks, as the
+headline's. ``headline_variants_jax.npz`` holds the JAX CPU runs of the
+f32_match and search12 lanes (``bench.py:384-400``) on the headline
+problems. ``realsn_export_jax.npz`` holds what ``tools/check_realsn_export.py``
+computes for the three committed RealSN-DnCNN exports, through the JAX
+functions it calls (per-layer sigmas, dense singular values, Set12 PSNR and
+SSIM per image).
+
 Regenerate them all with ``python tests/test_torch_fixture.py``, or some
 with ``python tests/test_torch_fixture.py headline nlm deblur pr pr_sarah
-train drivers`` (the Deblur reference runs take about 10 minutes on the CPU,
-the PR one 10, the PR + SARAH one 5, the training one 2, the drivers one
-about 20).
-``python tests/test_torch_fixture.py --cpu-lanes`` writes nothing: it runs
-the port's plain CPU path on the Deblur, PR and PR + SARAH lanes' fixture
-problems and JAX minibatches against the stored JAX traces, and both sides'
-PR lane again with ``y`` or ``x_init`` moved up one ulp, to show how far
-rounding alone moves that lane's result (about 30 minutes).
+train drivers uniform variants realsn_export`` (the Deblur reference runs
+take about 10 minutes on the CPU, the PR one 10, the PR + SARAH one 5, the
+training one 2, the drivers one about 20, the last three about 25
+together).
+``python tests/test_torch_fixture.py --cpu-lanes [deblur pr_sarah pr]``
+writes nothing: it runs the port's plain CPU path on the Deblur, PR and
+PR + SARAH lanes' fixture problems and JAX minibatches against the stored
+JAX traces, both sides' PR + SARAH lane with ``x_init`` one ulp down and
+up, and both sides' PR lane with ``y`` or ``x_init`` one ulp up, to show how
+far rounding alone moves those lanes' results (about an hour).
 ``python tests/test_torch_fixture.py --cpu-anchors`` writes nothing either:
 it runs the drivers' anchor rows on the port's plain CPU path, on the JAX
-drivers' problems, against the stored JAX traces (a few minutes).
+drivers' problems, against the stored JAX traces, and paper_csmri's
+``auto`` ``gd`` row on both sides with ``x_init`` one ulp down and up (a few
+minutes).
 """
 
 from __future__ import annotations
@@ -88,6 +104,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import importlib.util
+import itertools
 import json
 import sys
 import tempfile
@@ -117,7 +134,10 @@ from pnp_svrg_tpu.problems.csmri import CSMRI
 from pnp_svrg_tpu.problems.pr import PhaseRetrieval as JaxPhaseRetrieval
 from pnp_svrg_tpu.problems.pr import _dot as jax_dot
 from pnp_svrg_tpu.problems.pr import spectral_init as jax_spectral_init
+from pnp_svrg_tpu.models.convert import load_flax_npz as jax_load_flax_npz
 from pnp_svrg_tpu.models.dncnn import DnCNN as JaxDnCNN
+from pnp_svrg_tpu.models.spectral_norm import conv_power_iteration as jax_conv_power_iteration
+from pnp_svrg_tpu.models.spectral_norm import init_u as jax_init_u
 from pnp_svrg_tpu.models.spectral_norm import power_iteration_uv as jax_power_iteration_uv
 from pnp_svrg_tpu.models.spectral_norm import sigma_uv as jax_sigma_uv
 from pnp_svrg_tpu.ops.metrics import psnr as jax_psnr
@@ -134,6 +154,10 @@ import pnp_svrg_tpu
 from pnp_svrg_tpu.utils import viz as jax_viz
 from pnp_svrg_tpu_torch.convert import (
     BENCH_LANES,
+    CSMRI_BATCH_LANES,
+    HEADLINE_VARIANTS_FIXTURE,
+    UNIFORM_FIXTURE,
+    UNIFORM_MASKS,
     DEBLUR_FIXTURE,
     DEBLUR_LANES,
     HEADLINE_FIXTURE,
@@ -143,6 +167,7 @@ from pnp_svrg_tpu_torch.convert import (
     PR_FIXTURE,
     PR_SARAH_FIXTURE,
     PR_SEED,
+    REALSN_EXPORT_FIXTURE,
     PAPER_ANCHORS,
     PAPER_DRIVERS_FIXTURE,
     PAPER_PROBLEMS,
@@ -157,6 +182,8 @@ from pnp_svrg_tpu_torch.convert import (
     VAL_DIR,
     bench_config,
     checksum,
+    lane_params,
+    load_batch_lane_reference,
     load_deblur_masks,
     load_deblur_problem,
     load_deblur_reference,
@@ -173,28 +200,42 @@ from pnp_svrg_tpu_torch.convert import (
     load_pr_sarah_problem,
     load_pr_sarah_reference,
     load_train_reference,
+    load_uniform_masks,
+    load_uniform_problems,
     nlm_params,
     pr_matrix_blocks,
 )
+from pnp_svrg_tpu_torch.denoisers.dncnn import CHECKPOINT_DIR
 from pnp_svrg_tpu_torch.problems.deblur import load_kernel_image
-from pnp_svrg_tpu_torch.utils.io import load_image
+from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image
 
 SIZE = 128
 SET12_KEEP_LOW_FREQ = 4  # data/set12_csmri_tuned.json config.keep_low_freq
 N_OUTER, T2, MINI_BATCH, MASK_KEY = 16, 10, 4000, 2  # bench.py headline run
 
 
-def build_headline_arrays() -> dict:
-    """The headline problems as bench.py builds them, as numpy arrays."""
+def headline_jax_problems(set12_keep: int = SET12_KEEP_LOW_FREQ) -> tuple[list, list, list]:
+    """(problems, paths, keep_low_freq per lane) of the 13-lane CSMRI batch as
+    bench.py builds it (``bench.py:187-199``): the Set12 lanes on
+    ``split(PRNGKey(0), 12)`` with ``keep_low_freq=set12_keep``, ``13.png``
+    on ``PRNGKey(0)`` with the uniform mask. ``set12_keep=0`` gives the
+    set12_uniform lane's problems (``bench.py:417-423``)."""
     paths = [f"Set12/{p.name}" for p in set12_paths()] + ["13.png"]
     keys = list(jax.random.split(jax.random.PRNGKey(0), len(paths) - 1))
     keys.append(jax.random.PRNGKey(0))  # the flagship lane's fixed key
-    keeps = [SET12_KEEP_LOW_FREQ] * (len(paths) - 1) + [0]
+    keeps = [set12_keep] * (len(paths) - 1) + [0]
     probs = [
         make_csmri(k, jnp.asarray(jax_load_image(p, SIZE, SIZE)), sample_prob=0.5,
                    snr=10, keep_low_freq=kl)
         for k, p, kl in zip(keys, paths, keeps)
     ]
+    return probs, paths, keeps
+
+
+def build_headline_arrays(set12_keep: int = SET12_KEEP_LOW_FREQ) -> dict:
+    """The headline problems as bench.py builds them, as numpy arrays (with
+    ``set12_keep=0``, the set12_uniform lane's)."""
+    probs, paths, keeps = headline_jax_problems(set12_keep)
     stack = lambda name: np.stack([np.asarray(getattr(p, name)) for p in probs])  # noqa: E731
     return {
         "y": stack("y").astype(np.complex64),
@@ -226,6 +267,23 @@ def build_headline_masks(mask: np.ndarray) -> np.ndarray:
         out.append(np.asarray(select(k_mb)).astype(bool))
     masks = np.stack(out).reshape((N_OUTER, T2) + m.shape)
     return np.packbits(masks, axis=-1)
+
+
+def run_jax_batch_lane(lane: str, probs: list, lanes: list) -> dict:
+    """One of :data:`CSMRI_BATCH_LANES` as bench.py runs it with the JAX
+    package on the CPU: per-lane (eta, sigma_modifier) from its tuned JSON,
+    its ``BM3DParams``, PnP-SVRG 16 x 10, minibatch 4000, ``PRNGKey(2)``
+    (the key chain :func:`build_headline_masks` replays). Returns the
+    (1 + n_outer*(t2+1), B) PSNR trace and the per-lane final SSIM."""
+    tuned, default_eta, default_mod, p = CSMRI_BATCH_LANES[lane]
+    eta, mod = lane_params(DATA_DIR / tuned, lanes, default_eta, default_mod, device="cpu")
+    batched = jax_stack_problems(probs)
+    den = JaxBM3DDenoiser(sigma_modifier=jnp.asarray(mod.numpy()), params=JaxBM3DParams(
+        search=p.search, search_step=p.search_step, matcher=p.matcher, match_dtype=p.match_dtype))
+    out = jax_pnp_svrg(batched, den, eta=jnp.asarray(eta.numpy()), n_outer=N_OUTER, t2=T2,
+                       mini_batch_size=MINI_BATCH, key=jax.random.PRNGKey(MASK_KEY))
+    return {"psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32),
+            "ssim": np.asarray(jax.vmap(jax_ssim)(batched.x, out["image"]), np.float32)}
 
 
 def nlm_problem():
@@ -469,9 +527,9 @@ REPO = Path(__file__).resolve().parents[1]
 JAX_LOOPS = ("pnp_gd", "pnp_sgd", "pnp_svrg", "pnp_saga", "pnp_sarah")
 
 
-def jax_driver(name: str):
-    """The JAX script ``examples/<name>.py`` as a module."""
-    spec = importlib.util.spec_from_file_location(f"jax_example_{name}", REPO / "examples" / f"{name}.py")
+def jax_driver(name: str, folder: str = "examples"):
+    """The JAX package's script ``<folder>/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"jax_{folder}_{name}", REPO / folder / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -642,6 +700,40 @@ def jax_train_batches(patches: np.ndarray, cfg) -> list:
     return out
 
 
+REALSN_EXPORTS = ("realsn_dncnn_noise5", "realsn_dncnn_noise15", "realsn_dncnn_noise40")
+REALSN_LIP, REALSN_DENSE_PROBE, REALSN_DENSE_LAYERS = 0.3, 10, 3  # the JAX tool's defaults
+
+
+def jax_realsn_export(name: str, images: list, checkpoint_dir: Path = CHECKPOINT_DIR) -> dict:
+    """What ``tools/check_realsn_export.py`` computes for ``<name>.npz``,
+    through the JAX functions it calls (its ``main`` writes beside the
+    checkpoint, so it is not run): per layer the best sigma of 3 power
+    iterations of 60 steps from ``init_u(PRNGKey(100 * i + r))``; the dense
+    VALID operator's top singular value (numpy SVD) of the first 3 layers
+    and the last; each image's PSNR and SSIM (its ``eval_one``, noise from
+    ``default_rng(1234)`` in order)."""
+    jax_tool_unroll_multi = jax_driver("check_realsn_export", "tools").unroll_multi
+    variables = jax_load_flax_npz(Path(checkpoint_dir) / f"{name}.npz")
+    params = variables["params"]
+    convs = sorted((k for k in params if k.startswith("Conv_")), key=lambda s: int(s.split("_")[1]))
+    sigmas, dense = [], []
+    for i, conv in enumerate(convs):
+        kern = jnp.asarray(params[conv]["kernel"])
+        best = 0.0
+        for r in range(3):
+            u = jax_init_u(jax.random.PRNGKey(100 * i + r), kern.shape[-1], hw=40)
+            best = max(best, float(jax_conv_power_iteration(kern, u, n_iters=60)[0]))
+        sigmas.append(best)
+        if i < REALSN_DENSE_LAYERS or i == len(convs) - 1:
+            mat = jax_tool_unroll_multi(np.asarray(kern), REALSN_DENSE_PROBE)
+            dense.append(np.linalg.svd(mat, compute_uv=False)[0])
+    model = JaxDnCNN(channels=1, depth=len(convs), use_bn=any(k.startswith("BatchNorm") for k in params))
+    sigma = float(name.rsplit("noise", 1)[-1])
+    vals = jax_evaluate_per_image(model, jax.tree_util.tree_map(jnp.asarray, variables), images, sigma / 255.0)
+    return {"sigmas": np.asarray(sigmas, np.float64), "dense": np.asarray(dense, np.float64),
+            "val_psnr_per_image": vals[:, 0], "val_ssim_per_image": vals[:, 1]}
+
+
 def build_train_arrays() -> dict:
     """The training fixture (module docstring) from the JAX package on the
     CPU."""
@@ -717,6 +809,81 @@ def test_load_headline_problems_on_cpu(rebuilt):
     np.testing.assert_array_equal(prob.y.numpy(), rebuilt["y"])
     np.testing.assert_array_equal(prob.mask.numpy(), rebuilt["mask"].astype(np.float32))
     np.testing.assert_array_equal(prob.m0.numpy(), rebuilt["mask"].sum(axis=(1, 2)))
+
+
+@pytest.fixture(scope="module")
+def uniform_rebuilt():
+    return build_headline_arrays(set12_keep=0)
+
+
+def test_uniform_fixture_matches_a_fresh_jax_rebuild(uniform_rebuilt):
+    with np.load(UNIFORM_FIXTURE) as f:
+        committed = {k: f[k] for k in f.files}
+    runs = {"set12_uniform/psnr_per_iter", "set12_uniform/ssim"}
+    assert set(committed) == set(uniform_rebuilt) - {"x"} | runs
+    for name in set(committed) - runs:
+        assert committed[name].dtype == uniform_rebuilt[name].dtype, name
+        np.testing.assert_array_equal(committed[name], uniform_rebuilt[name], err_msg=name)
+    assert not committed["keep_low_freq"].any()
+    # The flagship lane is the headline's own uniform lane; the Set12 lanes
+    # differ from the headline's in the mask only where keep_low_freq added
+    # the low-frequency block.
+    with np.load(HEADLINE_FIXTURE) as f:
+        np.testing.assert_array_equal(committed["mask"][-1], f["mask"][-1])
+        assert not np.array_equal(committed["mask"][:-1], f["mask"][:-1])
+
+
+def _bench_r05() -> dict:
+    return json.loads((REPO / "BENCH_r05.json").read_text())["parsed"]
+
+
+def test_uniform_lanes_init_psnr_and_dc_lost_are_bench_r05s():
+    prob, lanes = load_uniform_problems(device="cpu")
+    bench = _bench_r05()
+    assert lanes[:12] == bench["set12_uniform_lanes"] and lanes[12] == "13.png"
+    init = prob.psnr(prob.x_init).numpy()[:12]
+    np.testing.assert_allclose(init, bench["set12_uniform_init_psnr_db_per_image"], atol=0.01)
+    dc_lost = [bool(v) for v in prob.mask[:12, 0, 0] == 0]
+    assert dc_lost == bench["set12_uniform_dc_lost_per_image"]
+    assert dc_lost == [False, True, False, True, True, True, False, False, True, False, True, True]
+
+
+def test_uniform_masks_match_the_jax_key_chain(uniform_rebuilt):
+    with np.load(UNIFORM_MASKS) as f:
+        committed = f["masks"]
+    np.testing.assert_array_equal(committed, build_headline_masks(uniform_rebuilt["mask"]))
+    masks = load_uniform_masks(device="cpu")
+    assert masks.shape == (N_OUTER, T2, 13, SIZE, SIZE) and masks.dtype == torch.float32
+    assert torch.all(masks <= torch.as_tensor(uniform_rebuilt["mask"], dtype=torch.float32))
+    # k ones, or k + 1 where two f32 uniform scores tie at the threshold
+    # (``sample_k_mask``), as in the headline's masks.
+    sums = masks.sum(dim=(-2, -1))
+    assert torch.all((sums == MINI_BATCH) | (sums == MINI_BATCH + 1))
+    # A minibatch samples only measured coefficients, so the Set12 lanes'
+    # masks are not the headline's; the flagship lane's problem is the same,
+    # and so are its masks.
+    headline = load_headline_masks(device="cpu")
+    assert not torch.equal(masks[..., :12, :, :], headline[..., :12, :, :])
+    assert torch.equal(masks[..., 12, :, :], headline[..., 12, :, :])
+
+
+@pytest.mark.parametrize("lane", list(CSMRI_BATCH_LANES))
+def test_batch_lane_references_are_stored(lane):
+    """The JAX CPU runs the card's set12_uniform, f32_match and search12
+    lanes are held to (too slow to repeat here: 160 BM3D denoises of 13
+    lanes each; ``python tests/test_torch_fixture.py uniform variants``
+    makes them)."""
+    ref = load_batch_lane_reference(lane)
+    trace = ref["psnr_per_iter"]
+    assert trace.shape == (1 + N_OUTER * (T2 + 1), 13) and trace.dtype == np.float32
+    assert ref["ssim"].shape == (13,) and np.isfinite(trace).all()
+    assert np.all(trace[-1] > trace[0])  # every lane improves on its zero-filled start
+    tuned, _, _, p = CSMRI_BATCH_LANES[lane]
+    assert (p.search, p.match_dtype) == {"set12_uniform": (8, "bfloat16"), "f32_match": (8, "float32"),
+                                         "search12": (12, "float32")}[lane]
+    # Each run starts from its problems' zero-filled images.
+    prob, _ = (load_uniform_problems if lane == "set12_uniform" else load_headline_problems)(device="cpu")
+    np.testing.assert_allclose(trace[0], prob.psnr(prob.x_init).numpy(), atol=1e-4)
 
 
 def test_nlm_masks_fixture_matches_unbatched_key_chain():
@@ -916,10 +1083,16 @@ def test_train_reference_is_a_fresh_jax_run():
     assert TRAIN_FIXTURE.stat().st_size < 100_000
 
 
-def cpu_lanes() -> None:
+CPU_LANE_PARTS = ("deblur", "pr_sarah", "pr")
+
+
+def cpu_lanes(parts=CPU_LANE_PARTS) -> None:
     """Print the port's CPU runs of the Deblur, PR and PR + SARAH lanes on the
-    JAX minibatches against the stored JAX traces, and the PR lane's final
-    PSNR on both sides with ``y`` or ``x_init`` one ulp up."""
+    JAX minibatches against the stored JAX traces; the PR + SARAH lane's
+    replica means on both sides with ``x_init`` one to four ulps down and up
+    (:data:`PR_SARAH_ULP_SHIFTS`), and which runs lost a replica;
+    and the PR lane's final PSNR on both sides with ``y`` or ``x_init`` one
+    ulp up. ``parts`` picks among :data:`CPU_LANE_PARTS`."""
     import dataclasses
 
     from pnp_svrg_tpu_torch.algorithms.loops import pnp_sarah, pnp_svrg
@@ -932,22 +1105,53 @@ def cpu_lanes() -> None:
         return pnp_svrg(prob, den, cfg["eta"], cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"],
                         masks=mb, lr_decay=cfg["lr_decay"])["psnr_per_iter"][:, 0].numpy()
 
-    for lane in DEBLUR_LANES:
+    for lane in DEBLUR_LANES if "deblur" in parts else ():
         trace = port_run(lane, load_deblur_problem(lane, "cpu"), load_deblur_masks(lane, "cpu"))
         jax_trace = load_deblur_reference(lane)["psnr_per_iter"]
         print(f"port CPU {lane}: final {trace[-1]:.4f} dB, JAX {jax_trace[-1]:.4f}, "
               f"trace max |diff| {np.abs(trace - jax_trace).max():.4f}", flush=True)
-    cfg = bench_config("pr_sarah_realsn")
-    sprob = load_pr_sarah_problem("cpu")
-    out = pnp_sarah(sprob, DnCNNDenoiser.from_pretrained("RealSN_DnCNN", cfg["realsn_sigma"], device="cpu"),
-                    cfg["eta"], cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"],
-                    lr_decay=cfg["lr_decay"], variant=cfg["variant"], masks=load_pr_sarah_indices("cpu"))
-    trace, jax_trace = out["psnr_per_iter"].numpy(), load_pr_sarah_reference()["psnr_per_iter"]
-    del sprob, out
-    print(f"PR + SARAH + RealSN: port CPU replica mean {trace[-1].mean():.4f} dB, "
-          f"JAX {jax_trace[-1].mean():.4f}; per replica port {np.round(trace[-1], 4).tolist()}, "
-          f"JAX {np.round(jax_trace[-1], 4).tolist()}; trace max |diff| {np.abs(trace - jax_trace).max():.4f}",
-          flush=True)
+    if "pr_sarah" in parts:
+        cfg = bench_config("pr_sarah_realsn")
+        idx = load_pr_sarah_indices("cpu")
+        den = DnCNNDenoiser.from_pretrained("RealSN_DnCNN", cfg["realsn_sigma"], device="cpu")
+        jax_trace = load_pr_sarah_reference()["psnr_per_iter"]
+        port, jax_runs = {}, {None: jax_trace}
+        for shift in (None,) + PR_SARAH_ULP_SHIFTS:
+            sprob = load_pr_sarah_problem("cpu")
+            if shift is not None:
+                sprob = dataclasses.replace(sprob, x_init=nextafter_ulp(sprob.x_init, shift))
+            out = pnp_sarah(sprob, den, cfg["eta"], cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"],
+                            lr_decay=cfg["lr_decay"], variant=cfg["variant"], masks=idx)
+            port[shift] = out["psnr_per_iter"].numpy()
+            del sprob, out
+            print(f"PR + SARAH + RealSN, x_init {shift or 'as built'}: port CPU replica mean "
+                  f"{port[shift][-1].mean():.4f} dB, per replica {np.round(port[shift][-1], 4).tolist()}, "
+                  f"first non-finite entry per replica {first_nonfinite(port[shift])}", flush=True)
+        print(f"PR + SARAH + RealSN: port CPU replica mean {port[None][-1].mean():.4f} dB, "
+              f"JAX {jax_trace[-1].mean():.4f}; per replica port {np.round(port[None][-1], 4).tolist()}, "
+              f"JAX {np.round(jax_trace[-1], 4).tolist()}; trace max |diff| {np.abs(port[None] - jax_trace).max():.4f}",
+              flush=True)
+        a, _ = pr_matrix_numpy()
+        for shift in PR_SARAH_ULP_SHIFTS:
+            jp = pr_fixture_problem(a)
+            jp = dataclasses.replace(jp, x_init=nextafter_ulp(jp.x_init, shift))
+            jax_runs[shift] = run_jax_pr_sarah(jp)["psnr_per_iter"]
+            print(f"PR + SARAH + RealSN, x_init {shift}: JAX replica mean {jax_runs[shift][-1].mean():.4f} dB, "
+                  f"per replica {np.round(jax_runs[shift][-1], 4).tolist()}, first non-finite entry per "
+                  f"replica {first_nonfinite(jax_runs[shift])}", flush=True)
+            del jp
+        del a
+        shifts = (None,) + PR_SARAH_ULP_SHIFTS
+        for side, runs in (("JAX", jax_runs), ("port CPU", port)):
+            means = np.array([runs[s][-1].mean() for s in shifts])
+            diverged = [s or "as built" for s in shifts if not np.isfinite(runs[s][-1]).all()]
+            finite = means[np.isfinite(means)]
+            print(f"PR + SARAH + RealSN replica means over x_init {[s or 'as built' for s in shifts]}: {side} "
+                  f"{np.round(means, 4).tolist()}; finite ones: mean {finite.mean():.4f}, min {finite.min():.4f}, "
+                  f"max {finite.max():.4f} dB; runs with a diverged replica {len(diverged)} of {len(shifts)} "
+                  f"{diverged}", flush=True)
+    if "pr" not in parts:
+        return
     a, _ = pr_matrix_numpy()
     jprob = pr_problem(a)
     tprob = load_pr_problem("cpu")
@@ -967,7 +1171,8 @@ def cpu_lanes() -> None:
 
 def build(names) -> None:
     """Write the named fixtures (``headline``, ``nlm``, ``deblur``, ``pr``,
-    ``pr_sarah``, ``train``, ``drivers``)."""
+    ``pr_sarah``, ``train``, ``drivers``, ``uniform``, ``variants``,
+    ``realsn_export``)."""
     if "headline" in names or "nlm" in names:
         arrays = build_headline_arrays()
         arrays.pop("x")  # rebuilt by the port's load_image
@@ -1000,6 +1205,34 @@ def build(names) -> None:
         print(f"JAX PR + SARAH + RealSN: replica-mean final PSNR {final.mean():.4f} dB "
               f"(per replica {np.round(final, 4).tolist()}), mean SSIM {sarah['ssim'].mean():.4f}",
               file=sys.stderr)
+    if "uniform" in names:
+        probs, paths, _ = headline_jax_problems(set12_keep=0)
+        arrays = build_headline_arrays(set12_keep=0)
+        arrays.pop("x")
+        run = run_jax_batch_lane("set12_uniform", probs, [Path(p).name for p in paths])
+        np.savez_compressed(UNIFORM_FIXTURE, **arrays, **{f"set12_uniform/{k}": v for k, v in run.items()})
+        np.savez_compressed(UNIFORM_MASKS, masks=build_headline_masks(arrays["mask"]))
+        print(f"JAX set12_uniform: Set12 mean final PSNR {run['psnr_per_iter'][-1, :12].mean():.4f} dB, "
+              f"per lane {np.round(run['psnr_per_iter'][-1], 4).tolist()}", file=sys.stderr, flush=True)
+    if "variants" in names:
+        probs, paths, _ = headline_jax_problems()
+        variants = {}
+        for lane in ("f32_match", "search12"):
+            run = run_jax_batch_lane(lane, probs, [Path(p).name for p in paths])
+            variants |= {f"{lane}/{k}": v for k, v in run.items()}
+            print(f"JAX {lane}: Set12-VD mean final PSNR {run['psnr_per_iter'][-1, :12].mean():.4f} dB, "
+                  f"flagship {run['psnr_per_iter'][-1, 12]:.4f}", file=sys.stderr, flush=True)
+        np.savez_compressed(HEADLINE_VARIANTS_FIXTURE, **variants)
+    if "realsn_export" in names:
+        images = [jax_train_data.load_gray(p) for p in sorted(VAL_DIR.glob("*.png"))]
+        arrays = {}
+        for name in REALSN_EXPORTS:
+            arrays |= {f"{name}/{k}": v for k, v in jax_realsn_export(name, images).items()}
+            print(f"JAX {name}: sigmas {np.round(arrays[f'{name}/sigmas'], 5).tolist()}, dense "
+                  f"{np.round(arrays[f'{name}/dense'], 5).tolist()}, Set12 PSNR "
+                  f"{arrays[f'{name}/val_psnr_per_image'].mean():.4f} dB, SSIM "
+                  f"{arrays[f'{name}/val_ssim_per_image'].mean():.5f}", file=sys.stderr, flush=True)
+        np.savez_compressed(REALSN_EXPORT_FIXTURE, **arrays)
     if "drivers" in names:
         np.savez_compressed(PAPER_DRIVERS_FIXTURE, **build_drivers_arrays())
     if "train" in names:
@@ -1009,17 +1242,71 @@ def build(names) -> None:
               f"{float(train['val_ssim']):.4f}, sigmas {np.round(train['sigmas'], 4).tolist()}, "
               f"losses {train['losses'].tolist()}, {int(train['n_patches'])} patches", file=sys.stderr)
     for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE, PR_SARAH_FIXTURE,
-                 TRAIN_FIXTURE, PAPER_DRIVERS_FIXTURE):
+                 TRAIN_FIXTURE, PAPER_DRIVERS_FIXTURE, UNIFORM_FIXTURE, UNIFORM_MASKS, HEADLINE_VARIANTS_FIXTURE,
+                 REALSN_EXPORT_FIXTURE):
         if path.exists():
             print(f"{path} ({path.stat().st_size} bytes)", file=sys.stderr)
 
 
-FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah", "train", "drivers")
+FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah", "train", "drivers", "uniform", "variants",
+            "realsn_export")
+
+ULP_SHIFTS = ("down", "up")  # x_init moved one ulp towards -inf / +inf
+# The PR + SARAH lane's starts: one to four ulps down and up.
+PR_SARAH_ULP_SHIFTS = ULP_SHIFTS + tuple(f"{d}{n}" for n in (2, 3, 4) for d in ULP_SHIFTS)
+
+
+def nextafter_ulp(x, shift: str):
+    """``x`` moved elementwise (a jax array or a tensor) by ``shift``: "down"
+    or "up", one ulp, or "down3", "up2" and so on, that many ulps."""
+    direction = shift.rstrip("0123456789")
+    for _ in range(int(shift[len(direction):] or 1)):
+        if isinstance(x, torch.Tensor):
+            x = torch.nextafter(x, torch.full_like(x, -np.inf if direction == "down" else np.inf))
+        else:
+            x = jnp.nextafter(x, jnp.full_like(x, -jnp.inf if direction == "down" else jnp.inf))
+    return x
+
+
+def first_nonfinite(trace: np.ndarray) -> list:
+    """Per replica of a (T, replicas) PSNR trace, the first non-finite
+    entry, or -1."""
+    bad = ~np.isfinite(trace)
+    return [int(np.argmax(col)) if col.any() else -1 for col in bad.T]
+
+
+def jax_paper_csmri_gd(shift: str | None = None) -> np.ndarray:
+    """The JAX paper_csmri ``auto`` table's ``gd`` row (``pnp_gd``, BM3D
+    search 8, modifier 1.5, eta 6000, 198 steps) on its own problem
+    (``make_csmri(PRNGKey(3), 13.png 128, 0.5, snr=10)``), with ``x_init``
+    moved one ulp ``shift`` ("down", "up") or kept (None): its PSNR trace."""
+    prob = make_csmri(jax.random.PRNGKey(3), jnp.asarray(jax_load_image("13.png", SIZE, SIZE)),
+                      sample_prob=0.5, snr=10)
+    if shift is not None:
+        import dataclasses
+
+        prob = dataclasses.replace(prob, x_init=nextafter_ulp(prob.x_init, shift))
+    out = jax_pnp_gd(prob, JaxBM3DDenoiser(sigma_modifier=1.5, params=JaxBM3DParams(search=8)),
+                     eta=6000.0, n_iters=198)
+    return np.asarray(out["psnr_per_iter"], np.float32)
+
+
+def first_parting(a: np.ndarray, b: np.ndarray, tol_db: float = 1e-5) -> int:
+    """The first entry at which two PSNR traces differ by more than
+    ``tol_db``, or -1."""
+    off = np.flatnonzero(np.abs(a - b) > tol_db)
+    return int(off[0]) if off.size else -1
+
 
 def cpu_anchors() -> None:
     """Print the port's plain CPU runs of the drivers' anchor rows
     (:data:`PAPER_ANCHORS`, on the JAX drivers' problems, through the port
-    drivers' tables) against the stored JAX CPU traces."""
+    drivers' tables) against the stored JAX CPU traces; then paper_csmri's
+    ``auto`` ``gd`` row on both sides with ``x_init`` one ulp down and one
+    ulp up, to show how far rounding alone moves that row (JAX's own spread
+    against the port's distance from it)."""
+    import dataclasses
+
     from pnp_svrg_tpu_torch.convert import load_paper_csmri_problem, load_paper_deblur_problem, load_paper_reference
 
     cpu = torch.device("cpu")
@@ -1032,11 +1319,33 @@ def cpu_anchors() -> None:
         want = ref[driver][table]["rows"][row]["psnr_per_iter"]
         diff = np.abs(got - want)
         print(f"port CPU {driver}/{table}/{row}: {len(got)} entries, max |diff| {diff.max():.6f} dB at entry "
-              f"{int(diff.argmax())}, final {got[-1]:.4f} (JAX {want[-1]:.4f})", flush=True)
+              f"{int(diff.argmax())}, first entry over 1e-5 dB {first_parting(got, want)}, "
+              f"final {got[-1]:.4f} (JAX {want[-1]:.4f})", flush=True)
+    mod = importlib.import_module("pnp_svrg_tpu_torch.examples.paper_csmri")
+    args = mod.parse_args(PAPER_TABLES["paper_csmri"]["auto"] + ["--cpu"])
+    prob = load_paper_csmri_problem("paper_csmri", cpu)
+    jax_base = ref["paper_csmri"]["auto"]["rows"]["gd"]["psnr_per_iter"]
+    np.testing.assert_array_equal(jax_paper_csmri_gd(), jax_base)  # the stored trace is this run's
+    port = {None: mod.make_runs(prob, args, cpu)["gd"]()["psnr_per_iter"][:, 0].numpy()}
+    jax_runs = {None: jax_base}
+    for shift in ULP_SHIFTS:
+        moved = dataclasses.replace(prob, x_init=nextafter_ulp(prob.x_init, shift))
+        port[shift] = mod.make_runs(moved, args, cpu)["gd"]()["psnr_per_iter"][:, 0].numpy()
+        jax_runs[shift] = jax_paper_csmri_gd(shift)
+    for shift in (None,) + ULP_SHIFTS:
+        print(f"paper_csmri/auto/gd, x_init {shift or 'as built'}: JAX final {jax_runs[shift][-1]:.6f} dB, "
+              f"port CPU final {port[shift][-1]:.6f} dB; max |port - JAX| {np.abs(port[shift] - jax_runs[shift]).max():.6f}, "
+              f"first entry over 1e-5 dB {first_parting(port[shift], jax_runs[shift])}", flush=True)
+    spread = lambda runs: max(np.abs(a - b).max() for a, b in itertools.combinations(runs.values(), 2))  # noqa: E731
+    finals = lambda runs: [float(t[-1]) for t in runs.values()]  # noqa: E731
+    print(f"paper_csmri/auto/gd one-ulp spread over (as built, down, up): JAX trace {spread(jax_runs):.6f} dB, "
+          f"finals {np.round(finals(jax_runs), 6).tolist()}; port CPU trace {spread(port):.6f} dB, finals "
+          f"{np.round(finals(port), 6).tolist()}; JAX's first parting from its own as-built trace: "
+          f"{[first_parting(jax_runs[s], jax_base) for s in ULP_SHIFTS]}", flush=True)
 
 
-if __name__ == "__main__" and sys.argv[1:] == ["--cpu-lanes"]:
-    cpu_lanes()
+if __name__ == "__main__" and sys.argv[1:2] == ["--cpu-lanes"]:
+    cpu_lanes(sys.argv[2:] or CPU_LANE_PARTS)
 elif __name__ == "__main__" and sys.argv[1:] == ["--cpu-anchors"]:
     cpu_anchors()
 elif __name__ == "__main__":

@@ -73,6 +73,7 @@ def test_the_scan_covers_every_slice_module():
                 "parallel/spatial.py", "parallel/runner.py", "parallel/dryrun.py",
                 "examples/scaling.py", "utils/__init__.py", "utils/config.py", "utils/log.py",
                 "utils/viz.py", "utils/io.py", "examples/paper_csmri.py", "examples/paper_deblur.py",
-                "examples/paper_pr.py", "examples/pnp_csmri_demo.py", "examples/rgb_csmri.py"):
+                "examples/paper_pr.py", "examples/pnp_csmri_demo.py", "examples/rgb_csmri.py",
+                "examples/check_realsn_export.py", "ops/__init__.py", "problems/__init__.py"):
         assert f"pnp_svrg_tpu_torch/{rel}" in scanned, rel
     assert "chip_smoke.py" in scanned

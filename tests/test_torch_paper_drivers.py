@@ -64,8 +64,12 @@ CSV_CASES = [("paper_csmri", []), ("paper_deblur", ["--small"]), ("paper_pr", ["
 RGB_ALGOS = ("gd", "sgd", "saga", "svrg")
 # The first entries of paper_csmri's gd row (13.png at 128 px, BM3D search
 # 8, f32) on the fixture's problem: the port's plain CPU path against the
-# JAX CPU trace; both take the same f32 steps and BM3D.
-ANCHOR_ENTRIES, ANCHOR_CPU_TOL_DB = 3, 0.01
+# JAX CPU trace; both take the same f32 steps and BM3D. The two part by
+# rounding from entry 3 on and stay within the tolerance through entry 59
+# (0.0090 dB there, 0.0104 at entry 60; the 198-entry maximum is 0.0309,
+# inside the 0.046 dB by which one ulp of x_init moves the JAX trace itself:
+# ``python tests/test_torch_fixture.py --cpu-anchors``).
+ANCHOR_ENTRIES, ANCHOR_CPU_TOL_DB = 60, 0.01
 
 
 

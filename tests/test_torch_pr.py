@@ -76,6 +76,31 @@ def test_pr_gradients_fidelity_and_psnr_match_jax(pair):
     assert tp.mb_shape(500) == (1, 500)
 
 
+def test_gradients_are_nan_where_a_row_of_az_is_exactly_zero_as_in_jax(pair):
+    # The amplitude weight (|t| - y) / |t| is 0/0 where a row's t = A z is
+    # exactly 0 (one of the port's PR + SARAH CPU runs met such a row of its
+    # 8192 at round 18). Row r of A holds 1 at pixels j and k, and z is +1
+    # and -1 there and 0 elsewhere: t_r is exactly 0 in any summation order,
+    # fused multiply-adds included.
+    import dataclasses
+
+    jprob, _ = pair
+    r, j, k = 7, 3, 11
+    a = np.array(jprob.a)
+    a[r, j] = a[r, k] = 1.0
+    jprob = dataclasses.replace(jprob, a=jnp.asarray(a))
+    tp = _port(jprob)
+    z = np.zeros((1, SIZE * SIZE), np.float32)
+    z[0, j], z[0, k] = 1.0, -1.0
+    zt, zj = torch.tensor(z), jnp.asarray(z[0])
+    assert tp.forward(zt)[0, r] == 0 and float(jprob.forward(zj)[r]) == 0
+    assert torch.isnan(tp.grad_full(zt)).all() and np.isnan(np.asarray(jprob.grad_full(zj))).all()
+    idx = np.array([r - 1, r + 1, r + 2], np.int32)
+    assert (tp.forward(zt)[0, idx] != 0).all()
+    _close(tp.grad_stoch(zt, torch.tensor(idx)[None])[0], jprob.grad_stoch(zj, jnp.asarray(idx)),
+           "grad_stoch without the zero row")
+
+
 def test_spectral_init_matches_jax_on_the_same_a_and_y(pair):
     jprob, tp = pair
     x_norm = torch.linalg.vector_norm(tp.x.reshape(1, -1), dim=-1)
