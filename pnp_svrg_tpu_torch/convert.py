@@ -107,7 +107,7 @@ from pnp_svrg_tpu_torch.core.batched import stack_problems
 from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DParams
 from pnp_svrg_tpu_torch.device import resolve_device
 from pnp_svrg_tpu_torch.ops.fourier import fft_blur_1d_adjoint_kernel
-from pnp_svrg_tpu_torch.ops.resize import bilinear_gather_params
+from pnp_svrg_tpu_torch.ops.resize import bilinear_adjoint_table, bilinear_gather_params
 from pnp_svrg_tpu_torch.problems.csmri import CSMRI
 from pnp_svrg_tpu_torch.problems.deblur import Deblur, deblur_kernel
 from pnp_svrg_tpu_torch.problems.pr import PhaseRetrieval
@@ -374,6 +374,7 @@ def deblur_from_numpy(arrays: dict, device=None) -> Deblur:
         b_adj=as_t(arrays["b_adj"]) if "b_adj" in arrays else fft_blur_1d_adjoint_kernel(b),
         x=as_t(arrays["x"]), x_init=as_t(arrays["x_init"]),
         ds_idx=as_t(arrays["ds_idx"], torch.int64)[0], ds_w=as_t(arrays["ds_w"])[0],
+        ds_adj=torch.as_tensor(bilinear_adjoint_table(arrays["ds_idx"], b.shape[-1]), device=dev),
         allowed=as_t(arrays["allowed"]) if "allowed" in arrays else torch.ones_like(y),
         snr=as_t(arrays.get("snr", 0.0)), sigma=as_t(arrays.get("sigma", 0.0)),
     )

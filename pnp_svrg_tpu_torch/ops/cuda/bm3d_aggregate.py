@@ -14,10 +14,13 @@ as (B, H, W) planes. The plain version forms the (B, hh*ww, 2*b*b)
 patch-position table (``index_add_``) and folds it (``F.fold``); the kernel
 adds straight into image tiles held in shared memory and has no table.
 
-The kernel sums each tile in shared memory and adds the tiles into the
-planes with f32 atomics, so its summation order changes from run to run; it
-agrees with the plain version to f32 rounding (about 1e-6 relative to the
-plane's magnitude), not bit for bit.
+The kernel sums each tile's footprint in shared memory, stores it in a
+scratch buffer, and a second launch sums the footprints that cover each
+pixel in ascending tile order: no float atomic, so two calls on the same
+inputs give the same bits. It agrees with the plain version to f32
+rounding (about 1e-6 relative to the plane's magnitude; bit for bit where
+every term and partial sum is representable, as with dyadic inputs), not
+in its order: the plain version sums by table row, then folds.
 
 The wrapper :func:`bm3d_aggregate` takes the plain version only for a CPU
 tensor; for a CUDA tensor it launches K2 or raises.
@@ -35,7 +38,7 @@ import torch.nn.functional as F
 
 from pnp_svrg_tpu_torch.ops.cuda import _build
 
-TILE_R, TILE_C, _WARPS = 2, 2, 2  # kTileR, kTileC and kWarps in the source
+TILE_R, TILE_C, _WARPS = 2, 2, 4  # kTileR, kTileC and kWarps in the source
 KERNEL_BLOCK, KERNEL_K = 8, 16  # the patch edge and group size K2 is built for
 _MAX_SMEM = 227 * 1024
 
@@ -92,9 +95,23 @@ def footprints(h: int, w: int, rows, cols, search: int, block: int):
     return oy, ox, fh, fw
 
 
+def covering_tiles(origins, extent: int, size: int) -> list:
+    """Per pixel row (or column) of an image ``size`` long, the first and
+    last tile whose footprint ``[origin, origin + extent)`` holds it, as
+    ``[first, last]``; ``[0, -1]`` where none does. The origins ascend (each
+    is a clipped ascending grid value), so the covering tiles are a run."""
+    out = []
+    for y in range(size):
+        tiles = [t for t, o in enumerate(origins) if o <= y < o + extent]
+        out.append([tiles[0], tiles[-1]] if tiles else [0, -1])
+    return out
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class AggregateGeometry:
-    """What K2 needs besides its tensors, made once per shape and device."""
+    """What K2 needs besides its tensors, made once per shape and device,
+    with the scratch its footprints pass through (grown to the largest
+    batch seen; calls that share it run in order on one stream)."""
 
     h: int
     w: int
@@ -105,27 +122,74 @@ class AggregateGeometry:
     fw: int
     tile_oy: torch.Tensor  # (ceil(nR / TILE_R),) int32 on the device
     tile_ox: torch.Tensor  # (ceil(nC / TILE_C),) int32
+    cover_y: torch.Tensor  # (H, 2) int32: first and last tile row covering each row
+    cover_x: torch.Tensor  # (W, 2) int32
+    work: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def smem_bytes(self) -> int:
         return 2 * _WARPS * self.fh * self.fw * 4  # private planes for each warp
 
+    def scratch_bytes(self, b: int) -> int:
+        """The footprints of ``b`` images: (tile rows, tile columns, num and
+        den, fh, fw) f32 each."""
+        return b * len(self.tile_oy) * len(self.tile_ox) * 2 * self.fh * self.fw * 4
+
+    def workspace(self, b: int) -> tuple:
+        """(scratch, overflow flags, epoch) for a call on ``b`` images: the
+        buffers are allocated once, grown with the batch and never cleared;
+        the epoch is one more each call. A stale flag that meets its epoch
+        again after 2**31 - 1 calls costs only time: the fold's scan adds
+        just the members outside their footprints, which the tiles skip."""
+        if self.work.get("batch", 0) < b:
+            dev = self.tile_oy.device
+            self.work["scratch"] = torch.empty(self.scratch_bytes(b) // 4, dtype=torch.float32, device=dev)
+            self.work["overflow"] = torch.zeros(b, dtype=torch.int32, device=dev)
+            self.work["batch"] = b
+        self.work["epoch"] = self.work.get("epoch", 0) % (2**31 - 1) + 1
+        return self.work["scratch"], self.work["overflow"], self.work["epoch"]
+
 
 @functools.lru_cache(maxsize=16)
 def aggregate_geometry(h: int, w: int, rows: tuple, cols: tuple, search: int, block: int,
                        device: torch.device) -> AggregateGeometry:
-    """The footprints of :func:`footprints` with their origins on ``device``."""
+    """The footprints of :func:`footprints` and the tiles covering each pixel
+    row and column (:func:`covering_tiles`), on ``device``."""
     oy, ox, fh, fw = footprints(h, w, rows, cols, search, block)
     as_dev = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
-    return AggregateGeometry(h, w, block, len(rows), len(cols), fh, fw, as_dev(oy), as_dev(ox))
+    return AggregateGeometry(h, w, block, len(rows), len(cols), fh, fw, as_dev(oy), as_dev(ox),
+                             as_dev(covering_tiles(oy, fh, h)), as_dev(covering_tiles(ox, fw, w)))
+
+
+def bind(fn):
+    """``fn``, a library's ``bm3d_aggregate_launch``, with its C signature."""
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _lib():
     fn = _build.load("bm3d_aggregate").bm3d_aggregate_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return fn if fn.argtypes is not None else bind(fn)
+
+
+def launch(fn, idx, est, wgt, kaiser, h: int, w: int, geometry: AggregateGeometry):
+    """One call of the bound entry point ``fn`` on checked, contiguous
+    arguments: (num, den), each (B, H, W), in new memory."""
+    b, p, bb = est.shape
+    scratch, overflow, epoch = geometry.workspace(b)
+    planes = torch.empty((2, b, h, w), dtype=torch.float32, device=est.device)
+    err = fn(
+        idx.data_ptr(), est.data_ptr(), wgt.data_ptr(), kaiser.data_ptr(),
+        geometry.tile_oy.data_ptr(), geometry.tile_ox.data_ptr(), geometry.cover_y.data_ptr(),
+        geometry.cover_x.data_ptr(), scratch.data_ptr(), overflow.data_ptr(), epoch,
+        planes[0].data_ptr(), planes[1].data_ptr(), b, h, w, geometry.n_r, geometry.n_c,
+        p // wgt.shape[1], math.isqrt(bb), geometry.fh, geometry.fw,
+        torch.cuda.current_stream(est.device).cuda_stream,
+    )
+    _build.check(err, f"bm3d_aggregate (block={math.isqrt(bb)})")
+    return planes[0], planes[1]
 
 
 def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
@@ -144,7 +208,13 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
 
     A row outside ``[0, hh * ww)`` makes the plain version's ``index_add_``
     raise; the kernel cannot raise, and drops that member (checking the rows
-    on the host would make every call wait for the device)."""
+    on the host would make every call wait for the device). A member whose
+    patch lies outside its tile's footprint (BM3D's clipped members never
+    do) is still added, in a fixed order, by a slow scan.
+
+    K2 is two launches (the tiles, then the fold), counted once; calls
+    with one geometry share its scratch and must run in order on one
+    stream."""
     if est.dim() != 3 or est.dtype != torch.float32:
         raise ValueError(f"expected (B, P, b*b) float32 estimates, got {tuple(est.shape)} {est.dtype}")
     b, p, bb = est.shape
@@ -179,16 +249,9 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
     if geometry.tile_oy.device != est.device:
         raise ValueError(f"geometry on {geometry.tile_oy.device} but tensors on {est.device}")
     idx, est, wgt, kaiser = (t.contiguous() for t in (idx, est, wgt, kaiser))
-    planes = torch.zeros((2, b, h, w), dtype=torch.float32, device=est.device)
-    err = _lib()(
-        idx.data_ptr(), est.data_ptr(), wgt.data_ptr(), kaiser.data_ptr(),
-        geometry.tile_oy.data_ptr(), geometry.tile_ox.data_ptr(), planes[0].data_ptr(),
-        planes[1].data_ptr(), b, h, w, geometry.n_r, geometry.n_c, p // g, block,
-        geometry.fh, geometry.fw, torch.cuda.current_stream(est.device).cuda_stream,
-    )
-    _build.check(err, f"bm3d_aggregate (block={block})")
+    planes = launch(_lib(), idx, est, wgt, kaiser, h, w, geometry)
     bm3d_aggregate.launches += 1
-    return planes[0], planes[1]
+    return planes
 
 
 bm3d_aggregate.launches = 0

@@ -6,10 +6,13 @@ gather (indices + weights, built on the host by :func:`bilinear_gather_params`,
 a verbatim copy of the reference's numpy, meshgrid axis quirk included: row
 coordinates come from the W-spaced linspace and column coordinates from the
 H-spaced one, which coincide for square images). Forward is a weighted
-gather; the adjoint is a scatter-add through ``index_add_``, the stock op the
-JAX package also uses there (``.at[].add``, no Pallas kernel). On the card
-``index_add_`` adds with atomics, so its float order changes from run to
-run.
+gather; the adjoint is the JAX package's scatter-add (``.at[].add``, no
+Pallas kernel) written as a gather: :func:`bilinear_adjoint_table`, built
+once on the host, lists for every high-resolution pixel its (sample,
+corner) terms in ascending flattened order, and :func:`bilinear_adjoint`
+adds them one column at a time. The order is fixed, so the adjoint repeats
+itself bit for bit on the card, and it is the order in which XLA's CPU
+scatter adds the same terms.
 """
 
 from __future__ import annotations
@@ -62,10 +65,32 @@ def bilinear_apply(v: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor) -> tor
     return (v[..., idx] * wts).sum(dim=-1)
 
 
-def bilinear_adjoint(r: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, n: int) -> torch.Tensor:
-    """Adjoint: (..., M) -> (..., N), the scatter-add of the weighted
-    residuals."""
+def bilinear_adjoint_table(idx: np.ndarray, n: int) -> np.ndarray:
+    """(N, K) int64: for each of the ``n`` pixels, the positions ``4 * m +
+    corner`` of ``idx`` (M, 4) that point at it, ascending, padded with
+    ``4 * M`` (a zero the adjoint appends); K is the most any pixel has."""
+    flat = np.asarray(idx).reshape(-1).astype(np.int64)
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=n)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pix = flat[order]
+    table = np.full((n, max(int(counts.max(initial=0)), 1)), flat.size, np.int64)
+    table[pix, np.arange(flat.size) - starts[pix]] = order
+    return table
+
+
+def bilinear_adjoint(r: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, n: int,
+                     table: torch.Tensor | None = None) -> torch.Tensor:
+    """Adjoint: (..., M) -> (..., N), the weighted residuals summed into each
+    pixel in the fixed order of ``table`` (:func:`bilinear_adjoint_table` of
+    ``idx``, on ``r``'s device; made here from ``idx`` when not given, which
+    copies it to the host)."""
+    if table is None:
+        table = torch.as_tensor(bilinear_adjoint_table(idx.cpu().numpy(), n), device=r.device)
     lead = r.shape[:-1]
     contrib = (r[..., None] * wts).reshape(lead + (-1,))
+    terms = torch.cat([contrib, contrib.new_zeros(lead + (1,))], dim=-1)[..., table]  # (..., N, K)
     out = torch.zeros(lead + (n,), dtype=r.dtype, device=r.device)
-    return out.index_add_(out.dim() - 1, idx.reshape(-1), contrib)
+    for k in range(table.shape[1]):
+        out = out + terms[..., k]
+    return out

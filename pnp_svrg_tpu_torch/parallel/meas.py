@@ -119,8 +119,12 @@ class MeasShardedBatched:
     each with the same lanes; ``f_den``: ``2 m`` of the unsplit problem
     (``f``'s normaliser); ``lane0``: the global index of the first lane
     (the lanes' minibatch streams are seeded by it); ``seed``: the streams'
-    seed. The iterate stays replicated along the axis; ``psnr`` and the
-    other replicated fields come from the first shard."""
+    seed. The iterate stays replicated along the axis bit for bit: the
+    psummed gradients are the same on every shard, and every shard denoises
+    its own copy with denoisers that repeat themselves exactly (K2 and the
+    Deblur-SR adjoint sum in a fixed order), as the JAX package assumes
+    (``meas.py:314-315``); ``psnr`` and the other replicated fields come
+    from the first shard."""
 
     def __init__(self, shards: list, axis, f_den: float, seed: int = 0, lane0: int = 0):
         if len(shards) != len(axis.shards):
@@ -216,31 +220,9 @@ def run_local(fn, shards: list, meas_axis, batch_axis, denoiser, seed: int, f_de
         hp["eta"] = hp["eta"][lanes]
     problem = MeasShardedBatched(local, meas_axis, f_den, seed=seed, lane0=lane0)
     gen = torch.Generator(device=problem.device).manual_seed(seed)  # replicated: SAGA's slots
-    denoiser = lanes_of(denoiser, lanes)
-    if meas_axis.size > len(meas_axis.shards):  # the meas shards span processes
-        denoiser = FirstShardDenoiser(denoiser, meas_axis)
-    out = fn(problem, denoiser, generator=gen, **hp)
+    out = fn(problem, lanes_of(denoiser, lanes), generator=gen, **hp)
     return {k: batch_axis.all_gather(out[k][None], dim=d) if batch_axis.size > 1 else out[k]
             for k, d in OUT_LANE_DIMS.items()}
-
-
-@dataclasses.dataclass(frozen=True)
-class FirstShardDenoiser:
-    """The denoise step of a meas-sharded loop across processes: the first
-    meas shard denoises and broadcasts, the others take its result. The
-    iterate then stays replicated bit for bit even where the denoiser does
-    not repeat itself exactly (K2 adds with atomics, so two BM3D calls on
-    one image may differ in the last bits, and a loop at its stability edge
-    turns that into whole dB), and the other shards skip the work, as the
-    single-process form denoises once."""
-
-    inner: object
-    axis: object
-
-    def denoise(self, x: torch.Tensor, sigma_est: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        if self.axis.index == 0:
-            return self.axis.broadcast(self.inner.denoise(x, sigma_est, t))
-        return self.axis.broadcast(torch.empty_like(x))
 
 
 def lanes_of(denoiser, lanes: slice):

@@ -17,7 +17,7 @@ import torch
 
 from pnp_svrg_tpu_torch.core.batched import take_lanes
 from pnp_svrg_tpu_torch.ops.sigma import estimate_sigma
-from pnp_svrg_tpu_torch.parallel.meas import FirstShardDenoiser, _lane_range, split_meas
+from pnp_svrg_tpu_torch.parallel.meas import _lane_range, split_meas
 from pnp_svrg_tpu_torch.parallel.mesh import BATCH_AXIS, MEAS_AXIS
 from pnp_svrg_tpu_torch.problems.pr import _matvec, _rmatvec
 
@@ -52,12 +52,10 @@ def sharded_pnp_step(mesh, denoiser, eta: float):
     ``step(shards, z) -> (z', psnr)`` on :func:`shard_pr_problem`'s shards
     and this process's (B_local, N) ``z``: the gradient (``|A z|`` clamped at
     1e-12) psummed over meas, ``z - eta * grad``, the sigma estimate, one
-    denoise at ``t = 1`` (on the first meas shard, broadcast to the others
-    when they are other processes) and the PSNR; the batch's ``z'`` and PSNR gathered
-    along the batch axis onto every rank."""
+    denoise at ``t = 1`` (on every meas shard, each its own bitwise-equal
+    copy) and the PSNR; the batch's ``z'`` and PSNR gathered along the batch
+    axis onto every rank."""
     meas, batch = mesh.axis(MEAS_AXIS), mesh.axis(BATCH_AXIS)
-    if meas.size > len(meas.shards):  # the meas shards span processes
-        denoiser = FirstShardDenoiser(denoiser, meas)
 
     def partial(p, z):
         t = _matvec(p.a, z)

@@ -3,13 +3,14 @@
 Port of ``pnp_svrg_tpu/problems/deblur.py``. The problem carries a leading
 batch axis natively, as ``problems/csmri.py`` does: measurements are (B, M),
 kernels (B, N), images (B, H, W) and scalars (B,). The bilinear gather
-``ds_idx``/``ds_w`` (M, 4) depends only on the sizes, so the lanes share it
-(``stack_problems`` does not concatenate it).
+``ds_idx``/``ds_w`` (M, 4) and its adjoint's table ``ds_adj`` depend only on
+the sizes, so the lanes share them (``stack_problems`` does not
+concatenate them).
 
 * Blur is the reference's 1-D circular FFT convolution of the *raveled*
   image with a kernel scaled by 1/N, times sqrt(N) (``ops/fourier.py``).
 * Downsampling is the explicit 4-point bilinear gather and its scatter-add
-  adjoint (``ops/resize.py``).
+  adjoint, summed in a fixed order (``ops/resize.py``).
 * ``grad_full = Blur^T S^T (S Blur z - Y) / M`` with the adjoint kernel
   ``roll(flip(b), 1)``; ``grad_stoch`` restricts the residual to a (B, M)
   0/1 minibatch mask and returns the unnormalised sum.
@@ -29,7 +30,12 @@ from pnp_svrg_tpu_torch.core.problem import resolve_noise
 from pnp_svrg_tpu_torch.device import resolve_device
 from pnp_svrg_tpu_torch.ops.fourier import fft_blur_1d, fft_blur_1d_adjoint_kernel
 from pnp_svrg_tpu_torch.ops.metrics import psnr
-from pnp_svrg_tpu_torch.ops.resize import bilinear_adjoint, bilinear_apply, bilinear_gather_params
+from pnp_svrg_tpu_torch.ops.resize import (
+    bilinear_adjoint,
+    bilinear_adjoint_table,
+    bilinear_apply,
+    bilinear_gather_params,
+)
 from pnp_svrg_tpu_torch.ops.sampling import sample_k_mask
 from pnp_svrg_tpu_torch.utils.io import resolve_data_path
 
@@ -47,6 +53,7 @@ class Deblur:
     x_init: torch.Tensor  # float32 (B, H, W), uniform-random init
     ds_idx: torch.Tensor = dataclasses.field(metadata=SHARED)  # int64 (M, 4) into N
     ds_w: torch.Tensor = dataclasses.field(metadata=SHARED)  # float32 (M, 4)
+    ds_adj: torch.Tensor = dataclasses.field(metadata=SHARED)  # int64 (N, K), bilinear_adjoint_table
     allowed: torch.Tensor = None  # float32 (B, M) 0/1: the measurements a lane owns
     snr: torch.Tensor = None  # float32 (B,)
     sigma: torch.Tensor = None  # float32 (B,)
@@ -88,7 +95,7 @@ class Deblur:
         return (r * r).sum(dim=-1) / (2.0 * self.m)
 
     def _adjoint(self, res: torch.Tensor) -> torch.Tensor:
-        return fft_blur_1d(bilinear_adjoint(res, self.ds_idx, self.ds_w, self.n), self.b_adj)
+        return fft_blur_1d(bilinear_adjoint(res, self.ds_idx, self.ds_w, self.n, self.ds_adj), self.b_adj)
 
     def grad_full(self, z: torch.Tensor) -> torch.Tensor:
         return self._adjoint(self.allowed * (self.forward(z) - self.y)) / self.m
@@ -188,12 +195,13 @@ def make_deblur(
     idx, wts = bilinear_gather_params(h, w, lr_h, lr_w)
     ds_idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
     ds_w = torch.as_tensor(wts, device=dev)
+    ds_adj = torch.as_tensor(bilinear_adjoint_table(idx, n), device=dev)
     y0 = bilinear_apply(fft_blur_1d(x.reshape(1, n), b), ds_idx, ds_w)
     snr_out, sig = resolve_noise(y0, h, w, snr, sigma, ndim=1)
     y = y0 + sig[:, None] * torch.randn(y0.shape, generator=generator, device=dev)
     x_init = torch.rand((1, h, w), generator=generator, device=dev)
     return Deblur(
         y=y.to(torch.float32), b=b, b_adj=fft_blur_1d_adjoint_kernel(b), x=x, x_init=x_init,
-        ds_idx=ds_idx, ds_w=ds_w, allowed=torch.ones_like(y0),
+        ds_idx=ds_idx, ds_w=ds_w, ds_adj=ds_adj, allowed=torch.ones_like(y0),
         snr=snr_out.to(torch.float32), sigma=sig.to(torch.float32),
     )

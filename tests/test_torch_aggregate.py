@@ -139,3 +139,82 @@ def test_k1_tile_regions_hold_every_patch_and_candidate(size, search, search_ste
     assert g.pitch % 2 == 1 and g.pitch >= g.smem_w  # odd pitch: conflict-free loads
     assert g.d_pitch % 2 == 1 and g.d_pitch >= len(offs)
     assert g.smem_bytes <= 227 * 1024
+
+
+# Every lane's K2 geometry: (H, W, BM3DParams, row bounds). The headline,
+# pr_bm3d and the sweep (128 px, search 8), turbo (search_step 2), search12
+# (625 offsets), deblur_bm3d and deblur_sr_bm3d (256 px, search_step 1 and
+# 2), and a row-sharded deblur_bm3d block (a shard's 192 x 256 halo-extended
+# rows, bounds (32, 192)).
+LANE_GEOMETRIES = {
+    "headline": (128, 128, bm3d.BM3DParams(search=8, match_dtype="bfloat16"), None),
+    "turbo": (128, 128, bm3d.BM3DParams(search=8, search_step=2, matcher="pallas",
+                                        match_dtype="bfloat16"), None),
+    "search12": (128, 128, bm3d.BM3DParams(search=12), None),
+    "deblur_256": (256, 256, bm3d.BM3DParams(search=8), None),
+    "deblur_sr_256": (256, 256, bm3d.BM3DParams(search=8, search_step=2, matcher="pallas",
+                                                match_dtype="bfloat16"), None),
+    "shard_block_192x256": (192, 256, bm3d.BM3DParams(search=8), (32, 192)),
+}
+
+
+def _lane_geometry(h, w, p):
+    rows, cols = bm3d._ref_grid(h, 8, 4), bm3d._ref_grid(w, 8, 4)
+    s = int(np.abs(bm3d.search_offsets(p.search, p.search_step)).max())
+    return rows, cols, s, k2.aggregate_geometry(h, w, tuple(rows.tolist()), tuple(cols.tolist()),
+                                                s, 8, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("lane", list(LANE_GEOMETRIES))
+def test_k2_fold_lists_every_tile_whose_members_reach_a_pixel(lane):
+    # The fold sums, at each pixel, the footprints of the tiles that
+    # covering_tiles lists for its row and its column: every tile whose
+    # clipped members can reach the pixel must be listed, and every listed
+    # tile's stored fh x fw footprint must hold the pixel (its read).
+    h, w, p, _ = LANE_GEOMETRIES[lane]
+    rows, cols, s, g = _lane_geometry(h, w, p)
+    for grid, tile, size, origins, extent, cover in (
+            (rows, k2.TILE_R, h, g.tile_oy, g.fh, g.cover_y),
+            (cols, k2.TILE_C, w, g.tile_ox, g.fw, g.cover_x)):
+        assert cover.shape == (size, 2)
+        origins, cover = origins.tolist(), cover.tolist()
+        assert origins == sorted(origins)
+        for t in range(len(origins)):
+            refs = grid[t * tile : (t + 1) * tile]
+            reach = range(max(int(refs[0]) - s, 0), min(int(refs[-1]) + s, size - 8) + 8)
+            assert all(cover[y][0] <= t <= cover[y][1] for y in reach), (lane, t)
+        for y, (first, last) in enumerate(cover):
+            assert last >= first  # every pixel is some tile's
+            assert all(origins[t] <= y < origins[t] + extent for t in range(first, last + 1))
+
+
+def _outside_footprint(py, px, g):
+    """(B, nR, nC, K) True where a member's patch leaves its tile's
+    footprint: the test of the kernel's ``in_footprint``, whose members
+    only the fold's slow scan adds."""
+    nr, nc = py.shape[1:3]
+    oy = g.tile_oy.long()[torch.arange(nr) // k2.TILE_R][None, :, None, None]
+    ox = g.tile_ox.long()[torch.arange(nc) // k2.TILE_C][None, None, :, None]
+    return (py < oy) | (px < ox) | (py - oy + 8 > g.fh) | (px - ox + 8 > g.fw)
+
+
+@pytest.mark.parametrize("lane", list(LANE_GEOMETRIES))
+def test_bm3d_members_never_leave_their_tile_footprint(lane):
+    # Both stages' members of a real BM3D denoise at the lane's shape (one
+    # noisy image, bounds as the shard uses them) lie inside their tile's
+    # footprint, so BM3D never takes K2's out-of-footprint scan.
+    h, w, p, bounds = LANE_GEOMETRIES[lane]
+    _, _, _, agg = _lane_geometry(h, w, p)
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[:h, :w]
+    clean = 0.5 + 0.3 * np.sin(yy / 5.0) * np.cos(xx / 3.0)
+    x = torch.tensor((clean + 0.1 * rng.standard_normal((h, w)))[None].astype(np.float32))
+    g = bm3d._geometry(h, w, p, x.device, bounds is not None)
+    sigma = torch.tensor([0.1])
+    out = bm3d._stage1(x, sigma, p, g, bounds)
+    py, px = out[3], out[4]
+    assert not bool(_outside_footprint(py, px, agg).any())
+    if g.shift_y is None:  # K2's path (the dense one has no footprints)
+        basic, _ = bm3d._aggregate_stage(out, p, g, h, w)
+        _, _, _, py, px = bm3d._stage2(x, basic, sigma, p, g, bounds)
+        assert not bool(_outside_footprint(py, px, agg).any())

@@ -405,8 +405,8 @@ def test_bilinear_pair_on_the_card_matches_the_cpu(cuda):
     assert float((fwd - want).abs().max()) <= 1e-6 * float(want.abs().max())
     adj = resize.bilinear_adjoint(r.to(cuda), ti.to(cuda), tw.to(cuda), 256 * 256).cpu()
     want = resize.bilinear_adjoint(r, ti, tw, 256 * 256)
-    # index_add_ on the card adds with atomics in no fixed order: f32
-    # rounding of a pixel's few terms, relative to the largest.
+    # A pixel's few terms, summed in the table's fixed order on both sides:
+    # f32 rounding at most, relative to the largest.
     assert float((adj - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
@@ -779,3 +779,38 @@ def test_paper_csmri_gd_anchor_starts_on_the_jax_trace_on_the_card(cuda):
     out = loops.pnp_gd(p, den, **(kw | {"n_iters": 5}))
     want = load_paper_reference()["paper_csmri"]["auto"]["rows"]["gd"]["psnr_per_iter"][:6]
     np.testing.assert_allclose(out["psnr_per_iter"][:, 0].cpu().numpy(), want, atol=0.05)
+
+
+# K2's three checked shapes: the headline's stage 1 (B = 13, 128 px), one
+# 128 px image (pr_bm3d) and one 256 px image (deblur_bm3d).
+K2_REPEAT_SHAPES = [(13, 128), (1, 128), (1, 256)]
+
+
+@pytest.mark.parametrize("b,size", K2_REPEAT_SHAPES)
+def test_k2_repeats_itself_bit_for_bit(cuda, b, size):
+    # The footprints are folded in a fixed order, with no float atomic: 50
+    # calls on one real stage-1 call's arguments give the first call's bits.
+    x = torch.tensor(_noisy(size, b=min(b, 2)), device=cuda)
+    x = x.repeat((b + 1) // 2, 1, 1)[:b].contiguous()
+    _, args = bm3d.stage1_aggregate_inputs(x, 0.1, bm3d.BM3DParams(search=8))
+    first = k2.bm3d_aggregate(*args)
+    for _ in range(50):
+        again = k2.bm3d_aggregate(*args)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+def test_two_bm3d_denoises_are_bitwise_equal(cuda):
+    x = torch.tensor(_noisy(128, b=1)[0], device=cuda)
+    p = bm3d.BM3DParams(search=8, match_dtype="bfloat16")
+    assert torch.equal(bm3d.bm3d_denoise(x, 0.1, p), bm3d.bm3d_denoise(x, 0.1, p))
+
+
+def test_sr_adjoint_on_the_card_repeats_itself(cuda):
+    for shape in ((256, 256, 128, 128), (30, 30, 17, 17)):  # the SR lane's, and up to 4 terms a pixel
+        idx, wts = resize.bilinear_gather_params(*shape)
+        n = shape[0] * shape[1]
+        ti, tw = torch.tensor(idx, dtype=torch.int64, device=cuda), torch.tensor(wts, device=cuda)
+        table = torch.tensor(resize.bilinear_adjoint_table(idx, n), device=cuda)
+        r = torch.randn((2, idx.shape[0]), generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+        first = resize.bilinear_adjoint(r, ti, tw, n, table)
+        assert all(torch.equal(resize.bilinear_adjoint(r, ti, tw, n, table), first) for _ in range(20))

@@ -104,6 +104,36 @@ def test_bilinear_apply_and_adjoint_match_jax(shape):
                                (torch.tensor(v) * adj).sum(-1).numpy(), rtol=1e-5)
 
 
+# The existing shapes, one where up to 4 terms meet in a pixel (30 -> 17)
+# and the identity (scale_percent 100: a pixel's own residual and three
+# zero-weight terms).
+ADJOINT_SHAPES = [(32, 32, 16, 16), (24, 40, 12, 20), (30, 30, 17, 17), (32, 32, 32, 32)]
+
+
+@pytest.mark.parametrize("shape", ADJOINT_SHAPES)
+def test_bilinear_adjoint_is_bitwise_the_jax_scatter_add(shape):
+    # The table lists each pixel's (sample, corner) terms in ascending
+    # flattened order, the order in which XLA's CPU scatter adds them, and
+    # the adjoint adds them one column at a time from zero: the same bits.
+    h, w, lh, lw = shape
+    idx, wts = tr.bilinear_gather_params(*shape)
+    table = tr.bilinear_adjoint_table(idx, h * w)
+    flat = idx.reshape(-1)
+    pad = flat.size
+    for pix, row in enumerate(table):
+        pos = row[row != pad]
+        assert (np.diff(pos) > 0).all() and (flat[pos] == pix).all()
+    assert np.array_equal(np.sort(table[table != pad]), np.arange(pad))
+    r = np.random.default_rng(6).standard_normal((2, lh * lw)).astype(np.float32)
+    ti, tw = torch.tensor(idx, dtype=torch.int64), torch.tensor(wts)
+    adj = tr.bilinear_adjoint(torch.tensor(r), ti, tw, h * w, torch.tensor(table))
+    for lane in range(2):
+        np.testing.assert_array_equal(adj[lane].numpy(),
+                                      np.asarray(jr.bilinear_adjoint(r[lane], idx, wts, h * w)))
+    if (lh, lw) == (h, w):
+        np.testing.assert_array_equal(adj.numpy(), r)
+
+
 def test_deblur_gradients_fidelity_and_psnr_match_jax(pair):
     jprob, tp = pair
     rng = np.random.default_rng(2)
