@@ -33,7 +33,14 @@ imports no JAX. Phases, each printing one JSON line:
    (0, 160)); K1 at search 12 (625 offsets, its ``PER=20`` instantiation)
    at the search12 lane's shape, equal to its plain version on dyadic
    images and slot by slot on the lane's first BM3D input, in every mode,
-   with ptxas's registers and spills for ``PER=20``;
+   with ptxas's registers and spills for ``PER=20``; and the
+   kernels at the envelope's points on the bm3d_profile lane's first
+   denoise input and its stage-1 estimate (B = 13, 128 px): K1 at 1,521
+   offsets with 16 and 32 matches, at 2,401 with 16, and at the golden
+   oracle's (block 4, 49 offsets, k 4), every rounding mode, on its rules;
+   K2 at (8, 32) and (8, 16) at step 3, search 19, and at (4, 4), on its
+   rules; K3 at (7, 11), (1, 1) and (11, 15) on B = 1 and B = 9, within
+   1e-5, NaN at h = 0; each with its time, bound and launches;
 4. parity: small faithful-variant reconstructions (BM3D, NLM and the
    wavelet "TV" denoiser) on the card against the same runs on the CPU
    (plain kernel versions), and a standalone BM3D denoise on the card;
@@ -59,10 +66,24 @@ imports no JAX. Phases, each printing one JSON line:
    init PSNR, the final PSNR and whether the mask lost the zero frequency;
    the spread seeds), f32_match (f32 match distances) and search12 (625
    offsets, f32) on the headline's, without the spread seeds;
+7b. bm3d_profile: the headline batch and tuning with the
+   reference's own BM3D, ``bm3d`` 3.0.9's default profile (8 x 8 blocks,
+   step 3, a 39 x 39 window: 1,521 offsets; 16 matches in the
+   hard-threshold stage, 32 in the Wiener stage; ``bf16_xla``), in the
+   headline's pattern without the spread seeds: K1 through its
+   any-kernel, K2 through its (8, 32) and (8, 16) code, 320 launches each;
+   two runs on the JAX masks bitwise equal, their Set12-VD mean held to the
+   JAX CPU run less 0.5 dB (``params_envelope_jax.npz``), and one BM3D call
+   on each lane's first denoise input as the JAX loop forms it held to the
+   JAX CPU output there, each lane's PSNR within 0.01 dB;
 8. csmri_nlm: the one-lane ``13.png`` CSMRI + PnP-SVRG + NLM lane
    (``bench.py:465-506``) in the same pattern; its run on the JAX lane's
    minibatch masks (``csmri_nlm_masks_key2.npz``) is held entry by entry to
    the JAX run's PSNR trace stored beside them;
+8b. csmri_nlm_skimage: the same lane with skimage's NLM defaults
+   (patch 7, distance 11: 529 shifts, K3's any-kernel), 160 launches; two
+   runs on the JAX masks bitwise equal, every trace entry within 0.05 dB of
+   the JAX CPU trace of the same run;
 9. csmri_nlm_grid: the NLM tuner's chunk, 9 lanes of that problem with the
    3 x 3 (eta, sigma_modifier) grid of ``data/csmri_nlm_tuned.json``;
 10. pr_bm3d, deblur_bm3d, deblur_sr_bm3d: ``bench.py``'s phase retrieval
@@ -225,7 +246,9 @@ from pnp_svrg_tpu_torch.algorithms import compat
 from pnp_svrg_tpu_torch.algorithms.loops import pnp_saga, pnp_sarah, pnp_svrg, run_pnp
 from pnp_svrg_tpu_torch.convert import (
     BENCH_LANES,
+    BM3D_PROFILE_LANE,
     CSMRI_BATCH_LANES,
+    NLM_SKIMAGE,
     NLM_LANE,
     bench_config,
     lane_params,
@@ -233,6 +256,7 @@ from pnp_svrg_tpu_torch.convert import (
     load_deblur_problem,
     load_deblur_reference,
     load_batch_lane_reference,
+    load_envelope_reference,
     load_headline_masks,
     load_headline_problems,
     load_nlm_gd_reference,
@@ -283,6 +307,7 @@ from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import _build
 from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import (
+    MODES,
     bm3d_match,
     bm3d_match_plain,
     match_distances_plain,
@@ -347,7 +372,7 @@ CSMRI_LANES = {
               BM3DParams(search=8, search_step=2, matcher="pallas", match_dtype="bfloat16")),
     "turbo4": ("set12_csmri_turbo4_tuned.json", 4000.0, 1.5,
                BM3DParams(search=8, search_step=4, matcher="pallas", match_dtype="bfloat16")),
-} | CSMRI_BATCH_LANES
+} | CSMRI_BATCH_LANES | {"bm3d_profile": BM3D_PROFILE_LANE}
 HEADLINE_FLOOR_DB, TURBO_FLOOR_DB, TURBO4_FLOOR_DB = 25.5, 25.86, 25.20
 NLM_REF_DB, NLM_REF_SSIM = 27.09, 0.8291  # BENCH_r05.json csmri_nlm_*
 NLM_FLOOR_DB, NLM_TRACE_TOL_DB = 26.59, 0.05
@@ -498,6 +523,30 @@ BENCH_R05 = Path(__file__).resolve().parent / "BENCH_r05.json"
 REALSN_EXPORTS = ("realsn_dncnn_noise5", "realsn_dncnn_noise15", "realsn_dncnn_noise40")
 REALSN_PSNR_TOL_DB, REALSN_SSIM_TOL, REALSN_DENSE_RTOL = 1e-3, 1e-5, 1e-6
 REALSN_BUILD = Path(__file__).resolve().parent / "build" / "realsn_export"
+# The kernels over the JAX package's settings. bm3d_profile (the
+# headline batch with the reference's own BM3D, convert.BM3D_PROFILE_LANE)
+# is held on the JAX masks to the JAX CPU run less BENCH_BELOW_JAX_DB, its
+# two runs there bit for bit, and one BM3D call on each lane's first
+# denoise input as the JAX loop forms it (stored in the fixture) to JAX
+# CPU's output on that input: each lane's PSNR within PROFILE_CALL_TOL_DB.
+# csmri_nlm_skimage (the CSMRI + NLM lane at skimage's NLM defaults) is held
+# entry by entry within NLM_TRACE_TOL_DB of its JAX CPU trace, two runs bit
+# for bit. The kernel rows at the envelope's points: K1 (block, step,
+# search, k, image: the bm3d_profile lane's first input or its stage-1
+# estimate), K2 (block, step, search, K) and K3 (patch, distance) at B = 1
+# and B = 9, each on its kernel's rules.
+PROFILE_CALL_TOL_DB, ENVELOPE_REPEATS = 0.01, 2
+ENVELOPE_LANES = ("bm3d_profile",)  # CSMRI_LANES held to the envelope fixture
+ENVELOPE_K1 = {"profile_ht": (8, 3, 19, 16, "input"), "profile_wiener": (8, 3, 19, 32, "basic"),
+               "search24": (8, 3, 24, 16, "input"), "golden": (4, 2, 3, 4, "input")}
+ENVELOPE_K2 = {"profile_ht": (8, 3, 19, 16), "profile_wiener": (8, 3, 19, 32), "golden": (4, 2, 3, 4)}
+ENVELOPE_K3 = ((7, 11), (1, 1), (11, 15))
+# The lane whose run launches a kernel row's shape, and the share of that
+# lane's launches the shape takes (rows off every lane: 0). Each of
+# bm3d_profile's denoises runs its two stages once (its launch check holds
+# K1 and K2 at 2 a denoise), so each stage's shape takes half.
+ROW_LANE = {"profile_ht": ("bm3d_profile", 2), "profile_wiener": ("bm3d_profile", 2),
+            "p7_d11_b1": ("csmri_nlm_skimage", 1)}
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM bytes/s. Bounds are stated beside the card's name and limit.
 F32_PEAK, HBM_PEAK = 67e12, 3.35e12
@@ -505,9 +554,9 @@ SFU_PER_SM_CLOCK, N_SMS = 16, 132  # expf throughput: 16 a clock on each of 132 
 KERNELS = {"bm3d_match": bm3d_match, "bm3d_aggregate": bm3d_aggregate, "nlm": nlm_denoise}
 K2_REPEATS = 50  # more K2 calls on one call's arguments, each bit for bit the first
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
-    ("K1 bm3d_match", ("bm3d_match_kernel",)),
+    ("K1 bm3d_match", ("bm3d_match_kernel", "bm3d_match_any_kernel")),
     ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel", "bm3d_aggregate_fold_kernel")),
-    ("K3 nlm", ("nlm_kernel",)),
+    ("K3 nlm", ("nlm_kernel", "nlm_any_kernel")),
     # Before the matmul group: cuDNN's implicit-GEMM convolutions
     # (``sm80_xmma_fprop_implicit_gemm_*``) carry "gemm" too; cuBLAS's
     # matmuls are ``*_xmma_gemm_*`` with no "fprop". cuDNN's BatchNorm
@@ -566,16 +615,33 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 25) -> float:
 PROFILE_WINDOWS = 3  # profiled windows tried before a check that needs device records fails
 
 
+MARKER_KERNEL = "spin_kernel"  # the kernel of torch.cuda._sleep
+MARKER_IDLE_S = 0.02  # host seconds between the marker and the first call
+
+
 def device_records(fn, calls: int) -> list:
     """The device records (kernels, fills, copies) of ``calls`` calls of
-    ``fn`` under ``torch.profiler``."""
+    ``fn`` under ``torch.profiler``. A short ``torch.cuda._sleep`` opens the
+    window and is left out, and the calls start :data:`MARKER_IDLE_S`
+    after it: the first launch in a window waits for the profiler's activity
+    buffer (0.4-2.5 ms on the card's machine), and a minute into this
+    script's run windows have lost records near their start (0 of one K1,
+    K2 or K3 call, 49 of 50 K1 calls at 1.5 ms, 35 of 50 K3 calls), which a
+    fresh process records in full."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(MARKER_IDLE_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and MARKER_KERNEL not in e.name]
+
+
+LOST_RECORDS: list = []  # device_ms windows that lost records, reported in kernels_checked
 
 
 def device_ms(fn, reps: int = 50, warmup: int = 10, windows: int = PROFILE_WINDOWS) -> float:
@@ -585,17 +651,49 @@ def device_ms(fn, reps: int = 50, warmup: int = 10, windows: int = PROFILE_WINDO
     the device waits for the host to launch the next call. The profiler has
     dropped device records on the card's machine, so a window counts only
     if it holds exactly ``reps`` times the records of one profiled call (at
-    least one); else both are measured again, up to ``windows`` times."""
+    least one); else both are measured again, up to ``windows`` times. If
+    none holds them all (:func:`device_records` says when that happened),
+    the time is read per kernel name over every window
+    (:func:`lossy_device_ms`)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(windows):
-        per_call = len(device_records(fn, 1))
-        records = device_records(fn, reps)
-        if per_call > 0 and len(records) == reps * per_call:
+        one, records = device_records(fn, 1), device_records(fn, reps)
+        if one and len(records) == reps * len(one):
             return sum(e.time_range.elapsed_us() for e in records) / reps / 1e3
-    raise RuntimeError(f"check failed: the profiler recorded {len(records)} device records "
-                       f"for {reps} calls of {per_call} each, in each of {windows} windows")
+        seen.append((one, records))
+    return lossy_device_ms(seen, reps)
+
+
+def lossy_device_ms(seen, reps: int) -> float:
+    """One call's device time from windows that lost records: ``seen`` holds
+    each window's (one-call records, ``reps``-call records). Records are
+    lost, never added, so each kernel name's launches a call are the most
+    any window showed (its one-call count, or its records over ``reps``,
+    rounded), and at least 1 for every name any window recorded; its time is
+    the mean of all its records. Every name must have kept half of its
+    records over the windows. Noted in :data:`LOST_RECORDS`, with the names
+    some window held short."""
+    launches, times = collections.Counter(), collections.defaultdict(list)
+    counts = [(collections.Counter(e.name for e in one), collections.Counter(e.name for e in many))
+              for one, many in seen]
+    for one, many in counts:
+        for n in one.keys() | many.keys():
+            launches[n] = max(launches[n], one[n], round(many[n] / reps), 1)
+    for _, many in seen:
+        for e in many:
+            times[e.name].append(e.time_range.elapsed_us())
+    short = sorted(n for n in launches
+                   if any(one[n] < launches[n] or many[n] < launches[n] * reps for one, many in counts))
+    n_records = sum(len(many) for _, many in seen)
+    if all(len(times[n]) >= launches[n] * reps * len(seen) / 2 for n in launches) and launches:
+        LOST_RECORDS.append({"windows": len(seen), "records": n_records, "calls_a_window": reps,
+                             "launches_a_call": dict(launches), "names_short": short})
+        return sum(k * sum(times[n]) / len(times[n]) for n, k in launches.items()) / 1e3
+    raise RuntimeError(f"check failed: the profiler recorded {n_records} device records for {reps} calls "
+                       f"a window of {dict(launches)} launches each, in each of {len(seen)} windows")
 
 
 def multiset_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -609,11 +707,16 @@ def multiset_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.minimum(count(a), count(b)).sum(1).mean() / k)
 
 
-# K1 and its plain version sum the same 64 rounded terms of a distance in
-# different orders, each within 63 half-ulps (2**-24 relative) of the exact
-# sum; so where they put different offsets in a slot, the two distances
-# there lie within twice that of each other (a near-tie).
-NEAR_TIE = 2 * 63 * 2.0**-24
+def near_tie(block: int) -> float:
+    """K1 and its plain version sum the same ``block^2`` rounded terms of a
+    distance in different orders, each within ``block^2 - 1`` half-ulps
+    (2**-24 relative) of the exact sum; so where they put different offsets
+    in a slot, the two distances there lie within twice that of each other
+    (a near-tie; 2 x 63 x 2**-24 for 8 x 8 blocks)."""
+    return 2 * (block * block - 1) * 2.0**-24
+
+
+NEAR_TIE = near_tie(8)
 
 
 def slot_gaps(got: torch.Tensor, want: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
@@ -671,12 +774,14 @@ def phase_build() -> dict:
 def ptxas_summary(log: str) -> dict:
     """Registers, spills and static shared memory of each kernel that ptxas
     compiled, keyed by its name and template arguments (``<mode, offsets a
-    lane>`` for K1)."""
+    lane>`` for K1's first kernel, ``<mode, offsets a lane, block>`` for its
+    any-kernel, ``<block, K>`` for K2's tiles)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            base = re.search(r"(bm3d_match|bm3d_aggregate(?:_fold)?|nlm)_kernel", m.group(1))
+            base = re.search(r"(bm3d_match(?:_any)?|bm3d_aggregate(?:_fold)?|nlm(?:_any)?)_kernel",
+                             m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (f"<{', '.join(args)}>" if args else "")
         elif name and "spill" in ln:
@@ -727,24 +832,26 @@ def sass_loop_mix(text: str, marker: str) -> dict:
     return {"instructions": len(body), "opcodes": dict(collections.Counter(body).most_common())}
 
 
-def match_bounds(b: int, h: int, w: int, rows, cols, offs, lo: int = 0, hi: int | None = None) -> dict:
+def match_bounds(b: int, h: int, w: int, rows, cols, offs, lo: int = 0, hi: int | None = None,
+                 block: int = 8, k: int = 16) -> dict:
     """K1's least time two ways, over the valid (reference block, offset)
-    pairs of this geometry. Direct: sub, mul, add for each of a pair's 64
-    patch terms. Separable (the Pallas kernel's form): per (image, offset)
-    the squared-difference plane (sub, mul a pixel), 8-wide row sums at the
-    reference columns (7 adds each) and 8-tall column sums at the reference
-    rows (7 adds each), shared among that offset's reference blocks; counted
-    for the valid share of them. Bytes: the images in, the indices out. Row
-    bounds ``[lo, hi)`` count only the candidates inside them."""
+    pairs of this geometry. Direct: sub, mul, add for each of a pair's
+    block^2 patch terms. Separable (the Pallas kernel's form): per (image,
+    offset) the squared-difference plane (sub, mul a pixel), block-wide row
+    sums at the reference columns (block - 1 adds each) and block-tall
+    column sums at the reference rows (block - 1 adds each), shared among
+    that offset's reference blocks; counted for the valid share of them.
+    Bytes: the images in, the k indices a block out. Row bounds ``[lo,
+    hi)`` count only the candidates inside them."""
     nr, nc = len(rows), len(cols)
     hi = h if hi is None else hi
     valid = sum(
         1 for r in rows for c in cols for dy, dx in offs
-        if max(0, lo) <= r + dy <= min(h, hi) - 8 and 0 <= c + dx <= w - 8
+        if max(0, lo) <= r + dy <= min(h, hi) - block and 0 <= c + dx <= w - block
     ) * b
-    direct = valid * 64 * 3
-    separable = valid * (2 * h * w + 7 * h * nc + 7 * nr * nc) / (nr * nc)
-    nbytes = b * h * w * 4 + b * nr * nc * 16 * 4
+    direct = valid * block * block * 3
+    separable = valid * (2 * h * w + (block - 1) * h * nc + (block - 1) * nr * nc) / (nr * nc)
+    nbytes = b * h * w * 4 + b * nr * nc * k * 4
     out = {"valid_pairs": valid, "direct_operations": direct, "separable_operations": separable,
            "bytes": nbytes}
     for name, ops in (("direct", direct), ("separable", separable)):
@@ -878,6 +985,16 @@ def check_match_search12(ptxas: dict) -> dict:
     }
 
 
+def aggregate_work(b: int, g: int, k: int, block: int, h: int, w: int) -> tuple:
+    """K2's bytes and f32 operations for ``b`` images of ``h x w`` with ``g``
+    groups of ``k`` members of ``block^2`` values: its inputs (rows,
+    estimates, weights, the Kaiser window) read once and the two planes
+    written once; per estimate value wk, est * wk and two adds."""
+    p = g * k
+    nbytes = (b * p + b * p * block * block + b * g + block * block + 2 * b * h * w) * 4
+    return nbytes, b * p * block * block * 4
+
+
 def aggregate_record(agg_in) -> dict:
     """K2 against its plain version on one call's real arguments (``num``
     and ``den`` within 1e-5 of the planes' magnitude) and, with the same
@@ -908,20 +1025,21 @@ def aggregate_record(agg_in) -> dict:
         scales[name] = w_.abs().max().item()
         require(errs[name] <= 1e-5 * scales[name],
                 f"K2 {name} max abs err {errs[name]} vs plane magnitude {scales[name]} at {list(est.shape)}")
-    nbytes = (idx.numel() + est.numel() + wgt.numel() + kai.numel() + 2 * b * h * w) * 4
-    flops = est.numel() * 4  # wk, est * wk, two adds
+    block = math.isqrt(bb)
+    nbytes, flops = aggregate_work(b, wgt.shape[1], p // wgt.shape[1], block, h, w)
     ms = device_ms(lambda: bm3d_aggregate(*agg_in))
     event_ms = cuda_ms(lambda: bm3d_aggregate(*agg_in))
     plain_ms = cuda_ms(lambda: bm3d_aggregate_plain(idx, est, wgt, kai, h, w))
     # The library yardstick: the same sums as one index_add_ of per-pixel
     # terms (made here, outside the timing) into planes zeroed in the call.
     g = wgt.shape[1]
-    ww = w - 7
-    wk = wgt[..., None, None] * kai  # (B, G, 1, 64)
+    ww = w - block + 1
+    wk = wgt[..., None, None] * kai  # (B, G, 1, block^2)
     terms = torch.cat([(est.view(b, g, -1, bb) * wk).reshape(-1),
                        wk.expand(b, g, p // g, bb).reshape(-1)])
-    ky, kx = torch.arange(8, device=idx.device).repeat_interleave(8), torch.arange(8, device=idx.device).repeat(8)
-    pix = ((idx.long() // ww)[..., None] + ky) * w + (idx.long() % ww)[..., None] + kx  # (B, P, 64)
+    ky = torch.arange(block, device=idx.device).repeat_interleave(block)
+    kx = torch.arange(block, device=idx.device).repeat(block)
+    pix = ((idx.long() // ww)[..., None] + ky) * w + (idx.long() % ww)[..., None] + kx  # (B, P, block^2)
     pix = (pix + torch.arange(b, device=idx.device)[:, None, None] * (h * w)).reshape(-1)
     flat = torch.cat([pix, pix + b * h * w])
     lib_planes = torch.zeros(2 * b * h * w, device=idx.device).index_add_(0, flat, terms)
@@ -979,41 +1097,14 @@ def first_denoise_input(lane: dict) -> tuple:
 def check_bench_kernels(lane: dict) -> tuple:
     """K1 and K2 at a bench lane's shape (B = 1) and mode on its first BM3D
     input: K1 held slot by slot to its plain version on that image and on
-    its stage-1 estimate, with its times and bounds; K2 on the stage-1
-    aggregation's arguments (:func:`aggregate_record`)."""
+    its stage-1 estimate in the lane's mode (:func:`match_record`); K2 on
+    the stage-1 aggregation's arguments (:func:`aggregate_record`)."""
     z, sig = first_denoise_input(lane)
     p = lane["cfg"]["params"]
     mode = match_mode(p)
     basic, agg_in = stage1_aggregate_inputs(z, sig, p)
-    b, h, w = z.shape
-    rows, cols = _ref_grid(h, 8, 4), _ref_grid(w, 8, 4)
-    offs = search_offsets(p.search, p.search_step)
-    checks = {}
-    for name, img in (("input", z), ("basic", basic.contiguous())):
-        got = bm3d_match(img, rows, cols, offs, 8, 16, mode)
-        want = bm3d_match_plain(img, rows, cols, offs, 8, 16, mode)
-        dists = match_distances_plain(img, rows, cols, offs, 8, mode)
-        gaps = slot_gaps(got, want, dists)
-        checks[name] = {"multiset_agreement": multiset_agreement(got, want),
-                        "equal_share": float((got == want).float().mean()),
-                        "max_rel_gap": gaps.max().item()}
-        require(checks[name]["multiset_agreement"] >= (0.999 if mode == "f32" else 0.995),
-                f"K1 multiset agreement {checks[name]} ({lane['label']}/{name})")
-        require(checks[name]["max_rel_gap"] <= NEAR_TIE,
-                f"K1 slot gap {checks[name]['max_rel_gap']} > {NEAR_TIE} ({lane['label']}/{name})")
-    err = (dists.gather(-1, got.long()) - dists.gather(-1, want.long())).abs().max().item()
-    require(math.isfinite(err), f"K1 picked an invalid candidate ({lane['label']})")
-    geom = match_geometry(rows, cols, offs, 8, z.device)
-    call = lambda: bm3d_match(z, rows, cols, offs, 8, 16, mode, geometry=geom)  # noqa: E731
-    bounds = match_bounds(b, h, w, rows, cols, offs)
-    k1 = {
-        "shape": {"images": [b, h, w], "offsets": len(offs), "k": 16, "mode": mode}, "max_abs_err": err,
-        "ms": device_ms(call), "event_ms": cuda_ms(call),
-        "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, cols, offs, 8, 16, mode), reps=10),
-        "bound_ms": min(bounds["bound_direct_ms"], bounds["bound_separable_ms"]),
-        "bound_by": bounds["bound_separable_by"], "library_ms": None,
-        "smem_bytes": geom.smem_bytes, "checks": checks, **bounds,
-    }
+    k1 = match_record({"input": z, "basic": basic.contiguous()}, 8, 4, p.search, 16, mode,
+                      p.search_step, modes=(mode,))
     return k1, aggregate_record(agg_in)
 
 
@@ -1032,23 +1123,27 @@ def nlm_input(prob, eta: float, mod: float, steps: int = 1) -> tuple:
     return z, h
 
 
-def nlm_bound(b: int, h: int, w: int, lo: int, hi: int, d: int, clock_hz: float) -> dict:
+def nlm_bound(b: int, h: int, w: int, lo: int, hi: int, d: int, clock_hz: float,
+              patch_size: int = 4) -> dict:
     """Least time of one NLM call: the valid (pixel, shift) pairs this input
-    has, each about 17 f32 operations (2 for the square, 6 for the separable
-    box sums, 5 for the weight, 4 for the accumulation) and one exp; the image
-    read once and the output written once."""
+    has, each 2 f32 operations for the square, the box sum over the P x P
+    patch at its least (each axis P - 1 adds, or 2 for a sliding sum, which
+    adds the entering term and takes the leaving one: 2 min(P - 1, 2)), 5
+    for the weight and 4 for the accumulation (15 from P = 3 on), and one
+    exp; the image read once and the output written once."""
     rows = sum(1 for i in range(h) for dy in range(-d, d + 1) if lo <= i + dy < hi)
     cols = sum(1 for j in range(w) for dx in range(-d, d + 1) if 0 <= j + dx < w)
     pairs = b * rows * cols
+    per_pair = 2 + 2 * min(patch_size - 1, 2) + 5 + 4
     terms = {
-        "operations": 17 * pairs / F32_PEAK,
+        "operations": per_pair * pairs / F32_PEAK,
         "exp": pairs / (N_SMS * SFU_PER_SM_CLOCK * clock_hz),
         "bytes": (2 * b * h * w * 4 + 2 * b * 4) / HBM_PEAK,
     }
     top = max(terms, key=terms.get)
     return {"bound_ms": terms[top] * 1e3, "bound_by": "bytes" if top == "bytes" else "operations",
-            "bound_terms_ms": {k: v * 1e3 for k, v in terms.items()}, "valid_pairs": pairs,
-            "sm_clock_hz": clock_hz}
+            "bound_term": top, "bound_terms_ms": {k: v * 1e3 for k, v in terms.items()}, "valid_pairs": pairs,
+            "operations_per_pair": per_pair, "sm_clock_hz": clock_hz}
 
 
 def nlm_check_inputs() -> dict:
@@ -1065,15 +1160,16 @@ def nlm_check_inputs() -> dict:
             "b9": (z9, torch.cat([h for _, h in lanes]))}
 
 
-def nlm_times(z, h, sigma, clock_hz: float) -> dict:
+def nlm_times(z, h, sigma, clock_hz: float, patch_size: int = 4, patch_distance: int = 5) -> dict:
     """K3's device and event times on (z, h, sigma), its plain version's,
     and the bound."""
     _, hh, ww = z.shape
+    pd = (patch_size, patch_distance)
     return {
-        "ms": device_ms(lambda: nlm_denoise(z, h, sigma)),
-        "event_ms": cuda_ms(lambda: nlm_denoise(z, h, sigma)),
-        "plain_ms": cuda_ms(lambda: nlm_denoise_plain(z, h, sigma), reps=10, warmup=3),
-        **nlm_bound(z.shape[0], hh, ww, 0, hh, 5, clock_hz),
+        "ms": device_ms(lambda: nlm_denoise(z, h, sigma, *pd)),
+        "event_ms": cuda_ms(lambda: nlm_denoise(z, h, sigma, *pd)),
+        "plain_ms": cuda_ms(lambda: nlm_denoise_plain(z, h, sigma, *pd), reps=10, warmup=3),
+        **nlm_bound(z.shape[0], hh, ww, 0, hh, patch_distance, clock_hz, patch_size),
     }
 
 
@@ -1103,6 +1199,107 @@ def check_nlm(clock_hz: float) -> dict:
         "library_ms": None, "b1": times["b1"], "h_b9": h9.tolist(),
         "shape": {"images": [b, hh, ww], "patch_size": 4, "patch_distance": 5},
     }
+
+
+def profile_lane_inputs() -> tuple:
+    """The bm3d_profile lane's first denoise input (B = 13, 128 px), its
+    sigma, and the stage-1 estimate of the lane's BM3D on it."""
+    prob, lanes = load_headline_problems("cuda")
+    eta, den = csmri_lane("bm3d_profile", lanes)
+    lane = {"prob": prob, "eta": eta[:, None],
+            "cfg": {"params": den.params, "sigma_modifier": den.sigma_modifier}}
+    z, sig = first_denoise_input(lane)
+    basic, _ = stage1_aggregate_inputs(z, sig, den.params)
+    return z, sig, basic.contiguous()
+
+
+def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mode: str,
+                 search_step: int = 1, modes=tuple(MODES)) -> dict:
+    """K1 at one setting against its plain version, in each of ``modes`` on
+    each image of ``imgs``: the multiset agreement of each
+    block's k (>= 0.999 in f32, >= 0.995 in bf16), slot by slot the same
+    offset or a near-tie (:func:`near_tie` of the block), and as many
+    invalid picks (index-0 fills) as the plain version; then its device
+    time in ``lane_mode`` on the first image, the plain version's and the
+    bound."""
+    z = next(iter(imgs.values()))
+    b, h, w = z.shape
+    rows, cols = _ref_grid(h, block, step), _ref_grid(w, block, step)
+    offs = search_offsets(search, search_step)
+    tie = near_tie(block)
+    checks, err = {}, None
+    for name, img in imgs.items():
+        for mode in modes:
+            got = bm3d_match(img, rows, cols, offs, block, k, mode)
+            want = bm3d_match_plain(img, rows, cols, offs, block, k, mode)
+            dists = match_distances_plain(img, rows, cols, offs, block, mode)
+            dg, dw = (dists.gather(-1, t.long()) for t in (got, want))
+            key = f"{name}/{mode}"
+            checks[key] = {"multiset_agreement": multiset_agreement(got, want),
+                           "equal_share": float((got == want).float().mean()),
+                           "max_rel_gap": slot_gaps(got, want, dists).max().item(),
+                           "invalid_picked": int(torch.isinf(dg).sum()),
+                           "plain_invalid_picked": int(torch.isinf(dw).sum())}
+            c = checks[key]
+            require(c["multiset_agreement"] >= (0.999 if mode == "f32" else 0.995)
+                    and c["max_rel_gap"] <= tie and c["invalid_picked"] == c["plain_invalid_picked"],
+                    f"K1 at block {block}, k {k}, {len(offs)} offsets: {c} ({key})")
+            if err is None and mode == lane_mode:
+                err = torch.nan_to_num((dg - dw).abs(), nan=0.0).max().item()  # inf - inf: both fills
+    geom = match_geometry(rows, cols, offs, block, z.device)
+    call = lambda: bm3d_match(z, rows, cols, offs, block, k, lane_mode, geometry=geom)  # noqa: E731
+    bounds = match_bounds(b, h, w, rows, cols, offs, block=block, k=k)
+    first = geom.first_kernel_takes(block, k)
+    return {
+        "shape": {"images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
+                  "mode": lane_mode},
+        "kernel": "bm3d_match_kernel" if first else "bm3d_match_any_kernel",
+        "max_abs_err": err, "ms": device_ms(call), "event_ms": cuda_ms(call),
+        "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, cols, offs, block, k, lane_mode), reps=10),
+        "bound_ms": min(bounds["bound_direct_ms"], bounds["bound_separable_ms"]),
+        "bound_by": bounds["bound_separable_by"], "library_ms": None,
+        "smem_bytes": geom.smem_bytes if first else geom.any_smem_bytes, "near_tie": tie,
+        "checks": checks, **bounds,
+    }
+
+
+def check_envelope_kernels(clock_hz: float) -> tuple:
+    """K1, K2 and K3 at the envelope's points (:data:`ENVELOPE_K1`,
+    :data:`ENVELOPE_K2`, :data:`ENVELOPE_K3`) on real inputs, each held to
+    its kernel's rules: K1 by :func:`match_record`; K2 by
+    :func:`aggregate_record` (50 repeats bit for bit, dyadic values bit for
+    bit, 1e-5 of the planes' magnitude) on the stage-1 aggregation of the
+    bm3d_profile lane's first input at that setting; K3 within 1e-5 of its
+    plain version with and without row bounds on the B = 1 and B = 9 NLM
+    inputs, and NaN at h = 0. Returns the three kernels' rows."""
+    z, sig, basic = profile_lane_inputs()
+    imgs = {"input": z, "basic": basic}
+    k1 = {}
+    for row, (block, step, search, k, first) in ENVELOPE_K1.items():
+        k1[row] = match_record({first: imgs[first]} | imgs, block, step, search, k, "bf16_xla")
+    k2 = {}
+    for row, (block, step, search, k) in ENVELOPE_K2.items():
+        p = BM3DParams(block=block, step=step, search=search, group_ht=k, match_dtype="bfloat16")
+        _, agg_in = stage1_aggregate_inputs(z, sig, p)
+        k2[row] = aggregate_record(agg_in) | {"block": block, "k": k, "step": step, "search": search}
+    inputs = nlm_check_inputs()
+    k3 = {}
+    for pd in ENVELOPE_K3:
+        for lanes, (x, h) in inputs.items():
+            errs = {}
+            for bounds in (None, (16, 112)):
+                got = nlm_denoise(x, h, h, *pd, row_valid_bounds=bounds)
+                want = nlm_denoise_plain(x, h, h, *pd, row_valid_bounds=bounds)
+                errs[str(bounds)] = (got - want).abs().max().item()
+            require(max(errs.values()) <= 1e-5, f"K3 max abs err {errs} at {pd}, {lanes}")
+            zero = torch.zeros(x.shape[0], device="cuda")
+            nan = bool(torch.isnan(nlm_denoise(x, zero, zero, *pd)).all())
+            require(nan, f"K3 at h = 0 not NaN everywhere at {pd}")
+            k3[f"p{pd[0]}_d{pd[1]}_{lanes}"] = {
+                "shape": {"images": list(x.shape), "patch_size": pd[0], "patch_distance": pd[1]},
+                "max_abs_err": max(errs.values()), "max_abs_err_by_bounds": errs, "nan_at_h0": nan,
+                **nlm_times(x, h, h, clock_hz, *pd), "library_ms": None}
+    return k1, k2, k3
 
 
 def faithful_parity(den, eta: float) -> dict:
@@ -1248,18 +1445,24 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     :data:`BENCH_BELOW_JAX_DB`. ``headline`` (the headline's record) puts
     its rate and device ms beside; ``extra(prob, lanes, ref, jax_trace)``
     returns more fields and the checks on them, as (condition, message)
-    pairs."""
+    pairs. A lane of :data:`ENVELOPE_LANES` is held to its JAX CPU run in
+    the envelope fixture, and its run on ``ref_masks`` is made
+    :data:`ENVELOPE_REPEATS` times, which must repeat bit for bit."""
     eta, den = csmri_lane(label, lanes)
     run, out, steady, first, launches = drive(prob, den, eta)
+    envelope = label in ENVELOPE_LANES
+    ref_repeats = ENVELOPE_REPEATS if envelope else 1
     jax_trace = None
     if floor_db is None:
-        jax_trace = load_batch_lane_reference(label)["psnr_per_iter"]
+        load = load_envelope_reference if envelope else load_batch_lane_reference
+        jax_trace = load(label)["psnr_per_iter"]
         refs = (float(jax_trace[-1, :-1].mean()), float(jax_trace[-1, -1]))
         floor_db = refs[0] - BENCH_BELOW_JAX_DB
     else:
         refs = REF_DB[label]
     own = quality(prob, out, lanes, refs)
-    ref_out = run(masks=ref_masks)
+    ref_outs = [run(masks=ref_masks) for _ in range(ref_repeats)]
+    ref_out = ref_outs[0]
     ref = quality(prob, ref_out, lanes, refs)
     if jax_trace is not None:
         trace = ref_out["psnr_per_iter"].cpu().numpy()
@@ -1279,8 +1482,11 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     prof = phase_profile(label, lambda: run(seed=3))
     rec |= {"device_ms": prof["device_kernel_ms"], "device_busy_share": prof["device_busy_share"]}
     if headline is not None:
-        rec["headline"] = {k: headline[k] for k in ("image_iters_per_s", "device_ms")}
+        rec["headline"] = {k: headline[k] for k in ("image_iters_per_s", "device_ms", "device_busy_share")}
     checks = []
+    if ref_repeats > 1:
+        rec["ref_repeats"], rec["repeat_bitwise"] = ref_repeats, bitwise_repeats(ref_outs)
+        checks.append((rec["repeat_bitwise"], f"{ref_repeats} runs on the JAX masks differ"))
     if extra is not None:
         fields, checks = extra(prob, lanes, ref, jax_trace)
         rec |= fields
@@ -1361,6 +1567,60 @@ def run_nlm_lane() -> dict:
     require(launches == expect, f"csmri_nlm: launches {launches}, expected {expect}")
     require(ref_psnr >= NLM_FLOOR_DB, f"csmri_nlm: PSNR {ref_psnr:.2f} dB < {NLM_FLOOR_DB}")
     require(dtrace <= NLM_TRACE_TOL_DB, f"csmri_nlm: trace {dtrace:.4f} dB off the JAX trace")
+    return rec
+
+
+def profile_first_call(prob, lanes, ref, jax_trace) -> tuple:
+    """bm3d_profile's ``extra``: one BM3D call of the lane's parameters on
+    each lane's first denoise input as the JAX loop forms it (the fixture's
+    ``first_input`` and ``first_sigma``) against JAX CPU's ``first_output``:
+    each lane's PSNR within :data:`PROFILE_CALL_TOL_DB`, the largest pixel
+    difference reported."""
+    jax_ref = load_envelope_reference("bm3d_profile")
+    z, sig, want = (torch.as_tensor(jax_ref[k], device="cuda")
+                    for k in ("first_input", "first_sigma", "first_output"))
+    got = bm3d_denoise_batch(z, sig, BM3D_PROFILE_LANE[3])
+    port, jax_db = prob.psnr(got).cpu().numpy(), prob.psnr(want).cpu().numpy()
+    gap = float(np.abs(port - jax_db).max())
+    f = {"first_call": {"port_psnr_db": port.tolist(), "jax_cpu_psnr_db": jax_db.tolist(),
+                        "max_abs_db": gap, "max_abs_diff": (got - want).abs().max().item()}}
+    return f, [(gap <= PROFILE_CALL_TOL_DB, f"one BM3D call {gap:.4f} dB off JAX CPU's on a lane")]
+
+
+def run_nlm_skimage_lane() -> dict:
+    """The CSMRI + NLM lane at skimage's NLM defaults (:data:`NLM_SKIMAGE`):
+    a warm-up and a timed run on the port's stream (launches counted), then
+    :data:`ENVELOPE_REPEATS` runs on the JAX lane's masks, bitwise equal and
+    each entry of their trace within :data:`NLM_TRACE_TOL_DB` of the JAX CPU
+    trace of the same run; then a profile of one more run."""
+    prob, _, eta, cfg = nlm_lane()
+    den = NLMDenoiser(sigma_modifier=cfg["sigma_modifier"], **NLM_SKIMAGE)
+    run, out, steady, first, launches = drive(prob, den, eta, cfg["lr_decay"])
+    own = lane_quality(prob, out)
+    masks = load_nlm_masks("cuda")
+    outs = [run(masks=masks) for _ in range(ENVELOPE_REPEATS)]
+    ref_run = lane_quality(prob, outs[0])
+    jax_ref = load_envelope_reference("csmri_nlm_skimage")
+    dtrace = float(np.abs(ref_run.pop("_trace")[:, 0] - jax_ref["psnr_per_iter"]).max())
+    own.pop("_trace")
+    rec = {
+        "phase": "csmri_nlm_skimage", "lanes": 1, "denoiser": NLM_SKIMAGE, "steady_s": steady,
+        "first_s": first, "image_iters_per_s": N_OUTER * (T2 + 1) / steady, "launches": launches,
+        "reference_minibatches": {
+            "psnr_db": ref_run["per_lane_psnr_db"][0], "ssim": ref_run["per_lane_ssim"][0],
+            "jax_cpu_psnr_db": float(jax_ref["psnr_per_iter"][-1]), "jax_cpu_ssim": float(jax_ref["ssim"]),
+            "trace_max_abs_db_vs_jax": dtrace},
+        "repeat_bitwise": bitwise_repeats(outs),
+        "port_stream_seed2": {"psnr_db": own["per_lane_psnr_db"][0], "ssim": own["per_lane_ssim"][0]},
+        "config": {k: cfg[k] for k in ("eta", "lr_decay", "sigma_modifier")},
+    }
+    prof = phase_profile("csmri_nlm_skimage", lambda: run(seed=3))
+    rec |= {"device_ms": prof["device_kernel_ms"], "device_busy_share": prof["device_busy_share"]}
+    emit(rec)
+    expect = {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": N_OUTER * T2}
+    require(launches == expect, f"csmri_nlm_skimage: launches {launches}, expected {expect}")
+    require(rec["repeat_bitwise"], "csmri_nlm_skimage: runs on the JAX masks differ")
+    require(dtrace <= NLM_TRACE_TOL_DB, f"csmri_nlm_skimage: trace {dtrace:.4f} dB off the JAX trace")
     return rec
 
 
@@ -2741,7 +3001,10 @@ def main() -> None:
     k2["bench_shapes"] = {label: r[1] for label, r in at_lanes.items()}
     k3 = check_nlm(dev["max_sm_clock_mhz"] * 1e6)
     k3["bench_shapes"] = {"sweep_nlm": check_nlm_at_sweep(first_round["nlm"], dev["max_sm_clock_mhz"] * 1e6)}
-    emit({"phase": "kernels_checked", "bm3d_match": k1, "bm3d_aggregate": k2, "nlm": k3})
+    for rec, rows in zip((k1, k2, k3), check_envelope_kernels(dev["max_sm_clock_mhz"] * 1e6)):
+        rec["bench_shapes"] |= rows
+    emit({"phase": "kernels_checked", "bm3d_match": k1, "bm3d_aggregate": k2, "nlm": k3,
+          "device_ms_lost_records": LOST_RECORDS})
     phase_parity()
 
     prob, lanes = load_headline_problems("cuda")
@@ -2759,7 +3022,10 @@ def main() -> None:
     del uprob
     for label in ("f32_match", "search12"):
         lanes_run[label] = run_lane(label, with_k2, prob, lanes, ref_masks, seeds=(), headline=head)
+    lanes_run["bm3d_profile"] = run_lane("bm3d_profile", with_k2, prob, lanes, ref_masks, seeds=(),
+                                         headline=head, extra=profile_first_call)
     lanes_run["csmri_nlm"] = run_nlm_lane()
+    lanes_run["csmri_nlm_skimage"] = run_nlm_skimage_lane()
     lanes_run["csmri_nlm_grid"] = run_nlm_grid()
     lanes_run |= {label: run_bench_lane(lane) for label, lane in bench.items()}
     mem_before_gb = torch.cuda.memory_allocated() / 1e9
@@ -2806,9 +3072,11 @@ def main() -> None:
             "launches": by_lane[main_lane[name]], "launches_by_lane": by_lane,
             **{k: rec[k] for k in fields}, "card": dev["nvidia_smi"],
         })
-        kernels[-1]["bench_shapes"] = {
-            label: {"launches": by_lane[label], "shape": r["shape"], **{k: r[k] for k in fields}}
-            for label, r in rec["bench_shapes"].items()}
+        shapes = kernels[-1]["bench_shapes"] = {}
+        for label, r in rec["bench_shapes"].items():
+            lane, share = ROW_LANE.get(label, (label, 1))
+            shapes[label] = {"launches": by_lane.get(lane, 0) // share, "shape": r["shape"],
+                             **{k: r[k] for k in fields}}
     kernels[0]["bounded"] = {  # K1 with row bounds: the spatial BM3D path's, per rank
         "launches": lanes_run["parallel/e_bm3d_rank0"]["launches"]["bm3d_match"],
         "shape": {k: k1["bounded"][k] for k in ("shape", "bounds", "mode")},

@@ -131,6 +131,7 @@ TRAIN_SN_ITERS = 30  # effective_variables' power iterations
 TRAIN_STEPS, TRAIN_STEP_LR, TRAIN_BATCH_SEED = 3, 1e-4, 0  # lr: the epochs after the milestone
 PAPER_DRIVERS_FIXTURE = HEADLINE_FIXTURE.parent / "paper_drivers.npz"
 REALSN_EXPORT_FIXTURE = HEADLINE_FIXTURE.parent / "realsn_export_jax.npz"
+ENVELOPE_FIXTURE = HEADLINE_FIXTURE.parent / "params_envelope_jax.npz"
 # The drivers' row tables held by the fixture: driver -> {table: its flags}.
 PAPER_TABLES = {
     "paper_csmri": {"auto": [], "ref": ["--eta-scale", "ref"]},
@@ -155,6 +156,17 @@ CSMRI_BATCH_LANES = {
     "f32_match": ("set12_csmri_tuned.json", 6000.0, 1.0, BM3DParams(search=8, match_dtype="float32")),
     "search12": ("set12_csmri_tuned.json", 6000.0, 1.0, BM3DParams(search=12, match_dtype="float32")),
 }
+# Settings off the kernels' first instantiations, each run on a lane the
+# JAX package's CPU run holds (``ENVELOPE_FIXTURE``). bm3d_profile: the
+# headline batch and tuning with the reference's own BM3D, ``bm3d`` 3.0.9's
+# default profile (8 x 8 blocks, step 3, a 39 x 39 window, 16 matches in
+# the hard-threshold stage and 32 in the Wiener stage), bf16 match
+# distances as the headline's; csmri_nlm_skimage: the CSMRI + NLM lane with
+# skimage's ``denoise_nl_means`` defaults (patch 7, distance 11).
+BM3D_PROFILE_LANE = ("set12_csmri_tuned.json", 6000.0, 1.0,
+                     BM3DParams(block=8, step=3, search=19, group_ht=16, group_wie=32,
+                                match_dtype="bfloat16"))
+NLM_SKIMAGE = {"patch_size": 7, "patch_distance": 11}
 
 # bench.py's three lanes: the problem, bench.py's defaults and the tuned
 # JSON merged over them (bench.py:508-542, 602-661, 663-717).
@@ -286,6 +298,17 @@ def load_batch_lane_reference(lane: str) -> dict:
     per-lane final ``ssim`` (B,)."""
     data = _fixture(UNIFORM_FIXTURE if lane == "set12_uniform" else HEADLINE_VARIANTS_FIXTURE)
     return {"psnr_per_iter": data[f"{lane}/psnr_per_iter"], "ssim": data[f"{lane}/ssim"]}
+
+
+def load_envelope_reference(lane: str, path=ENVELOPE_FIXTURE) -> dict:
+    """The JAX CPU run of ``"bm3d_profile"`` (on the headline problems and
+    masks) or ``"csmri_nlm_skimage"`` (on the CSMRI + NLM lane's): its PSNR
+    trace ``psnr_per_iter`` and per-lane final ``ssim``; for bm3d_profile
+    also one BM3D call on each lane's first denoise input as the JAX loop
+    forms it, ``first_input`` (B, H, W) and ``first_sigma`` (B,), and its
+    ``first_output``."""
+    data = _fixture(path)
+    return {k.split("/", 1)[1]: v for k, v in data.items() if k.startswith(f"{lane}/")}
 
 
 def load_nlm_problem(device=None, path=HEADLINE_FIXTURE) -> CSMRI:

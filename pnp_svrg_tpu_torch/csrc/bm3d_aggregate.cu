@@ -77,35 +77,54 @@
 // tile's 64 members: at B = 1 four warps ran the 128 px call in 0.0107 ms
 // against two warps' 0.0144 on an H100, `examples/k2_variants.py`); the
 // row is decoded without an integer division.
+//
+// Any block and group size. The tile kernel is a template on (BLOCK, KK):
+// lane l owns the patch values l + 32 q (q < ceil(block^2 / 32)), with
+// fewer members in flight where a patch needs more registers. It is
+// compiled with (block, K) constant at (8, 16), the headline's (lane l owns
+// (ky, kx) and (ky + 4, kx), eight members in flight), and at (8, 32), the
+// reference profile's Wiener stage; `<0, 0>` reads block in [2, 16] and K in
+// [1, 64] at run time. Every form has the same tiles, warps, private planes
+// and order of adds. The fold reads (block, K) at run time: they feed only
+// its out-of-footprint scan. Footprints grow with the search window and the
+// step (49 x 49 pixels at step 3, search 19), so a pixel may be covered by
+// more than kMaxCover tiles an axis; the fold then takes its streaming form,
+// by rule, in the same order of adds.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 8;  // the patch edge this file is built for
-constexpr int kK = 16;     // and the group size
 constexpr int kTileR = 2;  // reference-block rows per CTA
 constexpr int kTileC = 2;  // reference-block columns per CTA
 constexpr int kWarps = 4;  // each with private planes
-constexpr int kUnroll = 8;  // members each warp has in flight
+constexpr int kUnroll = 8;  // members each warp has in flight (at most)
 constexpr int kFoldThreads = 256;
-constexpr int kBB = kBlock * kBlock;
 constexpr int kMaxCover = 6;  // the fold's covering tiles an axis, loaded at once
 constexpr long long kFewPixels = 1 << 17;  // fold all at once up to this many pixels
 
-// Whether a member at (py, px) lies inside the fh x fw footprint at (oy, ox).
-__device__ __forceinline__ bool in_footprint(int py, int px, int oy, int ox, int fh, int fw) {
+// Whether a block x block member at (py, px) lies inside the fh x fw
+// footprint at (oy, ox).
+__device__ __forceinline__ bool in_footprint(int py, int px, int oy, int ox, int fh, int fw,
+                                             int block) {
   const int ly = py - oy;
   const int lx = px - ox;
-  return ly >= 0 && lx >= 0 && ly + kBlock <= fh && lx + kBlock <= fw;
+  return ly >= 0 && lx >= 0 && ly + block <= fh && lx + block <= fw;
 }
 
+// (BLOCK, KK = 0: `block_rt`, `k_rt`.)
+template <int BLOCK, int KK>
 __global__ void __launch_bounds__(kWarps * 32)
 bm3d_aggregate_kernel(const int* __restrict__ idx, const float* __restrict__ est,
                       const float* __restrict__ wgt, const float* __restrict__ kaiser,
                       const int* __restrict__ tile_oy, const int* __restrict__ tile_ox,
                       float* __restrict__ scratch, int* __restrict__ overflow, int epoch,
-                      int H, int W, int nR, int nC, int fh, int fw) {
+                      int H, int W, int nR, int nC, int fh, int fw, int block_rt, int k_rt) {
+  constexpr int kQ = BLOCK > 0 ? (BLOCK * BLOCK + 31) / 32 : 8;  // values a lane, at most
+  constexpr int kInFlight = kQ <= 2 ? kUnroll : (kQ <= 4 ? 4 : 2);
+  const int block = BLOCK > 0 ? BLOCK : block_rt;
+  const int K = KK > 0 ? KK : k_rt;
+  const int bb = block * block;
   extern __shared__ float planes[];  // kWarps x (num, den) x fh x fw
   const int plane = fh * fw;
   const int b = blockIdx.z;
@@ -119,43 +138,52 @@ bm3d_aggregate_kernel(const int* __restrict__ idx, const float* __restrict__ est
   for (int q = tid; q < 2 * kWarps * plane; q += kWarps * 32) planes[q] = 0.f;
   __syncthreads();
 
-  const int ww = W - kBlock + 1;
-  const int n_rows = (H - kBlock + 1) * ww;
+  const int ww = W - block + 1;
+  const int n_rows = (H - block + 1) * ww;
   const float inv_ww = 1.f / (float)ww;
   const long long G = (long long)nR * nC;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   float* s_num = planes + warp * 2 * plane;
   float* s_den = s_num + plane;
-  // Lane owns patch values lane and lane + 32: (ky, kx) and (ky + 4, kx).
-  const int ky = lane / kBlock;
-  const int kx = lane % kBlock;
-  const float kai0 = __ldg(kaiser + lane);
-  const float kai1 = __ldg(kaiser + lane + 32);
-
-  // Member slot m: reference block t = m / kK of the tile, member m % kK.
-  constexpr int kSlots = kTileR * kTileC * kK;
-  for (int m0 = warp; m0 < kSlots; m0 += kWarps * kUnroll) {
-    int row[kUnroll];
-    float w[kUnroll], e0[kUnroll], e1[kUnroll];
+  // Lane owns patch values v = lane + 32 q: (ky, kx) = (v / block, v % block),
+  // none where v >= block^2 (at[q] < 0). Where block^2 is a compiled multiple
+  // of 32 (kFull) every lane owns kQ values and the tests go: ptxas schedules
+  // the (8, 16) tiles faster without them (`lane_tests` in
+  // examples/k2_variants.py; PERF.md).
+  constexpr bool kFull = BLOCK > 0 && BLOCK * BLOCK % 32 == 0;
+  int at[kQ];
+  float kai[kQ];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+  for (int q = 0; q < kQ; ++q) {
+    const int v = lane + 32 * q;
+    at[q] = (kFull || v < bb) ? (v / block) * fw + v % block : -1;
+    kai[q] = (kFull || v < bb) ? __ldg(kaiser + v) : 0.f;
+  }
+
+  // Member slot m: reference block t = m / K of the tile, member m % K.
+  const int slots = kTileR * kTileC * K;
+  for (int m0 = warp; m0 < slots; m0 += kWarps * kInFlight) {
+    int row[kInFlight];
+    float w[kInFlight], e[kInFlight][kQ];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
       const int m = m0 + u * kWarps;
-      const int t = m / kK;
+      const int t = m / K;
       const int i = t / kTileC;
       const int j = t % kTileC;
       row[u] = -1;
-      if (m < kSlots && i < nr && j < nc) {
+      if (m < slots && i < nr && j < nc) {
         const long long g = (long long)b * G + (r0 + i) * nC + c0 + j;
-        const long long p = g * kK + m % kK;
+        const long long p = g * K + m % K;
         row[u] = __ldg(idx + p);
         w[u] = __ldg(wgt + g);
-        e0[u] = __ldg(est + p * kBB + lane);
-        e1[u] = __ldg(est + p * kBB + lane + 32);
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) e[u][q] = (kFull || at[q] >= 0) ? __ldg(est + p * bb + lane + 32 * q) : 0.f;
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kInFlight; ++u) {
       if (row[u] < 0 || row[u] >= n_rows) continue;
       // row = py * ww + px, decoded without an integer division.
       int py = (int)(((float)row[u] + 0.5f) * inv_ww);
@@ -167,20 +195,20 @@ bm3d_aggregate_kernel(const int* __restrict__ idx, const float* __restrict__ est
         ++py;
         px -= ww;
       }
-      if (!in_footprint(py, px, oy, ox, fh, fw)) {
+      if (!in_footprint(py, px, oy, ox, fh, fw, block)) {
         overflow[b] = epoch;  // the fold adds this member
         continue;
       }
-      const float wk0 = __fmul_rn(w[u], kai0);
-      const float wk1 = __fmul_rn(w[u], kai1);
-      // The warp's own planes and one member at a time: the 64 pixels of
-      // a patch are distinct, so plain read-modify-writes do not collide.
-      const int a0 = (py - oy + ky) * fw + px - ox + kx;
-      const int a1 = a0 + 4 * fw;
-      s_num[a0] += __fmul_rn(e0[u], wk0);
-      s_den[a0] += wk0;
-      s_num[a1] += __fmul_rn(e1[u], wk1);
-      s_den[a1] += wk1;
+      // The warp's own planes and one member at a time: the pixels of a
+      // patch are distinct, so plain read-modify-writes do not collide.
+      const int a = (py - oy) * fw + px - ox;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        if (!kFull && at[q] < 0) continue;
+        const float wk = __fmul_rn(w[u], kai[q]);
+        s_num[a + at[q]] += __fmul_rn(e[u][q], wk);
+        s_den[a + at[q]] += wk;
+      }
       __syncwarp();
     }
   }
@@ -267,7 +295,7 @@ bm3d_aggregate_fold_kernel(const float* __restrict__ scratch, const int* __restr
                            int epoch, const int* __restrict__ idx, const float* __restrict__ est,
                            const float* __restrict__ wgt, const float* __restrict__ kaiser,
                            float* __restrict__ num, float* __restrict__ den, int B, int H, int W,
-                           int nR, int nC, int fh, int fw) {
+                           int nR, int nC, int fh, int fw, int block, int K) {
   const long long i = (long long)blockIdx.x * kFoldThreads + threadIdx.x;
   if (i >= (long long)B * H * W) return;
   const int x = (int)(i % W);
@@ -280,22 +308,22 @@ bm3d_aggregate_fold_kernel(const float* __restrict__ scratch, const int* __restr
   fold_pixel<kAllAtOnce>(scratch + (long long)b * n_ty * n_tx * 2 * plane, tile_oy, tile_ox, cover_y, cover_x,
              y, x, n_tx, plane, fw, n, d);
   if (overflow[b] == epoch) {
-    const int ww = W - kBlock + 1;
-    const int n_rows = (H - kBlock + 1) * ww;
+    const int ww = W - block + 1;
+    const int n_rows = (H - block + 1) * ww;
     const long long G = (long long)nR * nC;
-    for (long long p = 0; p < G * kK; ++p) {
-      const int r = __ldg(idx + b * G * kK + p);
+    for (long long p = 0; p < G * K; ++p) {
+      const int r = __ldg(idx + b * G * K + p);
       if (r < 0 || r >= n_rows) continue;
       const int py = r / ww;
       const int px = r - py * ww;
-      if (y < py || y >= py + kBlock || x < px || x >= px + kBlock) continue;
-      const long long g = p / kK;
+      if (y < py || y >= py + block || x < px || x >= px + block) continue;
+      const long long g = p / K;
       const int gr = (int)(g / nC);
       const int gc = (int)(g % nC);
-      if (in_footprint(py, px, tile_oy[gr / kTileR], tile_ox[gc / kTileC], fh, fw)) continue;
-      const int k = (y - py) * kBlock + x - px;
+      if (in_footprint(py, px, tile_oy[gr / kTileR], tile_ox[gc / kTileC], fh, fw, block)) continue;
+      const int k = (y - py) * block + x - px;
       const float wk = __fmul_rn(__ldg(wgt + b * G + g), __ldg(kaiser + k));
-      n += __fmul_rn(__ldg(est + (b * G * kK + p) * kBB + k), wk);
+      n += __fmul_rn(__ldg(est + (b * G * K + p) * (block * block) + k), wk);
       d += wk;
     }
   }
@@ -303,10 +331,29 @@ bm3d_aggregate_fold_kernel(const float* __restrict__ scratch, const int* __restr
   den[i] = d;
 }
 
+// The tile kernel of (BLOCK, KK), opted into `smem` bytes of shared memory.
+template <int BLOCK, int KK>
+cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t s, const int* idx, const float* est,
+                         const float* wgt, const float* kaiser, const int* tile_oy,
+                         const int* tile_ox, float* scratch, int* overflow, int epoch, int H,
+                         int W, int nR, int nC, int fh, int fw, int block, int K) {
+  static size_t granted = 48 * 1024;  // opted into so far
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(bm3d_aggregate_kernel<BLOCK, KK>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  bm3d_aggregate_kernel<BLOCK, KK><<<grid, kWarps * 32, smem, s>>>(
+      idx, est, wgt, kaiser, tile_oy, tile_ox, scratch, overflow, epoch, H, W, nR, nC, fh, fw, block, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// `idx` (B, P) int32 patch-position rows, `est` (B, P, 64) f32, `wgt`
-// (B, nR * nC) f32 with P = nR * nC * 16, `kaiser` (64,) f32; `tile_oy`
+// `idx` (B, P) int32 patch-position rows, `est` (B, P, block^2) f32, `wgt`
+// (B, nR * nC) f32 with P = nR * nC * K (block in [2, 16], K in [1, 64]),
+// `kaiser` (block^2,) f32; `tile_oy`
 // (ceil(nR / 2),) and `tile_ox` (ceil(nC / 2),) int32 footprint origins and
 // fh x fw the largest footprint (host-computed); `cover_y` (H, 2) and
 // `cover_x` (W, 2) int32 the first and last tile row (column) whose
@@ -321,30 +368,26 @@ extern "C" int bm3d_aggregate_launch(const int* idx, const float* est, const flo
                                      float* scratch, int* overflow, int epoch, float* num,
                                      float* den, int B, int H, int W, int nR, int nC, int K,
                                      int block_size, int fh, int fw, void* stream) {
-  if (block_size != kBlock || K != kK || fh < kBlock || fw < kBlock) return cudaErrorInvalidValue;
+  if (block_size < 2 || block_size > 16 || K < 1 || K > 64 || fh < block_size || fw < block_size)
+    return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nR > 0 && nC > 0) {
     const size_t smem = 2 * (size_t)kWarps * fh * fw * sizeof(float);
-    static size_t granted = 48 * 1024;  // dynamic shared memory opted into so far
-    if (smem > granted) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          bm3d_aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      granted = smem;
-    }
     const dim3 grid((nC + kTileC - 1) / kTileC, (nR + kTileR - 1) / kTileR, B);
-    bm3d_aggregate_kernel<<<grid, kWarps * 32, smem, s>>>(
-        idx, est, wgt, kaiser, tile_oy, tile_ox, scratch, overflow, epoch, H, W, nR, nC, fh, fw);
-    const cudaError_t e = cudaGetLastError();
+    const auto tiles = block_size == 8 && K == 16   ? launch_tiles<8, 16>
+                       : block_size == 8 && K == 32 ? launch_tiles<8, 32>
+                                                    : launch_tiles<0, 0>;
+    const cudaError_t e = tiles(grid, smem, s, idx, est, wgt, kaiser, tile_oy, tile_ox, scratch,
+                                overflow, epoch, H, W, nR, nC, fh, fw, block_size, K);
     if (e != cudaSuccess) return e;
   }
   const long long pixels = (long long)B * H * W;
   const unsigned fold_blocks = (unsigned)((pixels + kFoldThreads - 1) / kFoldThreads);
-  auto fold = pixels <= kFewPixels ? bm3d_aggregate_fold_kernel<true>
-                                   : bm3d_aggregate_fold_kernel<false>;
+  const auto fold = pixels <= kFewPixels ? bm3d_aggregate_fold_kernel<true>
+                                         : bm3d_aggregate_fold_kernel<false>;
   fold<<<fold_blocks, kFoldThreads, 0, s>>>(scratch, tile_oy, tile_ox, cover_y, cover_x, overflow,
                                             epoch, idx, est, wgt, kaiser, num, den, B, H, W, nR,
-                                            nC, fh, fw);
+                                            nC, fh, fw, block_size, K);
   return cudaGetLastError();
 }

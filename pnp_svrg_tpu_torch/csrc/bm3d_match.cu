@@ -326,6 +326,188 @@ cudaError_t launch_mode(int S, dim3 grid, size_t smem, cudaStream_t st, const fl
   return cudaErrorInvalidValue;
 }
 
+// ---- Any block, k, grid and window: `bm3d_match_any_kernel` -------------
+//
+// The kernel above is built for 8 x 8 blocks, 16 matches, a reference grid
+// whose half-block column positions fit its column plan (step 4) and at
+// most 640 offsets. This one takes any block in [kMinBlock, kMaxBlock], any
+// k up to kMaxK, any reference grid and any window (the wrapper bounds
+// them), and computes the same function. One CTA of kAnyWarps warps per
+// (image, kAnyTileR x kAnyTileC tile of reference blocks) stages the
+// tile's region plus a halo of `search` pixels in shared memory, as above;
+// then each warp takes one reference block at a time and walks the offsets
+// in ascending chunks of 32 x PER, lane l holding offsets l + 32 m:
+//  1. Distances in the direct form: the block x block terms in row-major
+//     order, each rounded as `sq_term` says, summed one after another
+//     (f32 adds, no FMA); each reference pixel is read once (a broadcast)
+//     for the lane's PER candidates.
+//  2. Merge. The warp keeps a running top-k of (distance, offset index)
+//     pairs, entry e in lane e % 32, slot e / 32 (two slots a lane: k <= 64).
+//     For each chunk, k rounds of a warp-wide lexicographic argmin over the
+//     running entries and the chunk's (two `redux.sync`, as above) rebuild
+//     it; the winner's holder drops it. The chunks come in ascending index
+//     order and the running entries are the k least of all earlier offsets,
+//     so the list after the last chunk is the k least of all, ascending,
+//     ties to the lowest index: `top_k_offsets_plain`, with an entry still
+//     at +inf written as index 0 (the plain version's fill).
+// Nothing grows with the window but the number of chunks: 2,401 offsets
+// need no more shared memory or registers than 49. BLOCK = 8 is compiled
+// with the block a constant (the reference profile's 16 and 32 matches run
+// there); BLOCK = 0 reads it at run time. Bound as above: f32 arithmetic,
+// here block^2 x (sub, mul, add) a valid (reference block, offset) pair.
+
+constexpr int kAnyTileR = 4, kAnyTileC = 4;  // reference blocks a CTA
+constexpr int kAnyWarps = 4;
+constexpr int kMinBlock = 2, kMaxBlock = 16, kMaxK = 64;
+constexpr unsigned kInfBits = 0x7f800000u;
+
+// (bk, bi) becomes (k, i) where (k, i) is lexicographically less.
+__device__ __forceinline__ void lex_min(unsigned& bk, int& bi, unsigned k, int i) {
+  const bool take = k < bk || (k == bk && i < bi);
+  bk = take ? k : bk;
+  bi = take ? i : bi;
+}
+
+template <int MODE, int PER, int BLOCK>
+__global__ void __launch_bounds__(kAnyWarps * 32)
+bm3d_match_any_kernel(const float* __restrict__ img, const int* __restrict__ rows,
+                      const int* __restrict__ cols, const int* __restrict__ offsets,
+                      int* __restrict__ out, int H, int W, int nR, int nC, int S, int K,
+                      int block_rt, int search, int pitch, int cand_lo, int cand_hi) {
+  extern __shared__ float region[];  // region rows x pitch
+  const int block = BLOCK > 0 ? BLOCK : block_rt;
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * kAnyTileR;
+  const int c0 = blockIdx.x * kAnyTileC;
+  const int nr = min(kAnyTileR, nR - r0);
+  const int nc = min(kAnyTileC, nC - c0);
+  const int base_r = rows[r0] - search;
+  const int base_c = cols[c0] - search;
+  const int reg_h = rows[r0 + nr - 1] - rows[r0] + block + 2 * search;
+  const int reg_w = cols[c0 + nc - 1] - cols[c0] + block + 2 * search;
+  const float* x = img + (size_t)b * H * W;
+  for (int q = threadIdx.x; q < reg_h * reg_w; q += kAnyWarps * 32) {
+    const int yy = base_r + q / reg_w;
+    const int xx = base_c + q % reg_w;
+    float v = (yy >= 0 && yy < H && xx >= 0 && xx < W) ? x[yy * W + xx] : 0.f;
+    if (MODE == 1) v = round_bf16(v);
+    region[(q / reg_w) * pitch + q % reg_w] = v;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int last_c = W - block;
+  const int2* offs2 = reinterpret_cast<const int2*>(offsets);
+  for (int t = warp; t < nr * nc; t += kAnyWarps) {
+    const int ry = rows[r0 + t / nc];
+    const int rx = cols[c0 + t % nc];
+    const int ref_at = (ry - base_r) * pitch + rx - base_c;
+    unsigned tk[2] = {kInfBits, kInfBits};  // the running top-k: (distance bits, index)
+    int ti[2] = {0x7fffffff, 0x7fffffff};
+    for (int s0 = 0; s0 < S; s0 += 32 * PER) {
+      float d[PER];
+      int at[PER];
+      bool ok[PER];
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        const int s = s0 + lane + 32 * m;
+        const int2 o = __ldg(offs2 + min(s, S - 1));
+        const int cy = ry + o.x;
+        const int cx = rx + o.y;
+        ok[m] = s < S && cy >= cand_lo && cy <= cand_hi && cx >= 0 && cx <= last_c;
+        at[m] = ref_at + o.x * pitch + o.y;
+        d[m] = 0.f;
+      }
+#pragma unroll
+      for (int ky = 0; ky < block; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < block; ++kx) {
+          const int off = ky * pitch + kx;
+          const float r = region[ref_at + off];
+#pragma unroll
+          for (int m = 0; m < PER; ++m) d[m] = __fadd_rn(d[m], sq_term<MODE>(r, region[at[m] + off]));
+        }
+      }
+      unsigned key[PER];
+#pragma unroll
+      for (int m = 0; m < PER; ++m) key[m] = ok[m] ? __float_as_uint(d[m]) : kInfBits;
+      // Distances are >= 0 or +inf, so their bits order as their values.
+      unsigned nk[2] = {kInfBits, kInfBits};
+      int ni[2] = {0x7fffffff, 0x7fffffff};
+#pragma unroll 1
+      for (int e = 0; e < K; ++e) {
+        unsigned bk = tk[0];
+        int bi = ti[0];
+        lex_min(bk, bi, tk[1], ti[1]);
+#pragma unroll
+        for (int m = 0; m < PER; ++m) lex_min(bk, bi, key[m], s0 + lane + 32 * m);
+        const unsigned least = __reduce_min_sync(0xffffffffu, bk);
+        const int win = (int)__reduce_min_sync(0xffffffffu, bk == least ? (unsigned)bi : 0xffffffffu);
+        if (lane == (e & 31)) {  // entry e: slot 0 for e < 32, else slot 1
+          nk[0] = e < 32 ? least : nk[0];
+          ni[0] = e < 32 ? win : ni[0];
+          nk[1] = e < 32 ? nk[1] : least;
+          ni[1] = e < 32 ? ni[1] : win;
+        }
+        // The holder drops the winner (an entry already at +inf may be
+        // picked again; it is written as index 0 all the same).
+#pragma unroll
+        for (int q = 0; q < 2; ++q) tk[q] = ti[q] == win ? kInfBits : tk[q];
+#pragma unroll
+        for (int m = 0; m < PER; ++m) key[m] = s0 + lane + 32 * m == win ? kInfBits : key[m];
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        tk[q] = nk[q];
+        ti[q] = ni[q];
+      }
+    }
+    int* o = out + (((size_t)b * nR + r0 + t / nc) * nC + c0 + t % nc) * K;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (lane + 32 * q < K) o[lane + 32 * q] = tk[q] == kInfBits ? 0 : ti[q];
+    }
+  }
+}
+
+template <int MODE, int PER, int BLOCK>
+cudaError_t launch_any(dim3 grid, size_t smem, cudaStream_t stream, const float* img,
+                       const int* rows, const int* cols, const int* offsets, int* out, int H,
+                       int W, int nR, int nC, int S, int K, int block, int search, int pitch,
+                       int cand_lo, int cand_hi) {
+  auto fn = bm3d_match_any_kernel<MODE, PER, BLOCK>;
+  static size_t granted = 48 * 1024;  // dynamic shared memory opted into so far
+  if (smem > granted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  fn<<<grid, kAnyWarps * 32, smem, stream>>>(img, rows, cols, offsets, out, H, W, nR, nC, S, K,
+                                             block, search, pitch, cand_lo, cand_hi);
+  return cudaGetLastError();
+}
+
+// PER = 2 (64 offsets a chunk) for small windows, else 8 (256); the block
+// a constant at 8.
+template <int MODE>
+cudaError_t launch_any_mode(int S, int block, dim3 grid, size_t smem, cudaStream_t st,
+                            const float* img, const int* rows, const int* cols,
+                            const int* offsets, int* out, int H, int W, int nR, int nC, int K,
+                            int search, int pitch, int cand_lo, int cand_hi) {
+#define PNP_LAUNCH_ANY(PER, BLOCK)                                                          \
+  return launch_any<MODE, PER, BLOCK>(grid, smem, st, img, rows, cols, offsets, out, H, W, nR, \
+                                      nC, S, K, block, search, pitch, cand_lo, cand_hi);
+  if (S <= 64) {
+    if (block == 8) PNP_LAUNCH_ANY(2, 8)
+    PNP_LAUNCH_ANY(2, 0)
+  }
+  if (block == 8) PNP_LAUNCH_ANY(8, 8)
+  PNP_LAUNCH_ANY(8, 0)
+#undef PNP_LAUNCH_ANY
+}
+
 }  // namespace
 
 // Top-K offset indices for every reference block. `img` (B, H, W) f32,
@@ -360,6 +542,39 @@ extern "C" int bm3d_match_launch(const float* img, const int* rows, const int* c
     case 2:
       return launch_mode<2>(S, grid, smem, st, img, rows, cols, offsets, col_plan, out, H, W,
                             nR, nC, search, smem_h, smem_w, pitch, d_pitch, cand_lo, cand_hi);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The same function for any block in [2, 16] and k in [1, 64], any reference
+// grid and any window: `rows` (nR,) / `cols` (nC,) int32, `offsets` (S, 2)
+// int32 with |dy|, |dx| <= search, `out` (B, nR, nC, K) int32. smem_h x
+// `pitch` floats of dynamic shared memory hold the largest tile region
+// (host-computed, `pitch` >= its width). Candidates count only with a top
+// row in [cand_lo, cand_hi], as above. Returns the launch's cudaError_t.
+extern "C" int bm3d_match_any_launch(const float* img, const int* rows, const int* cols,
+                                     const int* offsets, int* out, int B, int H, int W, int nR,
+                                     int nC, int S, int block_size, int K, int mode, int search,
+                                     int smem_h, int pitch, int cand_lo, int cand_hi,
+                                     void* stream) {
+  if (block_size < kMinBlock || block_size > kMaxBlock || K < 1 || K > kMaxK || S < 1 ||
+      nR < 1 || nC < 1 || cand_lo < 0 || cand_hi > H - block_size)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const dim3 grid((nC + kAnyTileC - 1) / kAnyTileC, (nR + kAnyTileR - 1) / kAnyTileR, B);
+  const size_t smem = sizeof(float) * (size_t)smem_h * pitch;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0:
+      return launch_any_mode<0>(S, block_size, grid, smem, st, img, rows, cols, offsets, out, H,
+                                W, nR, nC, K, search, pitch, cand_lo, cand_hi);
+    case 1:
+      return launch_any_mode<1>(S, block_size, grid, smem, st, img, rows, cols, offsets, out, H,
+                                W, nR, nC, K, search, pitch, cand_lo, cand_hi);
+    case 2:
+      return launch_any_mode<2>(S, block_size, grid, smem, st, img, rows, cols, offsets, out, H,
+                                W, nR, nC, K, search, pitch, cand_lo, cand_hi);
     default:
       return cudaErrorInvalidValue;
   }

@@ -61,6 +61,18 @@
 // Tolerance: the shifts' sums are taken in chunks, the patch sums as pair
 // sums, and the weight through exp2 with a folded log2(e), so the kernel is
 // not bitwise the plain version; it is held to it at 1e-5 max abs.
+//
+// Other patch sizes and distances (`nlm_any_kernel<P>`). The kernel above
+// is built for P = 4, D = 5. The any-kernel takes P in [1, 11] as a
+// template argument (a thread's window rows live in registers) and D in
+// [1, 15] at run time, in the same design: a warp covers 32 canvas columns
+// and writes the 32 - P + 1 whose windows it holds, the tile is
+// (8 + P - 1 + 2D) x (32 + 2D), and the (2D + 1)^2 shifts are split over
+// the CTA's warps. Its sums follow the plain version's order: the P
+// squared differences of a column one after another, then the P columns
+// (by `__shfl_sync` from the lanes that hold them) one after another; the
+// weight as above. skimage's defaults (P = 7, D = 11) make 529 shifts and
+// 26 output columns a warp.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -206,35 +218,165 @@ nlm_kernel(const float* __restrict__ x, const float* __restrict__ hs,
   }
 }
 
-// The device's SM count and how many warps of nlm_kernel one SM holds at
-// once (registers, and the thread limit); 0 if the query fails.
+// Any P in [1, 11] (a template argument) and D >= 1 (at run time); one CTA
+// per (lane b, strip of kRows rows from i0, 32 - P + 1 columns from j0).
+template <int P>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+nlm_any_kernel(const float* __restrict__ x, const float* __restrict__ hs,
+               const float* __restrict__ ss, float* __restrict__ out, int H, int W, int D,
+               int lo, int hi) {
+  constexpr int kPad = P / 2;               // reflect padding
+  constexpr int kWinP = kRows + P - 1;      // canvas rows a thread's windows cover
+  constexpr int kOutColsP = 32 - P + 1;     // output columns a warp writes
+  const int span = 2 * D + 1;
+  const int shifts = span * span;
+  const int tile_rows = kWinP + 2 * D;
+  const int tile_cols = 32 + 2 * D;
+  extern __shared__ float smem[];
+  float* tile = smem;  // tile_rows x tile_cols
+  float* part_w = smem + tile_rows * tile_cols;  // [warps][kRows][32]
+  const int nwarps = blockDim.x >> 5;
+  float* part_a = part_w + nwarps * kRows * 32;
+
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * kRows;
+  const int j0 = blockIdx.x * kOutColsP;
+  const float* img = x + (long long)b * H * W;
+  for (int e = threadIdx.x; e < tile_rows * tile_cols; e += blockDim.x) {
+    const int t = e / tile_cols, u = e % tile_cols;
+    const int r = reflect_index(i0 - kPad - D + t, H, kPad);
+    const int q = reflect_index(j0 - kPad - D + u, W, kPad);
+    tile[e] = __ldg(img + (long long)r * W + q);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = j0 - kPad + lane;  // this lane's canvas column
+  const float hv = __ldg(hs + b), sv = __ldg(ss + b);
+  const float inv_h2 = 1.0f / (hv * hv * P * P);
+  const float offset = 2.0f * sv * sv * (P * P);
+  const float k = -(inv_h2 * kLog2e);
+
+  float own[kWinP];
+#pragma unroll
+  for (int r = 0; r < kWinP; ++r) own[r] = tile[(r + D) * tile_cols + lane + D];
+
+  float wsum[kRows], acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) wsum[r] = acc[r] = 0.0f;
+
+  const int q0 = warp * shifts / nwarps, q1 = (warp + 1) * shifts / nwarps;
+  int dy = q0 / span - D, dx = q0 % span - D;
+  float brow[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int ii = i0 + r + dy;
+    brow[r] = (ii >= lo && ii < hi) ? 0.0f : -CUDART_INF_F;
+  }
+  for (int q = q0; q < q1; ++q) {
+    const float bcol = (c + dx >= 0 && c + dx < W) ? 0.0f : -CUDART_INF_F;
+    const float* cand = tile + (dy + D) * tile_cols + lane + dx + D;
+    float cv[kWinP], sq[kWinP];
+#pragma unroll
+    for (int r = 0; r < kWinP; ++r) {
+      cv[r] = cand[r * tile_cols];
+      const float e = __fsub_rn(own[r], cv[r]);
+      sq[r] = __fmul_rn(e, e);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float col = sq[r];  // rows first, one after another
+#pragma unroll
+      for (int u = 1; u < P; ++u) col = __fadd_rn(col, sq[r + u]);
+      float dist = __shfl_sync(0xffffffffu, col, (lane - kPad) & 31);  // then columns
+#pragma unroll
+      for (int u = 1; u < P; ++u)
+        dist = __fadd_rn(dist, __shfl_sync(0xffffffffu, col, (lane - kPad + u) & 31));
+      const float m = max_keep_nan(dist - offset, 0.0f);
+      const float w = exp2_approx(fmaf(m, k, brow[r] + bcol));
+      wsum[r] += w;
+      acc[r] = fmaf(w, cv[r + kPad], acc[r]);
+    }
+    if (++dx > D) {
+      dx = -D;
+      ++dy;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int ii = i0 + r + dy;
+        brow[r] = (ii >= lo && ii < hi) ? 0.0f : -CUDART_INF_F;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    part_w[(warp * kRows + r) * 32 + lane] = wsum[r];
+    part_a[(warp * kRows + r) * 32 + lane] = acc[r];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kRows * 32; e += blockDim.x) {
+    const int r = e >> 5, l = e & 31;
+    const int i = i0 + r, j = j0 - kPad + l;
+    if (l < kPad || l >= kPad + kOutColsP || i >= H || j >= W) continue;
+    float ws = part_w[e], ac = part_a[e];
+    for (int s = 1; s < nwarps; ++s) {  // fixed order: the same result every run
+      ws += part_w[s * kRows * 32 + e];
+      ac += part_a[s * kRows * 32 + e];
+    }
+    out[(long long)b * H * W + (long long)i * W + j] = ac / max_keep_nan(ws, 1e-12f);
+  }
+}
+
+constexpr int kMaxP = 11, kMaxD = 15;  // the any-kernel's envelope
+
+// The kernel of patch size P: nlm_kernel for (4, 5), else nlm_any_kernel<P>
+// (P in [1, kMaxP]); index 0 is nlm_kernel.
+const void* kernel_of(int slot) {
+  switch (slot) {
+    case 1: return (const void*)nlm_any_kernel<1>;
+    case 2: return (const void*)nlm_any_kernel<2>;
+    case 3: return (const void*)nlm_any_kernel<3>;
+    case 4: return (const void*)nlm_any_kernel<4>;
+    case 5: return (const void*)nlm_any_kernel<5>;
+    case 6: return (const void*)nlm_any_kernel<6>;
+    case 7: return (const void*)nlm_any_kernel<7>;
+    case 8: return (const void*)nlm_any_kernel<8>;
+    case 9: return (const void*)nlm_any_kernel<9>;
+    case 10: return (const void*)nlm_any_kernel<10>;
+    case 11: return (const void*)nlm_any_kernel<11>;
+    default: return (const void*)nlm_kernel;
+  }
+}
+
+// The device's SM count and how many warps of kernel_of(slot) one SM holds
+// at once (registers, and the thread limit); 0 if the query fails.
 struct Device {
   int sms = 0, warps_per_sm = 0;
 };
 
-Device query_limits(int dev) {
+Device query_limits(int dev, int slot) {
   Device d;
   int regs = 0, threads = 0;
   cudaFuncAttributes attr;
   if (cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev) != cudaSuccess ||
-      cudaFuncGetAttributes(&attr, nlm_kernel) != cudaSuccess)
+      cudaFuncGetAttributes(&attr, kernel_of(slot)) != cudaSuccess)
     return Device{};
   const int regs_per_warp = 32 * ((attr.numRegs + 7) / 8 * 8);  // allocated 8 a thread at a time
   d.warps_per_sm = threads / 32 < regs / regs_per_warp ? threads / 32 : regs / regs_per_warp;
   return d;
 }
 
-// query_limits of the current device, asked once a device.
-Device device_limits() {
+// query_limits of the current device, asked once a device and kernel.
+Device device_limits(int slot) {
   constexpr int kCached = 64;
-  static Device cache[kCached];
+  static Device cache[kCached][kMaxP + 1];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return Device{};
-  if (dev >= kCached) return query_limits(dev);
-  if (cache[dev].sms == 0) cache[dev] = query_limits(dev);
-  return cache[dev];
+  if (dev >= kCached) return query_limits(dev, slot);
+  if (cache[dev][slot].sms == 0) cache[dev][slot] = query_limits(dev, slot);
+  return cache[dev][slot];
 }
 
 // The warps a CTA: as many as keep every CTA of the grid resident at once
@@ -248,21 +390,42 @@ int plan_warps(long long ctas, const Device& d) {
 }  // namespace
 
 // `x` (B, H, W) f32, `h` and `sigma` (B,) f32 on the device, `out` (B, H, W)
-// f32. Built for patch_size 4 and patch_distance 5; rows [lo, hi) count as
-// in-image candidates (0 <= lo <= hi <= H). Returns the launch's cudaError_t.
+// f32; patch_size in [1, 11] and patch_distance in [1, 15] (nlm_kernel for
+// (4, 5)); rows [lo, hi) count as in-image candidates (0 <= lo <= hi <= H).
+// Returns the launch's cudaError_t.
 extern "C" int nlm_launch(const float* x, const float* h, const float* sigma,
                           float* out, int B, int H, int W, int patch_size,
                           int patch_distance, int lo, int hi, void* stream) {
-  if (patch_size != kP || patch_distance != kD) return cudaErrorInvalidValue;
-  if (H <= kPR || W <= kPR) return cudaErrorInvalidValue;
+  if (patch_size < 1 || patch_size > kMaxP || patch_distance < 1 || patch_distance > kMaxD)
+    return cudaErrorInvalidValue;
+  const int pad = patch_size / 2;
+  if (H <= pad || W <= pad) return cudaErrorInvalidValue;
   if (lo < 0 || hi > H || lo > hi || B > 65535) return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
-  const Device d = device_limits();
+  const bool first = patch_size == kP && patch_distance == kD;
+  const int slot = first ? 0 : patch_size;
+  const Device d = device_limits(slot);
   if (d.sms <= 0 || d.warps_per_sm <= 0) return cudaErrorInvalidDevice;
-  const dim3 grid((W + kOutCols - 1) / kOutCols, (H + kRows - 1) / kRows, B);
+  const int out_cols = 32 - patch_size + 1;
+  const dim3 grid((W + out_cols - 1) / out_cols, (H + kRows - 1) / kRows, B);
   const int warps = plan_warps((long long)grid.x * grid.y * grid.z, d);
-  const size_t smem = sizeof(float) * (kTileRows * kTileCols + 2 * warps * kRows * 32);
-  nlm_kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, h, sigma, out, H, W, lo, hi);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (first) {
+    const size_t smem = sizeof(float) * (kTileRows * kTileCols + 2 * warps * kRows * 32);
+    nlm_kernel<<<grid, warps * 32, smem, st>>>(x, h, sigma, out, H, W, lo, hi);
+    return cudaGetLastError();
+  }
+  const int tile = (kRows + patch_size - 1 + 2 * patch_distance) * (32 + 2 * patch_distance);
+  const size_t smem = sizeof(float) * (tile + 2 * warps * kRows * 32);  // < 48 KB in the envelope
+  switch (patch_size) {
+#define PNP_NLM_ANY(P)                                                                   \
+  case P:                                                                                 \
+    nlm_any_kernel<P><<<grid, warps * 32, smem, st>>>(x, h, sigma, out, H, W, patch_distance, \
+                                                       lo, hi);                           \
+    break;
+    PNP_NLM_ANY(1) PNP_NLM_ANY(2) PNP_NLM_ANY(3) PNP_NLM_ANY(4) PNP_NLM_ANY(5) PNP_NLM_ANY(6)
+    PNP_NLM_ANY(7) PNP_NLM_ANY(8) PNP_NLM_ANY(9) PNP_NLM_ANY(10) PNP_NLM_ANY(11)
+#undef PNP_NLM_ANY
+  }
   return cudaGetLastError();
 }

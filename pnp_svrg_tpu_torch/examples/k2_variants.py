@@ -5,8 +5,10 @@ variants of its source that change one constant.
 
 Variants of ``csrc/bm3d_aggregate.cu``: ``two_warps`` (``kWarps = 2``, the
 warp count before the fixed-order fold), ``fold_streams`` (the fold adds as
-it loads at every size) and ``fold_all_at_once`` (the fold issues all of a
-pixel's loads first at every size). Each is built with the port's ``nvcc``
+it loads at every size), ``fold_all_at_once`` (the fold issues all of a
+pixel's loads first at every size) and ``lane_tests`` (the tile kernel tests
+at every block whether a lane owns each patch value, as it must where
+block^2 is not a multiple of 32). Each is built with the port's ``nvcc``
 flags into ``build/pnp_svrg_tpu_torch/variants/`` and called through the
 same entry point as the kernel. The arguments are real stage-1 BM3D
 aggregations at the shapes ``chip_smoke.py`` checks: the headline batch
@@ -39,6 +41,8 @@ VARIANTS = {  # name -> (text of the built source, its replacement)
     "fold_streams": ("constexpr long long kFewPixels = 1 << 17;", "constexpr long long kFewPixels = 0;"),
     "fold_all_at_once": ("constexpr long long kFewPixels = 1 << 17;",
                          "constexpr long long kFewPixels = 1LL << 62;"),
+    "lane_tests": ("constexpr bool kFull = BLOCK > 0 && BLOCK * BLOCK % 32 == 0;",
+                   "constexpr bool kFull = false;"),
 }
 REPS, REPEATS = 50, 20
 

@@ -23,7 +23,11 @@ every term and partial sum is representable, as with dyadic inputs), not
 in its order: the plain version sums by table row, then folds.
 
 The wrapper :func:`bm3d_aggregate` takes the plain version only for a CPU
-tensor; for a CUDA tensor it launches K2 or raises.
+tensor; for a CUDA tensor it launches K2 or raises. The source's
+``bm3d_aggregate_kernel<BLOCK, KK>`` is compiled for (8, 16) and (8, 32)
+and reads block and K at run time for the rest of
+:data:`AGGREGATE_ENVELOPE`; a setting outside it raises before any launch
+(:func:`check_aggregate_envelope`).
 """
 
 from __future__ import annotations
@@ -39,8 +43,22 @@ import torch.nn.functional as F
 from pnp_svrg_tpu_torch.ops.cuda import _build
 
 TILE_R, TILE_C, _WARPS = 2, 2, 4  # kTileR, kTileC and kWarps in the source
-KERNEL_BLOCK, KERNEL_K = 8, 16  # the patch edge and group size K2 is built for
 _MAX_SMEM = 227 * 1024
+# The settings K2 takes on the card, as K1 (``bm3d_match.MATCH_ENVELOPE``):
+# (least, most) of the patch edge and of the group size K, a power of two.
+# Its footprints are those of any grid and window K1 takes.
+AGGREGATE_ENVELOPE = {"block": (2, 16), "k": (1, 64)}
+
+
+def check_aggregate_envelope(block: int, k: int) -> None:
+    """Raise ValueError, naming the bound, unless K2 takes this patch edge
+    and group size on the card."""
+    lo, hi = AGGREGATE_ENVELOPE["block"]
+    if not lo <= block <= hi:
+        raise ValueError(f"K2 takes block {lo}-{hi}, not {block}")
+    lo, hi = AGGREGATE_ENVELOPE["k"]
+    if not (lo <= k <= hi and k & (k - 1) == 0):
+        raise ValueError(f"K2 takes a power-of-two group size K in {lo}-{hi}, not {k}")
 
 
 def unfold_table(table: torch.Tensor, block: int, h: int, w: int):
@@ -204,7 +222,8 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
     the image size; ``geometry``: :func:`aggregate_geometry` of the
     reference grid and search, which K2 needs and the plain version does
     not. A CPU tensor takes the plain version; a CUDA tensor launches K2
-    (counted in ``bm3d_aggregate.launches``).
+    (counted in ``bm3d_aggregate.launches``) inside :data:`AGGREGATE_ENVELOPE`
+    and raises outside it.
 
     A row outside ``[0, hh * ww)`` makes the plain version's ``index_add_``
     raise; the kernel cannot raise, and drops that member (checking the rows
@@ -241,9 +260,7 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
         raise ValueError(f"bm3d_aggregate runs on cpu or cuda, not {est.device}")
     if geometry is None:
         raise ValueError("K2 needs the aggregate_geometry of the reference grid and search")
-    if (geometry.block, p // g) != (KERNEL_BLOCK, KERNEL_K):
-        raise ValueError(f"K2 is built for block={KERNEL_BLOCK}, K={KERNEL_K}, "
-                         f"not block={geometry.block}, K={p // g}")
+    check_aggregate_envelope(geometry.block, p // g)
     if geometry.smem_bytes > _MAX_SMEM:
         raise ValueError(f"footprint {geometry.fh}x{geometry.fw} too large for shared memory")
     if geometry.tile_oy.device != est.device:

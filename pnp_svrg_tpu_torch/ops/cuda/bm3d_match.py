@@ -22,7 +22,11 @@ round at different points:
   and square in f32, only the square rounded to bf16, the sum f32.
 
 The wrapper :func:`bm3d_match` takes the plain version only for a CPU tensor;
-for a CUDA tensor it launches K1 or raises.
+for a CUDA tensor it launches K1 or raises. K1 has two kernels in one
+source: ``bm3d_match_kernel``, built for 8 x 8 blocks, 16 matches, a step-4
+grid and at most 640 offsets (the headline's and the bench lanes'), and
+``bm3d_match_any_kernel`` for the rest of :data:`MATCH_ENVELOPE`; a setting
+outside it raises before any launch (:func:`check_match_envelope`).
 """
 
 from __future__ import annotations
@@ -42,8 +46,30 @@ TILE_R, TILE_C = 4, 8  # reference blocks per CTA (kTileR/kTileC in the source)
 _WARPS, _IN_FLIGHT, _REF_ROWS = 4, 2, 20  # kWarps, kInFlight and kRefRows in the source
 _MAX_COLS = TILE_C + 2  # kMaxCols: half-block positions of a column tile
 _MAX_OFFSETS = 32 * 20  # phase 2 holds at most 20 offsets a lane (search 12)
-KERNEL_BLOCK, KERNEL_K = 8, 16  # the patch edge and group size K1 is built for
+KERNEL_BLOCK, KERNEL_K = 8, 16  # the patch edge and group size of bm3d_match_kernel
+ANY_TILE_R, ANY_TILE_C = 4, 4  # kAnyTileR / kAnyTileC: bm3d_match_any_kernel's tiles
 _MAX_SMEM = 227 * 1024
+# The settings K1 takes on the card: (least, most) of each; k is also a
+# power of two (the Hadamard transform along the group needs one), the
+# reference step 1 to the block, the search step and the row bounds any.
+MATCH_ENVELOPE = {"block": (2, 16), "search": (0, 24), "k": (1, 64)}
+
+
+def check_match_envelope(block: int, k: int, search: int, step: int) -> None:
+    """Raise ValueError, naming the bound, unless K1 takes this ``block``,
+    group size ``k``, window radius ``search`` and reference ``step`` (the
+    largest stride of the grid) on the card."""
+    lo, hi = MATCH_ENVELOPE["block"]
+    if not lo <= block <= hi:
+        raise ValueError(f"K1 takes block {lo}-{hi}, not {block}")
+    if not 1 <= step <= block:
+        raise ValueError(f"K1 takes a reference step of 1 to the block ({block}), not {step}")
+    lo, hi = MATCH_ENVELOPE["search"]
+    if not lo <= search <= hi:
+        raise ValueError(f"K1 takes search {lo}-{hi} (at most {(2 * hi + 1) ** 2} offsets), not {search}")
+    lo, hi = MATCH_ENVELOPE["k"]
+    if not (lo <= k <= hi and k & (k - 1) == 0):
+        raise ValueError(f"K1 takes a power-of-two k in {lo}-{hi}, not {k}")
 
 
 @functools.lru_cache(maxsize=32)
@@ -136,21 +162,22 @@ def _check_bounds(row_valid_bounds, h: int) -> tuple:
     return lo, hi
 
 
-def tile_regions(rows, cols, search: int, block: int):
-    """K1's per-tile staging: for each tile of TILE_R x TILE_C reference
-    blocks, the origin ``(rows[first] - search, cols[first] - search)`` of
-    the image region it stages and the rows its reference patches span.
-    Returns (row origins, column origins, smem_h, smem_w, largest
-    reference-row span): every reference patch and every candidate within
-    ``search`` of it lies in ``[origin, origin + smem)`` along each axis."""
+def tile_regions(rows, cols, search: int, block: int, tile: tuple = (TILE_R, TILE_C)):
+    """K1's per-tile staging: for each tile of ``tile`` = (rows, columns) of
+    reference blocks (``bm3d_match_kernel``'s by default), the origin
+    ``(rows[first] - search, cols[first] - search)`` of the image region it
+    stages and the rows its reference patches span. Returns (row origins,
+    column origins, smem_h, smem_w, largest reference-row span): every
+    reference patch and every candidate within ``search`` of it lies in
+    ``[origin, origin + smem)`` along each axis."""
 
-    def axis(grid, tile):
-        starts = range(0, len(grid), tile)
-        spans = [int(grid[min(i + tile, len(grid)) - 1]) - int(grid[i]) for i in starts]
+    def axis(grid, n):
+        starts = range(0, len(grid), n)
+        spans = [int(grid[min(i + n, len(grid)) - 1]) - int(grid[i]) for i in starts]
         return [int(grid[i]) - search for i in starts], max(spans)
 
-    oy, span_r = axis(rows, TILE_R)
-    ox, span_c = axis(cols, TILE_C)
+    oy, span_r = axis(rows, tile[0])
+    ox, span_c = axis(cols, tile[1])
     return oy, ox, span_r + block + 2 * search, span_c + block + 2 * search, span_r + block
 
 
@@ -177,24 +204,49 @@ def column_plans(cols, search: int, block: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class MatchGeometry:
-    """Device copies of the grid and offsets and K1's shared-memory layout,
-    made once per shape, so that a call does no per-offset host work."""
+    """Device copies of the grid and offsets and K1's shared-memory layouts,
+    made once per shape, so that a call does no per-offset host work.
+    ``col_plan`` is None where ``bm3d_match_kernel`` cannot take the grid
+    and window; ``bm3d_match_any_kernel`` takes every geometry."""
 
     rows_t: torch.Tensor
     cols_t: torch.Tensor
     offsets_t: torch.Tensor
-    col_plan: torch.Tensor  # (ceil(nC / TILE_C), 27) int32: column_plans()
+    col_plan: torch.Tensor | None  # (ceil(nC / TILE_C), 27) int32: column_plans()
+    block: int
+    step: int  # the largest stride of the reference grid
     search: int
     ref_rows: int  # the largest reference-row span of a tile, plus the block
     smem_h: int
     smem_w: int
     pitch: int  # region row pitch (odd: conflict-free loads)
     d_pitch: int  # distance buffer row pitch (odd)
+    any_smem_h: int  # bm3d_match_any_kernel's largest tile region, rows
+    any_pitch: int  # and its row pitch (odd, at least its width)
 
     @property
     def smem_bytes(self) -> int:
+        """Dynamic shared memory of ``bm3d_match_kernel``'s CTA."""
         hsum = _WARPS * _IN_FLIGHT * _REF_ROWS * _MAX_COLS
         return 4 * (self.smem_h * self.pitch + TILE_R * TILE_C * self.d_pitch + hsum)
+
+    @property
+    def any_smem_bytes(self) -> int:
+        """Dynamic shared memory of ``bm3d_match_any_kernel``'s CTA."""
+        return 4 * self.any_smem_h * self.any_pitch
+
+    def first_kernel_takes(self, block: int, k: int) -> bool:
+        """Whether ``bm3d_match_kernel`` (8 x 8 blocks, 16 matches, a step-4
+        column plan, at most 640 offsets) takes a call; else the any-kernel."""
+        return ((block, k) == (KERNEL_BLOCK, KERNEL_K) and self.col_plan is not None
+                and self.ref_rows <= _REF_ROWS and self.offsets_t.shape[0] <= _MAX_OFFSETS
+                and self.smem_bytes <= _MAX_SMEM)
+
+
+def grid_step(grid) -> int:
+    """The largest stride between consecutive reference coordinates (1 for
+    a single block)."""
+    return max([int(b) - int(a) for a, b in zip(grid[:-1], grid[1:])] or [1])
 
 
 @functools.lru_cache(maxsize=32)
@@ -202,10 +254,15 @@ def _geometry(rows: tuple, cols: tuple, offsets: tuple, block: int,
               device: torch.device) -> MatchGeometry:
     search = max(abs(v) for off in offsets for v in off)
     _, _, smem_h, smem_w, ref_rows = tile_regions(rows, cols, search, block)
+    _, _, any_h, any_w, _ = tile_regions(rows, cols, search, block, (ANY_TILE_R, ANY_TILE_C))
     as_dev = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
-    plan = torch.as_tensor(column_plans(cols, search, block), device=device)
-    return MatchGeometry(as_dev(rows), as_dev(cols), as_dev(offsets), plan, search, ref_rows,
-                         smem_h, smem_w, smem_w | 1, len(offsets) | 1)
+    try:
+        plan = torch.as_tensor(column_plans(cols, search, block), device=device)
+    except ValueError:  # not a grid bm3d_match_kernel's column plan covers
+        plan = None
+    return MatchGeometry(as_dev(rows), as_dev(cols), as_dev(offsets), plan, block,
+                         max(grid_step(rows), grid_step(cols)), search, ref_rows, smem_h, smem_w,
+                         smem_w | 1, len(offsets) | 1, any_h, any_w | 1)
 
 
 def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
@@ -218,12 +275,15 @@ def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
 
 
 def _lib():
+    """The two entry points of ``csrc/bm3d_match.cu``, bound."""
     lib = _build.load("bm3d_match")
-    fn = lib.bm3d_match_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    first, any_ = lib.bm3d_match_launch, lib.bm3d_match_any_launch
+    if first.argtypes is None:
+        first.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+        first.restype = ctypes.c_int
+        any_.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+        any_.restype = ctypes.c_int
+    return first, any_
 
 
 def bm3d_match(
@@ -239,7 +299,8 @@ def bm3d_match(
     rows, columns and offsets must be the arguments'); ``row_valid_bounds``:
     integer ``(lo, hi)``, the rows that count as image rows. A CPU tensor
     takes the plain version; a CUDA tensor launches K1 (counted in
-    ``bm3d_match.launches``)."""
+    ``bm3d_match.launches``) inside :data:`MATCH_ENVELOPE` and raises
+    outside it."""
     if mode not in MODES:
         raise ValueError(f"unknown match mode {mode!r}; have {tuple(MODES)}")
     if imgs.dim() != 3 or imgs.dtype != torch.float32:
@@ -254,28 +315,32 @@ def bm3d_match(
         return bm3d_match_plain(imgs, rows, cols, offsets, block, k, mode, row_valid_bounds)
     if imgs.device.type != "cuda":
         raise ValueError(f"bm3d_match runs on cpu or cuda, not {imgs.device}")
-    if (block, k) != (KERNEL_BLOCK, KERNEL_K):
-        raise ValueError(f"K1 is built for block={KERNEL_BLOCK}, k={KERNEL_K}, "
-                         f"not block={block}, k={k}")
     g = geometry or match_geometry(rows, cols, offsets, block, imgs.device)
+    check_match_envelope(block, k, g.search, g.step)
+    if g.block != block:
+        raise ValueError(f"geometry for block {g.block}, called with block {block}")
     if g.rows_t.device != imgs.device:
         raise ValueError(f"geometry on {g.rows_t.device} but images on {imgs.device}")
-    if g.ref_rows > _REF_ROWS:
-        raise ValueError(f"reference rows of a tile span {g.ref_rows} > {_REF_ROWS} pixels "
-                         "(K1 is built for reference steps up to 4)")
-    if g.offsets_t.shape[0] > _MAX_OFFSETS or g.smem_bytes > _MAX_SMEM:
-        raise ValueError(f"search window too large: {g.offsets_t.shape[0]} offsets (K1 holds "
-                         f"{_MAX_OFFSETS}), {g.smem_bytes} bytes of shared memory")
+    if g.any_smem_bytes > _MAX_SMEM:  # not reached inside the envelope
+        raise ValueError(f"a tile's region needs {g.any_smem_bytes} bytes of shared memory")
     b, h, w = imgs.shape
     x = imgs.contiguous()
     nr, nc, s = g.rows_t.numel(), g.cols_t.numel(), g.offsets_t.shape[0]
     out = torch.empty((b, nr, nc, k), dtype=torch.int32, device=imgs.device)
-    err = _lib()(
-        x.data_ptr(), g.rows_t.data_ptr(), g.cols_t.data_ptr(), g.offsets_t.data_ptr(),
-        g.col_plan.data_ptr(), out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k), MODES[mode],
-        g.search, g.smem_h, g.smem_w, g.pitch, g.d_pitch, lo, hi - block,
-        torch.cuda.current_stream(imgs.device).cuda_stream,
-    )
+    first, any_ = _lib()
+    stream = torch.cuda.current_stream(imgs.device).cuda_stream
+    if g.first_kernel_takes(block, k):
+        err = first(
+            x.data_ptr(), g.rows_t.data_ptr(), g.cols_t.data_ptr(), g.offsets_t.data_ptr(),
+            g.col_plan.data_ptr(), out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k),
+            MODES[mode], g.search, g.smem_h, g.smem_w, g.pitch, g.d_pitch, lo, hi - block, stream,
+        )
+    else:
+        err = any_(
+            x.data_ptr(), g.rows_t.data_ptr(), g.cols_t.data_ptr(), g.offsets_t.data_ptr(),
+            out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k), MODES[mode], g.search,
+            g.any_smem_h, g.any_pitch, lo, hi - block, stream,
+        )
     _build.check(err, f"bm3d_match (block={block}, k={k}, mode={mode})")
     bm3d_match.launches += 1
     return out

@@ -33,7 +33,18 @@ import torch.nn.functional as F
 
 from pnp_svrg_tpu_torch.ops.cuda import _build
 
-KERNEL_PATCH, KERNEL_DISTANCE = 4, 5  # the patch size and distance K3 is built for
+# The settings K3 takes on the card: (least, most) of each. ``nlm_kernel``
+# is built for (4, 5), ``nlm_any_kernel<P>`` takes the rest.
+NLM_ENVELOPE = {"patch_size": (1, 11), "patch_distance": (1, 15)}
+
+
+def check_nlm_envelope(patch_size: int, patch_distance: int) -> None:
+    """Raise ValueError, naming the bound, unless K3 takes this patch size
+    and distance on the card."""
+    for name, v in (("patch_size", patch_size), ("patch_distance", patch_distance)):
+        lo, hi = NLM_ENVELOPE[name]
+        if not (isinstance(v, int) and lo <= v <= hi):
+            raise ValueError(f"K3 takes {name} {lo}-{hi}, not {v!r}")
 
 
 def _lane_values(v, b: int, device: torch.device, name: str) -> torch.Tensor:
@@ -107,8 +118,8 @@ def nlm_denoise(
     ``sigma`` (scalars or (B,) tensors on the image's device).
 
     A CPU tensor takes the plain version; a CUDA tensor launches K3 (counted
-    in ``nlm_denoise.launches``), which is built for ``patch_size=4``,
-    ``patch_distance=5`` and integer row bounds ``0 <= lo <= hi <= H``."""
+    in ``nlm_denoise.launches``), which takes :data:`NLM_ENVELOPE` and
+    integer row bounds ``0 <= lo <= hi <= H``, and raises outside them."""
     if image.dim() not in (2, 3):
         raise ValueError(f"expected an (H, W) or (B, H, W) image, got {tuple(image.shape)}")
     if image.device.type == "cpu":
@@ -117,9 +128,7 @@ def nlm_denoise(
         raise ValueError(f"nlm_denoise runs on cpu or cuda, not {image.device}")
     if image.dtype != torch.float32:
         raise ValueError(f"expected float32, got {image.dtype}")
-    if (patch_size, patch_distance) != (KERNEL_PATCH, KERNEL_DISTANCE):
-        raise ValueError(f"K3 is built for patch_size={KERNEL_PATCH}, patch_distance="
-                         f"{KERNEL_DISTANCE}, not {patch_size}, {patch_distance}")
+    check_nlm_envelope(patch_size, patch_distance)
     single = image.dim() == 2
     x = (image[None] if single else image).contiguous()
     b, hh, ww = x.shape

@@ -273,8 +273,8 @@ def test_dense_aggregation_runs_no_scatter(rng, monkeypatch):
 
 
 def test_cpu_path_takes_steps_the_kernels_are_not_built_for(rng):
-    # K1 is built for reference steps up to 4 on a step grid; the plain
-    # versions, which the CPU runs, take any step.
+    # The plain versions, which the CPU runs, take any step (the kernels
+    # take steps up to the block, check_match_envelope).
     _, x = _noisy_batch(rng, size=32)
     kw = dict(step=3, search=4)
     want = np.asarray(jbm3d.bm3d_denoise_batch(jnp.asarray(x), 0.1, params=jbm3d.BM3DParams(**kw)))

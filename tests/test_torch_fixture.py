@@ -102,6 +102,7 @@ minutes).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import importlib.util
 import itertools
@@ -125,6 +126,7 @@ from pnp_svrg_tpu.core.problem import minmax_normalize as jax_minmax_normalize
 from pnp_svrg_tpu.core.problem import resolve_noise as jax_resolve_noise
 from pnp_svrg_tpu.denoisers.bm3d import BM3DDenoiser as JaxBM3DDenoiser
 from pnp_svrg_tpu.denoisers.bm3d import BM3DParams as JaxBM3DParams
+from pnp_svrg_tpu.denoisers.bm3d import bm3d_denoise_batch as jax_bm3d_denoise_batch
 from pnp_svrg_tpu.denoisers.dncnn import DnCNNDenoiser as JaxDnCNNDenoiser
 from pnp_svrg_tpu.denoisers.nlm import NLMDenoiser as JaxNLMDenoiser
 from pnp_svrg_tpu.ops.metrics import ssim as jax_ssim
@@ -141,6 +143,7 @@ from pnp_svrg_tpu.models.spectral_norm import init_u as jax_init_u
 from pnp_svrg_tpu.models.spectral_norm import power_iteration_uv as jax_power_iteration_uv
 from pnp_svrg_tpu.models.spectral_norm import sigma_uv as jax_sigma_uv
 from pnp_svrg_tpu.ops.metrics import psnr as jax_psnr
+from pnp_svrg_tpu.ops.sigma import estimate_sigma as jax_estimate_sigma
 from pnp_svrg_tpu.training import data as jax_train_data
 from pnp_svrg_tpu.training.checkpoint import load_checkpoint as jax_load_checkpoint
 from pnp_svrg_tpu.training.train_dncnn import TrainConfig as JaxTrainConfig
@@ -154,8 +157,11 @@ import pnp_svrg_tpu
 from pnp_svrg_tpu.utils import viz as jax_viz
 from pnp_svrg_tpu_torch.convert import (
     BENCH_LANES,
+    BM3D_PROFILE_LANE,
     CSMRI_BATCH_LANES,
+    ENVELOPE_FIXTURE,
     HEADLINE_VARIANTS_FIXTURE,
+    NLM_SKIMAGE,
     UNIFORM_FIXTURE,
     UNIFORM_MASKS,
     DEBLUR_FIXTURE,
@@ -187,6 +193,7 @@ from pnp_svrg_tpu_torch.convert import (
     load_deblur_masks,
     load_deblur_problem,
     load_deblur_reference,
+    load_envelope_reference,
     load_headline_masks,
     load_headline_problems,
     load_nlm_gd_reference,
@@ -206,6 +213,7 @@ from pnp_svrg_tpu_torch.convert import (
     pr_matrix_blocks,
 )
 from pnp_svrg_tpu_torch.denoisers.dncnn import CHECKPOINT_DIR
+from pnp_svrg_tpu_torch.ops.sigma import estimate_sigma
 from pnp_svrg_tpu_torch.problems.deblur import load_kernel_image
 from pnp_svrg_tpu_torch.utils.io import DATA_DIR, load_image
 
@@ -270,20 +278,53 @@ def build_headline_masks(mask: np.ndarray) -> np.ndarray:
 
 
 def run_jax_batch_lane(lane: str, probs: list, lanes: list) -> dict:
-    """One of :data:`CSMRI_BATCH_LANES` as bench.py runs it with the JAX
-    package on the CPU: per-lane (eta, sigma_modifier) from its tuned JSON,
-    its ``BM3DParams``, PnP-SVRG 16 x 10, minibatch 4000, ``PRNGKey(2)``
-    (the key chain :func:`build_headline_masks` replays). Returns the
+    """One of :data:`CSMRI_BATCH_LANES` (or ``"bm3d_profile"``,
+    :data:`BM3D_PROFILE_LANE`) as bench.py runs it with the JAX package on
+    the CPU: per-lane (eta, sigma_modifier) from its tuned JSON, its
+    ``BM3DParams``, PnP-SVRG 16 x 10, minibatch 4000, ``PRNGKey(2)`` (the
+    key chain :func:`build_headline_masks` replays). Returns the
     (1 + n_outer*(t2+1), B) PSNR trace and the per-lane final SSIM."""
-    tuned, default_eta, default_mod, p = CSMRI_BATCH_LANES[lane]
+    tuned, default_eta, default_mod, p = (BM3D_PROFILE_LANE if lane == "bm3d_profile"
+                                          else CSMRI_BATCH_LANES[lane])
     eta, mod = lane_params(DATA_DIR / tuned, lanes, default_eta, default_mod, device="cpu")
     batched = jax_stack_problems(probs)
-    den = JaxBM3DDenoiser(sigma_modifier=jnp.asarray(mod.numpy()), params=JaxBM3DParams(
-        search=p.search, search_step=p.search_step, matcher=p.matcher, match_dtype=p.match_dtype))
+    den = JaxBM3DDenoiser(sigma_modifier=jnp.asarray(mod.numpy()),
+                          params=JaxBM3DParams(**dataclasses.asdict(p)))
     out = jax_pnp_svrg(batched, den, eta=jnp.asarray(eta.numpy()), n_outer=N_OUTER, t2=T2,
                        mini_batch_size=MINI_BATCH, key=jax.random.PRNGKey(MASK_KEY))
     return {"psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32),
             "ssim": np.asarray(jax.vmap(jax_ssim)(batched.x, out["image"]), np.float32)}
+
+
+def jax_first_bm3d_call(probs: list, lanes: list) -> dict:
+    """One JAX BM3D call at :data:`BM3D_PROFILE_LANE`'s parameters on each
+    headline lane's first denoise input as the JAX loop forms it: ``x_init``
+    after one full-gradient step with the lane's eta (``v = mu`` there), and
+    sigma the estimate times the lane's modifier."""
+    tuned, default_eta, default_mod, p = BM3D_PROFILE_LANE
+    eta, mod = lane_params(DATA_DIR / tuned, lanes, default_eta, default_mod, device="cpu")
+    batched = jax_stack_problems(probs)
+    x = batched.x_init
+    z = x - jnp.asarray(eta.numpy())[:, None, None] * batched.grad_full(x)
+    sigma = jax_estimate_sigma(z) * jnp.asarray(mod.numpy())
+    denoise = jax.jit(jax_bm3d_denoise_batch, static_argnames=("params", "stages"))
+    out = denoise(z, sigma, params=JaxBM3DParams(**dataclasses.asdict(p)))
+    return {"first_input": np.asarray(z, np.float32), "first_sigma": np.asarray(sigma, np.float32),
+            "first_output": np.asarray(out, np.float32)}
+
+
+def run_jax_nlm_skimage() -> dict:
+    """The CSMRI + NLM lane (its tuned configuration, ``PRNGKey(2)``) with
+    :data:`NLM_SKIMAGE`'s patch size and distance, on the JAX NLM's jnp
+    path: PSNR trace and final SSIM."""
+    cfg = nlm_params()
+    prob = nlm_problem()
+    den = JaxNLMDenoiser(sigma_modifier=cfg["sigma_modifier"], use_pallas=False, **NLM_SKIMAGE)
+    out = jax_pnp_svrg(prob, den, eta=cfg["eta"], n_outer=cfg["n_outer"], t2=cfg["t2"],
+                       mini_batch_size=cfg["mini_batch_size"], lr_decay=cfg["lr_decay"],
+                       key=jax.random.PRNGKey(MASK_KEY))
+    return {"psnr_per_iter": np.asarray(out["psnr_per_iter"], np.float32),
+            "ssim": np.float32(jax_ssim(prob.x, out["image"]))}
 
 
 def nlm_problem():
@@ -886,6 +927,42 @@ def test_batch_lane_references_are_stored(lane):
     np.testing.assert_allclose(trace[0], prob.psnr(prob.x_init).numpy(), atol=1e-4)
 
 
+def test_bm3d_profile_reference_is_stored_and_starts_from_the_ports_first_input():
+    """The JAX CPU run of bm3d_profile (the headline problems, masks and
+    tuning with the reference's own BM3D; ``python tests/test_torch_fixture.py
+    envelope`` makes it) and its single BM3D call: the call's input is the
+    port's own first denoise input (``x_init`` after one full-gradient step,
+    the lane's eta) to f32 rounding, and its sigma the port's estimate of it
+    times the lane's modifier."""
+    ref = load_envelope_reference("bm3d_profile")
+    trace = ref["psnr_per_iter"]
+    assert trace.shape == (1 + N_OUTER * (T2 + 1), 13) and np.isfinite(trace).all()
+    assert ref["ssim"].shape == (13,) and np.all(trace[-1] > trace[0])
+    prob, lanes = load_headline_problems(device="cpu")
+    np.testing.assert_allclose(trace[0], prob.psnr(prob.x_init).numpy(), atol=1e-4)
+    tuned, default_eta, default_mod, _ = BM3D_PROFILE_LANE
+    eta, mod = lane_params(DATA_DIR / tuned, lanes, default_eta, default_mod, device="cpu")
+    x = prob.x_init.reshape(13, -1)
+    z = (x - eta[:, None] * prob.grad_full(x).reshape(x.shape)).reshape(prob.x_init.shape)
+    assert ref["first_input"].shape == ref["first_output"].shape == (13, SIZE, SIZE)
+    scale = np.abs(ref["first_input"]).max()
+    np.testing.assert_allclose(z.numpy(), ref["first_input"], atol=1e-5 * scale)
+    np.testing.assert_allclose(estimate_sigma(z).numpy() * mod.numpy(), ref["first_sigma"], rtol=1e-4)
+    out = ref["first_output"]  # a denoise of an aliased image: smoother, not always closer to x
+    assert np.isfinite(out).all() and np.all(np.abs(np.diff(out, axis=-1)).mean((1, 2))
+                                             < np.abs(np.diff(ref["first_input"], axis=-1)).mean((1, 2)))
+
+
+def test_nlm_skimage_reference_is_stored():
+    """The JAX CPU run of the CSMRI + NLM lane at skimage's NLM defaults
+    (``envelope``): one lane's trace from the lane's zero-filled start."""
+    ref = load_envelope_reference("csmri_nlm_skimage")
+    trace = ref["psnr_per_iter"]
+    assert trace.shape == (1 + N_OUTER * (T2 + 1),) and np.isfinite(trace).all()
+    assert trace[-1] > trace[0] and np.shape(ref["ssim"]) == ()
+    np.testing.assert_allclose(trace[:1], load_nlm_reference()["psnr_per_iter"][:1], atol=0)
+
+
 def test_nlm_masks_fixture_matches_unbatched_key_chain():
     prob = nlm_problem()
     with np.load(NLM_MASKS) as f:
@@ -1172,7 +1249,7 @@ def cpu_lanes(parts=CPU_LANE_PARTS) -> None:
 def build(names) -> None:
     """Write the named fixtures (``headline``, ``nlm``, ``deblur``, ``pr``,
     ``pr_sarah``, ``train``, ``drivers``, ``uniform``, ``variants``,
-    ``realsn_export``)."""
+    ``realsn_export``, ``envelope``)."""
     if "headline" in names or "nlm" in names:
         arrays = build_headline_arrays()
         arrays.pop("x")  # rebuilt by the port's load_image
@@ -1223,6 +1300,22 @@ def build(names) -> None:
             print(f"JAX {lane}: Set12-VD mean final PSNR {run['psnr_per_iter'][-1, :12].mean():.4f} dB, "
                   f"flagship {run['psnr_per_iter'][-1, 12]:.4f}", file=sys.stderr, flush=True)
         np.savez_compressed(HEADLINE_VARIANTS_FIXTURE, **variants)
+    if "envelope" in names:
+        probs, paths, _ = headline_jax_problems()
+        lanes = [Path(p).name for p in paths]
+        profile = jax_first_bm3d_call(probs, lanes)
+        x = np.stack([np.asarray(p.x) for p in probs])
+        first_db = [float(jax_psnr(jnp.asarray(a), jnp.asarray(b))) for a, b in zip(x, profile["first_output"])]
+        print(f"JAX bm3d_profile first call: PSNR per lane {np.round(first_db, 4).tolist()}",
+              file=sys.stderr, flush=True)
+        skimage = run_jax_nlm_skimage()
+        print(f"JAX csmri_nlm_skimage: final PSNR {skimage['psnr_per_iter'][-1]:.4f} dB, "
+              f"SSIM {float(skimage['ssim']):.4f}", file=sys.stderr, flush=True)
+        profile |= run_jax_batch_lane("bm3d_profile", probs, lanes)
+        print(f"JAX bm3d_profile: Set12-VD mean final PSNR {profile['psnr_per_iter'][-1, :12].mean():.4f} dB, "
+              f"per lane {np.round(profile['psnr_per_iter'][-1], 4).tolist()}", file=sys.stderr, flush=True)
+        np.savez_compressed(ENVELOPE_FIXTURE, **{f"bm3d_profile/{k}": v for k, v in profile.items()},
+                            **{f"csmri_nlm_skimage/{k}": v for k, v in skimage.items()})
     if "realsn_export" in names:
         images = [jax_train_data.load_gray(p) for p in sorted(VAL_DIR.glob("*.png"))]
         arrays = {}
@@ -1243,13 +1336,13 @@ def build(names) -> None:
               f"losses {train['losses'].tolist()}, {int(train['n_patches'])} patches", file=sys.stderr)
     for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE, PR_SARAH_FIXTURE,
                  TRAIN_FIXTURE, PAPER_DRIVERS_FIXTURE, UNIFORM_FIXTURE, UNIFORM_MASKS, HEADLINE_VARIANTS_FIXTURE,
-                 REALSN_EXPORT_FIXTURE):
+                 REALSN_EXPORT_FIXTURE, ENVELOPE_FIXTURE):
         if path.exists():
             print(f"{path} ({path.stat().st_size} bytes)", file=sys.stderr)
 
 
 FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah", "train", "drivers", "uniform", "variants",
-            "realsn_export")
+            "realsn_export", "envelope")
 
 ULP_SHIFTS = ("down", "up")  # x_init moved one ulp towards -inf / +inf
 # The PR + SARAH lane's starts: one to four ulps down and up.
