@@ -70,8 +70,10 @@ imports no JAX. Phases, each printing one JSON line:
    reference's own BM3D, ``bm3d`` 3.0.9's default profile (8 x 8 blocks,
    step 3, a 39 x 39 window: 1,521 offsets; 16 matches in the
    hard-threshold stage, 32 in the Wiener stage; ``bf16_xla``), in the
-   headline's pattern without the spread seeds: K1 through its
-   any-kernel, K2 through its (8, 32) and (8, 16) code, 320 launches each;
+   headline's pattern without the spread seeds: K1 through its tile
+   kernel (``bm3d_match_tile_kernel``: every one of its 320 launches, and
+   the kernel's name in the profile's K1 group, the any-kernel's not),
+   K2 through its (8, 32) and (8, 16) code, 320 launches each;
    two runs on the JAX masks bitwise equal, their Set12-VD mean held to the
    JAX CPU run less 0.5 dB (``params_envelope_jax.npz``), and one BM3D call
    on each lane's first denoise input as the JAX loop forms it held to the
@@ -306,12 +308,15 @@ from pnp_svrg_tpu_torch.denoisers.dncnn import CHECKPOINT_DIR, DnCNNDenoiser, fl
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import _build
+from pnp_svrg_tpu_torch.ops.cuda import bm3d_match as k1_module
 from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import (
+    K1_KERNELS,
     MODES,
     bm3d_match,
     bm3d_match_plain,
     match_distances_plain,
     match_geometry,
+    match_kernel,
 )
 from pnp_svrg_tpu_torch.ops.cuda.bm3d_aggregate import (
     aggregate_geometry,
@@ -537,10 +542,16 @@ REALSN_BUILD = Path(__file__).resolve().parent / "build" / "realsn_export"
 # and B = 9, each on its kernel's rules.
 PROFILE_CALL_TOL_DB, ENVELOPE_REPEATS = 0.01, 2
 ENVELOPE_LANES = ("bm3d_profile",)  # CSMRI_LANES held to the envelope fixture
+# The K1 kernel every launch of a lane's timed run must go to (match_kernel's
+# choice; bm3d_match_kernel for every other BM3D lane).
+LANE_K1_KERNEL = {"bm3d_profile": "bm3d_match_tile_kernel"}
 ENVELOPE_K1 = {"profile_ht": (8, 3, 19, 16, "input"), "profile_wiener": (8, 3, 19, 32, "basic"),
                "search24": (8, 3, 24, 16, "input"), "golden": (4, 2, 3, 4, "input")}
 ENVELOPE_K2 = {"profile_ht": (8, 3, 19, 16), "profile_wiener": (8, 3, 19, 32), "golden": (4, 2, 3, 4)}
 ENVELOPE_K3 = ((7, 11), (1, 1), (11, 15))
+# K1 rows also carry the kernel match_kernel names for them and, where
+# that is the tile kernel, the replaced any-kernel's time on the same call.
+K1_ROW_FIELDS = ("kernel", "prev_design_ms", "speedup_vs_prev_design")
 # The lane whose run launches a kernel row's shape, and the share of that
 # lane's launches the shape takes (rows off every lane: 0). Each of
 # bm3d_profile's denoises runs its two stages once (its launch check holds
@@ -554,7 +565,7 @@ SFU_PER_SM_CLOCK, N_SMS = 16, 132  # expf throughput: 16 a clock on each of 132 
 KERNELS = {"bm3d_match": bm3d_match, "bm3d_aggregate": bm3d_aggregate, "nlm": nlm_denoise}
 K2_REPEATS = 50  # more K2 calls on one call's arguments, each bit for bit the first
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
-    ("K1 bm3d_match", ("bm3d_match_kernel", "bm3d_match_any_kernel")),
+    ("K1 bm3d_match", K1_KERNELS),
     ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel", "bm3d_aggregate_fold_kernel")),
     ("K3 nlm", ("nlm_kernel", "nlm_any_kernel")),
     # Before the matmul group: cuDNN's implicit-GEMM convolutions
@@ -774,13 +785,14 @@ def phase_build() -> dict:
 def ptxas_summary(log: str) -> dict:
     """Registers, spills and static shared memory of each kernel that ptxas
     compiled, keyed by its name and template arguments (``<mode, offsets a
-    lane>`` for K1's first kernel, ``<mode, offsets a lane, block>`` for its
-    any-kernel, ``<block, K>`` for K2's tiles)."""
+    lane>`` for K1's first kernel, ``<mode, slots a lane, step>`` for its
+    tile kernel, ``<mode, offsets a lane, block>`` for its any-kernel,
+    ``<block, K>`` for K2's tiles)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            base = re.search(r"(bm3d_match(?:_any)?|bm3d_aggregate(?:_fold)?|nlm(?:_any)?)_kernel",
+            base = re.search(r"(bm3d_match(?:_any|_tile)?|bm3d_aggregate(?:_fold)?|nlm(?:_any)?)_kernel",
                              m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (f"<{', '.join(args)}>" if args else "")
@@ -1214,14 +1226,18 @@ def profile_lane_inputs() -> tuple:
 
 
 def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mode: str,
-                 search_step: int = 1, modes=tuple(MODES)) -> dict:
+                 search_step: int = 1, modes=tuple(MODES), prev_design: bool = False) -> dict:
     """K1 at one setting against its plain version, in each of ``modes`` on
     each image of ``imgs``: the multiset agreement of each
     block's k (>= 0.999 in f32, >= 0.995 in bf16), slot by slot the same
     offset or a near-tie (:func:`near_tie` of the block), and as many
     invalid picks (index-0 fills) as the plain version; then its device
     time in ``lane_mode`` on the first image, the plain version's and the
-    bound."""
+    bound. ``kernel`` is the kernel :func:`match_kernel` names for the
+    call. With ``prev_design``, where that is not the any-kernel, the
+    any-kernel (the design the tile kernel replaced at block 8) is timed
+    on the same arguments too (``prev_design_ms``, its ``event_ms`` and
+    the ratio), after it is held to the same rules in ``lane_mode``."""
     z = next(iter(imgs.values()))
     b, h, w = z.shape
     rows, cols = _ref_grid(h, block, step), _ref_grid(w, block, step)
@@ -1249,18 +1265,40 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     geom = match_geometry(rows, cols, offs, block, z.device)
     call = lambda: bm3d_match(z, rows, cols, offs, block, k, lane_mode, geometry=geom)  # noqa: E731
     bounds = match_bounds(b, h, w, rows, cols, offs, block=block, k=k)
-    first = geom.first_kernel_takes(block, k)
-    return {
+    kernel = match_kernel(geom, block, k)
+    smem = {"bm3d_match_kernel": geom.smem_bytes, "bm3d_match_tile_kernel": geom.tile_smem_bytes(k),
+            "bm3d_match_any_kernel": geom.any_smem_bytes}
+    rec = {
         "shape": {"images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
                   "mode": lane_mode},
-        "kernel": "bm3d_match_kernel" if first else "bm3d_match_any_kernel",
+        "kernel": kernel,
         "max_abs_err": err, "ms": device_ms(call), "event_ms": cuda_ms(call),
         "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, cols, offs, block, k, lane_mode), reps=10),
         "bound_ms": min(bounds["bound_direct_ms"], bounds["bound_separable_ms"]),
         "bound_by": bounds["bound_separable_by"], "library_ms": None,
-        "smem_bytes": geom.smem_bytes if first else geom.any_smem_bytes, "near_tie": tie,
+        "smem_bytes": smem[kernel], "near_tie": tie,
         "checks": checks, **bounds,
     }
+    prev = "bm3d_match_any_kernel"
+    if prev_design and kernel != prev:
+        fn = k1_module._lib()[prev]
+
+        def call_prev():  # through the kernel's own entry point: no launch counted
+            out = torch.empty((b, len(rows), len(cols), k), dtype=torch.int32, device=z.device)
+            k1_module.launch(prev, fn, z, geom, out, block, k, lane_mode, 0, h)
+            return out
+
+        got = call_prev()
+        dists = match_distances_plain(z, rows, cols, offs, block, lane_mode)
+        want = bm3d_match_plain(z, rows, cols, offs, block, k, lane_mode)
+        c = {"multiset_agreement": multiset_agreement(got, want),
+             "max_rel_gap": slot_gaps(got, want, dists).max().item()}
+        require(c["multiset_agreement"] >= (0.999 if lane_mode == "f32" else 0.995) and c["max_rel_gap"] <= tie,
+                f"K1's {prev} at block {block}, k {k}, {len(offs)} offsets: {c}")
+        rec |= {"prev_design": prev, "prev_design_checks": c, "prev_design_ms": device_ms(call_prev),
+                "prev_design_event_ms": cuda_ms(call_prev)}
+        rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / rec["ms"]
+    return rec
 
 
 def check_envelope_kernels(clock_hz: float) -> tuple:
@@ -1276,7 +1314,8 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
     imgs = {"input": z, "basic": basic}
     k1 = {}
     for row, (block, step, search, k, first) in ENVELOPE_K1.items():
-        k1[row] = match_record({first: imgs[first]} | imgs, block, step, search, k, "bf16_xla")
+        k1[row] = match_record({first: imgs[first]} | imgs, block, step, search, k, "bf16_xla",
+                               prev_design=True)
     k2 = {}
     for row, (block, step, search, k) in ENVELOPE_K2.items():
         p = BM3DParams(block=block, step=step, search=search, group_ht=k, match_dtype="bfloat16")
@@ -1400,6 +1439,17 @@ def drive(prob, den, eta, lr_decay: float = 1.0, n_outer: int = N_OUTER, t2: int
     return (run,) + timed(run)
 
 
+def check_k1_kernels(label: str, k1_kernels: dict, launches: dict, profiled=None) -> None:
+    """Every K1 launch of a lane's timed run went to its kernel
+    (:data:`LANE_K1_KERNEL`), and ``profiled`` (the K1 kernel names its
+    profile recorded), where given, names that kernel alone."""
+    want = LANE_K1_KERNEL.get(label, "bm3d_match_kernel")
+    expect = dict.fromkeys(K1_KERNELS, 0) | {want: launches["bm3d_match"]}
+    require(k1_kernels == expect, f"{label}: K1 launches by kernel {k1_kernels}, expected {expect}")
+    if profiled is not None:
+        require(profiled == [want], f"{label}: the profile's K1 kernels {profiled}, expected [{want!r}]")
+
+
 def timed(run) -> tuple:
     """A warm-up ``run(seed=1)``, then the timed ``run(seed=2)`` on the port's
     generator with every kernel's launches counted from 0 and any implicit
@@ -1409,9 +1459,7 @@ def timed(run) -> tuple:
     run(seed=1)  # warm-up
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    for k in KERNELS.values():
-        k.launches = 0
-    torch.cuda.synchronize()
+    _zero_counts()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")  # the loop must never wait for the device
     try:
@@ -1450,6 +1498,7 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     :data:`ENVELOPE_REPEATS` times, which must repeat bit for bit."""
     eta, den = csmri_lane(label, lanes)
     run, out, steady, first, launches = drive(prob, den, eta)
+    k1_kernels = dict(bm3d_match.by_kernel)  # the timed run's, as launches
     envelope = label in ENVELOPE_LANES
     ref_repeats = ENVELOPE_REPEATS if envelope else 1
     jax_trace = None
@@ -1473,14 +1522,16 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     rec = {
         "phase": label, "lanes": len(lanes), "steady_s": steady, "first_s": first,
         "image_iters_per_s": len(lanes) * N_OUTER * (T2 + 1) / steady,
-        "launches": launches, "reference_minibatches": ref, "floor_db": floor_db, "port_stream_seed2": own,
+        "launches": launches, "k1_kernels": k1_kernels,
+        "reference_minibatches": ref, "floor_db": floor_db, "port_stream_seed2": own,
         "port_stream_seeds": {s: [q[k] for k in keys] for s, q in spread.items()},
         "port_stream_seeds_fields": keys,
         "port_stream_mean_of_set12_vd_means": float(np.mean([q[keys[0]] for q in spread.values()])),
         "params": den.params.__dict__, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     prof = phase_profile(label, lambda: run(seed=3))
-    rec |= {"device_ms": prof["device_kernel_ms"], "device_busy_share": prof["device_busy_share"]}
+    rec |= {"device_ms": prof["device_kernel_ms"], "device_busy_share": prof["device_busy_share"],
+            "profile_k1_kernels": prof["kernel_names"].get(KERNEL_GROUPS[0][0], [])}
     if headline is not None:
         rec["headline"] = {k: headline[k] for k in ("image_iters_per_s", "device_ms", "device_busy_share")}
     checks = []
@@ -1492,6 +1543,7 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
         rec |= fields
     emit(rec)
     require(launches == expect, f"{label}: launches {launches}, expected {expect}")
+    check_k1_kernels(label, k1_kernels, launches, rec["profile_k1_kernels"])
     require(ref["set12_vd_mean_psnr_db"] >= floor_db,
             f"{label}: Set12-VD mean {ref['set12_vd_mean_psnr_db']:.4f} dB on the JAX masks < {floor_db:.4f}")
     for cond, what in checks:
@@ -1724,6 +1776,7 @@ def run_bench_lane(lane: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     run, out, steady, first, launches = drive(prob, lane["den"], lane["eta"], cfg["lr_decay"],
                                               cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"])
+    k1_kernels = dict(bm3d_match.by_kernel)  # the timed run's, as launches
     own = lane_quality(prob, out)
     own.pop("_trace")
     ref_outs = [run(masks=lane["ref_mb"]) for _ in range(BENCH_REF_REPEATS)]
@@ -1752,7 +1805,7 @@ def run_bench_lane(lane: dict) -> dict:
     iters = cfg["n_outer"] * (cfg["t2"] + 1)
     rec = {
         "phase": label, "lanes": 1, "steady_s": steady, "first_s": first,
-        "image_iters_per_s": iters / steady, "launches": launches,
+        "image_iters_per_s": iters / steady, "launches": launches, "k1_kernels": k1_kernels,
         "reference_minibatches": ref, "floor_db": floor,
         "port_stream_seed2": {"psnr_db": own["per_lane_psnr_db"][0], "ssim": own["per_lane_ssim"][0]},
         "port_stream_seeds_psnr_db": spread, "peak_mem_gb": peak_gb,
@@ -1764,6 +1817,7 @@ def run_bench_lane(lane: dict) -> dict:
     denoises = cfg["n_outer"] * cfg["t2"]
     expect = {"bm3d_match": 2 * denoises, "bm3d_aggregate": 2 * denoises, "nlm": 0}
     require(launches == expect, f"{label}: launches {launches}, expected {expect}")
+    check_k1_kernels(label, k1_kernels, launches)
     require(repeat_bitwise, f"{label}: {len(repeats)} runs on the JAX run's minibatches differ: {repeats}")
     require(mean_psnr >= floor, f"{label}: mean PSNR of {len(repeats)} runs on the JAX run's "
                                 f"minibatches {mean_psnr:.2f} dB < {floor:.2f}")
@@ -2388,6 +2442,7 @@ def _counts() -> dict:
 def _zero_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    bm3d_match.by_kernel = dict.fromkeys(K1_KERNELS, 0)
     torch.cuda.synchronize()
 
 
@@ -2974,11 +3029,20 @@ def profile_run(label: str, run, table=KERNEL_GROUPS, host_ops: bool = True) -> 
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+    names: dict[str, set] = {}  # the kernels' own names in each of K1-K3's groups
+    for e in kernels:
+        for group, keys in table:
+            hit = next((k for k in keys if k in e.name), None)
+            if hit is not None:
+                if group.startswith("K"):
+                    names.setdefault(group, set()).add(hit)
+                break
     rec = {
         "phase": "profile", "lane": label, "wall_ms": wall_us / 1e3,
         "device_kernel_ms": total_us / 1e3,
         "device_busy_share": total_us / wall_us, "kernel_launches": len(kernels),
         "groups_ms": {g: v / 1e3 for g, v in sorted(groups.items(), key=lambda kv: -kv[1])},
+        "kernel_names": {g: sorted(v) for g, v in names.items()},
         "top_kernels_ms": {n: v / 1e3 for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]},
     }
     return rec
@@ -3076,13 +3140,25 @@ def main() -> None:
         for label, r in rec["bench_shapes"].items():
             lane, share = ROW_LANE.get(label, (label, 1))
             shapes[label] = {"launches": by_lane.get(lane, 0) // share, "shape": r["shape"],
-                             **{k: r[k] for k in fields}}
+                             **{k: r[k] for k in fields + K1_ROW_FIELDS if k in r}}
     kernels[0]["bounded"] = {  # K1 with row bounds: the spatial BM3D path's, per rank
         "launches": lanes_run["parallel/e_bm3d_rank0"]["launches"]["bm3d_match"],
         "shape": {k: k1["bounded"][k] for k in ("shape", "bounds", "mode")},
         **{k: k1["bounded"][k] for k in fields}}
     kernels[-1]["b1"] = {"launches": lanes_run["csmri_nlm"]["launches"]["nlm"],
                          **{k: k3["b1"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    # K1's block-8 tile kernel, whose path is bm3d_profile's (its rows from
+    # the K1 record, its launches from the lanes' K1 launches by kernel).
+    tile_rows = {label: r for label, r in kernels[0]["bench_shapes"].items()
+                 if r.get("kernel") == "bm3d_match_tile_kernel"}
+    tile_by_lane = {lane: r["k1_kernels"]["bm3d_match_tile_kernel"] for lane, r in lanes_run.items()
+                    if "k1_kernels" in r}
+    ht = tile_rows["profile_ht"]
+    kernels.insert(1, {
+        "name": "bm3d_match_tile", "route": "cuda", "source": SOURCES["bm3d_match"][0],
+        "replaces": SOURCES["bm3d_match"][1], "launches": tile_by_lane["bm3d_profile"],
+        "launches_by_lane": tile_by_lane, **{k: ht[k] for k in fields + K1_ROW_FIELDS},
+        "card": dev["nvidia_smi"], "bench_shapes": tile_rows})
     for k in kernels:
         shapes = [k] + list(k.get("bench_shapes", {}).values()) + [k.get("bounded", k)]
         require(all(math.isfinite(r[f]) for r in shapes for f in ("ms", "plain_ms", "bound_ms")),

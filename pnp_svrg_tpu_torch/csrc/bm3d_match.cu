@@ -508,6 +508,398 @@ cudaError_t launch_any_mode(int S, int block, dim3 grid, size_t smem, cudaStream
 #undef PNP_LAUNCH_ANY
 }
 
+// ---- Block 8 at any reference step: `bm3d_match_tile_kernel` -------------
+//
+// The first kernel's column plan needs a step-4 grid, its distance buffer
+// holds at most 640 offsets and it keeps 16 matches; the any-kernel sums
+// every distance directly, block^2 terms a (reference block, offset) pair,
+// and rebuilds its top-k by k rounds a chunk. This kernel takes block 8 at
+// any strictly ascending reference grid, any window (search <= 24) and any
+// power-of-two k up to 64, and computes the same function in the separable
+// form. One CTA of kTileWarps warps per (image, tile). A tile is up to
+// kTileMax reference blocks (9 x 9 at step 3) whose patches span at most
+// kTileSpan rows and columns; host-made plans give each tile's first row
+// and column index, its counts and a mask of its reference rows (columns)
+// as bits of the span. The tile's span plus a halo of `search` pixels is
+// staged in shared memory. The offsets go in chunks of kChunk, each in two
+// phases.
+//  1. Distances. A warp takes one offset at a time. Lane y holds row y of
+//     the span's reference pixels in registers and forms that row's
+//     kTileSpan terms against the shifted candidate row, each once,
+//     rounded as `sq_term` says. Mode 1 stages the region as bf16 pairs in
+//     two alignments, so a pair of candidate columns is one aligned word,
+//     and forms its terms two at a time (`sub.rn.bf16x2`, `mul.rn.bf16x2`
+//     round as `round_bf16` of the f32 result does, since rounding through
+//     f32 is exact for bf16 operands: 24 >= 2 x 8 + 2 bits). A doubling
+//     tree gives the 8-wide sum at every column position (pairs, fours,
+//     eights: three adds a position); at each reference column (a bit of
+//     the tile's column mask, the same for the whole warp) three
+//     `shfl.down` steps add the 8 rows below each lane by the same tree, so
+//     the lane of each reference row holds its block's distance, a binary
+//     tree over its 64 terms (f32 adds, no FMA). That lane writes it, or
+//     +inf for an invalid candidate, to D[tile blocks][chunk] in shared
+//     memory.
+//  2. Selection. A warp takes one block at a time and merges the chunk into
+//     the block's running top-k, kept in shared memory between chunks as
+//     (distance bits, offset index) pairs compared lexicographically, entry
+//     e in lane e % 32, slot e / 32. A ballot finds the chunk's candidates
+//     below the k-th entry. If more than k are (as in the first chunk), k
+//     rounds of the warp argmin above rebuild the list; else each is
+//     inserted in turn after the entries below it, the later entries moving
+//     down one place (`shfl`). The offsets are visited in a host-made
+//     order, nearest the window's centre first: near offsets tend to match
+//     best, so the k-th entry falls early and fewer later candidates get
+//     in; the comparisons use each offset's own index, so the result is
+//     `top_k_offsets_plain`'s whatever the order: ascending, ties to the
+//     lowest index, an entry still at +inf written as index 0.
+// The choices were timed on an H100 at the reference profile's shapes
+// against variants of this source (`examples/k1_variants.py`): 4 warps a
+// CTA, chunks of 32 or 128 offsets, two CTAs an SM (more registers) and
+// mode 1's region staged as f32 were each slower at k 16 or k 32, and so
+// was visiting the offsets in ascending order (PERF.md). Bound as above: f32 arithmetic (one term a
+// pixel and offset, the box sums shared by a tile's blocks); PERF.md gives
+// its time beside that bound.
+
+constexpr int kTileSpan = 32;  // rows (one a lane) and columns a tile's patches span, at most
+constexpr int kTileCols = kTileSpan - kBlock + 1;  // column positions of an 8-wide sum in the span
+constexpr int kTileMax = 81;  // reference blocks a tile, at most
+constexpr int kTileWarps = 8;
+constexpr int kChunk = 64;  // offsets a chunk
+constexpr int kDPitch = kChunk + 1;  // the distance buffer's row pitch (odd)
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+// Two f32 values rounded to bf16 (to nearest even), packed: a low, b high.
+__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+
+__device__ __forceinline__ unsigned sub_bf16x2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ unsigned mul_bf16x2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// `sq_term` of two (reference, candidate) pairs at once: in mode 1 both
+// pairs packed bf16 (`r`, `c`; their values are bf16 already), else f32.
+template <int MODE>
+__device__ __forceinline__ void sq_terms2(unsigned r, unsigned c, float r0, float r1, float c0,
+                                          float c1, float& t0, float& t1) {
+  unsigned q;
+  if (MODE == 0) {
+    t0 = sq_term<0>(r0, c0);
+    t1 = sq_term<0>(r1, c1);
+    return;
+  } else if (MODE == 1) {
+    const unsigned d = sub_bf16x2(r, c);
+    q = mul_bf16x2(d, d);
+  } else {
+    const float d0 = __fsub_rn(r0, c0), d1 = __fsub_rn(r1, c1);
+    q = pack_bf16x2(__fmul_rn(d0, d0), __fmul_rn(d1, d1));
+  }
+  t0 = __uint_as_float(q << 16);
+  t1 = __uint_as_float(q & 0xffff0000u);
+}
+
+// The lanes' sum of v over the 8 lanes from each (lane l: lanes l to l + 7;
+// lanes past 24 read their own value past lane 31), as a binary tree.
+__device__ __forceinline__ float sum8_down(float v) {
+  v = __fadd_rn(v, __shfl_down_sync(kAllLanes, v, 1));
+  v = __fadd_rn(v, __shfl_down_sync(kAllLanes, v, 2));
+  return __fadd_rn(v, __shfl_down_sync(kAllLanes, v, 4));
+}
+
+// Entry `slot` of a lane's KS slots (slot < KS).
+template <int KS, typename T>
+__device__ __forceinline__ T slot_of(const T (&v)[KS], int slot) {
+  return KS == 1 || slot == 0 ? v[0] : v[KS - 1];
+}
+
+template <int MODE, int KS>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ rows,
+                       const int* __restrict__ cols, const int* __restrict__ offsets,
+                       const int* __restrict__ order, const int* __restrict__ row_tiles,
+                       const int* __restrict__ col_tiles,
+                       int* __restrict__ out, int H, int W, int nR, int nC, int S, int K,
+                       int search, int pitch, int cand_lo, int cand_hi) {
+  extern __shared__ float smem[];
+  const int reg_n = kTileSpan + 2 * search;  // the staged region's rows and columns (even)
+  // Modes 0 and 2 stage the region as f32, reg_n x pitch. Mode 1 stages it
+  // as bf16 pairs, twice: pairs[a][row][p] holds columns 2p + a and
+  // 2p + a + 1, so any two adjacent columns are one aligned word.
+  float* region = smem;
+  unsigned* pairs = reinterpret_cast<unsigned*>(smem);
+  const int pp = (reg_n / 2) | 1;               // the pairs' row pitch in words (odd)
+  float* dist = smem + reg_n * (pitch + 1);     // kTileMax x kDPitch, past either layout
+  unsigned* list_k = reinterpret_cast<unsigned*>(dist + kTileMax * kDPitch);  // [block][entry]
+  int* list_i = reinterpret_cast<int*>(list_k + kTileMax * K);
+  const int r0 = row_tiles[3 * blockIdx.y], nr = row_tiles[3 * blockIdx.y + 1];
+  const unsigned rmask = (unsigned)row_tiles[3 * blockIdx.y + 2];
+  const int c0 = col_tiles[3 * blockIdx.x], nc = col_tiles[3 * blockIdx.x + 1];
+  const unsigned cmask = (unsigned)col_tiles[3 * blockIdx.x + 2];
+  const int b = blockIdx.z;
+  const int ry0 = rows[r0], rx0 = cols[c0];
+  const float* x = img + (size_t)b * H * W;
+  auto pixel = [&](int yy, int xx) {  // the image, 0 outside it
+    return yy >= 0 && yy < H && xx >= 0 && xx < W ? x[yy * W + xx] : 0.f;
+  };
+  if (MODE == 1) {
+    const int half = reg_n / 2;
+    for (int q = threadIdx.x; q < reg_n * half; q += kTileWarps * 32) {
+      const int r = q / half, p2 = q % half;
+      const int yy = ry0 - search + r, xx = rx0 - search + 2 * p2;
+      const float v0 = pixel(yy, xx), v1 = pixel(yy, xx + 1);
+      const float v2 = 2 * p2 + 2 < reg_n ? pixel(yy, xx + 2) : 0.f;
+      pairs[r * pp + p2] = pack_bf16x2(v0, v1);  // round_bf16 of each
+      pairs[(reg_n + r) * pp + p2] = pack_bf16x2(v1, v2);
+    }
+  } else {
+    for (int q = threadIdx.x; q < reg_n * reg_n; q += kTileWarps * 32)
+      region[(q / reg_n) * pitch + q % reg_n] = pixel(ry0 - search + q / reg_n, rx0 - search + q % reg_n);
+  }
+  const int nt = nr * nc;
+  for (int q = threadIdx.x; q < nt * K; q += kTileWarps * 32) {
+    list_k[q] = kInfBits;
+    list_i[q] = 0x7fffffff;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float inf = __int_as_float(kInfBits);
+  // Lane y: region row y of the span; if it is a reference row, block row i.
+  const bool ref_row = (rmask >> lane) & 1u;
+  const int i = __popc(rmask & ((1u << lane) - 1u));
+  const float* ref_at = region + (search + lane) * pitch + search;  // modes 0, 2
+  // Mode 1: the pair of columns (c, c + 1) of region row y is word c / 2 of
+  // row y of layout c % 2.
+  auto pair_at = [&](int y, int c) { return pairs + ((c & 1) * reg_n + y) * pp + (c >> 1); };
+  const int last_c = W - kBlock;
+  const int2* offs2 = reinterpret_cast<const int2*>(offsets);
+  const int kq = (K - 1) >> 5, kl = (K - 1) & 31;  // the k-th entry's slot and lane
+  constexpr int PER = kChunk / 32;
+  for (int s0 = 0; s0 < S; s0 += kChunk) {  // positions in the visiting order
+    const int n_chunk = min(kChunk, S - s0);
+    // Phase 1: distances. The lane's reference row stays in registers for
+    // the chunk (in mode 1 as bf16 pairs: half the registers, and one load
+    // a candidate pair).
+    float ref[MODE == 1 ? 1 : kTileSpan];
+    unsigned ref2[MODE == 1 ? kTileSpan / 2 : 1];
+#pragma unroll
+    for (int xx = 0; xx < kTileSpan; xx += 2) {
+      if (MODE == 1) {
+        ref2[xx / 2] = pair_at(search + lane, search)[xx / 2];
+      } else {
+        ref[xx] = ref_at[xx];
+        ref[xx + 1] = ref_at[xx + 1];
+      }
+    }
+    for (int c = warp; c < n_chunk; c += kTileWarps) {
+      const int2 o = __ldg(offs2 + s0 + c);
+      const float* cand = ref_at + o.x * pitch + o.y;
+      const unsigned* cand2 = pair_at(search + lane + o.x, search + o.y);
+      float t[kTileSpan];
+#pragma unroll
+      for (int xx = 0; xx < kTileSpan; xx += 2) {
+        if (MODE == 1)
+          sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);
+        else
+          sq_terms2<MODE>(0u, 0u, ref[xx], ref[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
+      }
+      const int cy = ry0 + lane + o.x;
+      const bool row_ok = ref_row && cy >= cand_lo && cy <= cand_hi;
+      // In place, ascending: t[xx] becomes the sum of 2, then 4, then 8
+      // terms from column xx, each level the sum of two of the last.
+#pragma unroll
+      for (int xx = 0; xx < kTileSpan - 1; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 1]);
+#pragma unroll
+      for (int xx = 0; xx < kTileSpan - 3; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 2]);
+#pragma unroll
+      for (int xx = 0; xx < kTileCols; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 4]);
+#pragma unroll
+      for (int xx = 0; xx < kTileCols; ++xx) {
+        if ((cmask >> xx) & 1u) {
+          const float v = sum8_down(t[xx]);
+          const int j = __popc(cmask & ((1u << xx) - 1u));
+          const int cx = rx0 + xx + o.y;
+          if (ref_row) dist[(i * nc + j) * kDPitch + c] = row_ok && cx >= 0 && cx <= last_c ? v : inf;
+        }
+      }
+    }
+    __syncthreads();
+
+    // Phase 2: each warp merges the chunk into its blocks' running top-k.
+    // Entries and candidates compare lexicographically on (distance bits,
+    // offset index): distances are >= 0 or +inf, so their bits order as
+    // they do, and an invalid candidate (+inf) never enters past the ballot.
+    // Lane l holds the offset indices of the chunk's candidates l + 32 m.
+    const bool last = s0 + kChunk >= S;
+    int cs[PER];
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const int c = lane + 32 * m;
+      cs[m] = c < n_chunk ? __ldg(order + s0 + c) : S + c;  // past the chunk: an index no offset has
+    }
+    for (int tb = warp; tb < nt; tb += kTileWarps) {
+      unsigned lk[KS];
+      int li[KS];
+#pragma unroll
+      for (int q2 = 0; q2 < KS; ++q2) {
+        const int e = lane + 32 * q2;
+        lk[q2] = e < K ? list_k[tb * K + e] : kInfBits;
+        li[q2] = e < K ? list_i[tb * K + e] : 0x7fffffff;
+      }
+      unsigned ck[PER], below[PER];
+      int n_below = 0;
+      const unsigned kth_k = __shfl_sync(kAllLanes, slot_of<KS>(lk, kq), kl);
+      const int kth_i = __shfl_sync(kAllLanes, slot_of<KS>(li, kq), kl);
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        const int c = lane + 32 * m;
+        ck[m] = c < n_chunk ? __float_as_uint(dist[tb * kDPitch + c]) : kInfBits;
+        below[m] = __ballot_sync(kAllLanes, ck[m] != kInfBits &&
+                                                (ck[m] < kth_k || (ck[m] == kth_k && cs[m] < kth_i)));
+        n_below += __popc(below[m]);
+      }
+      if (n_below > K) {
+        // k rounds of a warp-wide lexicographic argmin over the entries and
+        // the chunk rebuild the list.
+        unsigned nk[KS];
+        int ni[KS];
+#pragma unroll
+        for (int q2 = 0; q2 < KS; ++q2) {
+          nk[q2] = kInfBits;
+          ni[q2] = 0x7fffffff;
+        }
+#pragma unroll 1
+        for (int e = 0; e < K; ++e) {
+          unsigned bk = lk[0];
+          int bi = li[0];
+#pragma unroll
+          for (int q2 = 1; q2 < KS; ++q2) lex_min(bk, bi, lk[q2], li[q2]);
+#pragma unroll
+          for (int m = 0; m < PER; ++m) lex_min(bk, bi, ck[m], cs[m]);
+          const unsigned least = __reduce_min_sync(kAllLanes, bk);
+          const int win = (int)__reduce_min_sync(kAllLanes, bk == least ? (unsigned)bi : kAllLanes);
+          if (lane == (e & 31)) {
+#pragma unroll
+            for (int q2 = 0; q2 < KS; ++q2) {
+              nk[q2] = (e >> 5) == q2 ? least : nk[q2];
+              ni[q2] = (e >> 5) == q2 ? win : ni[q2];
+            }
+          }
+#pragma unroll
+          for (int q2 = 0; q2 < KS; ++q2) lk[q2] = li[q2] == win ? kInfBits : lk[q2];
+#pragma unroll
+          for (int m = 0; m < PER; ++m) ck[m] = cs[m] == win ? kInfBits : ck[m];
+        }
+#pragma unroll
+        for (int q2 = 0; q2 < KS; ++q2) {
+          lk[q2] = nk[q2];
+          li[q2] = ni[q2];
+        }
+      } else {
+        // Insert each candidate after the entries below it, the later
+        // entries moving down one place; one that no longer falls among
+        // the first k (the k-th entry fell since the ballot) is dropped.
+#pragma unroll
+        for (int m = 0; m < PER; ++m) {
+          unsigned bits = below[m];
+          while (bits) {
+            const int src = __ffs(bits) - 1;
+            bits &= bits - 1;
+            const unsigned d = __shfl_sync(kAllLanes, ck[m], src);
+            const int s = __shfl_sync(kAllLanes, cs[m], src);
+            int pos = 0;
+#pragma unroll
+            for (int q2 = 0; q2 < KS; ++q2)
+              pos += __popc(__ballot_sync(kAllLanes, lane + 32 * q2 < K &&
+                                                         (lk[q2] < d || (lk[q2] == d && li[q2] < s))));
+            if (pos >= K) continue;
+            unsigned uk[KS];
+            int ui[KS];
+#pragma unroll
+            for (int q2 = 0; q2 < KS; ++q2) {
+              uk[q2] = __shfl_sync(kAllLanes, lk[q2], (lane + 31) & 31);
+              ui[q2] = __shfl_sync(kAllLanes, li[q2], (lane + 31) & 31);
+            }
+#pragma unroll
+            for (int q2 = 0; q2 < KS; ++q2) {
+              const int e = lane + 32 * q2;
+              // Entry e - 1 is the previous lane's, or the previous slot's last lane's.
+              const unsigned pk = q2 > 0 && lane == 0 ? uk[q2 - 1] : uk[q2];
+              const int pi = q2 > 0 && lane == 0 ? ui[q2 - 1] : ui[q2];
+              lk[q2] = e >= K ? kInfBits : e > pos ? pk : e == pos ? d : lk[q2];
+              li[q2] = e >= K ? 0x7fffffff : e > pos ? pi : e == pos ? s : li[q2];
+            }
+          }
+        }
+      }
+      if (last) {
+        const int bi = tb / nc, bj = tb - bi * nc;
+        int* o = out + (((size_t)b * nR + r0 + bi) * nC + c0 + bj) * K;
+#pragma unroll
+        for (int q2 = 0; q2 < KS; ++q2) {
+          if (lane + 32 * q2 < K) o[lane + 32 * q2] = lk[q2] == kInfBits ? 0 : li[q2];
+        }
+      } else if (n_below > 0) {
+#pragma unroll
+        for (int q2 = 0; q2 < KS; ++q2) {
+          const int e = lane + 32 * q2;
+          if (e < K) {
+            list_k[tb * K + e] = lk[q2];
+            list_i[tb * K + e] = li[q2];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int MODE, int KS>
+cudaError_t launch_tile(dim3 grid, size_t smem, cudaStream_t stream, const float* img,
+                        const int* rows, const int* cols, const int* offsets, const int* order,
+                        const int* row_tiles, const int* col_tiles, int* out, int H, int W,
+                        int nR, int nC, int S, int K, int search, int pitch, int cand_lo,
+                        int cand_hi) {
+  auto fn = bm3d_match_tile_kernel<MODE, KS>;
+  static size_t granted = 48 * 1024;  // dynamic shared memory opted into so far
+  if (smem > granted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  fn<<<grid, kTileWarps * 32, smem, stream>>>(img, rows, cols, offsets, order, row_tiles, col_tiles,
+                                              out, H, W, nR, nC, S, K, search, pitch, cand_lo,
+                                              cand_hi);
+  return cudaGetLastError();
+}
+
+// One slot a lane for k <= 32, two for k <= 64.
+template <int MODE>
+cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const float* img,
+                             const int* rows, const int* cols, const int* offsets,
+                             const int* order, const int* row_tiles, const int* col_tiles,
+                             int* out, int H, int W, int nR, int nC, int S, int K, int search,
+                             int pitch, int cand_lo, int cand_hi) {
+  if (K <= 32)
+    return launch_tile<MODE, 1>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+                                col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
+                                cand_hi);
+  return launch_tile<MODE, 2>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+                              col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo, cand_hi);
+}
+
 }  // namespace
 
 // Top-K offset indices for every reference block. `img` (B, H, W) f32,
@@ -575,6 +967,49 @@ extern "C" int bm3d_match_any_launch(const float* img, const int* rows, const in
     case 2:
       return launch_any_mode<2>(S, block_size, grid, smem, st, img, rows, cols, offsets, out, H,
                                 W, nR, nC, K, search, pitch, cand_lo, cand_hi);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Block 8 at any strictly ascending reference grid, k in [1, 64] and any
+// window (search <= 24): `offsets` (S, 2) in the order the kernel visits
+// them and `order` (S,) the index of each in the window's ascending order
+// (the index a match returns), `row_tiles` (n_row_tiles, 3) / `col_tiles`
+// (n_col_tiles, 3) int32, each tile's first index into `rows` / `cols`, its
+// count and the mask of its coordinates less the first (bits 0-24; the
+// rows' count times the columns' at most kTileMax). `pitch` (odd, at least
+// kTileSpan + 2 search) is the staged region's row pitch. The rest as
+// above. Returns the launch's cudaError_t.
+extern "C" int bm3d_match_tile_launch(const float* img, const int* rows, const int* cols,
+                                      const int* offsets, const int* order, const int* row_tiles,
+                                      const int* col_tiles, int* out, int B, int H, int W, int nR,
+                                      int nC, int n_row_tiles, int n_col_tiles, int S,
+                                      int block_size, int K, int mode, int search, int pitch,
+                                      int cand_lo, int cand_hi, void* stream) {
+  if (block_size != kBlock || K < 1 || K > kMaxK || S < 1 || search < 0 ||
+      pitch < kTileSpan + 2 * search || n_row_tiles < 1 || n_col_tiles < 1 || cand_lo < 0 ||
+      cand_hi > H - kBlock)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const dim3 grid(n_col_tiles, n_row_tiles, B);
+  const size_t smem = sizeof(float) * ((size_t)(kTileSpan + 2 * search) * (pitch + 1) +
+                                       (size_t)kTileMax * kDPitch) +
+                      2 * sizeof(int) * kTileMax * K;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0:
+      return launch_tile_mode<0>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+                                 col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
+                                 cand_hi);
+    case 1:
+      return launch_tile_mode<1>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+                                 col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
+                                 cand_hi);
+    case 2:
+      return launch_tile_mode<2>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+                                 col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
+                                 cand_hi);
     default:
       return cudaErrorInvalidValue;
   }

@@ -22,11 +22,14 @@ round at different points:
   and square in f32, only the square rounded to bf16, the sum f32.
 
 The wrapper :func:`bm3d_match` takes the plain version only for a CPU tensor;
-for a CUDA tensor it launches K1 or raises. K1 has two kernels in one
-source: ``bm3d_match_kernel``, built for 8 x 8 blocks, 16 matches, a step-4
-grid and at most 640 offsets (the headline's and the bench lanes'), and
-``bm3d_match_any_kernel`` for the rest of :data:`MATCH_ENVELOPE`; a setting
-outside it raises before any launch (:func:`check_match_envelope`).
+for a CUDA tensor it launches K1 or raises. K1 has three kernels in one
+source, and :func:`match_kernel` names the one that takes a call:
+``bm3d_match_kernel``, built for 8 x 8 blocks, 16 matches, a step-4 grid and
+at most 640 offsets (the headline's and the bench lanes'); else, at block 8,
+``bm3d_match_tile_kernel`` (any step, window and k: the reference profile's
+step 3, 1,521 offsets, 16 / 32 matches); else ``bm3d_match_any_kernel``, for
+the rest of :data:`MATCH_ENVELOPE`. A setting outside it raises before any
+launch (:func:`check_match_envelope`).
 """
 
 from __future__ import annotations
@@ -48,6 +51,10 @@ _MAX_COLS = TILE_C + 2  # kMaxCols: half-block positions of a column tile
 _MAX_OFFSETS = 32 * 20  # phase 2 holds at most 20 offsets a lane (search 12)
 KERNEL_BLOCK, KERNEL_K = 8, 16  # the patch edge and group size of bm3d_match_kernel
 ANY_TILE_R, ANY_TILE_C = 4, 4  # kAnyTileR / kAnyTileC: bm3d_match_any_kernel's tiles
+# bm3d_match_tile_kernel: a tile's patches span at most TILE_SPAN rows (one a
+# lane) and columns (kTileSpan); it holds at most TILE_MAX blocks (kTileMax).
+TILE_SPAN, TILE_MAX, TILE_CHUNK = 32, 81, 64  # kTileSpan, kTileMax, kChunk (offsets a chunk)
+K1_KERNELS = ("bm3d_match_kernel", "bm3d_match_tile_kernel", "bm3d_match_any_kernel")
 _MAX_SMEM = 227 * 1024
 # The settings K1 takes on the card: (least, most) of each; k is also a
 # power of two (the Hadamard transform along the group needs one), the
@@ -202,12 +209,45 @@ def column_plans(cols, search: int, block: int) -> np.ndarray:
     return plans
 
 
+def tile_plan(grid, block: int, most: int) -> np.ndarray | None:
+    """``bm3d_match_tile_kernel``'s tiles along one axis of the reference
+    grid, cut greedily: (n, 3) int32 rows of (first index, count, mask),
+    where the tile's coordinates less its first are the mask's set bits and
+    span at most :data:`TILE_SPAN` pixels with their patches, and a tile has
+    at most ``most`` of them. None unless the grid strictly ascends (the
+    masks could not tell two equal coordinates apart)."""
+    grid = [int(v) for v in grid]
+    if any(b <= a for a, b in zip(grid[:-1], grid[1:])):
+        return None
+    tiles, start = [], 0
+    while start < len(grid):
+        end = start + 1
+        while end < len(grid) and end - start < most and grid[end] - grid[start] + block <= TILE_SPAN:
+            end += 1
+        mask = sum(1 << (v - grid[start]) for v in grid[start:end])
+        tiles.append((start, end - start, mask))
+        start = end
+    return np.asarray(tiles, np.int32)
+
+
+def visit_order(offsets) -> np.ndarray:
+    """``bm3d_match_tile_kernel``'s order of the (S, 2) offsets: nearest the
+    window's centre first (by dy^2 + dx^2, ties by index), where the best
+    matches tend to be, so that its running top-k tightens early. The
+    result does not depend on it: the kernel compares offset indices."""
+    offsets = np.asarray(offsets, np.int64).reshape(-1, 2)
+    return np.lexsort((np.arange(len(offsets)), (offsets ** 2).sum(1))).astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class MatchGeometry:
     """Device copies of the grid and offsets and K1's shared-memory layouts,
     made once per shape, so that a call does no per-offset host work.
     ``col_plan`` is None where ``bm3d_match_kernel`` cannot take the grid
-    and window; ``bm3d_match_any_kernel`` takes every geometry."""
+    and window, ``row_tiles`` and ``col_tiles`` where
+    ``bm3d_match_tile_kernel`` cannot (a block other than 8, a grid that
+    does not strictly ascend); ``bm3d_match_any_kernel`` takes every
+    geometry."""
 
     rows_t: torch.Tensor
     cols_t: torch.Tensor
@@ -223,6 +263,11 @@ class MatchGeometry:
     d_pitch: int  # distance buffer row pitch (odd)
     any_smem_h: int  # bm3d_match_any_kernel's largest tile region, rows
     any_pitch: int  # and its row pitch (odd, at least its width)
+    row_tiles: torch.Tensor | None  # (n, 3) int32: tile_plan() of the rows
+    col_tiles: torch.Tensor | None  # and of the columns
+    tile_order: torch.Tensor | None  # (S,) int32: visit_order(), the tile kernel's order of offsets
+    tile_offsets: torch.Tensor | None  # (S, 2) int32: the offsets in that order
+    tile_pitch: int  # bm3d_match_tile_kernel's region row pitch (odd, >= TILE_SPAN + 2 search)
 
     @property
     def smem_bytes(self) -> int:
@@ -235,12 +280,31 @@ class MatchGeometry:
         """Dynamic shared memory of ``bm3d_match_any_kernel``'s CTA."""
         return 4 * self.any_smem_h * self.any_pitch
 
+    def tile_smem_bytes(self, k: int) -> int:
+        """Dynamic shared memory of ``bm3d_match_tile_kernel``'s CTA: the
+        staged region, the distances of a chunk and the running top-k's."""
+        region = (TILE_SPAN + 2 * self.search) * (self.tile_pitch + 1)  # f32, or bf16 pairs twice
+        return 4 * (region + TILE_MAX * (TILE_CHUNK + 1)) + 8 * TILE_MAX * k
+
     def first_kernel_takes(self, block: int, k: int) -> bool:
         """Whether ``bm3d_match_kernel`` (8 x 8 blocks, 16 matches, a step-4
-        column plan, at most 640 offsets) takes a call; else the any-kernel."""
+        column plan, at most 640 offsets) takes a call (:func:`match_kernel`)."""
         return ((block, k) == (KERNEL_BLOCK, KERNEL_K) and self.col_plan is not None
                 and self.ref_rows <= _REF_ROWS and self.offsets_t.shape[0] <= _MAX_OFFSETS
                 and self.smem_bytes <= _MAX_SMEM)
+
+
+def match_kernel(g: MatchGeometry, block: int, k: int) -> str:
+    """The K1 kernel that takes a call at geometry ``g`` with this ``block``
+    and ``k``: ``bm3d_match_kernel`` wherever it can (every call it took
+    before the tile kernel existed), else ``bm3d_match_tile_kernel`` at
+    block 8 (any grid that strictly ascends), else ``bm3d_match_any_kernel``
+    (every geometry)."""
+    if g.first_kernel_takes(block, k):
+        return "bm3d_match_kernel"
+    if block == KERNEL_BLOCK and g.row_tiles is not None:
+        return "bm3d_match_tile_kernel"
+    return "bm3d_match_any_kernel"
 
 
 def grid_step(grid) -> int:
@@ -260,9 +324,17 @@ def _geometry(rows: tuple, cols: tuple, offsets: tuple, block: int,
         plan = torch.as_tensor(column_plans(cols, search, block), device=device)
     except ValueError:  # not a grid bm3d_match_kernel's column plan covers
         plan = None
+    # bm3d_match_tile_kernel's plans, or None where it cannot take the call.
+    row_tiles = tile_plan(rows, block, TILE_MAX) if block == KERNEL_BLOCK else None
+    col_tiles = None if row_tiles is None else tile_plan(cols, block, TILE_MAX // int(row_tiles[:, 1].max()))
+    tiles = [None] * 4
+    if col_tiles is not None:
+        order = visit_order(offsets)
+        tiles = [as_dev(t) for t in (row_tiles, col_tiles, order, np.asarray(offsets)[order])]
     return MatchGeometry(as_dev(rows), as_dev(cols), as_dev(offsets), plan, block,
                          max(grid_step(rows), grid_step(cols)), search, ref_rows, smem_h, smem_w,
-                         smem_w | 1, len(offsets) | 1, any_h, any_w | 1)
+                         smem_w | 1, len(offsets) | 1, any_h, any_w | 1, *tiles,
+                         (TILE_SPAN + 2 * search) | 1)
 
 
 def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
@@ -274,16 +346,54 @@ def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
     )
 
 
-def _lib():
-    """The two entry points of ``csrc/bm3d_match.cu``, bound."""
-    lib = _build.load("bm3d_match")
-    first, any_ = lib.bm3d_match_launch, lib.bm3d_match_any_launch
-    if first.argtypes is None:
-        first.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
-        first.restype = ctypes.c_int
-        any_.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-        any_.restype = ctypes.c_int
-    return first, any_
+ENTRIES = {  # kernel name -> (its entry point in the source, pointer and int arguments)
+    "bm3d_match_kernel": ("bm3d_match_launch", 6, 16),
+    "bm3d_match_tile_kernel": ("bm3d_match_tile_launch", 8, 15),
+    "bm3d_match_any_kernel": ("bm3d_match_any_launch", 5, 14),
+}
+
+
+def bind(lib: ctypes.CDLL) -> dict:
+    """Kernel name -> its entry point in a library built from
+    ``csrc/bm3d_match.cu``, with its argument types set."""
+    fns = {}
+    for name, (entry, pointers, ints) in ENTRIES.items():
+        fn = fns[name] = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return fns
+
+
+def _lib() -> dict:
+    """:func:`bind` of the built library."""
+    return bind(_build.load("bm3d_match"))
+
+
+def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor, block: int, k: int,
+           mode: str, lo: int, hi: int) -> None:
+    """Launch ``kernel`` through its bound entry point ``fn`` (:func:`bind`)
+    on the current stream: images ``x`` (B, H, W) contiguous, ``out`` (B, nR,
+    nC, k) int32, candidate rows ``[lo, hi)``; raises if the launch fails.
+    It checks nothing else and counts nothing (:func:`bm3d_match` does
+    both): a caller that times one kernel against another, on a call both
+    take (the any-kernel takes every call), launches through it."""
+    b, h, w = x.shape
+    nr, nc, s = g.rows_t.numel(), g.cols_t.numel(), g.offsets_t.shape[0]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), g.rows_t.data_ptr(), g.cols_t.data_ptr(), g.offsets_t.data_ptr())
+    if kernel == "bm3d_match_kernel":
+        err = fn(*ptrs, g.col_plan.data_ptr(), out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k),
+                 MODES[mode], g.search, g.smem_h, g.smem_w, g.pitch, g.d_pitch, lo, hi - block, stream)
+    elif kernel == "bm3d_match_tile_kernel":
+        err = fn(*ptrs[:3], g.tile_offsets.data_ptr(), g.tile_order.data_ptr(), g.row_tiles.data_ptr(),
+                 g.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, g.row_tiles.shape[0],
+                 g.col_tiles.shape[0], s, int(block), int(k), MODES[mode], g.search, g.tile_pitch, lo,
+                 hi - block, stream)
+    else:
+        err = fn(*ptrs, out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k), MODES[mode], g.search,
+                 g.any_smem_h, g.any_pitch, lo, hi - block, stream)
+    _build.check(err, f"bm3d_match ({kernel}, block={block}, k={k}, mode={mode})")
 
 
 def bm3d_match(
@@ -298,9 +408,10 @@ def bm3d_match(
     it the wrapper looks it up from the arguments; with it, its numbers of
     rows, columns and offsets must be the arguments'); ``row_valid_bounds``:
     integer ``(lo, hi)``, the rows that count as image rows. A CPU tensor
-    takes the plain version; a CUDA tensor launches K1 (counted in
-    ``bm3d_match.launches``) inside :data:`MATCH_ENVELOPE` and raises
-    outside it."""
+    takes the plain version; a CUDA tensor launches the kernel
+    :func:`match_kernel` names inside :data:`MATCH_ENVELOPE` and raises
+    outside it. Each launch counts one in ``bm3d_match.launches`` and one in
+    ``bm3d_match.by_kernel`` under the kernel's name."""
     if mode not in MODES:
         raise ValueError(f"unknown match mode {mode!r}; have {tuple(MODES)}")
     if imgs.dim() != 3 or imgs.dtype != torch.float32:
@@ -323,27 +434,14 @@ def bm3d_match(
         raise ValueError(f"geometry on {g.rows_t.device} but images on {imgs.device}")
     if g.any_smem_bytes > _MAX_SMEM:  # not reached inside the envelope
         raise ValueError(f"a tile's region needs {g.any_smem_bytes} bytes of shared memory")
-    b, h, w = imgs.shape
     x = imgs.contiguous()
-    nr, nc, s = g.rows_t.numel(), g.cols_t.numel(), g.offsets_t.shape[0]
-    out = torch.empty((b, nr, nc, k), dtype=torch.int32, device=imgs.device)
-    first, any_ = _lib()
-    stream = torch.cuda.current_stream(imgs.device).cuda_stream
-    if g.first_kernel_takes(block, k):
-        err = first(
-            x.data_ptr(), g.rows_t.data_ptr(), g.cols_t.data_ptr(), g.offsets_t.data_ptr(),
-            g.col_plan.data_ptr(), out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k),
-            MODES[mode], g.search, g.smem_h, g.smem_w, g.pitch, g.d_pitch, lo, hi - block, stream,
-        )
-    else:
-        err = any_(
-            x.data_ptr(), g.rows_t.data_ptr(), g.cols_t.data_ptr(), g.offsets_t.data_ptr(),
-            out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k), MODES[mode], g.search,
-            g.any_smem_h, g.any_pitch, lo, hi - block, stream,
-        )
-    _build.check(err, f"bm3d_match (block={block}, k={k}, mode={mode})")
+    out = torch.empty((x.shape[0], g.rows_t.numel(), g.cols_t.numel(), k), dtype=torch.int32, device=x.device)
+    kernel = match_kernel(g, block, k)
+    launch(kernel, _lib()[kernel], x, g, out, block, k, mode, lo, hi)
     bm3d_match.launches += 1
+    bm3d_match.by_kernel[kernel] += 1
     return out
 
 
 bm3d_match.launches = 0
+bm3d_match.by_kernel = dict.fromkeys(K1_KERNELS, 0)

@@ -908,6 +908,81 @@ def test_bm3d_at_the_reference_profile_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(gpu, bm3d.bm3d_denoise_batch(torch.tensor(x, device=cuda), 0.1, p))
 
 
+# K1's block-8 tile kernel (bm3d_match_tile_kernel): at the reference
+# profile's shapes (13 images of 128 px, step 3, 1,521 offsets, 16 and 32
+# matches) on K1's rules, exactly on dyadic images there and at every step
+# 1-8 (windows, k, row bounds and widths off the profile's too), and bit for
+# bit over 50 more calls.
+def _profile_batch(seed=0):
+    rng = np.random.default_rng(seed)
+    paths = [f"Set12/{i:02d}.png" for i in range(1, 13)] + ["13.png"]
+    clean = np.stack([load_image(p, 128, 128) for p in paths])
+    return (clean + 0.1 * rng.standard_normal(clean.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("search,k", [(19, 16), (19, 32), (24, 16)])
+def test_k1_tile_kernel_matches_plain_at_the_profile_shapes(cuda, mode, search, k):
+    x = torch.tensor(_profile_batch(), device=cuda)
+    rows = bm3d._ref_grid(128, 8, 3)
+    offs = bm3d.search_offsets(search, 1)
+    g = k1.match_geometry(rows, rows, offs, 8, cuda)
+    assert k1.match_kernel(g, 8, k) == "bm3d_match_tile_kernel"
+    before, by_kernel = k1.bm3d_match.launches, dict(k1.bm3d_match.by_kernel)
+    got = k1.bm3d_match(x, rows, rows, offs, 8, k, mode, geometry=g)
+    torch.cuda.synchronize()
+    assert k1.bm3d_match.launches == before + 1
+    assert k1.bm3d_match.by_kernel == by_kernel | {"bm3d_match_tile_kernel": by_kernel["bm3d_match_tile_kernel"] + 1}
+    want = k1.bm3d_match_plain(x, rows, rows, offs, 8, k, mode)
+    assert _multiset_agreement(got, want) >= (0.999 if mode == "f32" else 0.995)
+    dists = k1.match_distances_plain(x, rows, rows, offs, 8, mode)
+    assert float(_slot_gaps(got, want, dists).max()) <= NEAR_TIE
+    picked = [int(torch.isinf(dists.gather(-1, t.long())).sum()) for t in (got, want)]
+    assert picked[0] == picked[1]
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("k", [16, 32])
+def test_k1_tile_kernel_equals_plain_exactly_on_dyadic_images_at_the_profile_shape(cuda, mode, k):
+    x = torch.tensor(_dyadic(np.random.default_rng(1521), (13, 128, 128), 4, 0.25), device=cuda)
+    rows = bm3d._ref_grid(128, 8, 3)
+    offs = bm3d.search_offsets(19, 1)
+    assert torch.equal(k1.bm3d_match(x, rows, rows, offs, 8, k, mode),
+                       k1.bm3d_match_plain(x, rows, rows, offs, 8, k, mode))
+
+
+# (step, search, search_step, k, size, row bounds): every step, with the
+# grid's last block off the step (size 64 at steps 5-7; 37), spare slots
+# filled (search 0-2 at k 16-64), a sublattice window and row bounds.
+K1_TILE_POINTS = [(1, 2, 1, 16, 37, None), (2, 5, 1, 64, 64, None), (3, 19, 1, 64, 128, (5, 120)),
+                  (4, 24, 2, 1, 64, None), (5, 0, 1, 64, 64, None), (6, 7, 1, 4, 45, (0, 30)),
+                  (7, 3, 1, 8, 64, None), (8, 12, 3, 2, 64, (20, 64))]
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("step,search,search_step,k,size,bounds", K1_TILE_POINTS)
+def test_k1_tile_kernel_equals_plain_exactly_on_dyadic_images_at_every_step(
+        cuda, mode, step, search, search_step, k, size, bounds):
+    x = torch.tensor(_dyadic(np.random.default_rng(step), (2, size, size + 3), 4, 0.25), device=cuda)
+    rows, cols = bm3d._ref_grid(size, 8, step), bm3d._ref_grid(size + 3, 8, step)
+    offs = bm3d.search_offsets(search, search_step)
+    g = k1.match_geometry(rows, cols, offs, 8, cuda)
+    assert k1.match_kernel(g, 8, k) == "bm3d_match_tile_kernel"
+    got = k1.bm3d_match(x, rows, cols, offs, 8, k, mode, geometry=g, row_valid_bounds=bounds)
+    assert torch.equal(got, k1.bm3d_match_plain(x, rows, cols, offs, 8, k, mode, row_valid_bounds=bounds))
+
+
+def test_k1_tile_kernel_repeats_itself_bit_for_bit(cuda):
+    x = torch.tensor(_profile_batch(7), device=cuda)
+    rows = bm3d._ref_grid(128, 8, 3)
+    offs = bm3d.search_offsets(19, 1)
+    g = k1.match_geometry(rows, rows, offs, 8, cuda)
+    for k in (16, 32):
+        first = k1.bm3d_match(x, rows, rows, offs, 8, k, "bf16_xla", geometry=g)
+        for _ in range(50):
+            assert torch.equal(k1.bm3d_match(x, rows, rows, offs, 8, k, "bf16_xla", geometry=g), first)
+
+
 # Registers of the headline's kernels, as ptxas gave them on an H100
 # (`cuobjdump -res-usage`): those this slice left as they were, the same for
 # the parent tree's sources and this tree's: K1's first kernel 93 (96 at

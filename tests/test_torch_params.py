@@ -199,8 +199,9 @@ def test_envelopes_take_their_corners_and_refuse_one_past_each_bound():
 
 def test_k1_geometry_picks_its_kernel_by_setting():
     """The first K1 kernel keeps the headline's and search12's calls; the
-    reference profile, 32 matches and other blocks go to the any-kernel,
-    whose region fits shared memory at the envelope's largest tile."""
+    reference profile, 32 matches and other blocks go to the other two
+    (``match_kernel`` names which: ``tests/test_torch_k1_tile.py``); the
+    any-kernel's region fits shared memory at the envelope's largest tile."""
     g = k1.match_geometry(bm3d._ref_grid(128, 8, 4), bm3d._ref_grid(128, 8, 4),
                           bm3d.search_offsets(8, 1), 8, "cpu")
     assert g.first_kernel_takes(8, 16) and not g.first_kernel_takes(8, 32)
