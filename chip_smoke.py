@@ -318,12 +318,16 @@ from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import (
     match_geometry,
     match_kernel,
 )
+from pnp_svrg_tpu_torch.ops.cuda import bm3d_aggregate as k2_module
+from pnp_svrg_tpu_torch.ops.cuda import nlm as k3_module
 from pnp_svrg_tpu_torch.ops.cuda.bm3d_aggregate import (
+    K2_KERNELS,
     aggregate_geometry,
+    aggregate_kernel,
     bm3d_aggregate,
     bm3d_aggregate_plain,
 )
-from pnp_svrg_tpu_torch.ops.cuda.nlm import nlm_denoise, nlm_denoise_plain
+from pnp_svrg_tpu_torch.ops.cuda.nlm import K3_KERNELS, nlm_denoise, nlm_denoise_plain, nlm_kernel_name
 from pnp_svrg_tpu_torch.ops.metrics import ssim
 from pnp_svrg_tpu_torch.ops.sigma import estimate_sigma
 from pnp_svrg_tpu_torch.problems.csmri import make_csmri
@@ -547,11 +551,21 @@ ENVELOPE_LANES = ("bm3d_profile",)  # CSMRI_LANES held to the envelope fixture
 LANE_K1_KERNEL = {"bm3d_profile": "bm3d_match_tile_kernel"}
 ENVELOPE_K1 = {"profile_ht": (8, 3, 19, 16, "input"), "profile_wiener": (8, 3, 19, 32, "basic"),
                "search24": (8, 3, 24, 16, "input"), "golden": (4, 2, 3, 4, "input")}
-ENVELOPE_K2 = {"profile_ht": (8, 3, 19, 16), "profile_wiener": (8, 3, 19, 32), "golden": (4, 2, 3, 4)}
+ENVELOPE_K2 = {"profile_ht": (8, 3, 19, 16), "profile_wiener": (8, 3, 19, 32), "golden": (4, 2, 3, 4),
+               "block2": (2, 1, 3, 4), "block6": (6, 3, 6, 8), "block8_k8": (8, 4, 8, 8),
+               "block16": (16, 8, 8, 16)}
+# The rows of K2's run-time path (every call off (8, 16) and (8, 32)): the
+# packed kernel's.
+ENVELOPE_K2_RUNTIME = {row: v for row, v in ENVELOPE_K2.items() if aggregate_kernel(v[0], v[3]) == K2_KERNELS[1]}
 ENVELOPE_K3 = ((7, 11), (1, 1), (11, 15))
-# K1 rows also carry the kernel match_kernel names for them and, where
-# that is the tile kernel, the replaced any-kernel's time on the same call.
-K1_ROW_FIELDS = ("kernel", "prev_design_ms", "speedup_vs_prev_design")
+# Kernel rows also carry the kernel that takes the call and, where that is
+# a redesign (K1's tile kernel, K2's packed kernel, K3's cluster kernel),
+# the replaced design's time on the same call.
+REDESIGN_FIELDS = ("kernel", "prev_design_ms", "speedup_vs_prev_design")
+# The K3 kernel every launch of a lane's timed run must go to (nlm_kernel
+# for every other NLM lane); every K2 launch of a lane goes to the compiled
+# bm3d_aggregate_kernel.
+LANE_K3_KERNEL = {"csmri_nlm_skimage": K3_KERNELS[1]}
 # The lane whose run launches a kernel row's shape, and the share of that
 # lane's launches the shape takes (rows off every lane: 0). Each of
 # bm3d_profile's denoises runs its two stages once (its launch check holds
@@ -566,8 +580,8 @@ KERNELS = {"bm3d_match": bm3d_match, "bm3d_aggregate": bm3d_aggregate, "nlm": nl
 K2_REPEATS = 50  # more K2 calls on one call's arguments, each bit for bit the first
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("K1 bm3d_match", K1_KERNELS),
-    ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel", "bm3d_aggregate_fold_kernel")),
-    ("K3 nlm", ("nlm_kernel", "nlm_any_kernel")),
+    ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel", "bm3d_aggregate_fold_kernel", "bm3d_aggregate_packed_kernel")),
+    ("K3 nlm", ("nlm_kernel", "nlm_any_kernel", "nlm_cluster_kernel")),
     # Before the matmul group: cuDNN's implicit-GEMM convolutions
     # (``sm80_xmma_fprop_implicit_gemm_*``) carry "gemm" too; cuBLAS's
     # matmuls are ``*_xmma_gemm_*`` with no "fprop". cuDNN's BatchNorm
@@ -1007,16 +1021,21 @@ def aggregate_work(b: int, g: int, k: int, block: int, h: int, w: int) -> tuple:
     return nbytes, b * p * block * block * 4
 
 
-def aggregate_record(agg_in) -> dict:
+def aggregate_record(agg_in, prev_design: bool = False) -> dict:
     """K2 against its plain version on one call's real arguments (``num``
     and ``den`` within 1e-5 of the planes' magnitude) and, with the same
     rows, on dyadic values (bit for bit: every sum is exact in any order);
     :data:`K2_REPEATS` more calls on the real arguments bit for bit equal to
     the first; its time beside the plain version and one ``index_add_`` of
     the per-pixel terms into fresh planes (timed with the zero fill of its
-    output), and the bound."""
+    output), and the bound. ``kernel`` is the tile kernel
+    :func:`aggregate_kernel` names. With ``prev_design``, where that is the
+    packed kernel, the design it replaced (``bm3d_aggregate_kernel<0, 0>``
+    on 2 x 2 tiles) is timed on the same arguments too, after it is held to
+    the same 1e-5 and to two calls bit for bit equal."""
     idx, est, wgt, kai, h, w, geom = agg_in
     b, p, bb = est.shape
+    kernel = aggregate_kernel(math.isqrt(bb), p // wgt.shape[1])
     got = bm3d_aggregate(*agg_in)
     repeat_bitwise = all(all(torch.equal(a, r) for a, r in zip(got, bm3d_aggregate(*agg_in)))
                          for _ in range(K2_REPEATS))
@@ -1059,19 +1078,39 @@ def aggregate_record(agg_in) -> dict:
     require(lib_err <= 1e-5 * max(scales.values()), f"index_add_ yardstick err {lib_err}")
     library = lambda: torch.zeros(2 * b * h * w, device=idx.device).index_add_(0, flat, terms)  # noqa: E731
     library_ms, library_event_ms = device_ms(library), cuda_ms(library)
-    return {
+    plan = geom.packed(p // wgt.shape[1]) if kernel == K2_KERNELS[1] else geom
+    rec = {
+        "kernel": kernel,
         "max_abs_err": max(errs.values()), "max_abs_err_by_plane": errs,
         "plane_magnitude": scales, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
         "bound_ms": max(flops / F32_PEAK, nbytes / HBM_PEAK) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_PEAK >= flops / F32_PEAK else "operations",
         "bytes": nbytes, "library_ms": library_ms, "library_event_ms": library_event_ms,
+        "speedup_vs_library": library_ms / ms,
         "library_max_abs_err": lib_err, "repeat_launches": K2_REPEATS,
         "repeat_bitwise": repeat_bitwise, "dyadic_bitwise": dyadic_equal,
-        "smem_bytes": geom.smem_bytes, "footprint": [geom.fh, geom.fw],
-        "scratch_bytes": geom.scratch_bytes(b),
+        "smem_bytes": plan.smem_bytes, "footprint": [plan.fh, plan.fw],
+        "scratch_bytes": geom.scratch_bytes(b, plan if kernel == K2_KERNELS[1] else None),
         "shape": {"idx": list(idx.shape), "est": list(est.shape), "wgt": list(wgt.shape),
                   "planes": [2, b, h, w]},
     }
+    if kernel == K2_KERNELS[1]:
+        rec["plan"] = {"tile": plan.tile, "warps": plan.warps, "groups": plan.groups,
+                       "ctas": len(plan.tile_oy) * len(plan.tile_ox) * b}
+    if prev_design and kernel == K2_KERNELS[1]:
+        prev = k2_module.PREV_DESIGN
+        fn = k2_module._lib()[prev]
+        call_prev = lambda: k2_module.launch(prev, fn, idx, est, wgt, kai, h, w, geom)  # noqa: E731
+        first = call_prev()
+        c = {"max_abs_err": max((a - r).abs().max().item() for a, r in zip(first, want)),
+             "repeat_bitwise": all(torch.equal(a, r) for a, r in zip(call_prev(), first))}
+        require(c["max_abs_err"] <= 1e-5 * max(scales.values()) and c["repeat_bitwise"],
+                f"K2's {prev} at {list(est.shape)}: {c}")
+        rec |= {"prev_design": prev, "prev_design_checks": c, "prev_design_ms": device_ms(call_prev),
+                "prev_design_event_ms": cuda_ms(call_prev),
+                "prev_design_smem_bytes": geom.smem_bytes, "prev_design_scratch_bytes": geom.scratch_bytes(b)}
+        rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / ms
+    return rec
 
 
 def check_aggregate(agg_in) -> dict:
@@ -1320,7 +1359,8 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
     for row, (block, step, search, k) in ENVELOPE_K2.items():
         p = BM3DParams(block=block, step=step, search=search, group_ht=k, match_dtype="bfloat16")
         _, agg_in = stage1_aggregate_inputs(z, sig, p)
-        k2[row] = aggregate_record(agg_in) | {"block": block, "k": k, "step": step, "search": search}
+        k2[row] = aggregate_record(agg_in, prev_design=True) | {"block": block, "k": k, "step": step,
+                                                                "search": search}
     inputs = nlm_check_inputs()
     k3 = {}
     for pd in ENVELOPE_K3:
@@ -1334,10 +1374,28 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
             zero = torch.zeros(x.shape[0], device="cuda")
             nan = bool(torch.isnan(nlm_denoise(x, zero, zero, *pd)).all())
             require(nan, f"K3 at h = 0 not NaN everywhere at {pd}")
-            k3[f"p{pd[0]}_d{pd[1]}_{lanes}"] = {
+            repeat = bool(torch.equal(nlm_denoise(x, h, h, *pd), nlm_denoise(x, h, h, *pd)))
+            require(repeat, f"K3: two calls differ at {pd}, {lanes}")
+            b, hh, ww = x.shape
+            fns = k3_module._lib()
+            hs = h.expand(b).contiguous()
+
+            def call_prev(x=x, hs=hs, pd=pd, fns=fns):  # through the kernel's own entry: no launch counted
+                out = torch.empty_like(x)
+                k3_module.launch(k3_module.PREV_DESIGN, fns, x, hs, hs, out, *pd, 0, x.shape[1])
+                return out
+
+            prev_err = (call_prev() - nlm_denoise_plain(x, h, h, *pd)).abs().max().item()
+            require(prev_err <= 1e-5, f"K3's {k3_module.PREV_DESIGN} max abs err {prev_err} at {pd}, {lanes}")
+            rec = k3[f"p{pd[0]}_d{pd[1]}_{lanes}"] = {
                 "shape": {"images": list(x.shape), "patch_size": pd[0], "patch_distance": pd[1]},
+                "kernel": nlm_kernel_name(*pd),
+                "plan": list(k3_module.device_plan(fns, x.device, b, hh, ww, *pd)),
                 "max_abs_err": max(errs.values()), "max_abs_err_by_bounds": errs, "nan_at_h0": nan,
-                **nlm_times(x, h, h, clock_hz, *pd), "library_ms": None}
+                "repeat_bitwise": repeat, **nlm_times(x, h, h, clock_hz, *pd), "library_ms": None,
+                "prev_design": k3_module.PREV_DESIGN, "prev_design_max_abs_err": prev_err,
+                "prev_design_ms": device_ms(call_prev), "prev_design_event_ms": cuda_ms(call_prev)}
+            rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / rec["ms"]
     return k1, k2, k3
 
 
@@ -1499,6 +1557,7 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     eta, den = csmri_lane(label, lanes)
     run, out, steady, first, launches = drive(prob, den, eta)
     k1_kernels = dict(bm3d_match.by_kernel)  # the timed run's, as launches
+    k2_k3_kernels = kernel_launches()
     envelope = label in ENVELOPE_LANES
     ref_repeats = ENVELOPE_REPEATS if envelope else 1
     jax_trace = None
@@ -1522,7 +1581,7 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     rec = {
         "phase": label, "lanes": len(lanes), "steady_s": steady, "first_s": first,
         "image_iters_per_s": len(lanes) * N_OUTER * (T2 + 1) / steady,
-        "launches": launches, "k1_kernels": k1_kernels,
+        "launches": launches, "k1_kernels": k1_kernels, "k2_k3_kernels": k2_k3_kernels,
         "reference_minibatches": ref, "floor_db": floor_db, "port_stream_seed2": own,
         "port_stream_seeds": {s: [q[k] for k in keys] for s, q in spread.items()},
         "port_stream_seeds_fields": keys,
@@ -1531,7 +1590,8 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     }
     prof = phase_profile(label, lambda: run(seed=3))
     rec |= {"device_ms": prof["device_kernel_ms"], "device_busy_share": prof["device_busy_share"],
-            "profile_k1_kernels": prof["kernel_names"].get(KERNEL_GROUPS[0][0], [])}
+            "profile_k1_kernels": prof["kernel_names"].get(KERNEL_GROUPS[0][0], []),
+            "profile_k2_kernels": prof["kernel_names"].get(KERNEL_GROUPS[1][0], [])}
     if headline is not None:
         rec["headline"] = {k: headline[k] for k in ("image_iters_per_s", "device_ms", "device_busy_share")}
     checks = []
@@ -1544,6 +1604,8 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     emit(rec)
     require(launches == expect, f"{label}: launches {launches}, expected {expect}")
     check_k1_kernels(label, k1_kernels, launches, rec["profile_k1_kernels"])
+    check_k2_k3_kernels(label, k2_k3_kernels, launches)
+    require(K2_KERNELS[1] not in rec["profile_k2_kernels"], f"{label}: the profile ran {K2_KERNELS[1]}")
     require(ref["set12_vd_mean_psnr_db"] >= floor_db,
             f"{label}: Set12-VD mean {ref['set12_vd_mean_psnr_db']:.4f} dB on the JAX masks < {floor_db:.4f}")
     for cond, what in checks:
@@ -1593,6 +1655,7 @@ def run_nlm_lane() -> dict:
     """The CSMRI + NLM lane, held on the JAX lane's masks to its stored trace."""
     prob, den, eta, cfg = nlm_lane()
     run, out, steady, first, launches = drive(prob, den, eta, cfg["lr_decay"])
+    k2_k3_kernels = kernel_launches()
     own = lane_quality(prob, out)
     ref_run = lane_quality(prob, run(masks=load_nlm_masks("cuda")))
     jax_trace = load_nlm_reference()["psnr_per_iter"]
@@ -1604,6 +1667,7 @@ def run_nlm_lane() -> dict:
     rec = {
         "phase": "csmri_nlm", "lanes": 1, "steady_s": steady, "first_s": first,
         "image_iters_per_s": N_OUTER * (T2 + 1) / steady, "launches": launches,
+        "k2_k3_kernels": k2_k3_kernels,
         "reference_minibatches": {
             "psnr_db": ref_psnr, "ssim": ref_run["per_lane_ssim"][0],
             "delta_psnr_db": ref_psnr - NLM_REF_DB, "delta_ssim": ref_run["per_lane_ssim"][0] - NLM_REF_SSIM,
@@ -1617,6 +1681,7 @@ def run_nlm_lane() -> dict:
     denoises = N_OUTER * T2
     expect = {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": denoises}
     require(launches == expect, f"csmri_nlm: launches {launches}, expected {expect}")
+    check_k2_k3_kernels("csmri_nlm", k2_k3_kernels, launches)
     require(ref_psnr >= NLM_FLOOR_DB, f"csmri_nlm: PSNR {ref_psnr:.2f} dB < {NLM_FLOOR_DB}")
     require(dtrace <= NLM_TRACE_TOL_DB, f"csmri_nlm: trace {dtrace:.4f} dB off the JAX trace")
     return rec
@@ -1648,6 +1713,7 @@ def run_nlm_skimage_lane() -> dict:
     prob, _, eta, cfg = nlm_lane()
     den = NLMDenoiser(sigma_modifier=cfg["sigma_modifier"], **NLM_SKIMAGE)
     run, out, steady, first, launches = drive(prob, den, eta, cfg["lr_decay"])
+    k2_k3_kernels = kernel_launches()
     own = lane_quality(prob, out)
     masks = load_nlm_masks("cuda")
     outs = [run(masks=masks) for _ in range(ENVELOPE_REPEATS)]
@@ -1658,6 +1724,7 @@ def run_nlm_skimage_lane() -> dict:
     rec = {
         "phase": "csmri_nlm_skimage", "lanes": 1, "denoiser": NLM_SKIMAGE, "steady_s": steady,
         "first_s": first, "image_iters_per_s": N_OUTER * (T2 + 1) / steady, "launches": launches,
+        "k2_k3_kernels": k2_k3_kernels,
         "reference_minibatches": {
             "psnr_db": ref_run["per_lane_psnr_db"][0], "ssim": ref_run["per_lane_ssim"][0],
             "jax_cpu_psnr_db": float(jax_ref["psnr_per_iter"][-1]), "jax_cpu_ssim": float(jax_ref["ssim"]),
@@ -1667,10 +1734,14 @@ def run_nlm_skimage_lane() -> dict:
         "config": {k: cfg[k] for k in ("eta", "lr_decay", "sigma_modifier")},
     }
     prof = phase_profile("csmri_nlm_skimage", lambda: run(seed=3))
-    rec |= {"device_ms": prof["device_kernel_ms"], "device_busy_share": prof["device_busy_share"]}
+    rec |= {"device_ms": prof["device_kernel_ms"], "device_busy_share": prof["device_busy_share"],
+            "profile_k3_kernels": prof["kernel_names"].get(KERNEL_GROUPS[2][0], [])}
     emit(rec)
     expect = {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": N_OUTER * T2}
     require(launches == expect, f"csmri_nlm_skimage: launches {launches}, expected {expect}")
+    check_k2_k3_kernels("csmri_nlm_skimage", k2_k3_kernels, launches)
+    require(rec["profile_k3_kernels"] == [K3_KERNELS[1]],
+            f"csmri_nlm_skimage: the profile's K3 kernels {rec['profile_k3_kernels']}")
     require(rec["repeat_bitwise"], "csmri_nlm_skimage: runs on the JAX masks differ")
     require(dtrace <= NLM_TRACE_TOL_DB, f"csmri_nlm_skimage: trace {dtrace:.4f} dB off the JAX trace")
     return rec
@@ -1690,16 +1761,18 @@ def nlm_grid():
 def run_nlm_grid() -> dict:
     prob, den, eta, pairs = nlm_grid()
     _, out, steady, first, launches = drive(prob, den, eta)
+    k2_k3_kernels = kernel_launches()
     q = lane_quality(prob, out, check=False)
     q.pop("_trace")
     rec = {
         "phase": "csmri_nlm_grid", "lanes": len(pairs), "steady_s": steady, "first_s": first,
         "image_iters_per_s": len(pairs) * N_OUTER * (T2 + 1) / steady, "launches": launches,
-        "pairs_eta_mod": pairs, **q,
+        "k2_k3_kernels": k2_k3_kernels, "pairs_eta_mod": pairs, **q,
     }
     emit(rec)
     expect = {"bm3d_match": 0, "bm3d_aggregate": 0, "nlm": N_OUTER * T2}
     require(launches == expect, f"csmri_nlm_grid: launches {launches}, expected {expect}")
+    check_k2_k3_kernels("csmri_nlm_grid", k2_k3_kernels, launches)
     return rec
 
 
@@ -1777,6 +1850,7 @@ def run_bench_lane(lane: dict) -> dict:
     run, out, steady, first, launches = drive(prob, lane["den"], lane["eta"], cfg["lr_decay"],
                                               cfg["n_outer"], cfg["t2"], cfg["mini_batch_size"])
     k1_kernels = dict(bm3d_match.by_kernel)  # the timed run's, as launches
+    k2_k3_kernels = kernel_launches()
     own = lane_quality(prob, out)
     own.pop("_trace")
     ref_outs = [run(masks=lane["ref_mb"]) for _ in range(BENCH_REF_REPEATS)]
@@ -1806,7 +1880,7 @@ def run_bench_lane(lane: dict) -> dict:
     rec = {
         "phase": label, "lanes": 1, "steady_s": steady, "first_s": first,
         "image_iters_per_s": iters / steady, "launches": launches, "k1_kernels": k1_kernels,
-        "reference_minibatches": ref, "floor_db": floor,
+        "k2_k3_kernels": k2_k3_kernels, "reference_minibatches": ref, "floor_db": floor,
         "port_stream_seed2": {"psnr_db": own["per_lane_psnr_db"][0], "ssim": own["per_lane_ssim"][0]},
         "port_stream_seeds_psnr_db": spread, "peak_mem_gb": peak_gb,
         "config": {k: cfg[k] for k in ("eta", "lr_decay", "sigma_modifier", "n_outer", "t2",
@@ -1818,6 +1892,7 @@ def run_bench_lane(lane: dict) -> dict:
     expect = {"bm3d_match": 2 * denoises, "bm3d_aggregate": 2 * denoises, "nlm": 0}
     require(launches == expect, f"{label}: launches {launches}, expected {expect}")
     check_k1_kernels(label, k1_kernels, launches)
+    check_k2_k3_kernels(label, k2_k3_kernels, launches)
     require(repeat_bitwise, f"{label}: {len(repeats)} runs on the JAX run's minibatches differ: {repeats}")
     require(mean_psnr >= floor, f"{label}: mean PSNR of {len(repeats)} runs on the JAX run's "
                                 f"minibatches {mean_psnr:.2f} dB < {floor:.2f}")
@@ -2439,10 +2514,49 @@ def _counts() -> dict:
     return {n: k.launches for n, k in KERNELS.items()}
 
 
+# K2's and K3's launches by kernel over the whole run (TALLY), and the share
+# of them made where the packed and cluster kernels may run (ALLOWED: the
+# kernel rows and the csmri_nlm_skimage lane); every other launch must go
+# to bm3d_aggregate_kernel or nlm_kernel.
+TALLY, ALLOWED = collections.Counter(), collections.Counter()
+
+
+def _fold_tally() -> None:
+    """Add K2's and K3's launches by kernel to :data:`TALLY` and set them to 0."""
+    TALLY.update(bm3d_aggregate.by_kernel)
+    TALLY.update(nlm_denoise.by_kernel)
+    bm3d_aggregate.by_kernel = dict.fromkeys(K2_KERNELS, 0)
+    nlm_denoise.by_kernel = dict.fromkeys(K3_KERNELS, 0)
+
+
+def allowed(run):
+    """``run()``, its K2 and K3 launches counted in :data:`ALLOWED`."""
+    _fold_tally()
+    before = TALLY.copy()
+    out = run()
+    _fold_tally()
+    ALLOWED.update(TALLY - before)
+    return out
+
+
+def kernel_launches() -> dict:
+    """K2's and K3's launches by kernel since the counts were set to 0."""
+    return {"bm3d_aggregate": dict(bm3d_aggregate.by_kernel), "nlm": dict(nlm_denoise.by_kernel)}
+
+
+def check_k2_k3_kernels(label: str, kernels: dict, launches: dict) -> None:
+    """Every K2 launch of a lane's timed run went to bm3d_aggregate_kernel,
+    every K3 launch to the lane's kernel (:data:`LANE_K3_KERNEL`)."""
+    want = {"bm3d_aggregate": dict.fromkeys(K2_KERNELS, 0) | {K2_KERNELS[0]: launches["bm3d_aggregate"]},
+            "nlm": dict.fromkeys(K3_KERNELS, 0) | {LANE_K3_KERNEL.get(label, K3_KERNELS[0]): launches["nlm"]}}
+    require(kernels == want, f"{label}: K2 and K3 launches by kernel {kernels}, expected {want}")
+
+
 def _zero_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
     bm3d_match.by_kernel = dict.fromkeys(K1_KERNELS, 0)
+    _fold_tally()
     torch.cuda.synchronize()
 
 
@@ -3065,7 +3179,7 @@ def main() -> None:
     k2["bench_shapes"] = {label: r[1] for label, r in at_lanes.items()}
     k3 = check_nlm(dev["max_sm_clock_mhz"] * 1e6)
     k3["bench_shapes"] = {"sweep_nlm": check_nlm_at_sweep(first_round["nlm"], dev["max_sm_clock_mhz"] * 1e6)}
-    for rec, rows in zip((k1, k2, k3), check_envelope_kernels(dev["max_sm_clock_mhz"] * 1e6)):
+    for rec, rows in zip((k1, k2, k3), allowed(lambda: check_envelope_kernels(dev["max_sm_clock_mhz"] * 1e6))):
         rec["bench_shapes"] |= rows
     emit({"phase": "kernels_checked", "bm3d_match": k1, "bm3d_aggregate": k2, "nlm": k3,
           "device_ms_lost_records": LOST_RECORDS})
@@ -3089,7 +3203,7 @@ def main() -> None:
     lanes_run["bm3d_profile"] = run_lane("bm3d_profile", with_k2, prob, lanes, ref_masks, seeds=(),
                                          headline=head, extra=profile_first_call)
     lanes_run["csmri_nlm"] = run_nlm_lane()
-    lanes_run["csmri_nlm_skimage"] = run_nlm_skimage_lane()
+    lanes_run["csmri_nlm_skimage"] = allowed(run_nlm_skimage_lane)
     lanes_run["csmri_nlm_grid"] = run_nlm_grid()
     lanes_run |= {label: run_bench_lane(lane) for label, lane in bench.items()}
     mem_before_gb = torch.cuda.memory_allocated() / 1e9
@@ -3140,7 +3254,7 @@ def main() -> None:
         for label, r in rec["bench_shapes"].items():
             lane, share = ROW_LANE.get(label, (label, 1))
             shapes[label] = {"launches": by_lane.get(lane, 0) // share, "shape": r["shape"],
-                             **{k: r[k] for k in fields + K1_ROW_FIELDS if k in r}}
+                             **{k: r[k] for k in fields + REDESIGN_FIELDS if k in r}}
     kernels[0]["bounded"] = {  # K1 with row bounds: the spatial BM3D path's, per rank
         "launches": lanes_run["parallel/e_bm3d_rank0"]["launches"]["bm3d_match"],
         "shape": {k: k1["bounded"][k] for k in ("shape", "bounds", "mode")},
@@ -3157,8 +3271,26 @@ def main() -> None:
     kernels.insert(1, {
         "name": "bm3d_match_tile", "route": "cuda", "source": SOURCES["bm3d_match"][0],
         "replaces": SOURCES["bm3d_match"][1], "launches": tile_by_lane["bm3d_profile"],
-        "launches_by_lane": tile_by_lane, **{k: ht[k] for k in fields + K1_ROW_FIELDS},
+        "launches_by_lane": tile_by_lane, **{k: ht[k] for k in fields + REDESIGN_FIELDS},
         "card": dev["nvidia_smi"], "bench_shapes": tile_rows})
+    # K2's packed kernel (the run-time path: no lane runs it; its rows are
+    # the envelope's, golden first) and K3's cluster kernel (csmri_nlm_skimage's
+    # path; its row that lane's shape, B = 1 at (7, 11)).
+    for name, group, kernel, main in (("bm3d_aggregate_packed", "bm3d_aggregate", K2_KERNELS[1], "golden"),
+                                      ("nlm_cluster", "nlm", K3_KERNELS[1], "p7_d11_b1")):
+        rows = {label: r for label, r in next(k for k in kernels if k["name"] == group)["bench_shapes"].items()
+                if r.get("kernel") == kernel}
+        by_lane = {lane: r["k2_k3_kernels"][group][kernel] for lane, r in lanes_run.items()
+                   if "k2_k3_kernels" in r}
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[group][0], "replaces": SOURCES[group][1],
+            "launches": by_lane.get(ROW_LANE.get(main, ("",))[0], 0), "launches_by_lane": by_lane,
+            **{k: rows[main][k] for k in fields + REDESIGN_FIELDS}, "card": dev["nvidia_smi"],
+            "bench_shapes": rows})
+    _fold_tally()
+    stray = {k: TALLY[k] - ALLOWED[k] for k in (K2_KERNELS[1], K3_KERNELS[1])}
+    emit({"phase": "k2_k3_kernels", "tally": dict(TALLY), "allowed": dict(ALLOWED), "stray": stray})
+    require(not any(stray.values()), f"K2 / K3 launches on the redesigned kernels outside their rows: {stray}")
     for k in kernels:
         shapes = [k] + list(k.get("bench_shapes", {}).values()) + [k.get("bounded", k)]
         require(all(math.isfinite(r[f]) for r in shapes for f in ("ms", "plain_ms", "bound_ms")),

@@ -78,18 +78,45 @@
 // against two warps' 0.0144 on an H100, `examples/k2_variants.py`); the
 // row is decoded without an integer division.
 //
-// Any block and group size. The tile kernel is a template on (BLOCK, KK):
-// lane l owns the patch values l + 32 q (q < ceil(block^2 / 32)), with
-// fewer members in flight where a patch needs more registers. It is
-// compiled with (block, K) constant at (8, 16), the headline's (lane l owns
-// (ky, kx) and (ky + 4, kx), eight members in flight), and at (8, 32), the
-// reference profile's Wiener stage; `<0, 0>` reads block in [2, 16] and K in
-// [1, 64] at run time. Every form has the same tiles, warps, private planes
-// and order of adds. The fold reads (block, K) at run time: they feed only
-// its out-of-footprint scan. Footprints grow with the search window and the
-// step (49 x 49 pixels at step 3, search 19), so a pixel may be covered by
-// more than kMaxCover tiles an axis; the fold then takes its streaming form,
-// by rule, in the same order of adds.
+// The tile kernel is a template on (BLOCK, KK): lane l owns the patch values
+// l + 32 q (q < ceil(block^2 / 32)), with fewer members in flight where a
+// patch needs more registers. It is compiled with (block, K) constant at (8,
+// 16), the headline's (lane l owns (ky, kx) and (ky + 4, kx), eight members
+// in flight), and at (8, 32), the reference profile's Wiener stage. Both
+// have the same tiles, warps, private planes and order of adds. The fold
+// reads (block, K) at run time: they feed only its out-of-footprint scan.
+// Footprints grow with the search window and the step (49 x 49 pixels at
+// step 3, search 19), so a pixel may be covered by more than kMaxCover tiles
+// an axis; the fold then takes its streaming form, by rule, in the same
+// order of adds.
+//
+// Every other call (block 2-16, K 1-64): `bm3d_aggregate_packed_kernel<Q>`.
+// Its bound is the same (bytes: at the golden oracle's block 4, step 2,
+// search 3, K 4 and 13 images of 128 x 128, 13.2 MB of estimates and 1.7
+// MB of planes, 0.0048 ms). The first design for these calls,
+// `bm3d_aggregate_kernel<0, 0>` (the template with block and K read at run
+// time, on 2 x 2 tiles), lost to one `index_add_` there: with 4 x 4 patches
+// a CTA of 4 warps held 16 members on 12 x 12 footprints, so 13,312 CTAs
+// each zeroed, summed and stored planes larger than the members they held
+// (15.3 MB of scratch against 13.2 MB of estimates), and half of every
+// warp's lanes sat idle on 16-value patches. The packed kernel answers
+// both. (1) Lane groups: where block^2 <= 16 a warp's lanes form 32 /
+// block^2 groups of block^2 lanes (8 groups at block 2, 2 at block 4), each
+// adding its own members into its own pair of planes, so every lane works
+// and no two lanes of an instruction add to one pixel; a CTA sums its
+// groups' planes in a fixed order (warp, then group). Q (values a lane) is
+// a template argument, 1-8, and sizes the registers; a lane's values of a
+// whole-warp member (Q > 1) are at compile-time strides. (2) The tile shape
+// is the host's (`packed_plan` in ops/cuda/bm3d_aggregate.py, read at run
+// time with the warps and groups): one warp where lanes are grouped, else
+// two, and the smallest square tile, 2 x 2 at least, whose members give each
+// warp 1,024 values to add; more members per footprint, few CTAs' planes to
+// zero and sum, and enough small CTAs in flight (k2_variants.py times tile
+// edges 2-12 with 1, 2 and 4 warps). The fold is the template with the tile
+// shape read at run time (kTR = 0), in the same order of adds. Each call
+// stays bit for bit the same from run to run (no float atomic), exact on
+// dyadic values, and holds the out-of-footprint scan and the dropping of
+// rows outside the table.
 
 #include <cuda_runtime.h>
 
@@ -102,6 +129,7 @@ constexpr int kUnroll = 8;  // members each warp has in flight (at most)
 constexpr int kFoldThreads = 256;
 constexpr int kMaxCover = 6;  // the fold's covering tiles an axis, loaded at once
 constexpr long long kFewPixels = 1 << 17;  // fold all at once up to this many pixels
+constexpr int kPackedMaxWarps = 8;  // the packed kernel's warps a CTA, at most
 
 // Whether a block x block member at (py, px) lies inside the fh x fw
 // footprint at (oy, ox).
@@ -228,6 +256,138 @@ bm3d_aggregate_kernel(const int* __restrict__ idx, const float* __restrict__ est
   }
 }
 
+// The packed tile kernel: every call but (8, 16) and (8, 32). One CTA of
+// `blockDim.x / 32` warps per (image, tile_r x tile_c tile of reference
+// blocks, the host's choice); each warp's lanes form `groups` groups of
+// 32 / groups lanes, and each group holds its own numerator and denominator
+// planes of the tile's footprint, so no two lanes add to one pixel in the
+// same instruction. Q: patch values a lane (1 wherever groups > 1).
+template <int Q>
+__global__ void __launch_bounds__(kPackedMaxWarps * 32)
+bm3d_aggregate_packed_kernel(const int* __restrict__ idx, const float* __restrict__ est,
+                             const float* __restrict__ wgt, const float* __restrict__ kaiser,
+                             const int* __restrict__ tile_oy, const int* __restrict__ tile_ox,
+                             float* __restrict__ scratch, int* __restrict__ overflow, int epoch,
+                             int H, int W, int nR, int nC, int fh, int fw, int block, int k_shift,
+                             int tile_r, int tile_c, int groups) {
+  constexpr int kInFlight = Q <= 2 ? kUnroll : 4;
+  const int bb = block * block;
+  const int lanes = Q > 1 ? 32 : 32 / groups;  // lanes a member (a whole warp where Q > 1)
+  const int n_planes = (blockDim.x >> 5) * groups;
+  extern __shared__ float planes[];  // n_planes x (num, den) x fh x fw
+  const int plane = fh * fw;
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * tile_r;
+  const int c0 = blockIdx.x * tile_c;
+  const int nr = min(tile_r, nR - r0);
+  const int nc = min(tile_c, nC - c0);
+  const int oy = tile_oy[blockIdx.y];
+  const int ox = tile_ox[blockIdx.x];
+  const int tid = threadIdx.x;
+  for (int q = tid; q < 2 * n_planes * plane; q += blockDim.x) planes[q] = 0.f;
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = Q > 1 ? 0 : lane / lanes;  // lanes past groups * lanes sit idle
+  const int j = lane - grp * lanes;
+  const bool busy = grp < groups;
+  // Lane j of a group owns patch values v = j + lanes * q.
+  int at[Q];
+  float kai[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int v = j + lanes * q;
+    const bool own = busy && v < bb;
+    at[q] = own ? (v / block) * fw + v % block : -1;
+    kai[q] = own ? __ldg(kaiser + v) : 0.f;
+  }
+  float* s_num = planes + (warp * groups + (busy ? grp : 0)) * 2 * plane;
+  float* s_den = s_num + plane;
+
+  const int ww = W - block + 1;
+  const int n_rows = (H - block + 1) * ww;
+  const float inv_ww = 1.f / (float)ww;
+  // The tile's members, tile row by tile row: row i's nc * K members are
+  // contiguous in est. Member m of the tile goes to group m % n_planes of
+  // the CTA (warp-major), the groups of a step taking consecutive members.
+  const int run = nc << k_shift;
+  const int total = nr * run;
+  const float inv_run = 1.f / (float)run;
+  const long long first_group = (long long)b * nR * nC;
+  for (int m0 = warp * groups; m0 < total; m0 += n_planes * kInFlight) {
+    int row[kInFlight];
+    float w[kInFlight], e[kInFlight][Q];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int m = m0 + u * n_planes + grp;
+      row[u] = -1;
+      if (busy && m < total) {
+        int i = (int)(((float)m + 0.5f) * inv_run);  // m = i * run + rest, without a division
+        int rest = m - i * run;
+        if (rest < 0) {
+          --i;
+          rest += run;
+        } else if (rest >= run) {
+          ++i;
+          rest -= run;
+        }
+        const long long p = ((first_group + (long long)(r0 + i) * nC + c0) << k_shift) + rest;
+        row[u] = __ldg(idx + p);
+        w[u] = __ldg(wgt + (p >> k_shift));
+#pragma unroll
+        for (int q = 0; q < Q; ++q) e[u][q] = at[q] >= 0 ? __ldg(est + p * bb + j + lanes * q) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      bool add = row[u] >= 0 && row[u] < n_rows;
+      int a = 0;
+      if (add) {
+        int py = (int)(((float)row[u] + 0.5f) * inv_ww);  // row = py * ww + px
+        int px = row[u] - py * ww;
+        if (px < 0) {
+          --py;
+          px += ww;
+        } else if (px >= ww) {
+          ++py;
+          px -= ww;
+        }
+        if (in_footprint(py, px, oy, ox, fh, fw, block)) {
+          a = (py - oy) * fw + px - ox;
+        } else {
+          overflow[b] = epoch;  // the fold adds this member
+          add = false;
+        }
+      }
+      if (add) {  // the group's own planes, one member at a time
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          if (at[q] < 0) continue;
+          const float wk = __fmul_rn(w[u], kai[q]);
+          s_num[a + at[q]] += __fmul_rn(e[u][q], wk);
+          s_den[a + at[q]] += wk;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // Sum the groups' planes in a fixed order (warp, then group) into this
+  // tile's scratch slot.
+  float* out = scratch + (((long long)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 2 * plane;
+  for (int q = tid; q < plane; q += blockDim.x) {
+    float n = 0.f, d = 0.f;
+    for (int v = 0; v < n_planes; ++v) {
+      n += planes[v * 2 * plane + q];
+      d += planes[v * 2 * plane + plane + q];
+    }
+    out[q] = n;
+    out[plane + q] = d;
+  }
+}
+
 // Pixel (y, x)'s sum over the footprints that cover it, in ascending (tile
 // row, tile column) order, from its image's footprints `scratch`. With
 // kAllAtOnce (and up to kMaxCover tiles an axis) every load is issued
@@ -286,8 +446,11 @@ __device__ __forceinline__ void fold_pixel(const float* __restrict__ scratch, co
 
 // One thread an output pixel: the covering footprints in ascending (tile
 // row, tile column) order, then, if the image overflowed in this call, its
-// members outside their footprints in ascending member order.
-template <bool kAllAtOnce>
+// members outside their footprints in ascending member order. The tiles are
+// kTR x kTC reference blocks (2 x 2 for `bm3d_aggregate_kernel`), or
+// `tile_r` x `tile_c` read at run time where kTR = 0 (the packed kernel's,
+// whose `n_ty` x `n_tx` tiles an image the host counts).
+template <bool kAllAtOnce, int kTR, int kTC>
 __global__ void __launch_bounds__(kFoldThreads)
 bm3d_aggregate_fold_kernel(const float* __restrict__ scratch, const int* __restrict__ tile_oy,
                            const int* __restrict__ tile_ox, const int* __restrict__ cover_y,
@@ -295,14 +458,17 @@ bm3d_aggregate_fold_kernel(const float* __restrict__ scratch, const int* __restr
                            int epoch, const int* __restrict__ idx, const float* __restrict__ est,
                            const float* __restrict__ wgt, const float* __restrict__ kaiser,
                            float* __restrict__ num, float* __restrict__ den, int B, int H, int W,
-                           int nR, int nC, int fh, int fw, int block, int K) {
+                           int nR, int nC, int fh, int fw, int block, int K, int tile_r_rt,
+                           int tile_c_rt, int n_ty_rt, int n_tx_rt) {
   const long long i = (long long)blockIdx.x * kFoldThreads + threadIdx.x;
   if (i >= (long long)B * H * W) return;
+  const int tile_r = kTR > 0 ? kTR : tile_r_rt;
+  const int tile_c = kTC > 0 ? kTC : tile_c_rt;
   const int x = (int)(i % W);
   const int y = (int)((i / W) % H);
   const int b = (int)(i / ((long long)H * W));
-  const int n_ty = (nR + kTileR - 1) / kTileR;
-  const int n_tx = (nC + kTileC - 1) / kTileC;
+  const int n_ty = kTR > 0 ? (nR + kTR - 1) / kTR : n_ty_rt;
+  const int n_tx = kTC > 0 ? (nC + kTC - 1) / kTC : n_tx_rt;
   const int plane = fh * fw;
   float n, d;
   fold_pixel<kAllAtOnce>(scratch + (long long)b * n_ty * n_tx * 2 * plane, tile_oy, tile_ox, cover_y, cover_x,
@@ -320,7 +486,7 @@ bm3d_aggregate_fold_kernel(const float* __restrict__ scratch, const int* __restr
       const long long g = p / K;
       const int gr = (int)(g / nC);
       const int gc = (int)(g % nC);
-      if (in_footprint(py, px, tile_oy[gr / kTileR], tile_ox[gc / kTileC], fh, fw, block)) continue;
+      if (in_footprint(py, px, tile_oy[gr / tile_r], tile_ox[gc / tile_c], fh, fw, block)) continue;
       const int k = (y - py) * block + x - px;
       const float wk = __fmul_rn(__ldg(wgt + b * G + g), __ldg(kaiser + k));
       n += __fmul_rn(__ldg(est + (b * G * K + p) * (block * block) + k), wk);
@@ -349,6 +515,26 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t s, const int* idx,
   return cudaGetLastError();
 }
 
+// The packed kernel of Q values a lane, opted into `smem` bytes.
+template <int Q>
+cudaError_t launch_packed(dim3 grid, int warps, size_t smem, cudaStream_t s, const int* idx,
+                          const float* est, const float* wgt, const float* kaiser,
+                          const int* tile_oy, const int* tile_ox, float* scratch, int* overflow,
+                          int epoch, int H, int W, int nR, int nC, int fh, int fw, int block,
+                          int k_shift, int tile_r, int tile_c, int groups) {
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(bm3d_aggregate_packed_kernel<Q>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  bm3d_aggregate_packed_kernel<Q><<<grid, warps * 32, smem, s>>>(
+      idx, est, wgt, kaiser, tile_oy, tile_ox, scratch, overflow, epoch, H, W, nR, nC, fh, fw, block,
+      k_shift, tile_r, tile_c, groups);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // `idx` (B, P) int32 patch-position rows, `est` (B, P, block^2) f32, `wgt`
@@ -361,7 +547,9 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t s, const int* idx,
 // B * ceil(nR / 2) * ceil(nC / 2) * 2 * fh * fw, `overflow` (B,) int32 and
 // `epoch` a value `overflow` has never held (the wrapper counts calls);
 // `num`/`den` (B, H, W) f32, every pixel written. Returns the first
-// launch error (cudaError_t, 0 on success).
+// launch error (cudaError_t, 0 on success). Off (8, 16) and (8, 32) it
+// runs `<0, 0>`, the replaced design, which the wrapper launches only by
+// name, for timing it against the packed kernel on one call.
 extern "C" int bm3d_aggregate_launch(const int* idx, const float* est, const float* wgt,
                                      const float* kaiser, const int* tile_oy,
                                      const int* tile_ox, const int* cover_y, const int* cover_x,
@@ -384,10 +572,61 @@ extern "C" int bm3d_aggregate_launch(const int* idx, const float* est, const flo
   }
   const long long pixels = (long long)B * H * W;
   const unsigned fold_blocks = (unsigned)((pixels + kFoldThreads - 1) / kFoldThreads);
-  const auto fold = pixels <= kFewPixels ? bm3d_aggregate_fold_kernel<true>
-                                         : bm3d_aggregate_fold_kernel<false>;
+  const auto fold = pixels <= kFewPixels ? bm3d_aggregate_fold_kernel<true, kTileR, kTileC>
+                                         : bm3d_aggregate_fold_kernel<false, kTileR, kTileC>;
   fold<<<fold_blocks, kFoldThreads, 0, s>>>(scratch, tile_oy, tile_ox, cover_y, cover_x, overflow,
                                             epoch, idx, est, wgt, kaiser, num, den, B, H, W, nR,
-                                            nC, fh, fw, block_size, K);
+                                            nC, fh, fw, block_size, K, kTileR, kTileC, 0, 0);
+  return cudaGetLastError();
+}
+
+// The packed kernel and its fold: the arguments of bm3d_aggregate_launch,
+// with the tile footprints (`tile_oy`, `tile_ox`, `cover_y`, `cover_x`, fh
+// x fw) those of `tile_r` x `tile_c` tiles (the host's plan), `warps` (1-8)
+// a CTA and `groups` (1-32) lane groups a warp, each of 32 / groups >=
+// block^2 lanes where groups > 1; `scratch` of at least B * ceil(nR /
+// tile_r) * ceil(nC / tile_c) * 2 * fh * fw f32.
+extern "C" int bm3d_aggregate_packed_launch(const int* idx, const float* est, const float* wgt,
+                                            const float* kaiser, const int* tile_oy,
+                                            const int* tile_ox, const int* cover_y,
+                                            const int* cover_x, float* scratch, int* overflow,
+                                            int epoch, float* num, float* den, int B, int H, int W,
+                                            int nR, int nC, int K, int block_size, int fh, int fw,
+                                            int tile_r, int tile_c, int warps, int groups,
+                                            void* stream) {
+  const int bb = block_size * block_size;
+  int k_shift = 0;
+  while ((1 << k_shift) < K) ++k_shift;
+  if (block_size < 2 || block_size > 16 || K < 1 || K > 64 || (1 << k_shift) != K ||
+      fh < block_size || fw < block_size || tile_r < 1 || tile_c < 1 || warps < 1 ||
+      warps > kPackedMaxWarps || groups < 1 || groups > 32 || (groups > 1 && 32 / groups < bb))
+    return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nR > 0 && nC > 0) {
+    const size_t smem = 2 * (size_t)warps * groups * fh * fw * sizeof(float);
+    const dim3 grid((nC + tile_c - 1) / tile_c, (nR + tile_r - 1) / tile_r, B);
+    const int q = groups > 1 ? 1 : (bb + 31) / 32;
+    const auto tiles = q == 1   ? launch_packed<1>
+                       : q == 2 ? launch_packed<2>
+                       : q == 3 ? launch_packed<3>
+                       : q == 4 ? launch_packed<4>
+                       : q == 5 ? launch_packed<5>
+                       : q == 6 ? launch_packed<6>
+                       : q == 7 ? launch_packed<7>
+                                : launch_packed<8>;
+    const cudaError_t e = tiles(grid, warps, smem, s, idx, est, wgt, kaiser, tile_oy, tile_ox, scratch,
+                                overflow, epoch, H, W, nR, nC, fh, fw, block_size, k_shift, tile_r,
+                                tile_c, groups);
+    if (e != cudaSuccess) return e;
+  }
+  const long long pixels = (long long)B * H * W;
+  const unsigned fold_blocks = (unsigned)((pixels + kFoldThreads - 1) / kFoldThreads);
+  const auto fold = pixels <= kFewPixels ? bm3d_aggregate_fold_kernel<true, 0, 0>
+                                         : bm3d_aggregate_fold_kernel<false, 0, 0>;
+  fold<<<fold_blocks, kFoldThreads, 0, s>>>(scratch, tile_oy, tile_ox, cover_y, cover_x, overflow,
+                                            epoch, idx, est, wgt, kaiser, num, den, B, H, W, nR,
+                                            nC, fh, fw, block_size, K, tile_r, tile_c,
+                                            (nR + tile_r - 1) / tile_r, (nC + tile_c - 1) / tile_c);
   return cudaGetLastError();
 }

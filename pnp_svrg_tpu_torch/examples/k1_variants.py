@@ -107,16 +107,23 @@ def tile_ptxas(log: str) -> dict:
     return out
 
 
-def lane_inputs() -> dict:
+def first_input() -> tuple:
     """The bm3d_profile lane's first denoise input (``x_init`` after its
-    first step, ``v = mu`` there) and the stage-1 estimate of the lane's
-    BM3D on it."""
+    first step, ``v = mu`` there, B = 13 at 128 px), the sigma its BM3D
+    takes there and the lane's BM3D parameters."""
     prob, lanes = load_headline_problems("cuda")
     tuned, default_eta, default_mod, params = BM3D_PROFILE_LANE
     eta, mod = lane_params(DATA_DIR / tuned, lanes, default_eta, default_mod, device="cuda")
     x = prob.x_init.reshape(prob.batch_size, -1)
     z = (x - eta[:, None] * prob.grad_full(x).reshape(x.shape)).reshape(prob.x_init.shape).contiguous()
-    basic, _ = stage1_aggregate_inputs(z, estimate_sigma(z) * mod, params)
+    return z, estimate_sigma(z) * mod, params
+
+
+def lane_inputs() -> dict:
+    """:func:`first_input`'s image and the stage-1 estimate of the lane's
+    BM3D on it."""
+    z, sigma, params = first_input()
+    basic, _ = stage1_aggregate_inputs(z, sigma, params)
     return {"input": z, "basic": basic.contiguous()}
 
 

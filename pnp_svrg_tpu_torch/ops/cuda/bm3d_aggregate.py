@@ -23,11 +23,17 @@ every term and partial sum is representable, as with dyadic inputs), not
 in its order: the plain version sums by table row, then folds.
 
 The wrapper :func:`bm3d_aggregate` takes the plain version only for a CPU
-tensor; for a CUDA tensor it launches K2 or raises. The source's
-``bm3d_aggregate_kernel<BLOCK, KK>`` is compiled for (8, 16) and (8, 32)
-and reads block and K at run time for the rest of
-:data:`AGGREGATE_ENVELOPE`; a setting outside it raises before any launch
-(:func:`check_aggregate_envelope`).
+tensor; for a CUDA tensor it launches K2 or raises. :func:`aggregate_kernel`
+names the tile kernel of a call: ``bm3d_aggregate_kernel<BLOCK, KK>``,
+compiled for (8, 16) and (8, 32) on 2 x 2 tiles of reference blocks, and
+``bm3d_aggregate_packed_kernel<Q>`` for the rest of
+:data:`AGGREGATE_ENVELOPE`, on the larger tiles of :func:`packed_plan` with
+the idle lanes of small patches given members of their own. A setting
+outside the envelope raises before any launch
+(:func:`check_aggregate_envelope`). The design the packed kernel replaced,
+``bm3d_aggregate_kernel<0, 0>`` (block and K read at run time, 2 x 2
+tiles), stays reachable through :func:`launch` alone, so that a caller can
+time the two on one call (:data:`PREV_DESIGN`).
 """
 
 from __future__ import annotations
@@ -44,6 +50,13 @@ from pnp_svrg_tpu_torch.ops.cuda import _build
 
 TILE_R, TILE_C, _WARPS = 2, 2, 4  # kTileR, kTileC and kWarps in the source
 _MAX_SMEM = 227 * 1024
+PACKED_MAX_WARPS = 8  # kPackedMaxWarps in the source
+PACKED_SMEM = 64 * 1024  # the packed plans' shared memory a CTA, at most
+PACKED_VALUES = 1024  # member values a warp of the packed kernel adds, at least
+K2_KERNELS = ("bm3d_aggregate_kernel", "bm3d_aggregate_packed_kernel")
+# The run-time design the packed kernel replaced: launched only by name.
+PREV_DESIGN = "bm3d_aggregate_kernel<0, 0>"
+COMPILED = ((8, 16), (8, 32))  # the (block, K) bm3d_aggregate_kernel is compiled for
 # The settings K2 takes on the card, as K1 (``bm3d_match.MATCH_ENVELOPE``):
 # (least, most) of the patch edge and of the group size K, a power of two.
 # Its footprints are those of any grid and window K1 takes.
@@ -88,8 +101,23 @@ def bm3d_aggregate_plain(idx, est, wgt, kaiser, h: int, w: int):
     return unfold_table(table.view(b, hh * ww, 2 * bb), block, h, w)
 
 
-def footprints(h: int, w: int, rows, cols, search: int, block: int):
-    """Per-tile footprint origins and the largest footprint of K2's tiles.
+def aggregate_kernel(block: int, k: int) -> str:
+    """The K2 tile kernel that takes a call with this patch edge and group
+    size: ``bm3d_aggregate_kernel`` at its compiled (8, 16) and (8, 32),
+    ``bm3d_aggregate_packed_kernel`` everywhere else."""
+    return K2_KERNELS[0] if (block, k) in COMPILED else K2_KERNELS[1]
+
+
+def lane_groups(block: int) -> int:
+    """Lane groups a warp of the packed kernel: as many members as a warp's
+    32 lanes hold side by side, block^2 lanes each (one where block^2 > 16)."""
+    bb = block * block
+    return 32 // bb if bb <= 16 else 1
+
+
+def footprints(h: int, w: int, rows, cols, search: int, block: int, tile: tuple = (TILE_R, TILE_C)):
+    """Per-tile footprint origins and the largest footprint of K2's tiles of
+    ``tile`` = (rows, columns) reference blocks.
 
     A member of reference block (r, c) sits at
     ``(clip(rows[r] + dy, 0, h - block), clip(cols[c] + dx, 0, w - block))``
@@ -108,9 +136,48 @@ def footprints(h: int, w: int, rows, cols, search: int, block: int):
             spans.append(hi - lo)
         return origins, max(spans)
 
-    oy, fh = axis(rows, h, TILE_R)
-    ox, fw = axis(cols, w, TILE_C)
+    oy, fh = axis(rows, h, tile[0])
+    ox, fw = axis(cols, w, tile[1])
     return oy, ox, fh, fw
+
+
+def packed_smem(fh: int, fw: int, warps: int, groups: int) -> int:
+    """Shared memory of a packed CTA: (num, den) planes of the footprint for
+    each lane group of each warp."""
+    return 2 * warps * groups * fh * fw * 4
+
+
+def packed_plan(h: int, w: int, rows, cols, search: int, block: int, k: int) -> tuple:
+    """The packed kernel's square tile edge (reference blocks), warps a CTA
+    and lane groups a warp for this grid, window and group size ``k``.
+
+    Every CTA zeroes its planes, sums them into its footprint and stores
+    it, and the fold reads it back: a cost of the footprint, against which
+    the tile's members must weigh, but small CTAs keep the most of them in
+    flight (``examples/k2_variants.py`` times tile edges 2-12 with 1, 2 and 4
+    warps at the run-time rows). So a CTA is one warp where the lanes hold
+    several members side by side (block^2 <= 16), else two, and the tile
+    the smallest, 2 x 2 at least, that gives each warp
+    :data:`PACKED_VALUES` member values to add. The tile shrinks back
+    where its planes pass :data:`PACKED_SMEM` or its footprints would take
+    more scratch than the 2 x 2 tiles'; at 2 x 2, a warp takes fewer lane
+    groups where their planes do not fit (with one group its planes are the
+    2 x 2 kernel's a warp)."""
+    groups = lane_groups(block)
+    warps = 1 if groups > 1 else 2
+    oy, ox, fh, fw = footprints(h, w, rows, cols, search, block)
+    pair_area = len(oy) * len(ox) * fh * fw
+    n = max(len(rows), len(cols))
+    edge = TILE_R
+    while edge < n and edge * edge * k * block * block < PACKED_VALUES * warps:
+        edge += 1
+    for edge in range(edge, TILE_R - 1, -1):
+        oy, ox, fh, fw = footprints(h, w, rows, cols, search, block, (edge, edge))
+        if packed_smem(fh, fw, warps, groups) <= PACKED_SMEM and len(oy) * len(ox) * fh * fw <= pair_area:
+            return edge, warps, groups
+    while groups > 1 and packed_smem(fh, fw, warps, groups) > PACKED_SMEM:
+        groups //= 2
+    return TILE_R, warps, groups
 
 
 def covering_tiles(origins, extent: int, size: int) -> list:
@@ -126,10 +193,50 @@ def covering_tiles(origins, extent: int, size: int) -> list:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class PackedPlan:
+    """The packed kernel's tiles: ``tile`` x ``tile`` reference blocks, their
+    footprints and covering lists as :class:`AggregateGeometry` holds the 2 x
+    2 tiles', ``warps`` a CTA and ``groups`` lane groups a warp."""
+
+    tile: int
+    warps: int
+    groups: int
+    fh: int
+    fw: int
+    tile_oy: torch.Tensor
+    tile_ox: torch.Tensor
+    cover_y: torch.Tensor
+    cover_x: torch.Tensor
+
+    @property
+    def smem_bytes(self) -> int:
+        return 2 * self.warps * self.groups * self.fh * self.fw * 4
+
+    def scratch_bytes(self, b: int) -> int:
+        return b * len(self.tile_oy) * len(self.tile_ox) * 2 * self.fh * self.fw * 4
+
+
+def make_packed_plan(h: int, w: int, rows, cols, search: int, block: int, k: int, device,
+                     tile: int | None = None, warps: int | None = None,
+                     groups: int | None = None) -> PackedPlan:
+    """:func:`packed_plan`'s plan on ``device``, or one with the tile edge,
+    warps or lane groups given (a caller timing other choices)."""
+    t, nw, ng = packed_plan(h, w, rows, cols, search, block, k)
+    t, nw, ng = tile or t, warps or nw, groups or ng
+    oy, ox, fh, fw = footprints(h, w, rows, cols, search, block, (t, t))
+    as_dev = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
+    return PackedPlan(t, nw, ng, fh, fw, as_dev(oy), as_dev(ox), as_dev(covering_tiles(oy, fh, h)),
+                      as_dev(covering_tiles(ox, fw, w)))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class AggregateGeometry:
     """What K2 needs besides its tensors, made once per shape and device,
     with the scratch its footprints pass through (grown to the largest
-    batch seen; calls that share it run in order on one stream)."""
+    call seen; calls that share it run in order on one stream). Its own
+    fields are the 2 x 2 tiles of ``bm3d_aggregate_kernel`` (and of
+    :data:`PREV_DESIGN`); :meth:`packed` the packed kernel's plan for a
+    group size, made at its first call."""
 
     h: int
     w: int
@@ -142,26 +249,43 @@ class AggregateGeometry:
     tile_ox: torch.Tensor  # (ceil(nC / TILE_C),) int32
     cover_y: torch.Tensor  # (H, 2) int32: first and last tile row covering each row
     cover_x: torch.Tensor  # (W, 2) int32
+    search: int
+    rows: tuple
+    cols: tuple
+    plans: dict = dataclasses.field(default_factory=dict, repr=False)  # K -> PackedPlan
     work: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def packed(self, k: int) -> PackedPlan:
+        """The packed kernel's plan (:func:`packed_plan`) for group size ``k``."""
+        if k not in self.plans:
+            self.plans[k] = make_packed_plan(self.h, self.w, self.rows, self.cols, self.search, self.block, k,
+                                             self.tile_oy.device)
+        return self.plans[k]
 
     @property
     def smem_bytes(self) -> int:
         return 2 * _WARPS * self.fh * self.fw * 4  # private planes for each warp
 
-    def scratch_bytes(self, b: int) -> int:
-        """The footprints of ``b`` images: (tile rows, tile columns, num and
-        den, fh, fw) f32 each."""
+    def scratch_bytes(self, b: int, plan: PackedPlan | None = None) -> int:
+        """The footprints of ``b`` images in the 2 x 2 tiles (or ``plan``'s):
+        (tile rows, tile columns, num and den, fh, fw) f32 each."""
+        if plan is not None:
+            return plan.scratch_bytes(b)
         return b * len(self.tile_oy) * len(self.tile_ox) * 2 * self.fh * self.fw * 4
 
-    def workspace(self, b: int) -> tuple:
-        """(scratch, overflow flags, epoch) for a call on ``b`` images: the
-        buffers are allocated once, grown with the batch and never cleared;
-        the epoch is one more each call. A stale flag that meets its epoch
-        again after 2**31 - 1 calls costs only time: the fold's scan adds
-        just the members outside their footprints, which the tiles skip."""
+    def workspace(self, b: int, plan: PackedPlan | None = None) -> tuple:
+        """(scratch, overflow flags, epoch) for a call on ``b`` images in the
+        2 x 2 tiles (or ``plan``'s): the buffers are allocated once, grown
+        with the call and never cleared; the epoch is one more each call. A
+        stale flag that meets its epoch again after 2**31 - 1 calls costs
+        only time: the fold's scan adds just the members outside their
+        footprints, which the tiles skip."""
+        floats = self.scratch_bytes(b, plan) // 4
+        dev = self.tile_oy.device
+        if self.work.get("floats", 0) < floats:
+            self.work["scratch"] = torch.empty(floats, dtype=torch.float32, device=dev)
+            self.work["floats"] = floats
         if self.work.get("batch", 0) < b:
-            dev = self.tile_oy.device
-            self.work["scratch"] = torch.empty(self.scratch_bytes(b) // 4, dtype=torch.float32, device=dev)
             self.work["overflow"] = torch.zeros(b, dtype=torch.int32, device=dev)
             self.work["batch"] = b
         self.work["epoch"] = self.work.get("epoch", 0) % (2**31 - 1) + 1
@@ -171,42 +295,69 @@ class AggregateGeometry:
 @functools.lru_cache(maxsize=16)
 def aggregate_geometry(h: int, w: int, rows: tuple, cols: tuple, search: int, block: int,
                        device: torch.device) -> AggregateGeometry:
-    """The footprints of :func:`footprints` and the tiles covering each pixel
-    row and column (:func:`covering_tiles`), on ``device``."""
+    """The 2 x 2 tiles' footprints (:func:`footprints`) and the tiles
+    covering each pixel row and column (:func:`covering_tiles`), on
+    ``device``; the packed kernel's plans follow at their first call."""
     oy, ox, fh, fw = footprints(h, w, rows, cols, search, block)
     as_dev = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
     return AggregateGeometry(h, w, block, len(rows), len(cols), fh, fw, as_dev(oy), as_dev(ox),
-                             as_dev(covering_tiles(oy, fh, h)), as_dev(covering_tiles(ox, fw, w)))
+                             as_dev(covering_tiles(oy, fh, h)), as_dev(covering_tiles(ox, fw, w)),
+                             search, tuple(rows), tuple(cols))
 
 
-def bind(fn):
-    """``fn``, a library's ``bm3d_aggregate_launch``, with its C signature."""
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+ENTRIES = {  # kernel name -> (its entry point in the source, its C argument types)
+    K2_KERNELS[0]: ("bm3d_aggregate_launch", [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    K2_KERNELS[1]: ("bm3d_aggregate_packed_launch", [ctypes.c_void_p] * 10 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 13 + [ctypes.c_void_p]),
+}
+ENTRIES[PREV_DESIGN] = ENTRIES[K2_KERNELS[0]]  # the same entry: it runs <0, 0> off (8, 16), (8, 32)
 
 
-def _lib():
-    fn = _build.load("bm3d_aggregate").bm3d_aggregate_launch
-    return fn if fn.argtypes is not None else bind(fn)
+def bind(lib: ctypes.CDLL) -> dict:
+    """Kernel name -> its entry point in a library built from
+    ``csrc/bm3d_aggregate.cu``, with its argument types set."""
+    fns = {}
+    for name, (entry, argtypes) in ENTRIES.items():
+        fn = fns[name] = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return fns
 
 
-def launch(fn, idx, est, wgt, kaiser, h: int, w: int, geometry: AggregateGeometry):
-    """One call of the bound entry point ``fn`` on checked, contiguous
-    arguments: (num, den), each (B, H, W), in new memory."""
+def _lib() -> dict:
+    """:func:`bind` of the built library."""
+    return bind(_build.load("bm3d_aggregate"))
+
+
+def launch(kernel: str, fn, idx, est, wgt, kaiser, h: int, w: int, geometry: AggregateGeometry,
+           plan: PackedPlan | None = None):
+    """One call of ``kernel`` through its bound entry point ``fn``
+    (:func:`bind`) on checked, contiguous arguments: (num, den), each (B, H,
+    W), in new memory; raises if the launch fails. The packed kernel runs on
+    ``plan``, by default the geometry's for the call's K. It checks nothing
+    else and counts nothing (:func:`bm3d_aggregate` does both): a caller
+    that times one kernel or plan against another on one call launches
+    through it. :data:`PREV_DESIGN` takes any call but (8, 16) and (8, 32),
+    where the entry runs the compiled kernel."""
     b, p, bb = est.shape
-    scratch, overflow, epoch = geometry.workspace(b)
+    block, k = math.isqrt(bb), p // wgt.shape[1]
+    if kernel == PREV_DESIGN and (block, k) in COMPILED:
+        raise ValueError(f"{PREV_DESIGN} does not take (block, K) = {(block, k)}")
+    if kernel == K2_KERNELS[1]:
+        plan = plan or geometry.packed(k)
+    scratch, overflow, epoch = geometry.workspace(b, plan)
     planes = torch.empty((2, b, h, w), dtype=torch.float32, device=est.device)
-    err = fn(
-        idx.data_ptr(), est.data_ptr(), wgt.data_ptr(), kaiser.data_ptr(),
-        geometry.tile_oy.data_ptr(), geometry.tile_ox.data_ptr(), geometry.cover_y.data_ptr(),
-        geometry.cover_x.data_ptr(), scratch.data_ptr(), overflow.data_ptr(), epoch,
-        planes[0].data_ptr(), planes[1].data_ptr(), b, h, w, geometry.n_r, geometry.n_c,
-        p // wgt.shape[1], math.isqrt(bb), geometry.fh, geometry.fw,
-        torch.cuda.current_stream(est.device).cuda_stream,
-    )
-    _build.check(err, f"bm3d_aggregate (block={math.isqrt(bb)})")
+    g = plan or geometry
+    args = [idx.data_ptr(), est.data_ptr(), wgt.data_ptr(), kaiser.data_ptr(), g.tile_oy.data_ptr(),
+            g.tile_ox.data_ptr(), g.cover_y.data_ptr(), g.cover_x.data_ptr(), scratch.data_ptr(),
+            overflow.data_ptr(), epoch, planes[0].data_ptr(), planes[1].data_ptr(), b, h, w,
+            geometry.n_r, geometry.n_c, k, block, g.fh, g.fw]
+    if kernel == K2_KERNELS[1]:
+        args += [g.tile, g.tile, g.warps, g.groups]
+    err = fn(*args, torch.cuda.current_stream(est.device).cuda_stream)
+    _build.check(err, f"bm3d_aggregate ({kernel}, block={block}, K={k})")
     return planes[0], planes[1]
 
 
@@ -221,9 +372,11 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
     ``wgt``: (B, G) f32 group weights; ``kaiser``: (b*b,) f32; ``h``, ``w``:
     the image size; ``geometry``: :func:`aggregate_geometry` of the
     reference grid and search, which K2 needs and the plain version does
-    not. A CPU tensor takes the plain version; a CUDA tensor launches K2
-    (counted in ``bm3d_aggregate.launches``) inside :data:`AGGREGATE_ENVELOPE`
-    and raises outside it.
+    not. A CPU tensor takes the plain version; a CUDA tensor launches the
+    K2 kernel :func:`aggregate_kernel` names inside
+    :data:`AGGREGATE_ENVELOPE` and raises outside it. Each call counts one
+    in ``bm3d_aggregate.launches`` and one in ``bm3d_aggregate.by_kernel``
+    under the kernel's name.
 
     A row outside ``[0, hh * ww)`` makes the plain version's ``index_add_``
     raise; the kernel cannot raise, and drops that member (checking the rows
@@ -261,14 +414,18 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
     if geometry is None:
         raise ValueError("K2 needs the aggregate_geometry of the reference grid and search")
     check_aggregate_envelope(geometry.block, p // g)
-    if geometry.smem_bytes > _MAX_SMEM:
-        raise ValueError(f"footprint {geometry.fh}x{geometry.fw} too large for shared memory")
+    kernel = aggregate_kernel(block, p // g)
+    plan = geometry.packed(p // g) if kernel == K2_KERNELS[1] else geometry
+    if plan.smem_bytes > _MAX_SMEM:
+        raise ValueError(f"footprint {plan.fh}x{plan.fw} too large for shared memory")
     if geometry.tile_oy.device != est.device:
         raise ValueError(f"geometry on {geometry.tile_oy.device} but tensors on {est.device}")
     idx, est, wgt, kaiser = (t.contiguous() for t in (idx, est, wgt, kaiser))
-    planes = launch(_lib(), idx, est, wgt, kaiser, h, w, geometry)
+    planes = launch(kernel, _lib()[kernel], idx, est, wgt, kaiser, h, w, geometry)
     bm3d_aggregate.launches += 1
+    bm3d_aggregate.by_kernel[kernel] += 1
     return planes
 
 
 bm3d_aggregate.launches = 0
+bm3d_aggregate.by_kernel = dict.fromkeys(K2_KERNELS, 0)

@@ -22,6 +22,14 @@ The wrapper :func:`nlm_denoise` takes the plain version only for a CPU
 tensor; for a CUDA tensor it launches K3 or raises. K3 reads ``h`` and
 ``sigma`` through device pointers, so the reconstruction loop, whose
 ``(h, sigma)`` come from a sigma estimate on the card, never waits for it.
+
+:func:`nlm_kernel_name` names the kernel of a call: ``nlm_kernel``, built
+for (4, 5), or ``nlm_cluster_kernel<P, R>`` for the rest of
+:data:`NLM_ENVELOPE`, whose shifts the host splits over the CTAs of a
+thread-block cluster and their warps (:func:`cluster_plan`,
+:func:`split_chunks`). The design it replaced, ``nlm_any_kernel<P>``
+(:data:`PREV_DESIGN`), stays reachable through :func:`launch` alone, so
+that a caller can time the two on one call.
 """
 
 from __future__ import annotations
@@ -34,8 +42,80 @@ import torch.nn.functional as F
 from pnp_svrg_tpu_torch.ops.cuda import _build
 
 # The settings K3 takes on the card: (least, most) of each. ``nlm_kernel``
-# is built for (4, 5), ``nlm_any_kernel<P>`` takes the rest.
+# is built for (4, 5), ``nlm_cluster_kernel<P, R>`` takes the rest.
 NLM_ENVELOPE = {"patch_size": (1, 11), "patch_distance": (1, 15)}
+K3_KERNELS = ("nlm_kernel", "nlm_cluster_kernel")
+PREV_DESIGN = "nlm_any_kernel"  # the replaced design: launched only by name
+# nlm_cluster_kernel's constants in the source: warps a CTA and CTAs a
+# cluster at most, and the output rows a thread it is built for; an SM's
+# shared memory; and the warps an SM a plan aims at.
+CLUSTER_MAX_WARPS, MAX_CLUSTER, THREAD_ROWS = 8, 16, (4, 8)
+SM_SMEM = 228 * 1024
+PLAN_WARPS_PER_SM = 9
+
+
+def nlm_kernel_name(patch_size: int, patch_distance: int) -> str:
+    """The K3 kernel that takes a call: ``nlm_kernel`` at (4, 5), else
+    ``nlm_cluster_kernel``."""
+    return K3_KERNELS[0] if (patch_size, patch_distance) == (4, 5) else K3_KERNELS[1]
+
+
+def thread_rows(patch_distance: int) -> int:
+    """Output rows a thread of ``nlm_cluster_kernel``: 4 where a window has
+    at most 25 shifts (distance 1-2), else 8 (:func:`cluster_plan`)."""
+    return 4 if patch_distance <= 2 else 8
+
+
+def cluster_smem(patch_size: int, patch_distance: int, warps: int, rows: int) -> int:
+    """Dynamic shared memory of a ``nlm_cluster_kernel`` CTA whose threads own
+    ``rows`` output rows: the tile and its one-column shift, then each warp's
+    partial wsum and acc planes (2 rows x 32 each)."""
+    tile = (2 * rows + patch_size - 1 + 2 * patch_distance) * (32 + 2 * patch_distance)
+    return 4 * (2 * tile + 2 * warps * 2 * rows * 32)
+
+
+def cluster_plan(b: int, h: int, w: int, patch_size: int, patch_distance: int, sms: int,
+                 warps_per_sm: int) -> tuple:
+    """(CTAs a cluster, warps a CTA, output rows a thread) of a
+    ``nlm_cluster_kernel`` call on a card of ``sms`` SMs that hold
+    ``warps_per_sm`` of its warps each.
+
+    From the plans ``examples/k3_variants.py`` times on the H100: 4 rows a
+    thread where a window has at most 25 shifts (distance 1-2: the CTA's
+    fixed costs, not its shifts, bound it), else 8; 4, 6 or 8 warps a CTA
+    (an odd count leaves an SM's four schedulers unevenly loaded); and
+    about :data:`PLAN_WARPS_PER_SM` warps an SM over the whole grid (more
+    splits a tile's shifts into more partial sums, and the busiest SMs
+    then hold more CTAs than the rest), every warp a shift at least, the
+    grid resident at once (ceil(CTAs / SMs) CTAs on an SM, in warps and in
+    shared memory). Ties go to a lone CTA (no cluster barrier, no reads
+    across CTAs), then to 6 warps, then 4, then 8, then the smaller
+    cluster. Where no such plan is resident (many images), one CTA of 4
+    warps a tile."""
+    rows = thread_rows(patch_distance)
+    tiles = -(-w // (33 - patch_size)) * -(-h // (2 * rows)) * b
+    shifts = (2 * patch_distance + 1) ** 2
+    want = min(shifts, max(1, round(PLAN_WARPS_PER_SM * sms / tiles)))
+    best = None
+    for order, warps in enumerate((6, 4, 8)):
+        for cluster in range(1, MAX_CLUSTER + 1):
+            per_sm = -(-tiles * cluster // sms)
+            if (cluster * warps > shifts or per_sm * warps > warps_per_sm
+                    or per_sm * (cluster_smem(patch_size, patch_distance, warps, rows) + 1024) > SM_SMEM):
+                continue
+            key = (abs(cluster * warps - want), cluster > 1, order, cluster)
+            if best is None or key < best[0]:
+                best = (key, (cluster, warps, rows))
+    return best[1] if best else (1, 4, rows)
+
+
+def split_chunks(shifts: int, cluster: int, warps: int) -> list:
+    """The shifts (dy-major indices) of each (CTA rank, warp) of a cluster,
+    rank-major: chunk c takes ``[c S / n, (c + 1) S / n)`` of S shifts, n =
+    cluster x warps, as the kernel does. Its partial sums are added in this
+    order: each CTA's warps, then the CTAs."""
+    n = cluster * warps
+    return [(c * shifts // n, (c + 1) * shifts // n) for c in range(n)]
 
 
 def check_nlm_envelope(patch_size: int, patch_distance: int) -> None:
@@ -102,12 +182,70 @@ def nlm_denoise_plain(
     return out[0] if single else out
 
 
-def _lib():
-    fn = _build.load("nlm").nlm_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+ENTRIES = {  # kernel name -> (its entry point in the source, its C argument types)
+    K3_KERNELS[0]: ("nlm_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    K3_KERNELS[1]: ("nlm_cluster_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+    "limits": ("nlm_cluster_limits", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+}
+ENTRIES[PREV_DESIGN] = ENTRIES[K3_KERNELS[0]]  # nlm_launch runs nlm_any_kernel<P> off (4, 5)
+
+
+def bind(lib: ctypes.CDLL) -> dict:
+    """Kernel name -> its entry point in a library built from
+    ``csrc/nlm.cu``, with its argument types set (and ``"limits"``, the
+    cluster kernel's occupancy query)."""
+    fns = {}
+    for name, (entry, argtypes) in ENTRIES.items():
+        fn = fns[name] = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return fns
+
+
+def _lib() -> dict:
+    """:func:`bind` of the built library."""
+    return bind(_build.load("nlm"))
+
+
+_LIMITS: dict = {}
+
+
+def device_plan(fns: dict, device: torch.device, b: int, h: int, w: int, patch_size: int,
+                patch_distance: int) -> tuple:
+    """:func:`cluster_plan` on ``device`` from its SMs and the cluster
+    kernel's warps an SM (asked once a device, patch size and rows a
+    thread)."""
+    rows = thread_rows(patch_distance)
+    key = (device.index, patch_size, rows, id(fns["limits"]))
+    if key not in _LIMITS:
+        sms, wps = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _build.check(fns["limits"](patch_size, rows, ctypes.byref(sms), ctypes.byref(wps)),
+                         f"nlm_cluster_limits (patch_size={patch_size}, rows={rows})")
+        _LIMITS[key] = (sms.value, wps.value)
+    return cluster_plan(b, h, w, patch_size, patch_distance, *_LIMITS[key])
+
+
+def launch(kernel: str, fns: dict, x: torch.Tensor, hs: torch.Tensor, ss: torch.Tensor,
+           out: torch.Tensor, patch_size: int, patch_distance: int, lo: int, hi: int,
+           plan: tuple | None = None) -> None:
+    """Launch ``kernel`` through its entry in ``fns`` (:func:`bind`) on the
+    current stream: ``x`` and ``out`` (B, H, W) contiguous, ``hs`` and
+    ``ss`` (B,), candidate rows ``[lo, hi)``; the cluster kernel on
+    ``plan`` = (cluster, warps, rows), :func:`device_plan`'s by default. It
+    checks nothing else and counts nothing (:func:`nlm_denoise` does both).
+    :data:`PREV_DESIGN` takes any call but (4, 5), where the entry runs
+    ``nlm_kernel``."""
+    b, hh, ww = x.shape
+    if kernel == PREV_DESIGN and (patch_size, patch_distance) == (4, 5):
+        raise ValueError(f"{PREV_DESIGN} does not take (4, 5)")
+    args = [x.data_ptr(), hs.data_ptr(), ss.data_ptr(), out.data_ptr(), b, hh, ww, patch_size,
+            patch_distance, lo, hi]
+    if kernel == K3_KERNELS[1]:
+        args += list(plan or device_plan(fns, x.device, b, hh, ww, patch_size, patch_distance))
+    err = fns[kernel](*args, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, f"nlm ({kernel}, patch_size={patch_size}, patch_distance={patch_distance})")
 
 
 def nlm_denoise(
@@ -117,9 +255,11 @@ def nlm_denoise(
     """NLM of an (H, W) or (B, H, W) float32 image with per-lane ``h`` and
     ``sigma`` (scalars or (B,) tensors on the image's device).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K3 (counted
-    in ``nlm_denoise.launches``), which takes :data:`NLM_ENVELOPE` and
-    integer row bounds ``0 <= lo <= hi <= H``, and raises outside them."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the K3
+    kernel :func:`nlm_kernel_name` names, which takes :data:`NLM_ENVELOPE`
+    and integer row bounds ``0 <= lo <= hi <= H``, and raises outside them.
+    Each call counts one in ``nlm_denoise.launches`` and one in
+    ``nlm_denoise.by_kernel`` under the kernel's name."""
     if image.dim() not in (2, 3):
         raise ValueError(f"expected an (H, W) or (B, H, W) image, got {tuple(image.shape)}")
     if image.device.type == "cpu":
@@ -141,13 +281,12 @@ def nlm_denoise(
     hs = _lane_values(h, b, x.device, "h")
     ss = _lane_values(sigma, b, x.device, "sigma")
     out = torch.empty_like(x)
-    err = _lib()(
-        x.data_ptr(), hs.data_ptr(), ss.data_ptr(), out.data_ptr(), b, hh, ww,
-        patch_size, patch_distance, lo, hi, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, "nlm")
+    kernel = nlm_kernel_name(patch_size, patch_distance)
+    launch(kernel, _lib(), x, hs, ss, out, patch_size, patch_distance, lo, hi)
     nlm_denoise.launches += 1
+    nlm_denoise.by_kernel[kernel] += 1
     return out[0] if single else out
 
 
 nlm_denoise.launches = 0
+nlm_denoise.by_kernel = dict.fromkeys(K3_KERNELS, 0)

@@ -994,8 +994,8 @@ UNTOUCHED_REGISTERS = {
     ("bm3d_match", r"bm3d_match_kernelILi\dELi(?:1|3|10)E"): 93,
     ("bm3d_match", r"bm3d_match_kernelILi\dELi20E"): 96,
     ("bm3d_aggregate", r"bm3d_aggregate_kernelILi8ELi16EE"): 56,
-    ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb0EE"): 48,
-    ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb1EE"): 179,
+    ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb0ELi2ELi2EE"): 48,
+    ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb1ELi2ELi2EE"): 179,
     ("nlm", r"nlm_kernelEPKf"): 79,
 }
 
@@ -1017,3 +1017,187 @@ def test_untouched_instantiations_keep_their_registers(cuda):
         found = re.findall(r"Function (\S+):\s+REG:(\d+)", text)
         hits = [int(r) for name, r in found if re.search(pattern, name)]
         assert hits and all(r == regs for r in hits), (lib, pattern, hits)
+
+
+def untouched_fingerprints(device) -> dict:
+    """sha256 prefixes of what the kernels this slice left alone give on
+    numpy-seeded real-valued inputs (any change in their order of adds
+    changes the bits): K2's (8, 16) at the headline's geometry (B = 2,
+    the fold's all-at-once form; B = 13, its streaming form) and (8, 32)
+    at the reference profile's (step 3, search 19), and K3's (4, 5) at B = 9
+    with and without row bounds. Run from a checkout of the earlier tree,
+    the same function gives the fingerprints
+    :data:`UNTOUCHED_FINGERPRINTS` holds."""
+    import hashlib
+
+    def digest(*ts):
+        return hashlib.sha256(b"".join(np.ascontiguousarray(t.cpu().numpy()).tobytes() for t in ts)).hexdigest()[:16]
+
+    out = {}
+    for name, b, step, search, k in (("k2_8_16_b2", 2, 4, 8, 16), ("k2_8_16_b13", 13, 4, 8, 16),
+                                      ("k2_8_32_b2", 2, 3, 19, 32)):
+        rng = np.random.default_rng(b * 100 + k)
+        grid = bm3d._ref_grid(128, 8, step)
+        n = len(grid)
+        offs = rng.integers(-search, search + 1, (b, n, n, k, 2))
+        py = np.clip(grid[None, :, None, None] + offs[..., 0], 0, 120)
+        px = np.clip(grid[None, None, :, None] + offs[..., 1], 0, 120)
+        idx = (py * 121 + px).reshape(b, -1).astype(np.int32)
+        est = rng.standard_normal((b, n * n * k, 64)).astype(np.float32)
+        wgt = rng.uniform(0.5, 5.0, (b, n * n)).astype(np.float32)
+        kai = rng.uniform(0.1, 1.0, 64).astype(np.float32)
+        geom = k2.aggregate_geometry(128, 128, tuple(grid.tolist()), tuple(grid.tolist()), search, 8, device)
+        args = [torch.tensor(a, device=device) for a in (idx, est, wgt, kai)]
+        out[name] = digest(*k2.bm3d_aggregate(*args, 128, 128, geom))
+    rng = np.random.default_rng(45)
+    z = torch.tensor((load_image("13.png", 96, 80) + 0.1 * rng.standard_normal((9, 96, 80))).astype(np.float32),
+                     device=device)
+    h = torch.tensor(rng.uniform(0.06, 0.2, 9).astype(np.float32), device=device)
+    out["k3_4_5_b9"] = digest(k3.nlm_denoise(z, h, 0.8 * h, 4, 5),
+                              k3.nlm_denoise(z, h, 0.8 * h, 4, 5, row_valid_bounds=(10, 70)))
+    return out
+
+
+
+# What the untouched kernels gave before the packed K2 and the cluster K3
+# kernel existed: untouched_fingerprints run on the card from a checkout of
+# that tree.
+UNTOUCHED_FINGERPRINTS = {"k2_8_16_b2": "dbc3785f3b6a9d07", "k2_8_16_b13": "1296a69990bc7c8c",
+                          "k2_8_32_b2": "d1ad9bdf49a12841", "k3_4_5_b9": "ccc2b23c008bf2e8"}
+
+
+def test_untouched_kernels_give_their_earlier_bits(cuda):
+    assert untouched_fingerprints(cuda) == UNTOUCHED_FINGERPRINTS
+
+
+# K2's run-time rows (block, step, search, K): the golden oracle's BM3D
+# point and chip_smoke.py's envelope rows, all on the packed kernel.
+K2_RUNTIME_ROWS = [(4, 2, 3, 4), (2, 1, 3, 4), (6, 3, 6, 8), (8, 4, 8, 8), (16, 8, 8, 16), (3, 1, 5, 2),
+                   (5, 5, 2, 16)]
+
+
+def _k2_dyadic(rng, est, wgt, kai, cuda):
+    block2 = kai.numel()
+    return (torch.tensor(_dyadic(rng, tuple(est.shape), 16, 0.125) - 1.0, device=cuda),
+            torch.tensor(2.0 ** rng.integers(-2, 3, tuple(wgt.shape)).astype(np.float32), device=cuda),
+            torch.tensor(_dyadic(rng, block2, 4, 0.25) + 0.25, device=cuda))
+
+
+@pytest.mark.parametrize("block,step,search,k", K2_RUNTIME_ROWS)
+def test_k2_packed_kernel_matches_plain_at_the_runtime_rows(cuda, block, step, search, k):
+    idx, est, wgt, kai, h, w, geom = _k2_stage1_args(cuda, block, step, search, k, size=96)
+    assert k2.aggregate_kernel(block, k) == "bm3d_aggregate_packed_kernel"
+    before = dict(k2.bm3d_aggregate.by_kernel)
+    num, den = k2.bm3d_aggregate(idx, est, wgt, kai, h, w, geom)
+    torch.cuda.synchronize()
+    assert k2.bm3d_aggregate.by_kernel["bm3d_aggregate_packed_kernel"] == before["bm3d_aggregate_packed_kernel"] + 1
+    want_num, want_den = k2.bm3d_aggregate_plain(idx, est, wgt, kai, h, w)
+    for got, want in ((num, want_num), (den, want_den)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    again = k2.bm3d_aggregate(idx, est, wgt, kai, h, w, geom)
+    assert torch.equal(again[0], num) and torch.equal(again[1], den)
+    d = _k2_dyadic(np.random.default_rng(block * 10 + step), est, wgt, kai, cuda)
+    got = k2.bm3d_aggregate(idx, *d, h, w, geom)
+    want = k2.bm3d_aggregate_plain(idx, *d, h, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k2_packed_kernel_repeats_itself_bit_for_bit(cuda):
+    args = _k2_stage1_args(cuda, 4, 2, 3, 4, size=128)
+    first = k2.bm3d_aggregate(*args)
+    for _ in range(50):
+        again = k2.bm3d_aggregate(*args)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("plan", [dict(tile=2), dict(tile=5), dict(tile=16), dict(warps=1), dict(warps=8),
+                                  dict(groups=1), dict(groups=2, warps=3)])
+def test_k2_packed_kernel_on_other_plans(cuda, plan):
+    # Any tile edge, warps a CTA and lane groups a warp give the plain
+    # version's bits on dyadic values (the rows of a real stage-1 call).
+    idx, est, wgt, kai, h, w, geom = _k2_stage1_args(cuda, 4, 2, 3, 4)
+    grid = tuple(bm3d._ref_grid(h, 4, 2).tolist())
+    plan = k2.make_packed_plan(h, w, grid, grid, 3, 4, 4, cuda, **plan)
+    d = _k2_dyadic(np.random.default_rng(7), est, wgt, kai, cuda)
+    got = k2.launch(k2.K2_KERNELS[1], k2._lib()[k2.K2_KERNELS[1]], idx, *d, h, w, geom, plan)
+    want = k2.bm3d_aggregate_plain(idx, *d, h, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k2_packed_kernel_adds_rows_outside_the_footprint_and_drops_rows_outside_the_table(cuda):
+    # Rows anywhere in the table: most leave their tile's footprint and take
+    # the fold's scan, still exact on dyadic values; rows before, just past
+    # and far past the table are dropped.
+    rng = np.random.default_rng(8)
+    idx, est, wgt, kai, h, w, geom = _k2_stage1_args(cuda, 4, 2, 3, 4, size=48)
+    d_est, d_wgt, d_kai = _k2_dyadic(rng, est, wgt, kai, cuda)
+    ww = w - 3
+    idx = torch.tensor(rng.integers(0, (h - 3) * ww, tuple(idx.shape)).astype(np.int32), device=cuda)
+    want_num, want_den = k2.bm3d_aggregate_plain(idx, d_est, d_wgt, d_kai, h, w)
+    num, den = k2.bm3d_aggregate(idx, d_est, d_wgt, d_kai, h, w, geom)
+    assert torch.equal(num, want_num) and torch.equal(den, want_den)
+    bad = idx.clone()
+    for (b, p), row in zip(((0, 5), (1, 77), (1, idx.shape[1] - 1)), (-1, (h - 3) * ww, 2**30)):
+        py, px = divmod(int(idx[b, p]), ww)
+        wk = (d_wgt[b, p // 4] * d_kai).view(4, 4)
+        want_num[b, py : py + 4, px : px + 4] -= d_est[b, p].view(4, 4) * wk
+        want_den[b, py : py + 4, px : px + 4] -= wk
+        bad[b, p] = row
+    num, den = k2.bm3d_aggregate(bad, d_est, d_wgt, d_kai, h, w, geom)
+    assert torch.equal(num, want_num) and torch.equal(den, want_den)
+
+
+def test_k2_replaced_design_stays_reachable_by_name(cuda):
+    idx, est, wgt, kai, h, w, geom = _k2_stage1_args(cuda, 4, 2, 3, 4)
+    before = k2.bm3d_aggregate.launches
+    got = k2.launch(k2.PREV_DESIGN, k2._lib()[k2.PREV_DESIGN], idx, est, wgt, kai, h, w, geom)
+    assert k2.bm3d_aggregate.launches == before  # a launch by name counts nothing
+    want = k2.bm3d_aggregate_plain(idx, est, wgt, kai, h, w)
+    for g_, w_ in zip(got, want):
+        assert float((g_ - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
+
+
+# K3's cluster kernel: chip_smoke.py's rows and the envelope's corners.
+K3_ROWS = [(7, 11), (1, 1), (11, 15), (1, 15), (11, 1), (2, 3), (4, 6), (6, 4), (8, 9), (9, 2)]
+
+
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("patch_size,patch_distance", K3_ROWS)
+def test_k3_cluster_kernel_matches_plain(cuda, patch_size, patch_distance, b):
+    z, h = _nlm_noise_input(cuda, b, 48, 40)
+    pd = (patch_size, patch_distance)
+    assert k3.nlm_kernel_name(*pd) == "nlm_cluster_kernel"
+    before = dict(k3.nlm_denoise.by_kernel)
+    for bounds in (None, (6, 42), (10, 11)):
+        got = k3.nlm_denoise(z, h, 0.8 * h, *pd, row_valid_bounds=bounds)
+        want = k3.nlm_denoise_plain(z, h, 0.8 * h, *pd, row_valid_bounds=bounds)
+        assert float((got - want).abs().max()) <= 1e-5
+        assert torch.equal(k3.nlm_denoise(z, h, 0.8 * h, *pd, row_valid_bounds=bounds), got)
+    torch.cuda.synchronize()
+    assert k3.nlm_denoise.by_kernel["nlm_cluster_kernel"] == before["nlm_cluster_kernel"] + 6
+    zero = torch.zeros(b, device=cuda)
+    assert torch.isnan(k3.nlm_denoise(z, zero, zero, *pd)).all()
+
+
+@pytest.mark.parametrize("plan", [(1, 1, 8), (1, 8, 8), (2, 3, 8), (3, 5, 8), (8, 8, 8), (8, 1, 8), (1, 8, 4),
+                                  (2, 4, 4), (16, 4, 8), (13, 2, 4)])
+def test_k3_cluster_kernel_on_other_plans(cuda, plan):
+    # Any split of the shifts over a cluster's CTAs and their warps sums the
+    # same terms (in its own fixed order) and repeats itself.
+    z, h = _nlm_noise_input(cuda, 2, 128, 128)
+    want = k3.nlm_denoise_plain(z, h, h, 7, 11)
+    hs, out = h.contiguous(), torch.empty_like(z)
+    k3.launch(k3.K3_KERNELS[1], k3._lib(), z, hs, hs, out, 7, 11, 0, 128, plan)
+    assert float((out - want).abs().max()) <= 1e-5
+    again = torch.empty_like(z)
+    k3.launch(k3.K3_KERNELS[1], k3._lib(), z, hs, hs, again, 7, 11, 0, 128, plan)
+    assert torch.equal(out, again)
+
+
+def test_k3_replaced_design_stays_reachable_by_name(cuda):
+    z, h = _nlm_noise_input(cuda, 1, 128, 128)
+    before = k3.nlm_denoise.launches
+    out = torch.empty_like(z)
+    k3.launch(k3.PREV_DESIGN, k3._lib(), z, h, h, out, 7, 11, 0, 128)
+    assert k3.nlm_denoise.launches == before
+    assert float((out - k3.nlm_denoise_plain(z, h, h, 7, 11)).abs().max()) <= 1e-5
