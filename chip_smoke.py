@@ -36,8 +36,11 @@ imports no JAX. Phases, each printing one JSON line:
    with ptxas's registers and spills for ``PER=20``; and the
    kernels at the envelope's points on the bm3d_profile lane's first
    denoise input and its stage-1 estimate (B = 13, 128 px): K1 at 1,521
-   offsets with 16 and 32 matches, at 2,401 with 16, and at the golden
-   oracle's (block 4, 49 offsets, k 4), every rounding mode, on its rules;
+   offsets with 16 and 32 matches, at 2,401 with 16, at the golden
+   oracle's (block 4, 49 offsets, k 4; also with row bounds, and equal on
+   dyadic images there) and at blocks 2, 5, 6, 16 and 4 with the reference
+   profile's window (the span kernel's rows), every rounding mode, on its
+   rules, each redesigned kernel beside the any-kernel on the same call;
    K2 at (8, 32) and (8, 16) at step 3, search 19, and at (4, 4), on its
    rules; K3 at (7, 11), (1, 1) and (11, 15) on B = 1 and B = 9, within
    1e-5, NaN at h = 0; each with its time, bound and launches;
@@ -550,7 +553,12 @@ ENVELOPE_LANES = ("bm3d_profile",)  # CSMRI_LANES held to the envelope fixture
 # choice; bm3d_match_kernel for every other BM3D lane).
 LANE_K1_KERNEL = {"bm3d_profile": "bm3d_match_tile_kernel"}
 ENVELOPE_K1 = {"profile_ht": (8, 3, 19, 16, "input"), "profile_wiener": (8, 3, 19, 32, "basic"),
-               "search24": (8, 3, 24, 16, "input"), "golden": (4, 2, 3, 4, "input")}
+               "search24": (8, 3, 24, 16, "input"), "golden": (4, 2, 3, 4, "input"),
+               "block2": (2, 1, 3, 4, "input"), "block5": (5, 2, 4, 8, "input"), "block6": (6, 3, 6, 8, "input"),
+               "block16": (16, 8, 8, 16, "input"), "block4_s19": (4, 2, 19, 16, "input")}
+# K1's row with row bounds off block 8: the golden point, candidate rows
+# [16, 112) of the 128 px image.
+K1_BOUNDED_ROW, K1_BOUNDS = "golden", (16, 112)
 ENVELOPE_K2 = {"profile_ht": (8, 3, 19, 16), "profile_wiener": (8, 3, 19, 32), "golden": (4, 2, 3, 4),
                "block2": (2, 1, 3, 4), "block6": (6, 3, 6, 8), "block8_k8": (8, 4, 8, 8),
                "block16": (16, 8, 8, 16)}
@@ -559,8 +567,8 @@ ENVELOPE_K2 = {"profile_ht": (8, 3, 19, 16), "profile_wiener": (8, 3, 19, 32), "
 ENVELOPE_K2_RUNTIME = {row: v for row, v in ENVELOPE_K2.items() if aggregate_kernel(v[0], v[3]) == K2_KERNELS[1]}
 ENVELOPE_K3 = ((7, 11), (1, 1), (11, 15))
 # Kernel rows also carry the kernel that takes the call and, where that is
-# a redesign (K1's tile kernel, K2's packed kernel, K3's cluster kernel),
-# the replaced design's time on the same call.
+# a redesign (K1's tile and span kernels, K2's packed kernel, K3's cluster
+# kernel), the replaced design's time on the same call.
 REDESIGN_FIELDS = ("kernel", "prev_design_ms", "speedup_vs_prev_design")
 # The K3 kernel every launch of a lane's timed run must go to (nlm_kernel
 # for every other NLM lane); every K2 launch of a lane goes to the compiled
@@ -799,14 +807,15 @@ def phase_build() -> dict:
 def ptxas_summary(log: str) -> dict:
     """Registers, spills and static shared memory of each kernel that ptxas
     compiled, keyed by its name and template arguments (``<mode, offsets a
-    lane>`` for K1's first kernel, ``<mode, slots a lane, step>`` for its
-    tile kernel, ``<mode, offsets a lane, block>`` for its any-kernel,
-    ``<block, K>`` for K2's tiles)."""
+    lane>`` for K1's first kernel, ``<mode, slots a lane>`` for its tile
+    kernel, ``<mode, offsets a lane, block>`` for its any-kernel, ``<mode,
+    keys a thread, slots a lane>`` for its span kernel, ``<block, K>`` for
+    K2's tiles)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            base = re.search(r"(bm3d_match(?:_any|_tile)?|bm3d_aggregate(?:_fold)?|nlm(?:_any)?)_kernel",
+            base = re.search(r"(bm3d_match(?:_any|_tile|_span)?|bm3d_aggregate(?:_fold)?|nlm(?:_any)?)_kernel",
                              m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (f"<{', '.join(args)}>" if args else "")
@@ -1273,10 +1282,11 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     invalid picks (index-0 fills) as the plain version; then its device
     time in ``lane_mode`` on the first image, the plain version's and the
     bound. ``kernel`` is the kernel :func:`match_kernel` names for the
-    call. With ``prev_design``, where that is not the any-kernel, the
-    any-kernel (the design the tile kernel replaced at block 8) is timed
-    on the same arguments too (``prev_design_ms``, its ``event_ms`` and
-    the ratio), after it is held to the same rules in ``lane_mode``."""
+    call, with its shared memory (and the span kernel's tiles). With
+    ``prev_design``, where that is not the any-kernel, the any-kernel (the
+    design the tile and span kernels replaced) is timed on the same
+    arguments too (``prev_design_ms``, its ``event_ms`` and the ratio),
+    after it is held to the same rules in ``lane_mode``."""
     z = next(iter(imgs.values()))
     b, h, w = z.shape
     rows, cols = _ref_grid(h, block, step), _ref_grid(w, block, step)
@@ -1305,8 +1315,9 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     call = lambda: bm3d_match(z, rows, cols, offs, block, k, lane_mode, geometry=geom)  # noqa: E731
     bounds = match_bounds(b, h, w, rows, cols, offs, block=block, k=k)
     kernel = match_kernel(geom, block, k)
-    smem = {"bm3d_match_kernel": geom.smem_bytes, "bm3d_match_tile_kernel": geom.tile_smem_bytes(k),
-            "bm3d_match_any_kernel": geom.any_smem_bytes}
+    smem = {"bm3d_match_kernel": lambda: geom.smem_bytes, "bm3d_match_tile_kernel": lambda: geom.tile_smem_bytes(k),
+            "bm3d_match_any_kernel": lambda: geom.any_smem_bytes,
+            "bm3d_match_span_kernel": lambda: geom.span(k).smem_bytes}
     rec = {
         "shape": {"images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
                   "mode": lane_mode},
@@ -1315,10 +1326,13 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
         "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, cols, offs, block, k, lane_mode), reps=10),
         "bound_ms": min(bounds["bound_direct_ms"], bounds["bound_separable_ms"]),
         "bound_by": bounds["bound_separable_by"], "library_ms": None,
-        "smem_bytes": smem[kernel], "near_tie": tie,
-        "checks": checks, **bounds,
+        "smem_bytes": smem[kernel](), "ctas_per_sm_by_smem": (228 * 1024) // (smem[kernel]() + 1024),
+        "near_tie": tie, "checks": checks, **bounds,
     }
-    prev = "bm3d_match_any_kernel"
+    if kernel == "bm3d_match_span_kernel":
+        plan = geom.span(k)
+        rec["span_tiles"] = {"blocks_a_tile": plan.most, "tiles": [len(plan.row_tiles), len(plan.col_tiles)]}
+    prev = k1_module.PREV_DESIGN
     if prev_design and kernel != prev:
         fn = k1_module._lib()[prev]
 
@@ -1335,9 +1349,61 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
         require(c["multiset_agreement"] >= (0.999 if lane_mode == "f32" else 0.995) and c["max_rel_gap"] <= tie,
                 f"K1's {prev} at block {block}, k {k}, {len(offs)} offsets: {c}")
         rec |= {"prev_design": prev, "prev_design_checks": c, "prev_design_ms": device_ms(call_prev),
-                "prev_design_event_ms": cuda_ms(call_prev)}
+                "prev_design_event_ms": cuda_ms(call_prev), "prev_design_smem_bytes": smem[prev]()}
         rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / rec["ms"]
+        # The same by CUDA events (back-to-back calls), for the rows where
+        # this process's profiler lost or misread device records (device_ms).
+        rec["speedup_vs_prev_design_event"] = rec["prev_design_event_ms"] / rec["event_ms"]
     return rec
+
+
+def match_bounded_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mode: str,
+                         bounds: tuple) -> dict:
+    """K1 at one setting with row bounds ``bounds`` against its plain
+    version with the same bounds, in every mode: equal on dyadic images,
+    and on each image of ``imgs`` the multiset agreement, slot gaps within
+    the block's near-tie and as many invalid picks as the plain version;
+    then its device time in ``lane_mode`` on the first image and the
+    bounds' own work bound."""
+    z = next(iter(imgs.values()))
+    b, h, w = z.shape
+    rows, cols = _ref_grid(h, block, step), _ref_grid(w, block, step)
+    offs = search_offsets(search, 1)
+    tie = near_tie(block)
+    rng = np.random.default_rng(block)
+    dyadic = torch.tensor((0.25 * rng.integers(0, 5, (b, h, w))).astype(np.float32), device=z.device)
+    exact, checks, err = {}, {}, None
+    for mode in MODES:
+        got = bm3d_match(dyadic, rows, cols, offs, block, k, mode, row_valid_bounds=bounds)
+        exact[mode] = bool(torch.equal(got, bm3d_match_plain(dyadic, rows, cols, offs, block, k, mode,
+                                                             row_valid_bounds=bounds)))
+        require(exact[mode], f"bounded K1 at block {block} differs from its plain version on dyadic images ({mode})")
+        for name, img in imgs.items():
+            got = bm3d_match(img, rows, cols, offs, block, k, mode, row_valid_bounds=bounds)
+            want = bm3d_match_plain(img, rows, cols, offs, block, k, mode, row_valid_bounds=bounds)
+            dists = match_distances_plain(img, rows, cols, offs, block, mode, row_valid_bounds=bounds)
+            dg, dw = (dists.gather(-1, t.long()) for t in (got, want))
+            c = checks[f"{name}/{mode}"] = {"multiset_agreement": multiset_agreement(got, want),
+                                            "max_rel_gap": slot_gaps(got, want, dists).max().item(),
+                                            "invalid_picked": int(torch.isinf(dg).sum()),
+                                            "plain_invalid_picked": int(torch.isinf(dw).sum())}
+            require(c["multiset_agreement"] >= (0.999 if mode == "f32" else 0.995) and c["max_rel_gap"] <= tie
+                    and c["invalid_picked"] == c["plain_invalid_picked"],
+                    f"bounded K1 at block {block}, bounds {bounds}: {c} ({name}/{mode})")
+            if err is None and mode == lane_mode:
+                err = torch.nan_to_num((dg - dw).abs(), nan=0.0).max().item()  # inf - inf: both fills
+    geom = match_geometry(rows, cols, offs, block, z.device)
+    call = lambda: bm3d_match(z, rows, cols, offs, block, k, lane_mode, geometry=geom,  # noqa: E731
+                              row_valid_bounds=bounds)
+    bnd = match_bounds(b, h, w, rows, cols, offs, *bounds, block=block, k=k)
+    return {"shape": {"images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
+                      "mode": lane_mode},
+            "bounds": list(bounds), "kernel": match_kernel(geom, block, k), "exact_on_dyadic": exact,
+            "checks": checks, "max_abs_err": err, "ms": device_ms(call), "event_ms": cuda_ms(call),
+            "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, cols, offs, block, k, lane_mode,
+                                                         row_valid_bounds=bounds), reps=10),
+            "bound_ms": min(bnd["bound_direct_ms"], bnd["bound_separable_ms"]),
+            "bound_by": bnd["bound_separable_by"], "library_ms": None, **bnd}
 
 
 def check_envelope_kernels(clock_hz: float) -> tuple:
@@ -1355,6 +1421,8 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
     for row, (block, step, search, k, first) in ENVELOPE_K1.items():
         k1[row] = match_record({first: imgs[first]} | imgs, block, step, search, k, "bf16_xla",
                                prev_design=True)
+    block, step, search, k, _ = ENVELOPE_K1[K1_BOUNDED_ROW]
+    k1[K1_BOUNDED_ROW]["bounded"] = match_bounded_record(imgs, block, step, search, k, "bf16_xla", K1_BOUNDS)
     k2 = {}
     for row, (block, step, search, k) in ENVELOPE_K2.items():
         p = BM3DParams(block=block, step=step, search=search, group_ht=k, match_dtype="bfloat16")
@@ -2514,23 +2582,27 @@ def _counts() -> dict:
     return {n: k.launches for n, k in KERNELS.items()}
 
 
-# K2's and K3's launches by kernel over the whole run (TALLY), and the share
-# of them made where the packed and cluster kernels may run (ALLOWED: the
-# kernel rows and the csmri_nlm_skimage lane); every other launch must go
-# to bm3d_aggregate_kernel or nlm_kernel.
+# K1's, K2's and K3's launches by kernel over the whole run (TALLY), and the
+# share of them made where the span, packed and cluster kernels may run
+# (ALLOWED: the kernel rows and the csmri_nlm_skimage lane); no other
+# launch may go to one of those three.
 TALLY, ALLOWED = collections.Counter(), collections.Counter()
+REDESIGNED_OFF_LANES = (K1_KERNELS[3], K2_KERNELS[1], K3_KERNELS[1])
 
 
 def _fold_tally() -> None:
-    """Add K2's and K3's launches by kernel to :data:`TALLY` and set them to 0."""
+    """Add K1's, K2's and K3's launches by kernel to :data:`TALLY` and set
+    them to 0."""
+    TALLY.update(bm3d_match.by_kernel)
     TALLY.update(bm3d_aggregate.by_kernel)
     TALLY.update(nlm_denoise.by_kernel)
+    bm3d_match.by_kernel = dict.fromkeys(K1_KERNELS, 0)
     bm3d_aggregate.by_kernel = dict.fromkeys(K2_KERNELS, 0)
     nlm_denoise.by_kernel = dict.fromkeys(K3_KERNELS, 0)
 
 
 def allowed(run):
-    """``run()``, its K2 and K3 launches counted in :data:`ALLOWED`."""
+    """``run()``, its K1, K2 and K3 launches counted in :data:`ALLOWED`."""
     _fold_tally()
     before = TALLY.copy()
     out = run()
@@ -2555,7 +2627,6 @@ def check_k2_k3_kernels(label: str, kernels: dict, launches: dict) -> None:
 def _zero_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
-    bm3d_match.by_kernel = dict.fromkeys(K1_KERNELS, 0)
     _fold_tally()
     torch.cuda.synchronize()
 
@@ -3273,24 +3344,31 @@ def main() -> None:
         "replaces": SOURCES["bm3d_match"][1], "launches": tile_by_lane["bm3d_profile"],
         "launches_by_lane": tile_by_lane, **{k: ht[k] for k in fields + REDESIGN_FIELDS},
         "card": dev["nvidia_smi"], "bench_shapes": tile_rows})
-    # K2's packed kernel (the run-time path: no lane runs it; its rows are
-    # the envelope's, golden first) and K3's cluster kernel (csmri_nlm_skimage's
+    # K1's span kernel and K2's packed kernel (the paths off block 8 and
+    # off (8, 16) / (8, 32): no lane runs them; their rows are the
+    # envelope's, golden first) and K3's cluster kernel (csmri_nlm_skimage's
     # path; its row that lane's shape, B = 1 at (7, 11)).
-    for name, group, kernel, main in (("bm3d_aggregate_packed", "bm3d_aggregate", K2_KERNELS[1], "golden"),
+    for name, group, kernel, main in (("bm3d_match_span", "bm3d_match", K1_KERNELS[3], "golden"),
+                                      ("bm3d_aggregate_packed", "bm3d_aggregate", K2_KERNELS[1], "golden"),
                                       ("nlm_cluster", "nlm", K3_KERNELS[1], "p7_d11_b1")):
         rows = {label: r for label, r in next(k for k in kernels if k["name"] == group)["bench_shapes"].items()
                 if r.get("kernel") == kernel}
-        by_lane = {lane: r["k2_k3_kernels"][group][kernel] for lane, r in lanes_run.items()
-                   if "k2_k3_kernels" in r}
+        rows = {main: rows.pop(main)} | rows
+        key = "k1_kernels" if group == "bm3d_match" else "k2_k3_kernels"
+        by_lane = {lane: (r[key] if key == "k1_kernels" else r[key][group])[kernel]
+                   for lane, r in lanes_run.items() if key in r}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[group][0], "replaces": SOURCES[group][1],
             "launches": by_lane.get(ROW_LANE.get(main, ("",))[0], 0), "launches_by_lane": by_lane,
             **{k: rows[main][k] for k in fields + REDESIGN_FIELDS}, "card": dev["nvidia_smi"],
             "bench_shapes": rows})
+        if kernel == K1_KERNELS[3]:  # with row bounds
+            bounded = k1["bench_shapes"][K1_BOUNDED_ROW]["bounded"]
+            kernels[-1]["bounded"] = {"launches": 0, **{k: bounded[k] for k in ("shape", "bounds", "kernel") + fields}}
     _fold_tally()
-    stray = {k: TALLY[k] - ALLOWED[k] for k in (K2_KERNELS[1], K3_KERNELS[1])}
+    stray = {k: TALLY[k] - ALLOWED[k] for k in REDESIGNED_OFF_LANES}
     emit({"phase": "k2_k3_kernels", "tally": dict(TALLY), "allowed": dict(ALLOWED), "stray": stray})
-    require(not any(stray.values()), f"K2 / K3 launches on the redesigned kernels outside their rows: {stray}")
+    require(not any(stray.values()), f"K1 / K2 / K3 launches on the redesigned kernels outside their rows: {stray}")
     for k in kernels:
         shapes = [k] + list(k.get("bench_shapes", {}).values()) + [k.get("bounded", k)]
         require(all(math.isfinite(r[f]) for r in shapes for f in ("ms", "plain_ms", "bound_ms")),

@@ -622,32 +622,15 @@ __device__ __forceinline__ T slot_of(const T (&v)[KS], int slot) {
   return KS == 1 || slot == 0 ? v[0] : v[KS - 1];
 }
 
-template <int MODE, int KS>
-__global__ void __launch_bounds__(kTileWarps * 32, 3)
-bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ rows,
-                       const int* __restrict__ cols, const int* __restrict__ offsets,
-                       const int* __restrict__ order, const int* __restrict__ row_tiles,
-                       const int* __restrict__ col_tiles,
-                       int* __restrict__ out, int H, int W, int nR, int nC, int S, int K,
-                       int search, int pitch, int cand_lo, int cand_hi) {
-  extern __shared__ float smem[];
-  const int reg_n = kTileSpan + 2 * search;  // the staged region's rows and columns (even)
-  // Modes 0 and 2 stage the region as f32, reg_n x pitch. Mode 1 stages it
-  // as bf16 pairs, twice: pairs[a][row][p] holds columns 2p + a and
-  // 2p + a + 1, so any two adjacent columns are one aligned word.
-  float* region = smem;
-  unsigned* pairs = reinterpret_cast<unsigned*>(smem);
-  const int pp = (reg_n / 2) | 1;               // the pairs' row pitch in words (odd)
-  float* dist = smem + reg_n * (pitch + 1);     // kTileMax x kDPitch, past either layout
-  unsigned* list_k = reinterpret_cast<unsigned*>(dist + kTileMax * kDPitch);  // [block][entry]
-  int* list_i = reinterpret_cast<int*>(list_k + kTileMax * K);
-  const int r0 = row_tiles[3 * blockIdx.y], nr = row_tiles[3 * blockIdx.y + 1];
-  const unsigned rmask = (unsigned)row_tiles[3 * blockIdx.y + 2];
-  const int c0 = col_tiles[3 * blockIdx.x], nc = col_tiles[3 * blockIdx.x + 1];
-  const unsigned cmask = (unsigned)col_tiles[3 * blockIdx.x + 2];
-  const int b = blockIdx.z;
-  const int ry0 = rows[r0], rx0 = cols[c0];
-  const float* x = img + (size_t)b * H * W;
+// Stages a tile's region for the tile and span kernels: the image `x`
+// (H x W) from (ry0 - search, rx0 - search), reg_n rows and columns, 0
+// outside the image. Modes 0 and 2 as f32, reg_n x pitch. Mode 1 as bf16
+// pairs, twice: pairs[a][row][p] (row pitch pp words) holds columns 2p + a
+// and 2p + a + 1, so any two adjacent columns are one aligned word.
+template <int MODE>
+__device__ __forceinline__ void stage_span_region(const float* x, int H, int W, int ry0, int rx0,
+                                                  int search, int reg_n, int pitch, int pp,
+                                                  float* region, unsigned* pairs) {
   auto pixel = [&](int yy, int xx) {  // the image, 0 outside it
     return yy >= 0 && yy < H && xx >= 0 && xx < W ? x[yy * W + xx] : 0.f;
   };
@@ -665,6 +648,173 @@ bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ ro
     for (int q = threadIdx.x; q < reg_n * reg_n; q += kTileWarps * 32)
       region[(q / reg_n) * pitch + q % reg_n] = pixel(ry0 - search + q / reg_n, rx0 - search + q % reg_n);
   }
+}
+
+// Phase 2 of the tile kernel (and of the span kernel at k 32 and 64): each
+// warp merges a chunk of distances, D[tile blocks][chunk] in `dist`, into
+// its blocks' running top-k (`list_k` / `list_i`, [block][entry]) and, at
+// the last chunk, writes the result to `out`. Entries and candidates
+// compare lexicographically on (distance bits, offset index): distances are
+// >= 0 or +inf, so their bits order as they do, and an invalid candidate
+// (+inf) never enters past the ballot. Lane l holds the offset indices of
+// the chunk's candidates l + 32 m. A ballot finds the chunk's candidates
+// below the k-th entry. If more than k are (as in the first chunk), k
+// rounds of a warp argmin rebuild the list; else each is inserted in turn
+// after the entries below it, the later entries moving down one place.
+template <int KS>
+__device__ __forceinline__ void merge_chunk_warps(const float* dist, unsigned* list_k, int* list_i,
+                                                  const int* __restrict__ order, int s0, int n_chunk,
+                                                  int S, int K, int nt, int nc, bool last, int* out,
+                                                  int b, int nR, int nC, int r0, int c0, int lane,
+                                                  int warp) {
+  const int kq = (K - 1) >> 5, kl = (K - 1) & 31;  // the k-th entry's slot and lane
+  constexpr int PER = kChunk / 32;
+  int cs[PER];
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int c = lane + 32 * m;
+    cs[m] = c < n_chunk ? __ldg(order + s0 + c) : S + c;  // past the chunk: an index no offset has
+  }
+  for (int tb = warp; tb < nt; tb += kTileWarps) {
+    unsigned lk[KS];
+    int li[KS];
+#pragma unroll
+    for (int q2 = 0; q2 < KS; ++q2) {
+      const int e = lane + 32 * q2;
+      lk[q2] = e < K ? list_k[tb * K + e] : kInfBits;
+      li[q2] = e < K ? list_i[tb * K + e] : 0x7fffffff;
+    }
+    unsigned ck[PER], below[PER];
+    int n_below = 0;
+    const unsigned kth_k = __shfl_sync(kAllLanes, slot_of<KS>(lk, kq), kl);
+    const int kth_i = __shfl_sync(kAllLanes, slot_of<KS>(li, kq), kl);
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const int c = lane + 32 * m;
+      ck[m] = c < n_chunk ? __float_as_uint(dist[tb * kDPitch + c]) : kInfBits;
+      below[m] = __ballot_sync(kAllLanes, ck[m] != kInfBits &&
+                                              (ck[m] < kth_k || (ck[m] == kth_k && cs[m] < kth_i)));
+      n_below += __popc(below[m]);
+    }
+    if (n_below > K) {
+      // k rounds of a warp-wide lexicographic argmin over the entries and
+      // the chunk rebuild the list.
+      unsigned nk[KS];
+      int ni[KS];
+#pragma unroll
+      for (int q2 = 0; q2 < KS; ++q2) {
+        nk[q2] = kInfBits;
+        ni[q2] = 0x7fffffff;
+      }
+#pragma unroll 1
+      for (int e = 0; e < K; ++e) {
+        unsigned bk = lk[0];
+        int bi = li[0];
+#pragma unroll
+        for (int q2 = 1; q2 < KS; ++q2) lex_min(bk, bi, lk[q2], li[q2]);
+#pragma unroll
+        for (int m = 0; m < PER; ++m) lex_min(bk, bi, ck[m], cs[m]);
+        const unsigned least = __reduce_min_sync(kAllLanes, bk);
+        const int win = (int)__reduce_min_sync(kAllLanes, bk == least ? (unsigned)bi : kAllLanes);
+        if (lane == (e & 31)) {
+#pragma unroll
+          for (int q2 = 0; q2 < KS; ++q2) {
+            nk[q2] = (e >> 5) == q2 ? least : nk[q2];
+            ni[q2] = (e >> 5) == q2 ? win : ni[q2];
+          }
+        }
+#pragma unroll
+        for (int q2 = 0; q2 < KS; ++q2) lk[q2] = li[q2] == win ? kInfBits : lk[q2];
+#pragma unroll
+        for (int m = 0; m < PER; ++m) ck[m] = cs[m] == win ? kInfBits : ck[m];
+      }
+#pragma unroll
+      for (int q2 = 0; q2 < KS; ++q2) {
+        lk[q2] = nk[q2];
+        li[q2] = ni[q2];
+      }
+    } else {
+      // Insert each candidate after the entries below it, the later
+      // entries moving down one place; one that no longer falls among
+      // the first k (the k-th entry fell since the ballot) is dropped.
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        unsigned bits = below[m];
+        while (bits) {
+          const int src = __ffs(bits) - 1;
+          bits &= bits - 1;
+          const unsigned d = __shfl_sync(kAllLanes, ck[m], src);
+          const int s = __shfl_sync(kAllLanes, cs[m], src);
+          int pos = 0;
+#pragma unroll
+          for (int q2 = 0; q2 < KS; ++q2)
+            pos += __popc(__ballot_sync(kAllLanes, lane + 32 * q2 < K &&
+                                                       (lk[q2] < d || (lk[q2] == d && li[q2] < s))));
+          if (pos >= K) continue;
+          unsigned uk[KS];
+          int ui[KS];
+#pragma unroll
+          for (int q2 = 0; q2 < KS; ++q2) {
+            uk[q2] = __shfl_sync(kAllLanes, lk[q2], (lane + 31) & 31);
+            ui[q2] = __shfl_sync(kAllLanes, li[q2], (lane + 31) & 31);
+          }
+#pragma unroll
+          for (int q2 = 0; q2 < KS; ++q2) {
+            const int e = lane + 32 * q2;
+            // Entry e - 1 is the previous lane's, or the previous slot's last lane's.
+            const unsigned pk = q2 > 0 && lane == 0 ? uk[q2 - 1] : uk[q2];
+            const int pi = q2 > 0 && lane == 0 ? ui[q2 - 1] : ui[q2];
+            lk[q2] = e >= K ? kInfBits : e > pos ? pk : e == pos ? d : lk[q2];
+            li[q2] = e >= K ? 0x7fffffff : e > pos ? pi : e == pos ? s : li[q2];
+          }
+        }
+      }
+    }
+    if (last) {
+      const int bi = tb / nc, bj = tb - bi * nc;
+      int* o = out + (((size_t)b * nR + r0 + bi) * nC + c0 + bj) * K;
+#pragma unroll
+      for (int q2 = 0; q2 < KS; ++q2) {
+        if (lane + 32 * q2 < K) o[lane + 32 * q2] = lk[q2] == kInfBits ? 0 : li[q2];
+      }
+    } else if (n_below > 0) {
+#pragma unroll
+      for (int q2 = 0; q2 < KS; ++q2) {
+        const int e = lane + 32 * q2;
+        if (e < K) {
+          list_k[tb * K + e] = lk[q2];
+          list_i[tb * K + e] = li[q2];
+        }
+      }
+    }
+  }
+}
+
+template <int MODE, int KS>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ rows,
+                       const int* __restrict__ cols, const int* __restrict__ offsets,
+                       const int* __restrict__ order, const int* __restrict__ row_tiles,
+                       const int* __restrict__ col_tiles,
+                       int* __restrict__ out, int H, int W, int nR, int nC, int S, int K,
+                       int search, int pitch, int cand_lo, int cand_hi) {
+  extern __shared__ float smem[];
+  const int reg_n = kTileSpan + 2 * search;  // the staged region's rows and columns (even)
+  // The region as `stage_span_region` lays it out: f32 (modes 0, 2) or bf16 pairs (mode 1).
+  float* region = smem;
+  unsigned* pairs = reinterpret_cast<unsigned*>(smem);
+  const int pp = (reg_n / 2) | 1;               // the pairs' row pitch in words (odd)
+  float* dist = smem + reg_n * (pitch + 1);     // kTileMax x kDPitch, past either layout
+  unsigned* list_k = reinterpret_cast<unsigned*>(dist + kTileMax * kDPitch);  // [block][entry]
+  int* list_i = reinterpret_cast<int*>(list_k + kTileMax * K);
+  const int r0 = row_tiles[3 * blockIdx.y], nr = row_tiles[3 * blockIdx.y + 1];
+  const unsigned rmask = (unsigned)row_tiles[3 * blockIdx.y + 2];
+  const int c0 = col_tiles[3 * blockIdx.x], nc = col_tiles[3 * blockIdx.x + 1];
+  const unsigned cmask = (unsigned)col_tiles[3 * blockIdx.x + 2];
+  const int b = blockIdx.z;
+  const int ry0 = rows[r0], rx0 = cols[c0];
+  stage_span_region<MODE>(img + (size_t)b * H * W, H, W, ry0, rx0, search, reg_n, pitch, pp, region,
+                          pairs);
   const int nt = nr * nc;
   for (int q = threadIdx.x; q < nt * K; q += kTileWarps * 32) {
     list_k[q] = kInfBits;
@@ -684,8 +834,6 @@ bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ ro
   auto pair_at = [&](int y, int c) { return pairs + ((c & 1) * reg_n + y) * pp + (c >> 1); };
   const int last_c = W - kBlock;
   const int2* offs2 = reinterpret_cast<const int2*>(offsets);
-  const int kq = (K - 1) >> 5, kl = (K - 1) & 31;  // the k-th entry's slot and lane
-  constexpr int PER = kChunk / 32;
   for (int s0 = 0; s0 < S; s0 += kChunk) {  // positions in the visiting order
     const int n_chunk = min(kChunk, S - s0);
     // Phase 1: distances. The lane's reference row stays in registers for
@@ -737,130 +885,8 @@ bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ ro
     __syncthreads();
 
     // Phase 2: each warp merges the chunk into its blocks' running top-k.
-    // Entries and candidates compare lexicographically on (distance bits,
-    // offset index): distances are >= 0 or +inf, so their bits order as
-    // they do, and an invalid candidate (+inf) never enters past the ballot.
-    // Lane l holds the offset indices of the chunk's candidates l + 32 m.
-    const bool last = s0 + kChunk >= S;
-    int cs[PER];
-#pragma unroll
-    for (int m = 0; m < PER; ++m) {
-      const int c = lane + 32 * m;
-      cs[m] = c < n_chunk ? __ldg(order + s0 + c) : S + c;  // past the chunk: an index no offset has
-    }
-    for (int tb = warp; tb < nt; tb += kTileWarps) {
-      unsigned lk[KS];
-      int li[KS];
-#pragma unroll
-      for (int q2 = 0; q2 < KS; ++q2) {
-        const int e = lane + 32 * q2;
-        lk[q2] = e < K ? list_k[tb * K + e] : kInfBits;
-        li[q2] = e < K ? list_i[tb * K + e] : 0x7fffffff;
-      }
-      unsigned ck[PER], below[PER];
-      int n_below = 0;
-      const unsigned kth_k = __shfl_sync(kAllLanes, slot_of<KS>(lk, kq), kl);
-      const int kth_i = __shfl_sync(kAllLanes, slot_of<KS>(li, kq), kl);
-#pragma unroll
-      for (int m = 0; m < PER; ++m) {
-        const int c = lane + 32 * m;
-        ck[m] = c < n_chunk ? __float_as_uint(dist[tb * kDPitch + c]) : kInfBits;
-        below[m] = __ballot_sync(kAllLanes, ck[m] != kInfBits &&
-                                                (ck[m] < kth_k || (ck[m] == kth_k && cs[m] < kth_i)));
-        n_below += __popc(below[m]);
-      }
-      if (n_below > K) {
-        // k rounds of a warp-wide lexicographic argmin over the entries and
-        // the chunk rebuild the list.
-        unsigned nk[KS];
-        int ni[KS];
-#pragma unroll
-        for (int q2 = 0; q2 < KS; ++q2) {
-          nk[q2] = kInfBits;
-          ni[q2] = 0x7fffffff;
-        }
-#pragma unroll 1
-        for (int e = 0; e < K; ++e) {
-          unsigned bk = lk[0];
-          int bi = li[0];
-#pragma unroll
-          for (int q2 = 1; q2 < KS; ++q2) lex_min(bk, bi, lk[q2], li[q2]);
-#pragma unroll
-          for (int m = 0; m < PER; ++m) lex_min(bk, bi, ck[m], cs[m]);
-          const unsigned least = __reduce_min_sync(kAllLanes, bk);
-          const int win = (int)__reduce_min_sync(kAllLanes, bk == least ? (unsigned)bi : kAllLanes);
-          if (lane == (e & 31)) {
-#pragma unroll
-            for (int q2 = 0; q2 < KS; ++q2) {
-              nk[q2] = (e >> 5) == q2 ? least : nk[q2];
-              ni[q2] = (e >> 5) == q2 ? win : ni[q2];
-            }
-          }
-#pragma unroll
-          for (int q2 = 0; q2 < KS; ++q2) lk[q2] = li[q2] == win ? kInfBits : lk[q2];
-#pragma unroll
-          for (int m = 0; m < PER; ++m) ck[m] = cs[m] == win ? kInfBits : ck[m];
-        }
-#pragma unroll
-        for (int q2 = 0; q2 < KS; ++q2) {
-          lk[q2] = nk[q2];
-          li[q2] = ni[q2];
-        }
-      } else {
-        // Insert each candidate after the entries below it, the later
-        // entries moving down one place; one that no longer falls among
-        // the first k (the k-th entry fell since the ballot) is dropped.
-#pragma unroll
-        for (int m = 0; m < PER; ++m) {
-          unsigned bits = below[m];
-          while (bits) {
-            const int src = __ffs(bits) - 1;
-            bits &= bits - 1;
-            const unsigned d = __shfl_sync(kAllLanes, ck[m], src);
-            const int s = __shfl_sync(kAllLanes, cs[m], src);
-            int pos = 0;
-#pragma unroll
-            for (int q2 = 0; q2 < KS; ++q2)
-              pos += __popc(__ballot_sync(kAllLanes, lane + 32 * q2 < K &&
-                                                         (lk[q2] < d || (lk[q2] == d && li[q2] < s))));
-            if (pos >= K) continue;
-            unsigned uk[KS];
-            int ui[KS];
-#pragma unroll
-            for (int q2 = 0; q2 < KS; ++q2) {
-              uk[q2] = __shfl_sync(kAllLanes, lk[q2], (lane + 31) & 31);
-              ui[q2] = __shfl_sync(kAllLanes, li[q2], (lane + 31) & 31);
-            }
-#pragma unroll
-            for (int q2 = 0; q2 < KS; ++q2) {
-              const int e = lane + 32 * q2;
-              // Entry e - 1 is the previous lane's, or the previous slot's last lane's.
-              const unsigned pk = q2 > 0 && lane == 0 ? uk[q2 - 1] : uk[q2];
-              const int pi = q2 > 0 && lane == 0 ? ui[q2 - 1] : ui[q2];
-              lk[q2] = e >= K ? kInfBits : e > pos ? pk : e == pos ? d : lk[q2];
-              li[q2] = e >= K ? 0x7fffffff : e > pos ? pi : e == pos ? s : li[q2];
-            }
-          }
-        }
-      }
-      if (last) {
-        const int bi = tb / nc, bj = tb - bi * nc;
-        int* o = out + (((size_t)b * nR + r0 + bi) * nC + c0 + bj) * K;
-#pragma unroll
-        for (int q2 = 0; q2 < KS; ++q2) {
-          if (lane + 32 * q2 < K) o[lane + 32 * q2] = lk[q2] == kInfBits ? 0 : li[q2];
-        }
-      } else if (n_below > 0) {
-#pragma unroll
-        for (int q2 = 0; q2 < KS; ++q2) {
-          const int e = lane + 32 * q2;
-          if (e < K) {
-            list_k[tb * K + e] = lk[q2];
-            list_i[tb * K + e] = li[q2];
-          }
-        }
-      }
-    }
+    merge_chunk_warps<KS>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, s0 + kChunk >= S, out,
+                          b, nR, nC, r0, c0, lane, warp);
     __syncthreads();
   }
 }
@@ -898,6 +924,322 @@ cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const floa
                                 cand_hi);
   return launch_tile<MODE, 2>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
                               col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo, cand_hi);
+}
+
+// ---- Every other block: `bm3d_match_span_kernel` ------------------------
+//
+// Takes every K1 call at a block in [kMinBlock, kMaxBlock] other than 8 on a
+// strictly ascending reference grid, the path `bm3d_match_any_kernel` took
+// before; the any-kernel, which stood for the Pallas kernel `_match_kernel`
+// (pnp_svrg_tpu/ops/pallas/bm3d_match.py:52) on those calls, now takes only
+// grids that do not strictly ascend. It computes the same function: any
+// power-of-two k up to 64, any window (search <= 24), the three rounding
+// modes, the row bounds. Bound as above: f32 arithmetic in the separable
+// form, one term a (pixel, offset) and the box sums shared by the blocks a
+// tile holds. The any-kernel paid three costs, and this kernel answers each
+// as the block-8 tile kernel does:
+//  1. It summed block^2 terms directly for each (block, offset) pair, so
+//     overlapping blocks shared nothing (block^2 / step^2 times the work).
+//     Here one CTA of kTileWarps warps takes a tile of blocks whose patches
+//     span at most kTileSpan rows and columns (the tile kernel's plans and
+//     staged region), and a warp takes one offset at a time: lane y forms
+//     the kTileSpan rounded terms of span row y once (mode 1 from bf16
+//     pairs), then block-wide sums along the row at every column and, at
+//     each reference column, block-tall sums down the lanes (`shfl.down`).
+//     Both follow one tree that depends only on the block: its binary
+//     decomposition, the largest power of two first, each part a doubling
+//     tree (6 = 4 + 2: ((t0 + t1) + (t2 + t3)) + (t4 + t5); 8 is the tile
+//     kernel's tree), f32 adds, no FMA. The parts below the largest are
+//     gathered, lowest first, in a second row of registers as the doubling
+//     sums pass their width.
+//  2. It rebuilt its running top-k with k rounds of a warp argmin for every
+//     chunk of offsets. Here the offsets come in `visit_order` (nearest the
+//     window's centre first) in chunks of kChunk. For k <= 8 a thread takes
+//     a block and keeps its least (distance bits, offset index) pairs, 4 or
+//     8 of them, as sorted 64-bit keys in registers (which order as the
+//     pairs do); a candidate below the last enters by a compare-exchange
+//     chain, and any other costs one compare. For k 16 to 64 the tile
+//     kernel's phase 2 (`merge_chunk_warps`): a warp a block, a ballot of
+//     the candidates below the k-th entry. Either gives
+//     `top_k_offsets_plain`'s result: ascending, ties to the lowest index,
+//     an entry still at +inf written as index 0.
+//  3. Its CTAs were 4 x 4 blocks with a warp a block. Here a tile holds as
+//     many blocks as the span does, up to `most` (host-made: the distance
+//     buffer, most x kDPitch floats, and the top-k lists, 8 bytes an entry,
+//     still let three CTAs share an SM; at most one a thread).
+// The block is a compile-time constant of phase 1 (a case of a switch in
+// the kernel, one for each block), so its trees are straight-line code
+// with no branches and no dead terms; the rounding mode (mode 1's packed
+// pairs, or f32 with mode 2's rounding of each square at run time) and the
+// phase-2 form are the kernel's template argument and run-time branches:
+// two kernels in all, not one for each (block, mode, k). The choices were
+// timed on an H100 at chip_smoke.py's rows off block 8 against variants
+// of this source (`examples/k1_variants.py --part span`, PERF.md): the
+// block at run time (one kernel for every block, its trees by branches on
+// its bits) spilled and was slower than the any-kernel at three rows;
+// merging k <= 8 by a warp, k 16 by a thread, two CTAs an SM, chunks of
+// 128, tiles of half the blocks, offsets in ascending order and modes 0
+// and 2 holding the reference row in registers were each slower at most
+// rows.
+
+__host__ __device__ constexpr int high_bit(int b) { return b >= 16 ? 16 : b >= 8 ? 8 : b >= 4 ? 4 : b >= 2 ? 2 : 1; }
+
+// The blocks' sums along a span row: t[x] becomes the sum of B terms from
+// column x (for x + B <= N) by the tree above; at width W (the doubling
+// sums t holds), bit W of the block below its largest power of two is
+// folded into r first, and after the largest, r is added to it.
+template <int B, int W = 1, int N>
+__device__ __forceinline__ void row_window_sums(float (&t)[N], float (&r)[N]) {
+  constexpr int HB = high_bit(B), REST = B - HB;
+  if constexpr (W < HB) {
+    if constexpr ((REST & W) != 0) {
+      if constexpr ((REST & (W - 1)) == 0) {  // the lowest bit: r starts as t
+#pragma unroll
+        for (int x = 0; x < N; ++x) r[x] = t[x];
+      } else {
+#pragma unroll
+        for (int x = 0; x + W < N; ++x) r[x] = __fadd_rn(t[x], r[x + W]);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x + W < N; ++x) t[x] = __fadd_rn(t[x], t[x + W]);
+    row_window_sums<B, 2 * W>(t, r);
+  } else if constexpr (REST != 0) {
+#pragma unroll
+    for (int x = 0; x + HB < N; ++x) t[x] = __fadd_rn(t[x], r[x + HB]);
+  }
+}
+
+// The same tree down the lanes: lane y gets the sum of v over lanes y to
+// y + B - 1 (lanes past 31 read their own value); for B = 8, `sum8_down`.
+template <int B, int W = 1>
+__device__ __forceinline__ float lane_window_sum(float v, float r = 0.f) {
+  constexpr int HB = high_bit(B), REST = B - HB;
+  if constexpr (W < HB) {
+    if constexpr ((REST & W) != 0) {
+      if constexpr ((REST & (W - 1)) == 0)
+        r = v;
+      else
+        r = __fadd_rn(v, __shfl_down_sync(kAllLanes, r, W));
+    }
+    v = __fadd_rn(v, __shfl_down_sync(kAllLanes, v, W));
+    return lane_window_sum<B, 2 * W>(v, r);
+  } else if constexpr (REST != 0) {
+    return __fadd_rn(v, __shfl_down_sync(kAllLanes, r, HB));
+  } else {
+    return v;
+  }
+}
+
+// What phase 1 of a span tile needs besides its block.
+struct SpanTile {
+  const float* region;    // modes 0, 2: the staged region, reg_n x pitch
+  const unsigned* pairs;  // mode 1: bf16 pairs in two layouts, reg_n x pp each
+  int reg_n, pp, pitch, search;
+  const int2* offsets;  // in the visiting order
+  unsigned cmask;       // the tile's reference columns less its first, as bits of the span
+  int nc, rx0, ry0, cand_lo, cand_hi, last_c;
+  bool ref_row;  // this lane's span row is a reference row,
+  int i;         // its block row in the tile
+  bool round_sq;  // mode 2: each square rounded to bf16
+  float* dist;    // D[tile blocks][chunk], kDPitch floats a row
+};
+
+// Phase 1 of the span kernel at block B: the distances of chunk positions
+// [s0, s0 + n_chunk) into `dist`, a warp an offset. Mode 1 keeps the lane's
+// reference row in registers as bf16 pairs; modes 0 and 2 read it from
+// shared memory with each candidate row (32 more registers there spilled,
+// and were slower at 5 of 6 rows: PERF.md).
+template <bool PAIRS, int B>
+__device__ __forceinline__ void span_distances(const SpanTile& p, int s0, int n_chunk, int lane,
+                                               int warp) {
+  const float inf = __int_as_float(kInfBits);
+  const float* ref_at = p.region + (p.search + lane) * p.pitch + p.search;
+  auto pair_at = [&](int y, int c) { return p.pairs + ((c & 1) * p.reg_n + y) * p.pp + (c >> 1); };
+  unsigned ref2[PAIRS ? kTileSpan / 2 : 1];
+  if constexpr (PAIRS) {
+#pragma unroll
+    for (int xx = 0; xx < kTileSpan; xx += 2) ref2[xx / 2] = pair_at(p.search + lane, p.search)[xx / 2];
+  }
+  for (int c = warp; c < n_chunk; c += kTileWarps) {
+    const int2 o = __ldg(p.offsets + s0 + c);
+    float t[kTileSpan], r[kTileSpan];
+    if constexpr (PAIRS) {
+      const unsigned* cand2 = pair_at(p.search + lane + o.x, p.search + o.y);
+#pragma unroll
+      for (int xx = 0; xx < kTileSpan; xx += 2)
+        sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);
+    } else {
+      const float* cand = ref_at + o.x * p.pitch + o.y;
+      if (p.round_sq) {
+#pragma unroll
+        for (int xx = 0; xx < kTileSpan; xx += 2)
+          sq_terms2<2>(0u, 0u, ref_at[xx], ref_at[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
+      } else {
+#pragma unroll
+        for (int xx = 0; xx < kTileSpan; xx += 2)
+          sq_terms2<0>(0u, 0u, ref_at[xx], ref_at[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
+      }
+    }
+    const int cy = p.ry0 + lane + o.x;
+    const bool row_ok = p.ref_row && cy >= p.cand_lo && cy <= p.cand_hi;
+    row_window_sums<B>(t, r);
+#pragma unroll
+    for (int xx = 0; xx + B <= kTileSpan; ++xx) {
+      if ((p.cmask >> xx) & 1u) {
+        const float v = lane_window_sum<B>(t[xx]);
+        const int j = __popc(p.cmask & ((1u << xx) - 1u));
+        const int cx = p.rx0 + xx + o.y;
+        if (p.ref_row) p.dist[(p.i * p.nc + j) * kDPitch + c] = row_ok && cx >= 0 && cx <= p.last_c ? v : inf;
+      }
+    }
+  }
+}
+
+// Phase 2 for k <= KL: thread tb merges the chunk into block tb's running
+// KL least keys (`list`, [entry][most], kept between chunks) and, at the
+// last chunk, writes the first K to `out`.
+template <int KL>
+__device__ __forceinline__ void merge_chunk_threads(const float* dist, unsigned long long* list,
+                                                    const int* chunk_order, int n_chunk, int nt,
+                                                    int most, int K, bool last, int* out, int b,
+                                                    int nR, int nC, int r0, int c0, int nc) {
+  const int tb = threadIdx.x;
+  if (tb >= nt) return;
+  unsigned long long l[KL];
+#pragma unroll
+  for (int e = 0; e < KL; ++e) l[e] = list[e * most + tb];
+  const float* d = dist + tb * kDPitch;
+#pragma unroll 4
+  for (int c = 0; c < n_chunk; ++c) {
+    unsigned long long v = (unsigned long long)__float_as_uint(d[c]) << 32 | (unsigned)chunk_order[c];
+    if (v < l[KL - 1]) {
+#pragma unroll
+      for (int e = 0; e < KL; ++e) {
+        const bool lt = v < l[e];
+        const unsigned long long lo = lt ? v : l[e];
+        v = lt ? l[e] : v;
+        l[e] = lo;
+      }
+    }
+  }
+  if (last) {
+    const int bi = tb / nc, bj = tb - bi * nc;
+    int* o = out + (((size_t)b * nR + r0 + bi) * nC + c0 + bj) * K;
+#pragma unroll
+    for (int e = 0; e < KL; ++e) {
+      if (e < K) o[e] = (unsigned)(l[e] >> 32) >= kInfBits ? 0 : (int)(unsigned)l[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < KL; ++e) list[e * most + tb] = l[e];
+  }
+}
+
+// Entries of a block's running top-k: 4 or 8 keys for k <= 8 (a thread a
+// block), else k (a warp a block).
+__host__ __device__ inline int span_entries(int K) { return K <= 4 ? 4 : K <= 8 ? 8 : K; }
+
+// Words of shared memory before the top-k lists (8-byte aligned): the staged
+// region, the distance buffer and the chunk's offset indices.
+__host__ __device__ inline int span_lists_at(int search, int pitch, int most) {
+  return ((kTileSpan + 2 * search) * (pitch + 1) + most * kDPitch + kChunk + 1) & ~1;
+}
+
+template <bool PAIRS>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ rows,
+                       const int* __restrict__ cols, const int* __restrict__ offsets,
+                       const int* __restrict__ order, const int* __restrict__ row_tiles,
+                       const int* __restrict__ col_tiles, int* __restrict__ out, int H, int W,
+                       int nR, int nC, int S, int K, int block, bool round_sq, int search, int pitch,
+                       int most, int cand_lo, int cand_hi) {
+  extern __shared__ float smem[];
+  const int reg_n = kTileSpan + 2 * search;  // the staged region's rows and columns (even)
+  float* region = smem;
+  unsigned* pairs = reinterpret_cast<unsigned*>(smem);
+  const int pp = (reg_n / 2) | 1;                                    // the pairs' row pitch (odd)
+  float* dist = smem + reg_n * (pitch + 1);                          // most x kDPitch
+  int* chunk_order = reinterpret_cast<int*>(dist + most * kDPitch);  // kChunk
+  float* lists = smem + span_lists_at(search, pitch, most);
+  unsigned long long* list = reinterpret_cast<unsigned long long*>(lists);  // k <= 8: [entry][most]
+  unsigned* list_k = reinterpret_cast<unsigned*>(lists);                    // else [block][entry]
+  int* list_i = reinterpret_cast<int*>(list_k + most * K);
+  const int r0 = row_tiles[3 * blockIdx.y], nr = row_tiles[3 * blockIdx.y + 1];
+  const unsigned rmask = (unsigned)row_tiles[3 * blockIdx.y + 2];
+  const int c0 = col_tiles[3 * blockIdx.x], nc = col_tiles[3 * blockIdx.x + 1];
+  const unsigned cmask = (unsigned)col_tiles[3 * blockIdx.x + 2];
+  const int b = blockIdx.z;
+  const int ry0 = rows[r0], rx0 = cols[c0];
+  stage_span_region<PAIRS ? 1 : 0>(img + (size_t)b * H * W, H, W, ry0, rx0, search, reg_n, pitch, pp,
+                                   region, pairs);
+  const int nt = nr * nc;
+  const bool by_threads = K <= 8;
+  if (by_threads) {
+    for (int q = threadIdx.x; q < span_entries(K) * most; q += kTileWarps * 32) list[q] = ~0ull;
+  } else {
+    for (int q = threadIdx.x; q < nt * K; q += kTileWarps * 32) {
+      list_k[q] = kInfBits;
+      list_i[q] = 0x7fffffff;
+    }
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // Lane y: region row y of the span; if it is a reference row, block row i.
+  const SpanTile tile{region, pairs, reg_n, pp, pitch, search, reinterpret_cast<const int2*>(offsets),
+                      cmask, nc, rx0, ry0, cand_lo, cand_hi, W - block, ((rmask >> lane) & 1u) != 0,
+                      __popc(rmask & ((1u << lane) - 1u)), round_sq, dist};
+  for (int s0 = 0; s0 < S; s0 += kChunk) {  // positions in the visiting order
+    const int n_chunk = min(kChunk, S - s0);
+    if (by_threads && (int)threadIdx.x < n_chunk) chunk_order[threadIdx.x] = __ldg(order + s0 + threadIdx.x);
+    __syncthreads();
+    switch (block) {  // phase 1: distances
+#define PNP_SPAN_BLOCK(B) \
+  case B:                 \
+    span_distances<PAIRS, B>(tile, s0, n_chunk, lane, warp); \
+    break;
+      PNP_SPAN_BLOCK(2) PNP_SPAN_BLOCK(3) PNP_SPAN_BLOCK(4) PNP_SPAN_BLOCK(5) PNP_SPAN_BLOCK(6)
+      PNP_SPAN_BLOCK(7) PNP_SPAN_BLOCK(9) PNP_SPAN_BLOCK(10) PNP_SPAN_BLOCK(11) PNP_SPAN_BLOCK(12)
+      PNP_SPAN_BLOCK(13) PNP_SPAN_BLOCK(14) PNP_SPAN_BLOCK(15) PNP_SPAN_BLOCK(16)
+#undef PNP_SPAN_BLOCK
+    }
+    __syncthreads();
+
+    // Phase 2: the chunk into the blocks' running top-k.
+    const bool last = s0 + kChunk >= S;
+    if (K <= 4)
+      merge_chunk_threads<4>(dist, list, chunk_order, n_chunk, nt, most, K, last, out, b, nR, nC, r0, c0, nc);
+    else if (K <= 8)
+      merge_chunk_threads<8>(dist, list, chunk_order, n_chunk, nt, most, K, last, out, b, nR, nC, r0, c0, nc);
+    else if (K <= 32)
+      merge_chunk_warps<1>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
+                           c0, lane, warp);
+    else
+      merge_chunk_warps<2>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
+                           c0, lane, warp);
+    __syncthreads();
+  }
+}
+
+template <bool PAIRS>
+cudaError_t launch_span(dim3 grid, size_t smem, cudaStream_t stream, const float* img,
+                        const int* rows, const int* cols, const int* offsets, const int* order,
+                        const int* row_tiles, const int* col_tiles, int* out, int H, int W,
+                        int nR, int nC, int S, int K, int block, bool round_sq, int search, int pitch,
+                        int most, int cand_lo, int cand_hi) {
+  auto fn = bm3d_match_span_kernel<PAIRS>;
+  static size_t granted = 48 * 1024;  // dynamic shared memory opted into so far
+  if (smem > granted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  fn<<<grid, kTileWarps * 32, smem, stream>>>(img, rows, cols, offsets, order, row_tiles, col_tiles,
+                                              out, H, W, nR, nC, S, K, block, round_sq, search, pitch,
+                                              most, cand_lo, cand_hi);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1013,4 +1355,33 @@ extern "C" int bm3d_match_tile_launch(const float* img, const int* rows, const i
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Any block in [2, 16] but 8 (the tile kernel's) on a strictly ascending
+// reference grid, k a power of two in [1, 64] and any
+// window (search <= 24): the tile kernel's arguments, with `block_size` the
+// block and `most` the blocks a tile holds at most (in [1, 256]; the
+// plans' rows' count times the columns' at most that). Returns the
+// launch's cudaError_t.
+extern "C" int bm3d_match_span_launch(const float* img, const int* rows, const int* cols,
+                                      const int* offsets, const int* order, const int* row_tiles,
+                                      const int* col_tiles, int* out, int B, int H, int W, int nR,
+                                      int nC, int n_row_tiles, int n_col_tiles, int S,
+                                      int block_size, int K, int mode, int search, int pitch,
+                                      int most, int cand_lo, int cand_hi, void* stream) {
+  if (block_size < kMinBlock || block_size > kMaxBlock || block_size == kBlock || K < 1 || K > kMaxK ||
+      S < 1 || mode < 0 || mode > 2 || search < 0 || pitch < kTileSpan + 2 * search ||
+      n_row_tiles < 1 || n_col_tiles < 1 || most < 1 || most > kTileWarps * 32 || cand_lo < 0 ||
+      cand_hi > H - block_size)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const dim3 grid(n_col_tiles, n_row_tiles, B);
+  const size_t smem = sizeof(float) * span_lists_at(search, pitch, most) +
+                      sizeof(unsigned long long) * most * span_entries(K);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == 1)
+    return launch_span<true>(grid, smem, st, img, rows, cols, offsets, order, row_tiles, col_tiles, out,
+                             H, W, nR, nC, S, K, block_size, false, search, pitch, most, cand_lo, cand_hi);
+  return launch_span<false>(grid, smem, st, img, rows, cols, offsets, order, row_tiles, col_tiles, out, H,
+                            W, nR, nC, S, K, block_size, mode == 2, search, pitch, most, cand_lo, cand_hi);
 }

@@ -1,7 +1,9 @@
-"""Time K1's block-8 tile kernel against the design it replaced, and against
-variants of its source, on the card.
+"""Time K1's tile and span kernels against the design they replaced, and
+against variants of their source, on the card.
 
-    python -m pnp_svrg_tpu_torch.examples.k1_variants
+    python -m pnp_svrg_tpu_torch.examples.k1_variants [--part tile|span]
+
+Part ``tile`` (block 8).
 
 The shapes are the reference BM3D profile's two K1 settings on the
 bm3d_profile lane's real inputs (the headline batch, B = 13 at 128 px, after
@@ -24,17 +26,39 @@ shows a lost record). Each build is held to the plain version first: the
 multiset agreement of each block's matches, and slot by slot the same offset
 or a near-tie (two distances within 2 x 63 x 2**-24 of each other). Prints
 one JSON line a shape, then ptxas's lines for each build's tile kernel and
-the card's name and power limit. Variants build into
-``build/pnp_svrg_tpu_torch/variants/`` with the port's ``nvcc`` flags. Needs
-a CUDA card.
+the card's name and power limit.
+
+Part ``span`` (every other block): ``bm3d_match_span_kernel`` ("span") at
+``chip_smoke.py``'s K1 rows off block 8 (:data:`SPAN_ROWS`: block, step,
+search, k) on the same first denoise input, held to the plain version in
+every mode (the rules above, with the near-tie of the block's own terms;
+and equal on dyadic images), then timed against the any-kernel ("any") in
+turns (span, any, any, span) in ``bf16_xla`` and in ``f32``, and beside
+each of :data:`SPAN_VARIANTS` of its source (variant, span, span, variant;
+in ``f32`` for the ``f32_`` ones, else in ``bf16_xla``): ``two_ctas`` (launch bounds asking for two CTAs an SM, not
+three), ``warp_merge`` (k up to 8 merged as k 16 and more are, a warp a
+block with a ballot, not a thread a block), ``f32_ref_registers`` (modes 0
+and 2 keep the reference row in registers for a chunk, not read it from
+shared memory for each offset), ``chunk_128`` (``kChunk``), ``ascending`` (the offsets in
+ascending index order) and ``half_tiles`` (tiles of at most half the
+blocks :func:`span_most` allows: more, smaller CTAs). Each row's line also
+carries the plain version's time (CUDA events over 10 calls), the bounds
+(``chip_smoke.match_bounds``) and the plan.
+
+Both parts run by default. Variants build into
+``build/pnp_svrg_tpu_torch/variants/`` with the port's ``nvcc`` flags.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import dataclasses
 import json
 import subprocess
+
+import numpy as np
 
 import torch
 
@@ -62,27 +86,47 @@ VARIANTS = {  # name -> [(text of the built source, its replacement), ...]
          "t[xx + 1]);"),
     ],
 }
+SPAN_VARIANTS = {
+    "two_ctas": [("__launch_bounds__(kTileWarps * 32, 3)\nbm3d_match_span_kernel(",
+                  "__launch_bounds__(kTileWarps * 32, 2)\nbm3d_match_span_kernel(")],
+    "warp_merge": [("  const bool by_threads = K <= 8;", "  const bool by_threads = false;"),
+                   ("    if (K <= 4)\n      merge_chunk_threads<4>", "    if (false)\n      merge_chunk_threads<4>"),
+                   ("    else if (K <= 8)\n      merge_chunk_threads<8>", "    else if (false)\n      merge_chunk_threads<8>"),
+                   ("{ return K <= 4 ? 4 : K <= 8 ? 8 : K; }", "{ return K; }")],
+    "f32_ref_registers": [  # modes 0 and 2 keep the reference row in registers for the chunk
+        ("  if constexpr (PAIRS) {\n#pragma unroll\n    for (int xx = 0; xx < kTileSpan; xx += 2) ref2[xx / 2]",
+         "  float ref[kTileSpan];\n#pragma unroll\n  for (int xx = 0; xx < kTileSpan; ++xx) ref[xx] = ref_at[xx];\n"
+         "  if constexpr (PAIRS) {\n#pragma unroll\n    for (int xx = 0; xx < kTileSpan; xx += 2) ref2[xx / 2]"),
+        ("          sq_terms2<2>(0u, 0u, ref_at[xx], ref_at[xx + 1], cand[xx]",
+         "          sq_terms2<2>(0u, 0u, ref[xx], ref[xx + 1], cand[xx]"),
+        ("          sq_terms2<0>(0u, 0u, ref_at[xx], ref_at[xx + 1], cand[xx]",
+         "          sq_terms2<0>(0u, 0u, ref[xx], ref[xx + 1], cand[xx]")],
+    "chunk_128": [("constexpr int kChunk = 64;", "constexpr int kChunk = 128;")],
+}
 SHAPES = {"profile_ht": (19, 16, "input"), "profile_wiener": (19, 32, "basic"), "search24": (24, 16, "input")}
+# chip_smoke.ENVELOPE_K1's rows off block 8: (block, step, search, k).
+SPAN_ROWS = {"golden": (4, 2, 3, 4), "block2": (2, 1, 3, 4), "block5": (5, 2, 4, 8), "block6": (6, 3, 6, 8),
+             "block16": (16, 8, 8, 16), "block4_s19": (4, 2, 19, 16)}
 REPS = 50
 NEAR_TIE = 2 * 63 * 2.0**-24  # 8 x 8 terms a distance, summed in two orders
 
 
-def build_variants() -> tuple:
-    """(name -> the tile kernel's bound entry in each variant's library,
-    name -> ptxas's output of its build)."""
+def build_variants(variants: dict, kernel: str) -> tuple:
+    """(name -> ``kernel``'s bound entry in each variant's library, name ->
+    ptxas's output of its build)."""
     src = (_build.SRC_DIR / "bm3d_match.cu").read_text()
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in ({"built": []} | VARIANTS).items():  # "built" for ptxas's lines only
+    for name, edits in ({"built": []} | variants).items():  # "built" for ptxas's lines only
         text = src
         for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} is not once in the source")
+            if old not in text:  # an edit of a shared helper or line changes both kernels
+                raise RuntimeError(f"variant {name}: {old!r} is not in the source")
             text = text.replace(old, new)
-        cu = out_dir / f"bm3d_match_{name}.cu"
+        cu = out_dir / f"{kernel}_{name}.cu"
         cu.write_text(text)
-        so = out_dir / f"bm3d_match_{name}.so"
+        so = out_dir / f"{kernel}_{name}.so"
         procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns, logs = {}, {}
@@ -91,17 +135,17 @@ def build_variants() -> tuple:
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name}: nvcc exit {proc.returncode}\n{logs[name]}")
         if name != "built":
-            fns[name] = k1.bind(ctypes.CDLL(str(so)))["bm3d_match_tile_kernel"]
+            fns[name] = k1.bind(ctypes.CDLL(str(so)))[kernel]
     return fns, logs
 
 
-def tile_ptxas(log: str) -> dict:
-    """ptxas's register and spill lines for each instantiation of the tile
-    kernel in a build's output, by mangled name."""
+def kernel_ptxas(log: str, kernel: str = "bm3d_match_tile_kernel") -> dict:
+    """ptxas's register and spill lines for each instantiation of
+    ``kernel`` in a build's output, by mangled name."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1] if "bm3d_match_tile_kernel" in ln else None
+            name = ln.split("'")[1] if kernel in ln else None
         elif name and ("registers" in ln or "spill" in ln):
             out[name] = out.get(name, "") + ln.strip() + "; "
     return out
@@ -159,16 +203,14 @@ def held_to_plain(got: torch.Tensor, want: torch.Tensor, dists: torch.Tensor) ->
             "invalid_picked": int(torch.isinf(dg).sum()), "plain_invalid_picked": int(torch.isinf(dw).sum())}
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("k1_variants: needs a CUDA card")
+def time_tile(imgs: dict) -> dict:
+    """Part ``tile``: prints a line a shape; returns ptxas's lines."""
     built = k1._lib()
-    variants, logs = build_variants()
+    variants, logs = build_variants(VARIANTS, "bm3d_match_tile_kernel")
     fns = {"tile": ("bm3d_match_tile_kernel", built["bm3d_match_tile_kernel"]),
            "any": ("bm3d_match_any_kernel", built["bm3d_match_any_kernel"])}
     fns |= {name: ("bm3d_match_tile_kernel", fn) for name, fn in variants.items()}
     fns["ascending"] = fns["tile"]
-    imgs = lane_inputs()
     mode = "bf16_xla"
     for label, (search, k, which) in SHAPES.items():
         x = imgs[which]
@@ -203,9 +245,93 @@ def main() -> None:
             rec[name]["ms"] = [t for t, _ in times[name]]
             rec[name]["records_a_call"] = [r for _, r in times[name]]
         print(json.dumps(rec), flush=True)
+    return {name: kernel_ptxas(log) for name, log in logs.items()}
+
+
+def plain_ms(fn, reps: int = 10) -> float:
+    """CUDA events over ``reps`` calls of ``fn`` after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_span(imgs: dict) -> dict:
+    """Part ``span``: prints a line a row; returns ptxas's lines."""
+    from chip_smoke import match_bounds, near_tie
+
+    built = k1._lib()
+    variants, logs = build_variants(SPAN_VARIANTS, "bm3d_match_span_kernel")
+    fns = {"span": ("bm3d_match_span_kernel", built["bm3d_match_span_kernel"]),
+           "any": (k1.PREV_DESIGN, built[k1.PREV_DESIGN])}
+    fns |= {name: ("bm3d_match_span_kernel", fn) for name, fn in variants.items()}
+    fns["ascending"] = fns["half_tiles"] = fns["span"]
+    x = imgs["input"]
+    b, h, w = x.shape
+    dyadic = torch.tensor((0.25 * np.random.default_rng(16).integers(0, 5, (b, h, w))).astype(np.float32),
+                          device=x.device)
+    for label, (block, step, search, k) in SPAN_ROWS.items():
+        rows = _ref_grid(h, block, step)
+        offs = search_offsets(search, 1)
+        g = k1.match_geometry(rows, rows, offs, block, x.device)
+        ascending = torch.arange(len(offs), dtype=torch.int32, device=x.device)
+        half = k1.span_plan(rows, rows, block, search, k, x.device, most=max(1, k1.span_most(search, k) // 2))
+        geoms = {"ascending": dataclasses.replace(g, tile_order=ascending, tile_offsets=g.offsets_t, plans={}),
+                 "half_tiles": dataclasses.replace(g, plans={k: half})}
+
+        def call(name, mode, img=x, rows=rows, g=g, k=k, block=block, geoms=geoms):
+            kernel, fn = fns[name]
+            out = torch.empty((b, len(rows), len(rows), k), dtype=torch.int32, device=img.device)
+            k1.launch(kernel, fn, img, geoms.get(name, g), out, block, k, mode, 0, h)
+            return out
+
+        plan = g.span(k)
+        rec = {"row": label, "images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
+               "dispatch": k1.match_kernel(g, block, k), "span_smem_bytes": plan.smem_bytes,
+               "blocks_a_tile": plan.most, "tiles": [plan.row_tiles.shape[0], plan.col_tiles.shape[0]],
+               "near_tie": near_tie(block), **match_bounds(b, h, w, rows, rows, offs, block=block, k=k)}
+        for mode in k1.MODES:
+            want = k1.bm3d_match_plain(x, rows, rows, offs, block, k, mode)
+            dists = k1.match_distances_plain(x, rows, rows, offs, block, mode)
+            names = fns if mode != "bf16_pallas" else ("span", "any")
+            rec[mode] = {name: held_to_plain(call(name, mode), want, dists) for name in names}
+            exact = torch.equal(call("span", mode, dyadic),
+                                k1.bm3d_match_plain(dyadic, rows, rows, offs, block, k, mode))
+            rec[mode]["span"]["exact_on_dyadic"] = exact
+            for name in names:
+                rec[mode][name]["near_tie_ok"] = rec[mode][name]["max_rel_gap"] <= near_tie(block)
+        for mode in ("bf16_xla", "f32"):
+            times = {name: [] for name in fns}
+            for name in ("span", "any", "any", "span"):
+                times[name].append(device_ms(lambda name=name: call(name, mode)))
+            for name in [*variants, "ascending", "half_tiles"]:
+                if name.startswith("f32_") == (mode == "f32"):  # the f32 path's variants in f32, the rest in bf16
+                    for v in (name, "span", "span", name):
+                        times[v].append(device_ms(lambda v=v: call(v, mode)))
+            for name, t in times.items():
+                if t:
+                    rec[mode][name]["ms"] = [v for v, _ in t]
+                    rec[mode][name]["records_a_call"] = [r for _, r in t]
+            rec[mode]["plain_ms"] = plain_ms(lambda: k1.bm3d_match_plain(x, rows, rows, offs, block, k, mode))
+        print(json.dumps(rec), flush=True)
+    return {name: kernel_ptxas(log, "bm3d_match_span_kernel") for name, log in logs.items()}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--part", choices=("tile", "span"), action="append")
+    parts = ap.parse_args(argv).part or ["tile", "span"]
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_variants: needs a CUDA card")
+    imgs = lane_inputs()
+    ptxas = {part: {"tile": time_tile, "span": time_span}[part](imgs) for part in parts}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"ptxas": {name: tile_ptxas(log) for name, log in logs.items()}}), flush=True)
+    print(json.dumps({"ptxas": ptxas}), flush=True)
     print(json.dumps({"card": smi}), flush=True)
 
 

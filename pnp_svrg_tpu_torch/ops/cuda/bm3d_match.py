@@ -22,14 +22,19 @@ round at different points:
   and square in f32, only the square rounded to bf16, the sum f32.
 
 The wrapper :func:`bm3d_match` takes the plain version only for a CPU tensor;
-for a CUDA tensor it launches K1 or raises. K1 has three kernels in one
+for a CUDA tensor it launches K1 or raises. K1 has four kernels in one
 source, and :func:`match_kernel` names the one that takes a call:
 ``bm3d_match_kernel``, built for 8 x 8 blocks, 16 matches, a step-4 grid and
 at most 640 offsets (the headline's and the bench lanes'); else, at block 8,
 ``bm3d_match_tile_kernel`` (any step, window and k: the reference profile's
-step 3, 1,521 offsets, 16 / 32 matches); else ``bm3d_match_any_kernel``, for
-the rest of :data:`MATCH_ENVELOPE`. A setting outside it raises before any
-launch (:func:`check_match_envelope`).
+step 3, 1,521 offsets, 16 / 32 matches); else ``bm3d_match_span_kernel``, for
+every other block of :data:`MATCH_ENVELOPE` (the golden oracle's block 4
+among them) on a strictly ascending grid; else ``bm3d_match_any_kernel``,
+which takes what is left (a grid with a repeated coordinate, which the BM3D
+denoiser never makes). A setting outside the envelope raises before any
+launch (:func:`check_match_envelope`). The design the span kernel replaced,
+the any-kernel, stays reachable by name through :func:`launch`, so that a
+caller can time the two on one call (:data:`PREV_DESIGN`).
 """
 
 from __future__ import annotations
@@ -54,7 +59,13 @@ ANY_TILE_R, ANY_TILE_C = 4, 4  # kAnyTileR / kAnyTileC: bm3d_match_any_kernel's 
 # bm3d_match_tile_kernel: a tile's patches span at most TILE_SPAN rows (one a
 # lane) and columns (kTileSpan); it holds at most TILE_MAX blocks (kTileMax).
 TILE_SPAN, TILE_MAX, TILE_CHUNK = 32, 81, 64  # kTileSpan, kTileMax, kChunk (offsets a chunk)
-K1_KERNELS = ("bm3d_match_kernel", "bm3d_match_tile_kernel", "bm3d_match_any_kernel")
+K1_KERNELS = ("bm3d_match_kernel", "bm3d_match_tile_kernel", "bm3d_match_any_kernel", "bm3d_match_span_kernel")
+# The design the span kernel replaced on every block other than 8.
+PREV_DESIGN = "bm3d_match_any_kernel"
+# bm3d_match_span_kernel: at most SPAN_MOST blocks a tile (one a thread of
+# its CTA), and no more than let three CTAs share an SM's 228 KB (each with
+# the 1 KB the card keeps a CTA).
+SPAN_MOST, SPAN_BUDGET = 256, 228 * 1024 // 3 - 1024
 _MAX_SMEM = 227 * 1024
 # The settings K1 takes on the card: (least, most) of each; k is also a
 # power of two (the Hadamard transform along the group needs one), the
@@ -230,6 +241,61 @@ def tile_plan(grid, block: int, most: int) -> np.ndarray | None:
     return np.asarray(tiles, np.int32)
 
 
+def span_entries(k: int) -> int:
+    """Entries of a block's running top-k in ``bm3d_match_span_kernel``: its
+    thread keeps 4 or 8 keys for k up to 8; a warp keeps k above."""
+    return next((n for n in (4, 8) if k <= n), k)
+
+
+def span_smem_bytes(search: int, pitch: int, most: int, k: int) -> int:
+    """Dynamic shared memory of a ``bm3d_match_span_kernel`` CTA (``span_lists_at``
+    and its launch in the source): the staged region, ``most`` rows of
+    distances, the chunk's offset indices, then the top-k lists, 8 bytes an
+    entry."""
+    words = ((TILE_SPAN + 2 * search) * (pitch + 1) + most * (TILE_CHUNK + 1) + TILE_CHUNK + 1) & ~1
+    return 4 * words + 8 * most * span_entries(k)
+
+
+def span_most(search: int, k: int) -> int:
+    """The most blocks a span tile may hold at this window and k: one a
+    thread, and no more than keep :func:`span_smem_bytes` within
+    :data:`SPAN_BUDGET`."""
+    pitch = (TILE_SPAN + 2 * search) | 1
+    fixed = span_smem_bytes(search, pitch, 0, k) + 4  # the lists' alignment word
+    return min(SPAN_MOST, (SPAN_BUDGET - fixed) // (4 * (TILE_CHUNK + 1) + 8 * span_entries(k)))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpanPlan:
+    """``bm3d_match_span_kernel``'s tiles for one k: :func:`tile_plan` of the
+    rows and the columns, ``most`` the largest tile's blocks (its layout's
+    stride) and the CTA's shared memory."""
+
+    row_tiles: torch.Tensor  # (n, 3) int32
+    col_tiles: torch.Tensor
+    most: int
+    smem_bytes: int
+
+
+def span_plan(rows, cols, block: int, search: int, k: int, device, most: int | None = None) -> SpanPlan:
+    """The span kernel's tiles: of the cuts with at most ``a`` reference rows
+    and ``most`` // ``a`` columns a tile, the one with the fewest tiles (a
+    CTA forms its whole span's terms, however many blocks it holds), the
+    squarer on ties. ``most`` is :func:`span_most`'s unless given (a caller
+    timing smaller tiles)."""
+    most = most or span_most(search, k)
+    cuts = []
+    for a in range(1, min(most, TILE_SPAN) + 1):
+        row_tiles, col_tiles = tile_plan(rows, block, a), tile_plan(cols, block, most // a)
+        cuts.append((len(row_tiles) * len(col_tiles), abs(len(row_tiles) - len(col_tiles)), a,
+                     row_tiles, col_tiles))
+    *_, row_tiles, col_tiles = min(cuts, key=lambda c: c[:3])
+    used = int(row_tiles[:, 1].max()) * int(col_tiles[:, 1].max())
+    pitch = (TILE_SPAN + 2 * search) | 1
+    as_dev = lambda v: torch.as_tensor(v, device=device)  # noqa: E731
+    return SpanPlan(as_dev(row_tiles), as_dev(col_tiles), used, span_smem_bytes(search, pitch, used, k))
+
+
 def visit_order(offsets) -> np.ndarray:
     """``bm3d_match_tile_kernel``'s order of the (S, 2) offsets: nearest the
     window's centre first (by dy^2 + dx^2, ties by index), where the best
@@ -246,8 +312,11 @@ class MatchGeometry:
     ``col_plan`` is None where ``bm3d_match_kernel`` cannot take the grid
     and window, ``row_tiles`` and ``col_tiles`` where
     ``bm3d_match_tile_kernel`` cannot (a block other than 8, a grid that
-    does not strictly ascend); ``bm3d_match_any_kernel`` takes every
-    geometry."""
+    does not strictly ascend), ``tile_order`` and ``tile_offsets`` where
+    neither it nor ``bm3d_match_span_kernel`` can (a grid that does not
+    strictly ascend); ``bm3d_match_any_kernel`` takes every geometry.
+    :meth:`span` gives the span kernel's tiles for a k, made at its first
+    call."""
 
     rows_t: torch.Tensor
     cols_t: torch.Tensor
@@ -265,9 +334,18 @@ class MatchGeometry:
     any_pitch: int  # and its row pitch (odd, at least its width)
     row_tiles: torch.Tensor | None  # (n, 3) int32: tile_plan() of the rows
     col_tiles: torch.Tensor | None  # and of the columns
-    tile_order: torch.Tensor | None  # (S,) int32: visit_order(), the tile kernel's order of offsets
+    tile_order: torch.Tensor | None  # (S,) int32: visit_order(), the tile and span kernels' order
     tile_offsets: torch.Tensor | None  # (S, 2) int32: the offsets in that order
-    tile_pitch: int  # bm3d_match_tile_kernel's region row pitch (odd, >= TILE_SPAN + 2 search)
+    tile_pitch: int  # the tile and span kernels' region row pitch (odd, >= TILE_SPAN + 2 search)
+    rows: tuple = ()  # the reference coordinates, on the host
+    cols: tuple = ()
+    plans: dict = dataclasses.field(default_factory=dict, repr=False)  # k -> SpanPlan
+
+    def span(self, k: int) -> SpanPlan:
+        """``bm3d_match_span_kernel``'s tiles for group size ``k`` (:func:`span_plan`)."""
+        if k not in self.plans:
+            self.plans[k] = span_plan(self.rows, self.cols, self.block, self.search, k, self.rows_t.device)
+        return self.plans[k]
 
     @property
     def smem_bytes(self) -> int:
@@ -298,13 +376,13 @@ def match_kernel(g: MatchGeometry, block: int, k: int) -> str:
     """The K1 kernel that takes a call at geometry ``g`` with this ``block``
     and ``k``: ``bm3d_match_kernel`` wherever it can (every call it took
     before the tile kernel existed), else ``bm3d_match_tile_kernel`` at
-    block 8 (any grid that strictly ascends), else ``bm3d_match_any_kernel``
-    (every geometry)."""
+    block 8 and ``bm3d_match_span_kernel`` at any other block (a grid that
+    strictly ascends), else ``bm3d_match_any_kernel`` (every geometry)."""
     if g.first_kernel_takes(block, k):
         return "bm3d_match_kernel"
-    if block == KERNEL_BLOCK and g.row_tiles is not None:
-        return "bm3d_match_tile_kernel"
-    return "bm3d_match_any_kernel"
+    if g.tile_order is None:
+        return PREV_DESIGN
+    return "bm3d_match_tile_kernel" if block == KERNEL_BLOCK else "bm3d_match_span_kernel"
 
 
 def grid_step(grid) -> int:
@@ -324,17 +402,19 @@ def _geometry(rows: tuple, cols: tuple, offsets: tuple, block: int,
         plan = torch.as_tensor(column_plans(cols, search, block), device=device)
     except ValueError:  # not a grid bm3d_match_kernel's column plan covers
         plan = None
-    # bm3d_match_tile_kernel's plans, or None where it cannot take the call.
-    row_tiles = tile_plan(rows, block, TILE_MAX) if block == KERNEL_BLOCK else None
-    col_tiles = None if row_tiles is None else tile_plan(cols, block, TILE_MAX // int(row_tiles[:, 1].max()))
+    # The tile and span kernels' order of offsets, and the tile kernel's
+    # plans; None where they cannot take the call.
     tiles = [None] * 4
-    if col_tiles is not None:
+    if tile_plan(rows, block, 1) is not None and tile_plan(cols, block, 1) is not None:
         order = visit_order(offsets)
-        tiles = [as_dev(t) for t in (row_tiles, col_tiles, order, np.asarray(offsets)[order])]
+        tiles[2:] = as_dev(order), as_dev(np.asarray(offsets)[order])
+        if block == KERNEL_BLOCK:
+            row_tiles = tile_plan(rows, block, TILE_MAX)
+            tiles[:2] = as_dev(row_tiles), as_dev(tile_plan(cols, block, TILE_MAX // int(row_tiles[:, 1].max())))
     return MatchGeometry(as_dev(rows), as_dev(cols), as_dev(offsets), plan, block,
                          max(grid_step(rows), grid_step(cols)), search, ref_rows, smem_h, smem_w,
                          smem_w | 1, len(offsets) | 1, any_h, any_w | 1, *tiles,
-                         (TILE_SPAN + 2 * search) | 1)
+                         (TILE_SPAN + 2 * search) | 1, rows, cols)
 
 
 def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
@@ -350,6 +430,7 @@ ENTRIES = {  # kernel name -> (its entry point in the source, pointer and int ar
     "bm3d_match_kernel": ("bm3d_match_launch", 6, 16),
     "bm3d_match_tile_kernel": ("bm3d_match_tile_launch", 8, 15),
     "bm3d_match_any_kernel": ("bm3d_match_any_launch", 5, 14),
+    "bm3d_match_span_kernel": ("bm3d_match_span_launch", 8, 16),
 }
 
 
@@ -377,7 +458,8 @@ def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor
     nC, k) int32, candidate rows ``[lo, hi)``; raises if the launch fails.
     It checks nothing else and counts nothing (:func:`bm3d_match` does
     both): a caller that times one kernel against another, on a call both
-    take (the any-kernel takes every call), launches through it."""
+    take (the any-kernel, :data:`PREV_DESIGN`, takes every call), launches
+    through it."""
     b, h, w = x.shape
     nr, nc, s = g.rows_t.numel(), g.cols_t.numel(), g.offsets_t.shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -390,6 +472,12 @@ def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor
                  g.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, g.row_tiles.shape[0],
                  g.col_tiles.shape[0], s, int(block), int(k), MODES[mode], g.search, g.tile_pitch, lo,
                  hi - block, stream)
+    elif kernel == "bm3d_match_span_kernel":
+        p = g.span(int(k))
+        err = fn(*ptrs[:3], g.tile_offsets.data_ptr(), g.tile_order.data_ptr(), p.row_tiles.data_ptr(),
+                 p.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, p.row_tiles.shape[0],
+                 p.col_tiles.shape[0], s, int(block), int(k), MODES[mode], g.search, g.tile_pitch, p.most,
+                 lo, hi - block, stream)
     else:
         err = fn(*ptrs, out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k), MODES[mode], g.search,
                  g.any_smem_h, g.any_pitch, lo, hi - block, stream)

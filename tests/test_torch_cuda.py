@@ -822,7 +822,10 @@ def test_sr_adjoint_on_the_card_repeats_itself(cuda):
 # The any-kernels at the corners of each kernel's envelope. K1:
 # (block, step, search, k); every block keeps at least k valid candidates
 # only where the window allows, so spare slots are filled as the plain
-# version fills them.
+# version fills them. Since the span kernel, K1's calls at these corners go
+# to the tile kernel (block 8) or the span kernel (every other block); the
+# any-kernel keeps the same corners through its own entry point
+# (test_k1_any_kernel_by_name_matches_plain_at_the_envelope_corners).
 K1_CORNERS = [(2, 1, 0, 1), (2, 2, 24, 64), (16, 16, 24, 64), (16, 1, 2, 1), (8, 3, 19, 32),
               (8, 3, 24, 16), (4, 2, 3, 4), (5, 2, 4, 8)]
 
@@ -848,6 +851,34 @@ def test_k1_any_kernel_matches_plain_at_the_envelope_corners(cuda, block, step, 
     assert float(_slot_gaps(got, want, dists).max()) <= _near_tie(block)
     dyadic = torch.tensor(_dyadic(np.random.default_rng(block), (2, 64, 64), 4, 0.25), device=cuda)
     assert torch.equal(k1.bm3d_match(dyadic, rows, rows, offs, block, k, mode),
+                       k1.bm3d_match_plain(dyadic, rows, rows, offs, block, k, mode))
+
+
+def _k1_by_name(kernel, x, rows, offs, block, k, mode, bounds=None):
+    """K1 launched as ``kernel`` through its own entry point (counts nothing)."""
+    g = k1.match_geometry(rows, rows, offs, block, x.device)
+    out = torch.empty((x.shape[0], len(rows), len(rows), k), dtype=torch.int32, device=x.device)
+    lo, hi = bounds or (0, x.shape[1])
+    k1.launch(kernel, k1._lib()[kernel], x.contiguous(), g, out, block, k, mode, lo, hi)
+    return out
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("block,step,search,k", K1_CORNERS)
+def test_k1_any_kernel_by_name_matches_plain_at_the_envelope_corners(cuda, block, step, search, k, mode):
+    x = torch.tensor(_noisy(64), device=cuda)
+    rows = bm3d._ref_grid(64, block, step)
+    offs = bm3d.search_offsets(search, 1)
+    before = k1.bm3d_match.launches
+    got = _k1_by_name(k1.PREV_DESIGN, x, rows, offs, block, k, mode)
+    torch.cuda.synchronize()
+    assert k1.bm3d_match.launches == before
+    want = k1.bm3d_match_plain(x, rows, rows, offs, block, k, mode)
+    assert _multiset_agreement(got, want) >= (0.999 if mode == "f32" else 0.995)
+    dists = k1.match_distances_plain(x, rows, rows, offs, block, mode)
+    assert float(_slot_gaps(got, want, dists).max()) <= _near_tie(block)
+    dyadic = torch.tensor(_dyadic(np.random.default_rng(block), (2, 64, 64), 4, 0.25), device=cuda)
+    assert torch.equal(_k1_by_name(k1.PREV_DESIGN, dyadic, rows, offs, block, k, mode),
                        k1.bm3d_match_plain(dyadic, rows, rows, offs, block, k, mode))
 
 
@@ -984,14 +1015,16 @@ def test_k1_tile_kernel_repeats_itself_bit_for_bit(cuda):
 
 
 # Registers of the headline's kernels, as ptxas gave them on an H100
-# (`cuobjdump -res-usage`): those this slice left as they were, the same for
-# the parent tree's sources and this tree's: K1's first kernel 93 (96 at
-# PER = 20), K2's fold 48 (streaming) / 179 (all at once), K3's (4, 5)
-# kernel 79; and K2's (8, 16) tiles, now the template's instantiation, 56
-# (the parent's own (8, 16) kernel: 64), with the same order of adds and
-# the same bits.
+# (`cuobjdump -res-usage`): those later slices left as they were, the same
+# for the earlier trees' sources and this tree's: K1's first kernel 93 (96
+# at PER = 20), K1's tile kernel 80 (its six instantiations; its staging
+# and phase 2 are now functions the span kernel shares), K2's fold 48
+# (streaming) / 179 (all at once), K3's (4, 5) kernel 79; and K2's (8, 16)
+# tiles, now the template's instantiation, 56 (the parent's own (8, 16)
+# kernel: 64), with the same order of adds and the same bits.
 UNTOUCHED_REGISTERS = {
     ("bm3d_match", r"bm3d_match_kernelILi\dELi(?:1|3|10)E"): 93,
+    ("bm3d_match", r"bm3d_match_tile_kernelILi\dELi\dEE"): 80,
     ("bm3d_match", r"bm3d_match_kernelILi\dELi20E"): 96,
     ("bm3d_aggregate", r"bm3d_aggregate_kernelILi8ELi16EE"): 56,
     ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb0ELi2ELi2EE"): 48,
@@ -1020,20 +1053,31 @@ def test_untouched_instantiations_keep_their_registers(cuda):
 
 
 def untouched_fingerprints(device) -> dict:
-    """sha256 prefixes of what the kernels this slice left alone give on
+    """sha256 prefixes of what the kernels later slices left alone give on
     numpy-seeded real-valued inputs (any change in their order of adds
     changes the bits): K2's (8, 16) at the headline's geometry (B = 2,
     the fold's all-at-once form; B = 13, its streaming form) and (8, 32)
-    at the reference profile's (step 3, search 19), and K3's (4, 5) at B = 9
-    with and without row bounds. Run from a checkout of the earlier tree,
-    the same function gives the fingerprints
-    :data:`UNTOUCHED_FINGERPRINTS` holds."""
+    at the reference profile's (step 3, search 19), K3's (4, 5) at B = 9
+    with and without row bounds, K1's first kernel at the headline's shape
+    (B = 13, 289 offsets, ``bf16_xla``) and at B = 1 in ``f32``, and K1's
+    tile kernel at the reference profile's step 3 and search 19 with 16 and
+    32 matches (B = 2). Run from a checkout of the earlier tree, the same
+    function gives the fingerprints :data:`UNTOUCHED_FINGERPRINTS` holds."""
     import hashlib
 
     def digest(*ts):
         return hashlib.sha256(b"".join(np.ascontiguousarray(t.cpu().numpy()).tobytes() for t in ts)).hexdigest()[:16]
 
     out = {}
+    for name, b, step, search, k, mode in (("k1_first_b13", 13, 4, 8, 16, "bf16_xla"),
+                                           ("k1_first_b1", 1, 4, 8, 16, "f32"),
+                                           ("k1_tile_k16", 2, 3, 19, 16, "bf16_xla"),
+                                           ("k1_tile_k32", 2, 3, 19, 32, "bf16_xla")):
+        rng = np.random.default_rng(b * 1000 + step * 100 + k)
+        x = torch.tensor((load_image("13.png", 128, 128) + 0.1 * rng.standard_normal((b, 128, 128)))
+                         .astype(np.float32), device=device)
+        grid = bm3d._ref_grid(128, 8, step)
+        out[name] = digest(k1.bm3d_match(x, grid, grid, bm3d.search_offsets(search, 1), 8, k, mode))
     for name, b, step, search, k in (("k2_8_16_b2", 2, 4, 8, 16), ("k2_8_16_b13", 13, 4, 8, 16),
                                       ("k2_8_32_b2", 2, 3, 19, 32)):
         rng = np.random.default_rng(b * 100 + k)
@@ -1059,10 +1103,13 @@ def untouched_fingerprints(device) -> dict:
 
 
 
-# What the untouched kernels gave before the packed K2 and the cluster K3
-# kernel existed: untouched_fingerprints run on the card from a checkout of
-# that tree.
-UNTOUCHED_FINGERPRINTS = {"k2_8_16_b2": "dbc3785f3b6a9d07", "k2_8_16_b13": "1296a69990bc7c8c",
+# What the untouched kernels gave before later slices: untouched_fingerprints
+# run on the card from a checkout of the tree before the packed K2 and the
+# cluster K3 kernel existed (K2, K3), and of the tree before the span kernel
+# (K1).
+UNTOUCHED_FINGERPRINTS = {"k1_first_b13": "8c32060885cf6de7", "k1_first_b1": "3bce27305ffce817",
+                          "k1_tile_k16": "9114f14fe3172631", "k1_tile_k32": "c345dae18744ff93",
+                          "k2_8_16_b2": "dbc3785f3b6a9d07", "k2_8_16_b13": "1296a69990bc7c8c",
                           "k2_8_32_b2": "d1ad9bdf49a12841", "k3_4_5_b9": "ccc2b23c008bf2e8"}
 
 
@@ -1201,3 +1248,94 @@ def test_k3_replaced_design_stays_reachable_by_name(cuda):
     k3.launch(k3.PREV_DESIGN, k3._lib(), z, h, h, out, 7, 11, 0, 128)
     assert k3.nlm_denoise.launches == before
     assert float((out - k3.nlm_denoise_plain(z, h, h, 7, 11)).abs().max()) <= 1e-5
+
+
+# K1's span kernel (bm3d_match_span_kernel): every block 2-16 but 8 on K1's
+# rules and exactly on dyadic images (with and without row bounds, and on a
+# search_step sublattice), chip_smoke.py's rows off block 8 at their own
+# shapes, 50 repeats bit for bit; the design it replaced stays reachable by
+# name. SPAN_POINTS: block -> (step, search, k), each phase-2 form (k 1-8 a
+# thread a block, 16-64 a warp) and the steps 1 to the block among them.
+SPAN_POINTS = {2: (1, 3, 4), 3: (2, 5, 1), 4: (2, 3, 8), 5: (2, 4, 16), 6: (3, 6, 32), 7: (7, 2, 64),
+               9: (4, 8, 4), 10: (5, 3, 2), 11: (1, 2, 16), 12: (6, 9, 8), 13: (13, 4, 32), 14: (7, 5, 64),
+               15: (3, 2, 4), 16: (8, 8, 16)}
+SPAN_ROWS = {"golden": (4, 2, 3, 4), "block2": (2, 1, 3, 4), "block5": (5, 2, 4, 8), "block6": (6, 3, 6, 8),
+             "block16": (16, 8, 8, 16), "block4_s19": (4, 2, 19, 16)}
+SPAN = "bm3d_match_span_kernel"
+
+
+def _span_held_to_plain(x, rows, cols, offs, block, k, mode):
+    """K1 on ``x`` through the span kernel (one launch, counted under its
+    name), held to the plain version on K1's rules."""
+    g = k1.match_geometry(rows, cols, offs, block, x.device)
+    assert k1.match_kernel(g, block, k) == SPAN
+    before = dict(k1.bm3d_match.by_kernel)
+    got = k1.bm3d_match(x, rows, cols, offs, block, k, mode, geometry=g)
+    torch.cuda.synchronize()
+    assert k1.bm3d_match.by_kernel == before | {SPAN: before[SPAN] + 1}
+    want = k1.bm3d_match_plain(x, rows, cols, offs, block, k, mode)
+    assert _multiset_agreement(got, want) >= (0.999 if mode == "f32" else 0.995)
+    dists = k1.match_distances_plain(x, rows, cols, offs, block, mode)
+    assert float(_slot_gaps(got, want, dists).max()) <= _near_tie(block)
+    picked = [int(torch.isinf(dists.gather(-1, t.long())).sum()) for t in (got, want)]
+    assert picked[0] == picked[1]  # as many index-0 fills
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("block", list(SPAN_POINTS))
+def test_k1_span_kernel_matches_plain_at_every_block(cuda, mode, block):
+    step, search, k = SPAN_POINTS[block]
+    x = torch.tensor(_noisy(64), device=cuda)
+    rows, cols = bm3d._ref_grid(64, block, step), bm3d._ref_grid(61, block, step)
+    _span_held_to_plain(x[:, :, :61].contiguous(), rows, cols, bm3d.search_offsets(search, 1), block, k, mode)
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("row", list(SPAN_ROWS))
+def test_k1_span_kernel_matches_plain_at_the_envelope_rows(cuda, mode, row):
+    block, step, search, k = SPAN_ROWS[row]
+    x = torch.tensor(_profile_batch(), device=cuda)
+    rows = bm3d._ref_grid(128, block, step)
+    _span_held_to_plain(x, rows, rows, bm3d.search_offsets(search, 1), block, k, mode)
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("block", list(SPAN_POINTS))
+def test_k1_span_kernel_equals_plain_exactly_on_dyadic_images(cuda, mode, block):
+    step, search, k = SPAN_POINTS[block]
+    size = 45
+    x = torch.tensor(_dyadic(np.random.default_rng(block), (2, size, size + 3), 4, 0.25), device=cuda)
+    rows, cols = bm3d._ref_grid(size, block, step), bm3d._ref_grid(size + 3, block, step)
+    for search_step, bounds in ((1, None), (1, (5, size - 7)), (2, None), (2, (0, size - 4))):
+        offs = bm3d.search_offsets(search, search_step)
+        g = k1.match_geometry(rows, cols, offs, block, cuda)
+        assert k1.match_kernel(g, block, k) == SPAN
+        got = k1.bm3d_match(x, rows, cols, offs, block, k, mode, geometry=g, row_valid_bounds=bounds)
+        assert torch.equal(got, k1.bm3d_match_plain(x, rows, cols, offs, block, k, mode, row_valid_bounds=bounds))
+
+
+def test_k1_span_kernel_repeats_itself_bit_for_bit(cuda):
+    x = torch.tensor(_profile_batch(16), device=cuda)
+    for block, step, search, k in ((4, 2, 3, 4), (4, 2, 19, 16), (6, 3, 6, 32)):
+        rows = bm3d._ref_grid(128, block, step)
+        offs = bm3d.search_offsets(search, 1)
+        g = k1.match_geometry(rows, rows, offs, block, cuda)
+        first = k1.bm3d_match(x, rows, rows, offs, block, k, "bf16_xla", geometry=g)
+        for _ in range(50):
+            assert torch.equal(k1.bm3d_match(x, rows, rows, offs, block, k, "bf16_xla", geometry=g), first)
+
+
+def test_k1_replaced_design_stays_reachable_by_name(cuda):
+    x = torch.tensor(_profile_batch(), device=cuda)
+    block, step, search, k = SPAN_ROWS["golden"]
+    rows = bm3d._ref_grid(128, block, step)
+    offs = bm3d.search_offsets(search, 1)
+    assert k1.PREV_DESIGN == "bm3d_match_any_kernel"
+    before = k1.bm3d_match.launches, dict(k1.bm3d_match.by_kernel)
+    got = _k1_by_name(k1.PREV_DESIGN, x, rows, offs, block, k, "bf16_xla")
+    torch.cuda.synchronize()
+    assert (k1.bm3d_match.launches, k1.bm3d_match.by_kernel) == before  # a launch by name counts nothing
+    want = k1.bm3d_match_plain(x, rows, rows, offs, block, k, "bf16_xla")
+    dists = k1.match_distances_plain(x, rows, rows, offs, block, "bf16_xla")
+    assert _multiset_agreement(got, want) >= 0.995
+    assert float(_slot_gaps(got, want, dists).max()) <= _near_tie(block)

@@ -188,3 +188,29 @@ def test_tune_pr_sarah_realsn_single_lane_certification(tmp_path):
 def test_tune_pr_chunk_not_multiple_of_replicas():
     with pytest.raises(SystemExit, match="multiple of"):
         _script("tune_pr").main(["--cpu", "--chunk", "3", "--replicas", "2"])
+
+
+def test_compare_runs_holds_each_quality_field_bit_for_bit(tmp_path, capsys):
+    """``examples/compare_runs.py`` matches two ``chip_smoke.py`` outputs'
+    records by phase and occurrence and compares their PSNR, SSIM, trace
+    and loss fields exactly, leaving profiler groups and times out."""
+    from pnp_svrg_tpu_torch.examples import compare_runs
+
+    def write(name, psnr, trace, ms):
+        lines = ["NVIDIA H100 80GB HBM3, 700.00 W",
+                 json.dumps({"phase": "profile", "groups_ms": {"elementwise (ReLU, scaling, loss)": ms}}),
+                 json.dumps({"phase": "headline", "reference_minibatches": {"psnr_db": psnr, "trace": trace},
+                             "steady_s": ms}),
+                 json.dumps({"phase": "profile", "final_psnr_db": [psnr, 1.0]}),
+                 json.dumps({"phase": "drivers", "utilities": {"trace": {"bytes": ms}}}),
+                 json.dumps({"ok": True})]
+        path = tmp_path / name
+        path.write_text("\n".join(lines) + "\n")
+        return str(path)
+
+    a = write("a.txt", 26.5, [1.0, 2.0], 3.0)
+    assert compare_runs.main([a, write("b.txt", 26.5, [1.0, 2.0], 4.0)]) == 0
+    same = json.loads(capsys.readouterr().out)
+    assert (same["fields"], same["equal"], same["differ"]) == (3, 3, [])
+    assert compare_runs.main([a, write("c.txt", 26.5, [1.0, 2.5], 3.0)]) == 1
+    assert json.loads(capsys.readouterr().out)["differ"] == ["headline#0/reference_minibatches/trace"]

@@ -6,8 +6,10 @@ K1 call on the card: ``bm3d_match_kernel`` keeps every call it took before
 the tile kernel existed (the headline's, the bench lanes', the sweep's, the
 drivers' and the spatial path's shards), ``bm3d_match_tile_kernel`` takes
 block 8 otherwise (the reference profile's step 3 at 1,521 and 2,401
-offsets, 16 and 32 matches, and every step 1-8), and ``bm3d_match_any_kernel``
-the other blocks. The tile kernel's plans (``tile_plan``) cut each axis of
+offsets, 16 and 32 matches, and every step 1-8), ``bm3d_match_span_kernel``
+the other blocks, and ``bm3d_match_any_kernel`` only grids that do not
+strictly ascend (``tests/test_torch_k1_span.py`` holds the span kernel's
+plans). The tile kernel's plans (``tile_plan``) cut each axis of
 the reference grid into tiles whose patches span at most ``TILE_SPAN``
 pixels; here each plan is held to what the kernel reads of it: every
 reference column's 8-wide sum taken once, from exactly its 8 columns, and
@@ -27,7 +29,7 @@ from pnp_svrg_tpu_torch.convert import BM3D_PROFILE_LANE, CSMRI_BATCH_LANES, ben
 from pnp_svrg_tpu_torch.denoisers import bm3d
 from pnp_svrg_tpu_torch.ops.cuda import bm3d_match as k1
 
-FIRST, TILE, ANY = k1.K1_KERNELS
+FIRST, TILE, ANY, SPAN = k1.K1_KERNELS
 KERNEL_COLS = k1.TILE_SPAN - 8 + 1  # kTileCols: span columns an 8-wide sum can start at
 MAX_SMEM = 227 * 1024
 
@@ -90,15 +92,27 @@ K1_CORNERS_OFF_BLOCK_8 = [(2, 1, 0, 1), (2, 2, 24, 64), (16, 16, 24, 64), (16, 1
 
 @pytest.mark.parametrize("block,step,search,k", K1_CORNERS_OFF_BLOCK_8)
 def test_match_kernel_leaves_the_other_blocks_to_the_any_kernel(block, step, search, k):
+    """Since the span kernel, "the other blocks" go to it, not to the
+    any-kernel, which keeps only grids that do not strictly ascend (the
+    test below)."""
     g = _geometry(bm3d.BM3DParams(block=block, step=step, search=search), 64)
     assert g.row_tiles is None and g.col_tiles is None and not g.first_kernel_takes(block, k)
-    assert k1.match_kernel(g, block, k) == ANY
+    assert g.tile_order is not None
+    assert k1.match_kernel(g, block, k) == SPAN
 
 
 def test_a_grid_that_does_not_strictly_ascend_has_no_tile_plan():
     assert k1.tile_plan([0, 4, 4, 8], 8, k1.TILE_MAX) is None
     g = k1.match_geometry([0, 3, 3], [0, 3, 6], bm3d.search_offsets(2, 1), 8, "cpu")
     assert g.row_tiles is None and k1.match_kernel(g, 8, 32) == ANY
+
+
+@pytest.mark.parametrize("block", [2, 4, 5, 16])
+def test_a_grid_that_does_not_strictly_ascend_still_goes_to_the_any_kernel(block):
+    g = k1.match_geometry([0, 1, 1], [0, 2, 4], bm3d.search_offsets(3, 1), block, "cpu")
+    assert g.tile_order is None and k1.match_kernel(g, block, 4) == ANY == k1.PREV_DESIGN
+    ascending = k1.match_geometry([0, 1, 2], [0, 2, 4], bm3d.search_offsets(3, 1), block, "cpu")
+    assert k1.match_kernel(ascending, block, 4) == SPAN
 
 
 def _span_sums(cols_mask: int) -> dict:
