@@ -43,7 +43,21 @@ imports no JAX. Phases, each printing one JSON line:
    rules, each redesigned kernel beside the any-kernel on the same call;
    K2 at (8, 32) and (8, 16) at step 3, search 19, and at (4, 4), on its
    rules; K3 at (7, 11), (1, 1) and (11, 15) on B = 1 and B = 9, within
-   1e-5, NaN at h = 0; each with its time, bound and launches;
+   1e-5, NaN at h = 0; each with its time, bound and launches; and the
+   rows past the earlier envelope on the same inputs and rules (K1 at a
+   step past the block, block 4 at step 6, search 32, block 4 at search 40,
+   k 128, blocks 1 and 24, the widest search at block 8 and k 16; K2 at the
+   first five of those with their K; K3 at (13, 21) and (21, 31), whose
+   kernel reads the patch at run time); then ``wide_calls``: one
+   ``BM3DDenoiser`` denoise at search 32, a step past the block and 128
+   Wiener matches on two lanes of bm3d_profile's first denoise input, and
+   one ``NLMDenoiser`` denoise at (13, 21) on the CSMRI + NLM lane's, each
+   within 0.01 dB of the JAX CPU output on the same input
+   (``params_wide_jax.npz``), its launches on the kernels the naming
+   functions give; and ``convert``: the committed DnCNN, SimpleCNN and MMO
+   checkpoints rebuilt as the reference's three ``.pth`` layouts in a
+   temporary directory, the port's ``convert_all`` on them, and a 128 px
+   Set12 denoise with each output bit for bit the committed checkpoint's;
 4. parity: small faithful-variant reconstructions (BM3D, NLM and the
    wavelet "TV" denoiser) on the card against the same runs on the CPU
    (plain kernel versions), and a standalone BM3D denoise on the card;
@@ -241,7 +255,10 @@ import math
 import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -292,6 +309,9 @@ from pnp_svrg_tpu_torch.convert import (
     load_train_reference,
     load_uniform_masks,
     load_uniform_problems,
+    load_wide_reference,
+    WIDE_BM3D,
+    WIDE_NLM,
 )
 from pnp_svrg_tpu_torch.denoisers.bm3d import (
     BM3DDenoiser,
@@ -307,7 +327,7 @@ from pnp_svrg_tpu_torch.denoisers.bm3d import (
     search_offsets,
     stage1_aggregate_inputs,
 )
-from pnp_svrg_tpu_torch.denoisers.dncnn import CHECKPOINT_DIR, DnCNNDenoiser, flax_model
+from pnp_svrg_tpu_torch.denoisers.dncnn import CHECKPOINT_DIR, DnCNNDenoiser, MMODenoiser, flax_model
 from pnp_svrg_tpu_torch.denoisers.nlm import NLMDenoiser
 from pnp_svrg_tpu_torch.denoisers.tv import TVDenoiser
 from pnp_svrg_tpu_torch.ops.cuda import _build
@@ -320,6 +340,7 @@ from pnp_svrg_tpu_torch.ops.cuda.bm3d_match import (
     match_distances_plain,
     match_geometry,
     match_kernel,
+    match_search_limit,
 )
 from pnp_svrg_tpu_torch.ops.cuda import bm3d_aggregate as k2_module
 from pnp_svrg_tpu_torch.ops.cuda import nlm as k3_module
@@ -331,7 +352,7 @@ from pnp_svrg_tpu_torch.ops.cuda.bm3d_aggregate import (
     bm3d_aggregate_plain,
 )
 from pnp_svrg_tpu_torch.ops.cuda.nlm import K3_KERNELS, nlm_denoise, nlm_denoise_plain, nlm_kernel_name
-from pnp_svrg_tpu_torch.ops.metrics import ssim
+from pnp_svrg_tpu_torch.ops.metrics import psnr as image_psnr, ssim
 from pnp_svrg_tpu_torch.ops.sigma import estimate_sigma
 from pnp_svrg_tpu_torch.problems.csmri import make_csmri
 from pnp_svrg_tpu_torch.problems.deblur import make_deblur
@@ -347,7 +368,8 @@ from pnp_svrg_tpu_torch.models import (
     torch_state_dict_from_flax,
     u_state_from_flax,
 )
-from pnp_svrg_tpu_torch.models.convert import flax_layers
+from pnp_svrg_tpu_torch.models.convert import CONVERSIONS, convert_all, flax_layers
+from pnp_svrg_tpu_torch.models.dncnn import MMOSimpleCNN, model_for_type
 from pnp_svrg_tpu_torch.models.spectral_norm import sigma_uv
 from pnp_svrg_tpu_torch.training import ConfigMismatch, TrainConfig, evaluate, load_checkpoint, save_checkpoint, train
 from pnp_svrg_tpu_torch.training.data import batches, build_patch_dataset, load_gray
@@ -566,6 +588,27 @@ ENVELOPE_K2 = {"profile_ht": (8, 3, 19, 16), "profile_wiener": (8, 3, 19, 32), "
 # packed kernel's.
 ENVELOPE_K2_RUNTIME = {row: v for row, v in ENVELOPE_K2.items() if aggregate_kernel(v[0], v[3]) == K2_KERNELS[1]}
 ENVELOPE_K3 = ((7, 11), (1, 1), (11, 15))
+# The rows past the earlier envelope, on the same inputs and
+# rules; no replaced design takes them, and their plain versions are timed
+# over one call after one warm-up call (PLAIN_WIDE_REPS: calls, warm-up
+# calls; K3's, 1-5 s each, one call after its two checking calls), K1 held
+# on the row's image alone. K2's search40 and search_widest rows are the
+# (8, 16) / (8, 32) calls whose 2 x 2 tiles pass a CTA's shared memory, on
+# the packed kernel. Each row records its seconds.
+ENVELOPE_K1_WIDE = {"step_past_block": (8, 10, 19, 16, "input"), "block4_step6": (4, 6, 3, 4, "input"),
+                    "search32": (8, 3, 32, 16, "input"), "block4_s40": (4, 2, 40, 16, "input"),
+                    "k128": (8, 3, 19, 128, "basic"), "block1": (1, 1, 3, 4, "input"),
+                    "block24": (24, 12, 8, 16, "input"),
+                    "search_widest": (8, 3, match_search_limit(8, 16), 16, "input")}
+ENVELOPE_K2_WIDE = {"step_past_block": (8, 10, 19, 16), "block4_step6": (4, 6, 3, 4), "k128": (8, 3, 19, 128),
+                    "block1": (1, 1, 3, 4), "block24": (24, 12, 8, 16), "search40": (8, 3, 40, 32),
+                    "search_widest": (8, 3, match_search_limit(8, 16), 16)}
+ENVELOPE_K3_WIDE = ((13, 21), (21, 31))
+PLAIN_WIDE_REPS = (1, 1)
+# The committed checkpoints the convert phase rebuilds in the reference's
+# three .pth layouts, and the layout of each.
+CONVERT_LAYOUTS = {"dncnn_noise5": "module.dncnn", "simplecnn_noise5": "dncnn",
+                   "mmo_dncnn_nobn_nch1_nlev0.01": "pickled simple_CNN"}
 # Kernel rows also carry the kernel that takes the call and, where that is
 # a redesign (K1's tile and span kernels, K2's packed kernel, K3's cluster
 # kernel), the replaced design's time on the same call.
@@ -589,7 +632,7 @@ K2_REPEATS = 50  # more K2 calls on one call's arguments, each bit for bit the f
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("K1 bm3d_match", K1_KERNELS),
     ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel", "bm3d_aggregate_fold_kernel", "bm3d_aggregate_packed_kernel")),
-    ("K3 nlm", ("nlm_kernel", "nlm_any_kernel", "nlm_cluster_kernel")),
+    ("K3 nlm", ("nlm_kernel", "nlm_any_kernel", "nlm_cluster_kernel", "nlm_cluster_rt_kernel")),
     # Before the matmul group: cuDNN's implicit-GEMM convolutions
     # (``sm80_xmma_fprop_implicit_gemm_*``) carry "gemm" too; cuBLAS's
     # matmuls are ``*_xmma_gemm_*`` with no "fprop". cuDNN's BatchNorm
@@ -880,10 +923,14 @@ def match_bounds(b: int, h: int, w: int, rows, cols, offs, lo: int = 0, hi: int 
     hi)`` count only the candidates inside them."""
     nr, nc = len(rows), len(cols)
     hi = h if hi is None else hi
-    valid = sum(
-        1 for r in rows for c in cols for dy, dx in offs
-        if max(0, lo) <= r + dy <= min(h, hi) - block and 0 <= c + dx <= w - block
-    ) * b
+    # A pair is valid where its row and its column are: per offset, the
+    # valid rows times the valid columns.
+    offs = np.asarray(offs, np.int64).reshape(-1, 2)
+    ry = np.asarray(rows, np.int64)[:, None] + offs[None, :, 0]
+    cx = np.asarray(cols, np.int64)[:, None] + offs[None, :, 1]
+    per_row = ((ry >= max(0, lo)) & (ry <= min(h, hi) - block)).sum(0)
+    per_col = ((cx >= 0) & (cx <= w - block)).sum(0)
+    valid = int((per_row * per_col).sum()) * b
     direct = valid * block * block * 3
     separable = valid * (2 * h * w + (block - 1) * h * nc + (block - 1) * nr * nc) / (nr * nc)
     nbytes = b * h * w * 4 + b * nr * nc * k * 4
@@ -1030,7 +1077,7 @@ def aggregate_work(b: int, g: int, k: int, block: int, h: int, w: int) -> tuple:
     return nbytes, b * p * block * block * 4
 
 
-def aggregate_record(agg_in, prev_design: bool = False) -> dict:
+def aggregate_record(agg_in, prev_design: bool = False, plain_reps: tuple = (50, 25)) -> dict:
     """K2 against its plain version on one call's real arguments (``num``
     and ``den`` within 1e-5 of the planes' magnitude) and, with the same
     rows, on dyadic values (bit for bit: every sum is exact in any order);
@@ -1041,10 +1088,11 @@ def aggregate_record(agg_in, prev_design: bool = False) -> dict:
     :func:`aggregate_kernel` names. With ``prev_design``, where that is the
     packed kernel, the design it replaced (``bm3d_aggregate_kernel<0, 0>``
     on 2 x 2 tiles) is timed on the same arguments too, after it is held to
-    the same 1e-5 and to two calls bit for bit equal."""
+    the same 1e-5 and to two calls bit for bit equal. The plain version is
+    timed over ``plain_reps`` = (calls, warm-up calls)."""
     idx, est, wgt, kai, h, w, geom = agg_in
     b, p, bb = est.shape
-    kernel = aggregate_kernel(math.isqrt(bb), p // wgt.shape[1])
+    kernel = aggregate_kernel(math.isqrt(bb), p // wgt.shape[1], geom)
     got = bm3d_aggregate(*agg_in)
     repeat_bitwise = all(all(torch.equal(a, r) for a, r in zip(got, bm3d_aggregate(*agg_in)))
                          for _ in range(K2_REPEATS))
@@ -1069,7 +1117,7 @@ def aggregate_record(agg_in, prev_design: bool = False) -> dict:
     nbytes, flops = aggregate_work(b, wgt.shape[1], p // wgt.shape[1], block, h, w)
     ms = device_ms(lambda: bm3d_aggregate(*agg_in))
     event_ms = cuda_ms(lambda: bm3d_aggregate(*agg_in))
-    plain_ms = cuda_ms(lambda: bm3d_aggregate_plain(idx, est, wgt, kai, h, w))
+    plain_ms = cuda_ms(lambda: bm3d_aggregate_plain(idx, est, wgt, kai, h, w), *plain_reps)
     # The library yardstick: the same sums as one index_add_ of per-pixel
     # terms (made here, outside the timing) into planes zeroed in the call.
     g = wgt.shape[1]
@@ -1220,15 +1268,17 @@ def nlm_check_inputs() -> dict:
             "b9": (z9, torch.cat([h for _, h in lanes]))}
 
 
-def nlm_times(z, h, sigma, clock_hz: float, patch_size: int = 4, patch_distance: int = 5) -> dict:
-    """K3's device and event times on (z, h, sigma), its plain version's,
-    and the bound."""
+def nlm_times(z, h, sigma, clock_hz: float, patch_size: int = 4, patch_distance: int = 5,
+              plain_ms: float | None = None) -> dict:
+    """K3's device and event times on (z, h, sigma), its plain version's
+    (over 10 calls, unless a caller that timed it passes ``plain_ms``), and
+    the bound."""
     _, hh, ww = z.shape
     pd = (patch_size, patch_distance)
     return {
         "ms": device_ms(lambda: nlm_denoise(z, h, sigma, *pd)),
         "event_ms": cuda_ms(lambda: nlm_denoise(z, h, sigma, *pd)),
-        "plain_ms": cuda_ms(lambda: nlm_denoise_plain(z, h, sigma, *pd), reps=10, warmup=3),
+        "plain_ms": plain_ms or cuda_ms(lambda: nlm_denoise_plain(z, h, sigma, *pd), reps=10, warmup=3),
         **nlm_bound(z.shape[0], hh, ww, 0, hh, patch_distance, clock_hz, patch_size),
     }
 
@@ -1274,7 +1324,8 @@ def profile_lane_inputs() -> tuple:
 
 
 def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mode: str,
-                 search_step: int = 1, modes=tuple(MODES), prev_design: bool = False) -> dict:
+                 search_step: int = 1, modes=tuple(MODES), prev_design: bool = False,
+                 plain_reps: tuple = (10, 25)) -> dict:
     """K1 at one setting against its plain version, in each of ``modes`` on
     each image of ``imgs``: the multiset agreement of each
     block's k (>= 0.999 in f32, >= 0.995 in bf16), slot by slot the same
@@ -1286,7 +1337,8 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     ``prev_design``, where that is not the any-kernel, the any-kernel (the
     design the tile and span kernels replaced) is timed on the same
     arguments too (``prev_design_ms``, its ``event_ms`` and the ratio),
-    after it is held to the same rules in ``lane_mode``."""
+    after it is held to the same rules in ``lane_mode``. The plain version
+    is timed over ``plain_reps`` = (calls, warm-up calls)."""
     z = next(iter(imgs.values()))
     b, h, w = z.shape
     rows, cols = _ref_grid(h, block, step), _ref_grid(w, block, step)
@@ -1315,22 +1367,24 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     call = lambda: bm3d_match(z, rows, cols, offs, block, k, lane_mode, geometry=geom)  # noqa: E731
     bounds = match_bounds(b, h, w, rows, cols, offs, block=block, k=k)
     kernel = match_kernel(geom, block, k)
-    smem = {"bm3d_match_kernel": lambda: geom.smem_bytes, "bm3d_match_tile_kernel": lambda: geom.tile_smem_bytes(k),
+    reach = geom.reach(h, w)
+    smem = {"bm3d_match_kernel": lambda: geom.smem_bytes,
+            "bm3d_match_tile_kernel": lambda: geom.tile_smem_bytes(k, reach.search),
             "bm3d_match_any_kernel": lambda: geom.any_smem_bytes,
-            "bm3d_match_span_kernel": lambda: geom.span(k).smem_bytes}
+            "bm3d_match_span_kernel": lambda: geom.span(k, reach.search).smem_bytes}
     rec = {
         "shape": {"images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
                   "mode": lane_mode},
         "kernel": kernel,
         "max_abs_err": err, "ms": device_ms(call), "event_ms": cuda_ms(call),
-        "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, cols, offs, block, k, lane_mode), reps=10),
+        "plain_ms": cuda_ms(lambda: bm3d_match_plain(z, rows, cols, offs, block, k, lane_mode), *plain_reps),
         "bound_ms": min(bounds["bound_direct_ms"], bounds["bound_separable_ms"]),
         "bound_by": bounds["bound_separable_by"], "library_ms": None,
         "smem_bytes": smem[kernel](), "ctas_per_sm_by_smem": (228 * 1024) // (smem[kernel]() + 1024),
         "near_tie": tie, "checks": checks, **bounds,
     }
     if kernel == "bm3d_match_span_kernel":
-        plan = geom.span(k)
+        plan = geom.span(k, reach.search)
         rec["span_tiles"] = {"blocks_a_tile": plan.most, "tiles": [len(plan.row_tiles), len(plan.col_tiles)]}
     prev = k1_module.PREV_DESIGN
     if prev_design and kernel != prev:
@@ -1421,6 +1475,11 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
     for row, (block, step, search, k, first) in ENVELOPE_K1.items():
         k1[row] = match_record({first: imgs[first]} | imgs, block, step, search, k, "bf16_xla",
                                prev_design=True)
+    for row, (block, step, search, k, first) in ENVELOPE_K1_WIDE.items():
+        t0 = time.perf_counter()
+        k1[row] = match_record({first: imgs[first]}, block, step, search, k, "bf16_xla",
+                               plain_reps=PLAIN_WIDE_REPS)
+        k1[row]["seconds"] = time.perf_counter() - t0
     block, step, search, k, _ = ENVELOPE_K1[K1_BOUNDED_ROW]
     k1[K1_BOUNDED_ROW]["bounded"] = match_bounded_record(imgs, block, step, search, k, "bf16_xla", K1_BOUNDS)
     k2 = {}
@@ -1429,10 +1488,19 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
         _, agg_in = stage1_aggregate_inputs(z, sig, p)
         k2[row] = aggregate_record(agg_in, prev_design=True) | {"block": block, "k": k, "step": step,
                                                                 "search": search}
+    for row, (block, step, search, k) in ENVELOPE_K2_WIDE.items():
+        t0 = time.perf_counter()
+        p = BM3DParams(block=block, step=step, search=search, group_ht=k, match_dtype="bfloat16")
+        _, agg_in = stage1_aggregate_inputs(z, sig, p)
+        k2[row] = aggregate_record(agg_in, plain_reps=PLAIN_WIDE_REPS) | {
+            "block": block, "k": k, "step": step, "search": search, "seconds": time.perf_counter() - t0}
+        del agg_in
     inputs = nlm_check_inputs()
     k3 = {}
-    for pd in ENVELOPE_K3:
+    for pd in ENVELOPE_K3 + ENVELOPE_K3_WIDE:
+        wide = pd in ENVELOPE_K3_WIDE
         for lanes, (x, h) in inputs.items():
+            t0 = time.perf_counter()
             errs = {}
             for bounds in (None, (16, 112)):
                 got = nlm_denoise(x, h, h, *pd, row_valid_bounds=bounds)
@@ -1447,6 +1515,17 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
             b, hh, ww = x.shape
             fns = k3_module._lib()
             hs = h.expand(b).contiguous()
+            if wide:  # no replaced design takes these
+                k3[f"p{pd[0]}_d{pd[1]}_{lanes}"] = {
+                    "shape": {"images": list(x.shape), "patch_size": pd[0], "patch_distance": pd[1]},
+                    "kernel": nlm_kernel_name(*pd),
+                    "plan": list(k3_module.device_plan(fns, x.device, b, hh, ww, *pd)),
+                    "max_abs_err": max(errs.values()), "max_abs_err_by_bounds": errs, "nan_at_h0": nan,
+                    "repeat_bitwise": repeat, "library_ms": None,
+                    **nlm_times(x, h, h, clock_hz, *pd, plain_ms=cuda_ms(
+                        lambda: nlm_denoise_plain(x, h, h, *pd), reps=1, warmup=0)),
+                    "seconds": time.perf_counter() - t0}
+                continue
 
             def call_prev(x=x, hs=hs, pd=pd, fns=fns):  # through the kernel's own entry: no launch counted
                 out = torch.empty_like(x)
@@ -1465,6 +1544,148 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
                 "prev_design_ms": device_ms(call_prev), "prev_design_event_ms": cuda_ms(call_prev)}
             rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / rec["ms"]
     return k1, k2, k3
+
+
+def check_wide_calls() -> dict:
+    """One call each through the public entry points past the kernels'
+    earlier envelope, held to the JAX CPU output on the same input
+    (``params_wide_jax.npz``): ``BM3DDenoiser.denoise`` at each
+    :data:`WIDE_BM3D` row on its lanes of bm3d_profile's first denoise
+    input, ``NLMDenoiser.denoise`` at :data:`WIDE_NLM` on the CSMRI + NLM
+    lane's; each lane's PSNR within :data:`PROFILE_CALL_TOL_DB`, the
+    largest pixel difference reported, and each call's K1, K2 and K3
+    launches by kernel those the naming functions give."""
+    ref = load_wide_reference()
+    env = load_envelope_reference("bm3d_profile")
+    lanes = ref["bm3d/lanes"]
+    prob, _ = load_headline_problems("cuda")
+    clean = prob.x[torch.as_tensor(lanes, device="cuda").long()]
+    z = torch.as_tensor(env["first_input"][lanes], device="cuda")
+    sig = torch.as_tensor(env["first_sigma"][lanes], device="cuda")
+    h, w = z.shape[1:]
+    out = {}
+
+    def held(row, got, want, clean_, expect):
+        port, jax_db = lane_psnr(clean_, got), lane_psnr(clean_, want)
+        gap = float(np.abs(port - jax_db).max())
+        launches = {"bm3d_match": {k: v for k, v in bm3d_match.by_kernel.items() if v},
+                    "bm3d_aggregate": {k: v for k, v in bm3d_aggregate.by_kernel.items() if v},
+                    "nlm": {k: v for k, v in nlm_denoise.by_kernel.items() if v}}
+        out[row] = {"port_psnr_db": port.tolist(), "jax_cpu_psnr_db": jax_db.tolist(), "max_abs_db": gap,
+                    "max_abs_diff": (got - want).abs().max().item(), "launches_by_kernel": launches,
+                    "expected_launches": expect}
+        require(gap <= PROFILE_CALL_TOL_DB, f"wide call {row}: {gap:.4f} dB off JAX CPU's on a lane")
+        require(launches == expect, f"wide call {row}: launches {launches}, expected {expect}")
+
+    for row, p in WIDE_BM3D.items():
+        g = _geometry(h, w, p, z.device)
+        expect = {"bm3d_match": collections.Counter(), "bm3d_aggregate": collections.Counter(), "nlm": {}}
+        for k in (p.group_ht, p.group_wie):
+            expect["bm3d_match"][match_kernel(g.match, p.block, k)] += 1
+            expect["bm3d_aggregate"][aggregate_kernel(p.block, k, g.agg)] += 1
+        _zero_counts()
+        got = BM3DDenoiser(params=p).denoise(z, sig, torch.zeros((), device="cuda"))
+        torch.cuda.synchronize()
+        held(row, got, torch.as_tensor(ref[f"bm3d/{row}/output"], device="cuda"), clean,
+             {k: dict(v) for k, v in expect.items()})
+    nprob = load_nlm_problem("cuda")
+    cfg = nlm_params()
+    zn, est = (torch.as_tensor(ref[f"nlm/{k}"], device="cuda") for k in ("input", "sigma_est"))
+    _zero_counts()
+    got = NLMDenoiser(sigma_modifier=cfg["sigma_modifier"], **WIDE_NLM).denoise(zn, est, 0)
+    torch.cuda.synchronize()
+    held("nlm", got, torch.as_tensor(ref["nlm/output"], device="cuda"), nprob.x,
+         {"bm3d_match": {}, "bm3d_aggregate": {}, "nlm": {nlm_kernel_name(**WIDE_NLM): 1}})
+    emit({"phase": "wide_calls", "lanes": lanes.tolist(), "calls": out,
+          "params": {row: dataclasses.asdict(p) for row, p in WIDE_BM3D.items()} | {"nlm": WIDE_NLM}})
+    return out
+
+
+def lane_psnr(clean: torch.Tensor, img: torch.Tensor) -> np.ndarray:
+    """PSNR (dB) of each (H, W) lane of ``img`` against ``clean``."""
+    return image_psnr(clean.reshape(img.shape), img).reshape(-1).cpu().numpy()
+
+
+def reference_checkpoint(name: str, variables: dict):
+    """What the reference's ``.pth`` of checkpoint ``name`` holds, made from
+    its Flax ``variables`` (the inverse of ``models/convert.py``'s mapping):
+    a ``module.dncnn.N.*`` state dict of an ``nn.DataParallel`` (DnCNN), a
+    ``dncnn.N.*`` state dict (SimpleCNN), or a whole ``nn.DataParallel`` of a
+    ``models.basic_models.simple_CNN`` (MMO), pickled against stub modules
+    that :func:`run_convert` removes again."""
+    depth = sum(name.startswith("Conv_") for name in variables["params"])
+    features = variables["params"]["Conv_0"]["kernel"].shape[-1]
+    layout = CONVERT_LAYOUTS[name]
+    if layout == "pickled simple_CNN":
+        model = MMOSimpleCNN(channels=1, depth=depth, features=features)
+        model.load_state_dict(torch_state_dict_from_flax(variables, model))
+        convs = [m for m in model.net if isinstance(m, torch.nn.Conv2d)]
+
+        class simple_CNN(torch.nn.Module):  # noqa: N801 (reference class name)
+            def __init__(self):
+                super().__init__()
+                self.in_conv, self.out_conv = convs[0], convs[-1]
+                self.conv_list = torch.nn.ModuleList(convs[1:-1])
+
+        simple_CNN.__module__, simple_CNN.__qualname__ = "models.basic_models", "simple_CNN"
+        pkg, basic = types.ModuleType("models"), types.ModuleType("models.basic_models")
+        basic.simple_CNN, pkg.basic_models = simple_CNN, basic
+        sys.modules["models"], sys.modules["models.basic_models"] = pkg, basic
+        return torch.nn.DataParallel(simple_CNN())
+    model = DnCNN(channels=1, depth=depth, features=features, use_bn="batch_stats" in variables)
+    sd = {k.replace("net.", "dncnn.", 1): v for k, v in torch_state_dict_from_flax(variables, model).items()}
+    return {f"module.{k}": v for k, v in sd.items()} if layout == "module.dncnn" else sd
+
+
+def run_convert(card: str) -> dict:
+    """The ``.pth`` conversion through the port's ``convert_all``: the
+    committed checkpoints of :data:`CONVERT_LAYOUTS` rebuilt in the
+    reference's three layouts under a temporary reference tree, converted
+    into a temporary directory (every other source missing, and skipped),
+    each output array for array the committed file, and one 128 px Set12
+    image (Set12/01 with noise of sigma 5/255 from a numpy seed) denoised on
+    the card with each output and with the committed checkpoint, bit for
+    bit equal."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    clean = load_image("Set12/01.png", 128, 128)
+    x = torch.tensor((clean + 5.0 / 255.0 * rng.standard_normal(clean.shape)).astype(np.float32), device="cuda")
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out_dir = Path(tmp) / "reference", Path(tmp) / "out"
+        try:
+            for name in CONVERT_LAYOUTS:
+                src = root / CONVERSIONS[name]
+                src.parent.mkdir(parents=True, exist_ok=True)
+                torch.save(reference_checkpoint(name, load_flax_npz(CHECKPOINT_DIR / f"{name}.npz")), src)
+            for mod in ("models.basic_models", "models"):
+                sys.modules.pop(mod, None)  # the loader takes its own stub path
+            converted = convert_all(out_dir, root)
+        finally:
+            for mod in ("models.basic_models", "models"):
+                sys.modules.pop(mod, None)
+        require(converted == list(CONVERT_LAYOUTS), f"convert_all converted {converted}")
+        for name in converted:
+            with np.load(CHECKPOINT_DIR / f"{name}.npz") as want, np.load(out_dir / f"{name}.npz") as got:
+                arrays_equal = sorted(got.files) == sorted(want.files) and all(
+                    np.array_equal(got[k], want[k]) and got[k].dtype == want[k].dtype for k in want.files)
+            outs = []
+            for path in (CHECKPOINT_DIR / f"{name}.npz", out_dir / f"{name}.npz"):
+                variables = load_flax_npz(path)
+                if name.startswith("mmo_"):
+                    den = MMODenoiser(model=flax_model(MMOSimpleCNN(channels=1), variables, "cuda"))
+                else:
+                    kind = "DnCNN" if name.startswith("dncnn") else "SimpleCNN"
+                    den = DnCNNDenoiser(model=flax_model(model_for_type(kind), variables, "cuda"),
+                                        sigma_train=5.0, model_type=kind)
+                outs.append(den.denoise(x))
+            bitwise = bool(torch.equal(*outs))
+            rec[name] = {"layout": CONVERT_LAYOUTS[name], "arrays_equal": arrays_equal, "denoise_bitwise": bitwise,
+                         "psnr_db": float(lane_psnr(torch.as_tensor(clean, device="cuda"), outs[1])[0])}
+            require(arrays_equal and bitwise, f"convert {name}: {rec[name]}")
+    rec = {"phase": "convert", "checkpoints": rec, "seconds": time.perf_counter() - t0, "card": card}
+    emit(rec)
+    return rec
 
 
 def faithful_parity(den, eta: float) -> dict:
@@ -2587,7 +2808,7 @@ def _counts() -> dict:
 # (ALLOWED: the kernel rows and the csmri_nlm_skimage lane); no other
 # launch may go to one of those three.
 TALLY, ALLOWED = collections.Counter(), collections.Counter()
-REDESIGNED_OFF_LANES = (K1_KERNELS[3], K2_KERNELS[1], K3_KERNELS[1])
+REDESIGNED_OFF_LANES = (K1_KERNELS[3], K2_KERNELS[1], K3_KERNELS[1], K3_KERNELS[2])
 
 
 def _fold_tally() -> None:
@@ -3254,6 +3475,8 @@ def main() -> None:
         rec["bench_shapes"] |= rows
     emit({"phase": "kernels_checked", "bm3d_match": k1, "bm3d_aggregate": k2, "nlm": k3,
           "device_ms_lost_records": LOST_RECORDS})
+    allowed(check_wide_calls)
+    run_convert(dev["nvidia_smi"])
     phase_parity()
 
     prob, lanes = load_headline_problems("cuda")
@@ -3350,17 +3573,20 @@ def main() -> None:
     # path; its row that lane's shape, B = 1 at (7, 11)).
     for name, group, kernel, main in (("bm3d_match_span", "bm3d_match", K1_KERNELS[3], "golden"),
                                       ("bm3d_aggregate_packed", "bm3d_aggregate", K2_KERNELS[1], "golden"),
-                                      ("nlm_cluster", "nlm", K3_KERNELS[1], "p7_d11_b1")):
+                                      ("nlm_cluster", "nlm", K3_KERNELS[1], "p7_d11_b1"),
+                                      ("nlm_cluster_rt", "nlm", K3_KERNELS[2], "p13_d21_b1")):
         rows = {label: r for label, r in next(k for k in kernels if k["name"] == group)["bench_shapes"].items()
                 if r.get("kernel") == kernel}
         rows = {main: rows.pop(main)} | rows
+        # nlm_cluster_rt_kernel replaced no design: it has no prev-design keys.
+        redesign = REDESIGN_FIELDS[:1] if kernel == K3_KERNELS[2] else REDESIGN_FIELDS
         key = "k1_kernels" if group == "bm3d_match" else "k2_k3_kernels"
         by_lane = {lane: (r[key] if key == "k1_kernels" else r[key][group])[kernel]
                    for lane, r in lanes_run.items() if key in r}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[group][0], "replaces": SOURCES[group][1],
             "launches": by_lane.get(ROW_LANE.get(main, ("",))[0], 0), "launches_by_lane": by_lane,
-            **{k: rows[main][k] for k in fields + REDESIGN_FIELDS}, "card": dev["nvidia_smi"],
+            **{k: rows[main][k] for k in fields + redesign}, "card": dev["nvidia_smi"],
             "bench_shapes": rows})
         if kernel == K1_KERNELS[3]:  # with row bounds
             bounded = k1["bench_shapes"][K1_BOUNDED_ROW]["bounded"]

@@ -89,6 +89,9 @@ hyperparameters and reference runs (the CNN denoisers' weights are read by
   SSIM and each table's init PSNR under the tables of
   :data:`PAPER_TABLES`, the PSNR traces of the deterministic rows of
   :data:`PAPER_ANCHORS`, and rgb_csmri's per-channel PSNRs.
+* The calls past the kernels' earlier envelope (:data:`WIDE_BM3D`,
+  :data:`WIDE_NLM`): :func:`load_wide_reference` reads
+  ``data/params_wide_jax.npz``, the JAX CPU outputs on their inputs.
 
 The fixtures are written by ``python tests/test_torch_fixture.py``.
 """
@@ -167,6 +170,20 @@ BM3D_PROFILE_LANE = ("set12_csmri_tuned.json", 6000.0, 1.0,
                      BM3DParams(block=8, step=3, search=19, group_ht=16, group_wie=32,
                                 match_dtype="bfloat16"))
 NLM_SKIMAGE = {"patch_size": 7, "patch_distance": 11}
+# One call each through the public entry points at settings past the kernels'
+# earlier envelope (``WIDE_FIXTURE``, JAX CPU outputs): BM3D on the
+# bm3d_profile lane's first denoise input, lanes WIDE_LANES (Set12/01 and
+# 13.png), at a window past search 24, a step past the block and 128 Wiener
+# matches; NLM at (13, 21) on the CSMRI + NLM lane's first denoise input.
+WIDE_FIXTURE = HEADLINE_FIXTURE.parent / "params_wide_jax.npz"
+WIDE_LANES = (0, 12)
+WIDE_BM3D = {
+    "search32": BM3DParams(block=8, step=3, search=32, group_ht=16, group_wie=32, match_dtype="bfloat16"),
+    "step_past_block": BM3DParams(block=8, step=10, search=19, group_ht=16, group_wie=32,
+                                  match_dtype="bfloat16"),
+    "k128": BM3DParams(block=8, step=3, search=19, group_ht=16, group_wie=128, match_dtype="bfloat16"),
+}
+WIDE_NLM = {"patch_size": 13, "patch_distance": 21}
 
 # bench.py's three lanes: the problem, bench.py's defaults and the tuned
 # JSON merged over them (bench.py:508-542, 602-661, 663-717).
@@ -309,6 +326,18 @@ def load_envelope_reference(lane: str, path=ENVELOPE_FIXTURE) -> dict:
     ``first_output``."""
     data = _fixture(path)
     return {k.split("/", 1)[1]: v for k, v in data.items() if k.startswith(f"{lane}/")}
+
+
+def load_wide_reference(path=WIDE_FIXTURE) -> dict:
+    """The JAX CPU outputs of the calls past the earlier envelope:
+    ``bm3d/lanes`` and ``bm3d/<row>/output`` for each :data:`WIDE_BM3D` row
+    on those lanes of bm3d_profile's ``first_input`` with their
+    ``first_sigma`` (:func:`load_envelope_reference`), and ``nlm/input``,
+    ``nlm/sigma_est`` and ``nlm/output``: the CSMRI + NLM lane's first
+    denoise input (``x_init`` after one full-gradient step with its tuned
+    eta), its sigma estimate, and JAX's ``NLMDenoiser`` at
+    :data:`WIDE_NLM` with the lane's modifier on it."""
+    return _fixture(path)
 
 
 def load_nlm_problem(device=None, path=HEADLINE_FIXTURE) -> CSMRI:

@@ -90,7 +90,7 @@
 // an axis; the fold then takes its streaming form, by rule, in the same
 // order of adds.
 //
-// Every other call (block 2-16, K 1-64): `bm3d_aggregate_packed_kernel<Q>`.
+// Every other call (block 1-32, K 1-128): `bm3d_aggregate_packed_kernel<Q>`.
 // Its bound is the same (bytes: at the golden oracle's block 4, step 2,
 // search 3, K 4 and 13 images of 128 x 128, 13.2 MB of estimates and 1.7
 // MB of planes, 0.0048 ms). The first design for these calls,
@@ -116,7 +116,13 @@
 // shape read at run time (kTR = 0), in the same order of adds. Each call
 // stays bit for bit the same from run to run (no float atomic), exact on
 // dyadic values, and holds the out-of-footprint scan and the dropping of
-// rows outside the table.
+// rows outside the table. Past block 16 (more than 8 x 32 values a member)
+// Q = 0 reads the values a lane at run time: a warp takes one member at a
+// time and its lane j the values j + 32 q, in the same tiles, planes and
+// order of adds (member order within a plane). Grids with gaps between
+// blocks (a step past the block) leave pixels no member covers: no tile's
+// footprint holds them, so the fold writes 0 to both planes there, as the
+// plain version's sums of nothing are.
 
 #include <cuda_runtime.h>
 
@@ -388,6 +394,76 @@ bm3d_aggregate_packed_kernel(const int* __restrict__ idx, const float* __restric
   }
 }
 
+// The packed kernel with the values a lane read at run time (Q = 0), for
+// blocks past 16: one warp a member at a time, lane j its values j + 32 q,
+// the tile's members shared out over the CTA's warps as above (one lane
+// group a warp), each warp its own pair of planes.
+template <>
+__global__ void __launch_bounds__(kPackedMaxWarps * 32)
+bm3d_aggregate_packed_kernel<0>(const int* __restrict__ idx, const float* __restrict__ est,
+                                const float* __restrict__ wgt, const float* __restrict__ kaiser,
+                                const int* __restrict__ tile_oy, const int* __restrict__ tile_ox,
+                                float* __restrict__ scratch, int* __restrict__ overflow, int epoch,
+                                int H, int W, int nR, int nC, int fh, int fw, int block, int k_shift,
+                                int tile_r, int tile_c, int groups) {
+  const int bb = block * block;
+  const int n_planes = blockDim.x >> 5;
+  extern __shared__ float planes[];  // n_planes x (num, den) x fh x fw
+  const int plane = fh * fw;
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * tile_r;
+  const int c0 = blockIdx.x * tile_c;
+  const int nr = min(tile_r, nR - r0);
+  const int nc = min(tile_c, nC - c0);
+  const int oy = tile_oy[blockIdx.y];
+  const int ox = tile_ox[blockIdx.x];
+  const int tid = threadIdx.x;
+  for (int q = tid; q < 2 * n_planes * plane; q += blockDim.x) planes[q] = 0.f;
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  float* s_num = planes + warp * 2 * plane;
+  float* s_den = s_num + plane;
+  const int ww = W - block + 1;
+  const int n_rows = (H - block + 1) * ww;
+  const int run = nc << k_shift;
+  const int total = nr * run;
+  const long long first_group = (long long)b * nR * nC;
+  for (int m = warp; m < total; m += n_planes) {
+    const int i = m / run, rest = m - (m / run) * run;
+    const long long p = ((first_group + (long long)(r0 + i) * nC + c0) << k_shift) + rest;
+    const int row = __ldg(idx + p);
+    if (row < 0 || row >= n_rows) continue;
+    const int py = row / ww, px = row - (row / ww) * ww;
+    if (!in_footprint(py, px, oy, ox, fh, fw, block)) {
+      if (lane == 0) overflow[b] = epoch;  // the fold adds this member
+      continue;
+    }
+    const float w = __ldg(wgt + (p >> k_shift));
+    const int a = (py - oy) * fw + px - ox;
+    for (int v = lane; v < bb; v += 32) {
+      const int ky = v / block, kx = v - (v / block) * block;
+      const float wk = __fmul_rn(w, __ldg(kaiser + v));
+      s_num[a + ky * fw + kx] += __fmul_rn(__ldg(est + p * bb + v), wk);
+      s_den[a + ky * fw + kx] += wk;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  float* out = scratch + (((long long)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 2 * plane;
+  for (int q = tid; q < plane; q += blockDim.x) {
+    float n = 0.f, d = 0.f;
+    for (int v = 0; v < n_planes; ++v) {
+      n += planes[v * 2 * plane + q];
+      d += planes[v * 2 * plane + plane + q];
+    }
+    out[q] = n;
+    out[plane + q] = d;
+  }
+}
+
 // Pixel (y, x)'s sum over the footprints that cover it, in ascending (tile
 // row, tile column) order, from its image's footprints `scratch`. With
 // kAllAtOnce (and up to kMaxCover tiles an axis) every load is issued
@@ -585,7 +661,8 @@ extern "C" int bm3d_aggregate_launch(const int* idx, const float* est, const flo
 // x fw) those of `tile_r` x `tile_c` tiles (the host's plan), `warps` (1-8)
 // a CTA and `groups` (1-32) lane groups a warp, each of 32 / groups >=
 // block^2 lanes where groups > 1; `scratch` of at least B * ceil(nR /
-// tile_r) * ceil(nC / tile_c) * 2 * fh * fw f32.
+// tile_r) * ceil(nC / tile_c) * 2 * fh * fw f32; block in [1, 32], K a
+// power of two in [1, 128].
 extern "C" int bm3d_aggregate_packed_launch(const int* idx, const float* est, const float* wgt,
                                             const float* kaiser, const int* tile_oy,
                                             const int* tile_ox, const int* cover_y,
@@ -597,9 +674,10 @@ extern "C" int bm3d_aggregate_packed_launch(const int* idx, const float* est, co
   const int bb = block_size * block_size;
   int k_shift = 0;
   while ((1 << k_shift) < K) ++k_shift;
-  if (block_size < 2 || block_size > 16 || K < 1 || K > 64 || (1 << k_shift) != K ||
+  if (block_size < 1 || block_size > 32 || K < 1 || K > 128 || (1 << k_shift) != K ||
       fh < block_size || fw < block_size || tile_r < 1 || tile_c < 1 || warps < 1 ||
-      warps > kPackedMaxWarps || groups < 1 || groups > 32 || (groups > 1 && 32 / groups < bb))
+      warps > kPackedMaxWarps || groups < 1 || groups > 32 || (groups > 1 && 32 / groups < bb) ||
+      (bb > 8 * 32 && groups != 1))
     return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || W == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -607,7 +685,8 @@ extern "C" int bm3d_aggregate_packed_launch(const int* idx, const float* est, co
     const size_t smem = 2 * (size_t)warps * groups * fh * fw * sizeof(float);
     const dim3 grid((nC + tile_c - 1) / tile_c, (nR + tile_r - 1) / tile_r, B);
     const int q = groups > 1 ? 1 : (bb + 31) / 32;
-    const auto tiles = q == 1   ? launch_packed<1>
+    const auto tiles = q > 8    ? launch_packed<0>  // values a lane at run time
+                       : q == 1 ? launch_packed<1>
                        : q == 2 ? launch_packed<2>
                        : q == 3 ? launch_packed<3>
                        : q == 4 ? launch_packed<4>

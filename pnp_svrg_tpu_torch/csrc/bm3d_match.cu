@@ -358,7 +358,7 @@ cudaError_t launch_mode(int S, dim3 grid, size_t smem, cudaStream_t st, const fl
 
 constexpr int kAnyTileR = 4, kAnyTileC = 4;  // reference blocks a CTA
 constexpr int kAnyWarps = 4;
-constexpr int kMinBlock = 2, kMaxBlock = 16, kMaxK = 64;
+constexpr int kMinBlock = 2, kMaxBlock = 16, kMaxK = 64;  // the any-kernel's
 constexpr unsigned kInfBits = 0x7f800000u;
 
 // (bk, bi) becomes (k, i) where (k, i) is lexicographically less.
@@ -514,9 +514,13 @@ cudaError_t launch_any_mode(int S, int block, dim3 grid, size_t smem, cudaStream
 // holds at most 640 offsets and it keeps 16 matches; the any-kernel sums
 // every distance directly, block^2 terms a (reference block, offset) pair,
 // and rebuilds its top-k by k rounds a chunk. This kernel takes block 8 at
-// any strictly ascending reference grid, any window (search <= 24) and any
-// power-of-two k up to 64, and computes the same function in the separable
-// form. One CTA of kTileWarps warps per (image, tile). A tile is up to
+// any strictly ascending reference grid (at any step: past the block a tile
+// holds fewer blocks), any window whose region fits shared memory and any
+// power-of-two k up to 128 (one, two or four slots a lane), and computes the
+// same function in the separable form. A window wider than the image visits
+// only the offsets some block can take (|dy| <= H - 8, |dx| <= W - 8: the
+// host's reach), and stages only their halo; each keeps its index in the
+// full window, so the result is the whole window's. One CTA of kTileWarps warps per (image, tile). A tile is up to
 // kTileMax reference blocks (9 x 9 at step 3) whose patches span at most
 // kTileSpan rows and columns; host-made plans give each tile's first row
 // and column index, its counts and a mask of its reference rows (columns)
@@ -567,6 +571,10 @@ constexpr int kTileWarps = 8;
 constexpr int kChunk = 64;  // offsets a chunk
 constexpr int kDPitch = kChunk + 1;  // the distance buffer's row pitch (odd)
 constexpr unsigned kAllLanes = 0xffffffffu;
+// The tile and span kernels: k up to four slots a lane, and blocks up to the
+// span (the span kernel's blocks 1 and 17-32 through its run-time phase 1).
+constexpr int kSpanMaxK = 128;
+constexpr int kSpanMinBlock = 1, kSpanMaxBlock = kTileSpan;
 
 // Two f32 values rounded to bf16 (to nearest even), packed: a low, b high.
 __device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
@@ -619,7 +627,14 @@ __device__ __forceinline__ float sum8_down(float v) {
 // Entry `slot` of a lane's KS slots (slot < KS).
 template <int KS, typename T>
 __device__ __forceinline__ T slot_of(const T (&v)[KS], int slot) {
-  return KS == 1 || slot == 0 ? v[0] : v[KS - 1];
+  if constexpr (KS <= 2) {
+    return KS == 1 || slot == 0 ? v[0] : v[KS - 1];
+  } else {
+    T r = v[0];
+#pragma unroll
+    for (int q = 1; q < KS; ++q) r = slot == q ? v[q] : r;
+    return r;
+  }
 }
 
 // Stages a tile's region for the tile and span kernels: the image `x`
@@ -911,7 +926,7 @@ cudaError_t launch_tile(dim3 grid, size_t smem, cudaStream_t stream, const float
   return cudaGetLastError();
 }
 
-// One slot a lane for k <= 32, two for k <= 64.
+// One slot a lane for k <= 32, two for k <= 64, four for k <= 128.
 template <int MODE>
 cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const float* img,
                              const int* rows, const int* cols, const int* offsets,
@@ -922,7 +937,10 @@ cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const floa
     return launch_tile<MODE, 1>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
                                 col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
                                 cand_hi);
-  return launch_tile<MODE, 2>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+  if (K <= 64)
+    return launch_tile<MODE, 2>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+                                col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo, cand_hi);
+  return launch_tile<MODE, 4>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
                               col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo, cand_hi);
 }
 
@@ -933,8 +951,10 @@ cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const floa
 // before; the any-kernel, which stood for the Pallas kernel `_match_kernel`
 // (pnp_svrg_tpu/ops/pallas/bm3d_match.py:52) on those calls, now takes only
 // grids that do not strictly ascend. It computes the same function: any
-// power-of-two k up to 64, any window (search <= 24), the three rounding
-// modes, the row bounds. Bound as above: f32 arithmetic in the separable
+// power-of-two k up to 128, any window whose tile fits shared memory (the
+// host's reach, as the tile kernel's), the three rounding modes, the row
+// bounds. Blocks 1 and 17-32 (up to the span: one tile row a lane) take a
+// run-time phase 1 (`span_distances_rt`), each sum one term after another. Bound as above: f32 arithmetic in the separable
 // form, one term a (pixel, offset) and the box sums shared by the blocks a
 // tile holds. The any-kernel paid three costs, and this kernel answers each
 // as the block-8 tile kernel does:
@@ -1096,6 +1116,61 @@ __device__ __forceinline__ void span_distances(const SpanTile& p, int s0, int n_
   }
 }
 
+// Phase 1 at a block read at run time (1 and 17-32; the blocks 2-16 have a
+// compiled body each): the lane's terms as above, then at each reference
+// column its block-wide row sum and the block-tall sum down the lanes, each
+// one term after another (f32 adds, no FMA). The row sum runs over the
+// span's columns with the terms outside the block's window added as 0,
+// which leaves every partial sum as it is.
+template <bool PAIRS>
+__device__ __forceinline__ void span_distances_rt(const SpanTile& p, int block, int s0, int n_chunk, int lane,
+                                                  int warp) {
+  const float inf = __int_as_float(kInfBits);
+  const float* ref_at = p.region + (p.search + lane) * p.pitch + p.search;
+  auto pair_at = [&](int y, int c) { return p.pairs + ((c & 1) * p.reg_n + y) * p.pp + (c >> 1); };
+  unsigned ref2[PAIRS ? kTileSpan / 2 : 1];
+  if constexpr (PAIRS) {
+#pragma unroll
+    for (int xx = 0; xx < kTileSpan; xx += 2) ref2[xx / 2] = pair_at(p.search + lane, p.search)[xx / 2];
+  }
+  for (int c = warp; c < n_chunk; c += kTileWarps) {
+    const int2 o = __ldg(p.offsets + s0 + c);
+    float t[kTileSpan];
+    if constexpr (PAIRS) {
+      const unsigned* cand2 = pair_at(p.search + lane + o.x, p.search + o.y);
+#pragma unroll
+      for (int xx = 0; xx < kTileSpan; xx += 2)
+        sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);
+    } else {
+      const float* cand = ref_at + o.x * p.pitch + o.y;
+      if (p.round_sq) {
+#pragma unroll
+        for (int xx = 0; xx < kTileSpan; xx += 2)
+          sq_terms2<2>(0u, 0u, ref_at[xx], ref_at[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
+      } else {
+#pragma unroll
+        for (int xx = 0; xx < kTileSpan; xx += 2)
+          sq_terms2<0>(0u, 0u, ref_at[xx], ref_at[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
+      }
+    }
+    const int cy = p.ry0 + lane + o.x;
+    const bool row_ok = p.ref_row && cy >= p.cand_lo && cy <= p.cand_hi;
+#pragma unroll 1
+    for (int xx = 0; xx + block <= kTileSpan; ++xx) {
+      if ((p.cmask >> xx) & 1u) {
+        float v = 0.f;
+#pragma unroll
+        for (int x = 0; x < kTileSpan; ++x) v = __fadd_rn(v, (unsigned)(x - xx) < (unsigned)block ? t[x] : 0.f);
+        float d = v;
+        for (int y = 1; y < block; ++y) d = __fadd_rn(d, __shfl_sync(kAllLanes, v, min(lane + y, 31)));
+        const int j = __popc(p.cmask & ((1u << xx) - 1u));
+        const int cx = p.rx0 + xx + o.y;
+        if (p.ref_row) p.dist[(p.i * p.nc + j) * kDPitch + c] = row_ok && cx >= 0 && cx <= p.last_c ? d : inf;
+      }
+    }
+  }
+}
+
 // Phase 2 for k <= KL: thread tb merges the chunk into block tb's running
 // KL least keys (`list`, [entry][most], kept between chunks) and, at the
 // last chunk, writes the first K to `out`.
@@ -1203,6 +1278,8 @@ bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ ro
       PNP_SPAN_BLOCK(7) PNP_SPAN_BLOCK(9) PNP_SPAN_BLOCK(10) PNP_SPAN_BLOCK(11) PNP_SPAN_BLOCK(12)
       PNP_SPAN_BLOCK(13) PNP_SPAN_BLOCK(14) PNP_SPAN_BLOCK(15) PNP_SPAN_BLOCK(16)
 #undef PNP_SPAN_BLOCK
+      default:  // 1 and 17-32
+        span_distances_rt<PAIRS>(tile, block, s0, n_chunk, lane, warp);
     }
     __syncthreads();
 
@@ -1215,8 +1292,11 @@ bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ ro
     else if (K <= 32)
       merge_chunk_warps<1>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
                            c0, lane, warp);
-    else
+    else if (K <= 64)
       merge_chunk_warps<2>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
+                           c0, lane, warp);
+    else
+      merge_chunk_warps<4>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
                            c0, lane, warp);
     __syncthreads();
   }
@@ -1314,8 +1394,9 @@ extern "C" int bm3d_match_any_launch(const float* img, const int* rows, const in
   }
 }
 
-// Block 8 at any strictly ascending reference grid, k in [1, 64] and any
-// window (search <= 24): `offsets` (S, 2) in the order the kernel visits
+// Block 8 at any strictly ascending reference grid, k in [1, 128] and any
+// window whose region fits shared memory (the host's reckoning): `offsets`
+// (S, 2) in the order the kernel visits
 // them and `order` (S,) the index of each in the window's ascending order
 // (the index a match returns), `row_tiles` (n_row_tiles, 3) / `col_tiles`
 // (n_col_tiles, 3) int32, each tile's first index into `rows` / `cols`, its
@@ -1329,7 +1410,7 @@ extern "C" int bm3d_match_tile_launch(const float* img, const int* rows, const i
                                       int nC, int n_row_tiles, int n_col_tiles, int S,
                                       int block_size, int K, int mode, int search, int pitch,
                                       int cand_lo, int cand_hi, void* stream) {
-  if (block_size != kBlock || K < 1 || K > kMaxK || S < 1 || search < 0 ||
+  if (block_size != kBlock || K < 1 || K > kSpanMaxK || S < 1 || search < 0 ||
       pitch < kTileSpan + 2 * search || n_row_tiles < 1 || n_col_tiles < 1 || cand_lo < 0 ||
       cand_hi > H - kBlock)
     return cudaErrorInvalidValue;
@@ -1357,9 +1438,9 @@ extern "C" int bm3d_match_tile_launch(const float* img, const int* rows, const i
   }
 }
 
-// Any block in [2, 16] but 8 (the tile kernel's) on a strictly ascending
-// reference grid, k a power of two in [1, 64] and any
-// window (search <= 24): the tile kernel's arguments, with `block_size` the
+// Any block in [1, 32] but 8 (the tile kernel's) on a strictly ascending
+// reference grid, k a power of two in [1, 128] and any window whose tile
+// fits shared memory: the tile kernel's arguments, with `block_size` the
 // block and `most` the blocks a tile holds at most (in [1, 256]; the
 // plans' rows' count times the columns' at most that). Returns the
 // launch's cudaError_t.
@@ -1369,7 +1450,7 @@ extern "C" int bm3d_match_span_launch(const float* img, const int* rows, const i
                                       int nC, int n_row_tiles, int n_col_tiles, int S,
                                       int block_size, int K, int mode, int search, int pitch,
                                       int most, int cand_lo, int cand_hi, void* stream) {
-  if (block_size < kMinBlock || block_size > kMaxBlock || block_size == kBlock || K < 1 || K > kMaxK ||
+  if (block_size < kSpanMinBlock || block_size > kSpanMaxBlock || block_size == kBlock || K < 1 || K > kSpanMaxK ||
       S < 1 || mode < 0 || mode > 2 || search < 0 || pitch < kTileSpan + 2 * search ||
       n_row_tiles < 1 || n_col_tiles < 1 || most < 1 || most > kTileWarps * 32 || cand_lo < 0 ||
       cand_hi > H - block_size)

@@ -107,6 +107,18 @@
 //    loads only the tile rows its shifts and its own windows read, a warp a
 //    row, four rows in flight. A one-CTA cluster is a plain launch and
 //    reads no remote memory.
+//
+// nlm_cluster_rt_kernel<R>. The cluster kernel is compiled for P in [1, 11]
+// (its windows are trees of up to three doubling levels) and D in [1, 15]
+// (a lane loads two tile columns: pitch <= 62). Every other setting the
+// JAX package takes, up to P = 31 and the D whose tile fits one CTA's
+// shared memory, runs in the same design with P read at run time and the
+// tile loaded a warp a row, its lanes every 32nd column: the same CTAs,
+// clusters, chunks of shifts and order of partial sums, but each box sum a
+// column's P squares one after another (rows first) and each window its P
+// columns one after another (by a shuffle inside the half-warp), the plain
+// version's order. A warp's 32 columns hold 33 - P whole windows, so P 32
+// needs another tiling (not built). Its bound is the cluster kernel's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -752,11 +764,186 @@ nlm_cluster_kernel(const float* __restrict__ x, const float* __restrict__ hs,
   if (cluster > 1) cl.sync();  // no CTA leaves while another reads its shared memory
 }
 
+// nlm_cluster_rt_kernel<R>: the cluster kernel's design with the patch size
+// P at run time (see the top of this file). The CTA's tile rows are loaded
+// a warp a row, the lanes every 32nd column of any pitch.
+template <int R>
+__global__ void __launch_bounds__(kClusterMaxWarps * 32)
+nlm_cluster_rt_kernel(const float* __restrict__ x, const float* __restrict__ hs,
+                      const float* __restrict__ ss, float* __restrict__ out, int H, int W, int P, int D,
+                      int lo, int hi, int cluster) {
+  const int pad = P / 2;
+  const int out_cols = 33 - P;          // output columns a CTA
+  constexpr int kClusterRows = 2 * R;   // output rows a CTA
+  const int span = 2 * D + 1;
+  const int shifts = span * span;
+  const int tile_rows = kClusterRows + P - 1 + 2 * D;
+  const int pitch = 32 + 2 * D;  // even: 8-byte aligned pairs
+  extern __shared__ float2 smem2[];
+  float* tile = reinterpret_cast<float*>(smem2);
+  float* odd = tile + tile_rows * pitch;  // odd[t][u] = tile[t][u + 1]
+  const int nwarps = blockDim.x >> 5;
+  float* part_w = odd + tile_rows * pitch;  // [warps][kClusterRows][32]
+  float* part_a = part_w + nwarps * kClusterRows * 32;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * kClusterRows;
+  const int j0 = (blockIdx.x / cluster) * out_cols;
+  const float* img = x + (long long)b * H * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qa = rank * nwarps * shifts / (cluster * nwarps);
+  const int qb = (rank + 1) * nwarps * shifts / (cluster * nwarps);
+  const int t_lo = min(qa / span, D), t_hi = max((qb - 1) / span, D) + kClusterRows + P - 1;
+  for (int t = t_lo + warp; t < t_hi; t += nwarps) {
+    const float* row = img + (long long)reflect_index(i0 - pad - D + t, H, pad) * W;
+    for (int u = lane; u < pitch; u += 32) {
+      const float v = __ldg(row + reflect_index(j0 - pad - D + u, W, pad));
+      tile[t * pitch + u] = v;
+      if (u > 0) odd[t * pitch + u - 1] = v;
+    }
+  }
+  __syncthreads();
+
+  const int half = lane >> 4, j = lane & 15;
+  const int c = j0 - pad + 2 * j;  // the image column of this lane's first canvas column
+  const float hv = __ldg(hs + b), sv = __ldg(ss + b);
+  const float inv_h2 = 1.0f / (hv * hv * P * P);
+  const float offset = 2.0f * sv * sv * (P * P);
+  const float k = -(inv_h2 * kLog2e);
+  const float c0 = -(offset * k);
+  const float* own = tile + (R * half + D) * pitch + 2 * j + D;  // own[t * pitch + e]: window row t
+
+  float wsum0[R], acc0[R], wsum1[R], acc1[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) wsum0[r] = acc0[r] = wsum1[r] = acc1[r] = 0.0f;
+
+  const int chunk = rank * nwarps + warp, chunks = cluster * nwarps;
+  const int q0 = chunk * shifts / chunks, q1 = (chunk + 1) * shifts / chunks;
+  int dy = q0 / span - D, dx = q0 % span - D;
+  const int row0 = i0 + R * half;
+  float brow[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int ii = row0 + r + dy;
+    brow[r] = (ii >= lo && ii < hi) ? 0.0f : -CUDART_INF_F;
+  }
+  for (int q = q0; q < q1; ++q) {
+    const float bcol0 = (c + dx >= 0 && c + dx < W) ? 0.0f : -CUDART_INF_F;
+    const float bcol1 = (c + 1 + dx >= 0 && c + 1 + dx < W) ? 0.0f : -CUDART_INF_F;
+    const int col = 2 * j + dx + D;
+    const float* cand = ((col & 1) ? odd + col - 1 : tile + col) + (dy + D + R * half) * pitch;
+    // Each output row's box sums of its two columns, the squares of window
+    // rows r .. r + P - 1 one after another.
+    float box0[R], box1[R], cv0[R], cv1[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) box0[r] = box1[r] = cv0[r] = cv1[r] = 0.0f;
+    for (int t = 0; t < R + P - 1; ++t) {
+      const float2 v = *reinterpret_cast<const float2*>(cand + t * pitch);
+      const float e0 = __fsub_rn(own[t * pitch], v.x), e1 = __fsub_rn(own[t * pitch + 1], v.y);
+      const float s0 = __fmul_rn(e0, e0), s1 = __fmul_rn(e1, e1);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool in = t >= r && t < r + P;
+        box0[r] = in ? __fadd_rn(box0[r], s0) : box0[r];
+        box1[r] = in ? __fadd_rn(box1[r], s1) : box1[r];
+        cv0[r] = t == r + pad ? v.x : cv0[r];
+        cv1[r] = t == r + pad ? v.y : cv1[r];
+      }
+    }
+    // The windows: canvas columns 2 j - pad + u for output 2 j (u < P) and
+    // output 2 j + 1 (0 < u <= P), one after another, each from the lane of
+    // the half-warp that holds it.
+    float d0[R], d1[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) d0[r] = d1[r] = 0.0f;
+    for (int u = 0; u <= P; ++u) {
+      const int o = u - pad;  // the column, relative to 2 j
+      const int src = (j + (o >> 1)) & 15;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float v = __shfl_sync(0xffffffffu, (o & 1) ? box1[r] : box0[r], src, 16);
+        d0[r] = u < P ? __fadd_rn(d0[r], v) : d0[r];
+        d1[r] = u > 0 ? __fadd_rn(d1[r], v) : d1[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float w0 = exp2_approx(min_keep_nan(fmaf(d0[r], k, c0), min_keep_nan(brow[r], bcol0)));
+      const float w1 = exp2_approx(min_keep_nan(fmaf(d1[r], k, c0), min_keep_nan(brow[r], bcol1)));
+      wsum0[r] += w0;
+      acc0[r] = fmaf(w0, cv0[r], acc0[r]);
+      wsum1[r] += w1;
+      acc1[r] = fmaf(w1, cv1[r], acc1[r]);
+    }
+    if (++dx > D) {
+      dx = -D;
+      ++dy;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int ii = row0 + r + dy;
+        brow[r] = (ii >= lo && ii < hi) ? 0.0f : -CUDART_INF_F;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = (warp * kClusterRows + R * half + r) * 32 + 2 * j;
+    part_w[e] = wsum0[r];
+    part_w[e + 1] = wsum1[r];
+    part_a[e] = acc0[r];
+    part_a[e + 1] = acc1[r];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kClusterRows * 32; e += blockDim.x) {
+    float ws = part_w[e], ac = part_a[e];
+    for (int s = 1; s < nwarps; ++s) {
+      ws += part_w[s * kClusterRows * 32 + e];
+      ac += part_a[s * kClusterRows * 32 + e];
+    }
+    part_w[e] = ws;
+    part_a[e] = ac;
+  }
+  if (cluster > 1) cl.sync();
+  else __syncthreads();
+  for (int e = rank * blockDim.x + threadIdx.x; e < kClusterRows * 32; e += cluster * blockDim.x) {
+    const int r = e >> 5, t = e & 31;
+    const int i = i0 + r, jj = j0 - pad + t;
+    if (t < pad || t >= pad + out_cols || i >= H || jj >= W) continue;
+    float ws = part_w[e], ac = part_a[e];
+    if (cluster > 1) {
+      float wv[kMaxCluster], av[kMaxCluster];
+#pragma unroll
+      for (int s = 0; s < kMaxCluster; ++s) {
+        if (s < cluster) {
+          wv[s] = *cl.map_shared_rank(part_w + e, s);
+          av[s] = *cl.map_shared_rank(part_a + e, s);
+        }
+      }
+      ws = wv[0];
+      ac = av[0];
+#pragma unroll
+      for (int s = 1; s < kMaxCluster; ++s) {
+        if (s < cluster) {
+          ws += wv[s];
+          ac += av[s];
+        }
+      }
+    }
+    out[(long long)b * H * W + (long long)i * W + jj] = ac / max_keep_nan(ws, 1e-12f);
+  }
+  if (cluster > 1) cl.sync();
+}
+
 constexpr int kMaxP = 11, kMaxD = 15;  // the any-kernel's envelope
+constexpr int kRtMaxP = 31;           // nlm_cluster_rt_kernel's: 33 - P output columns a warp
 
 // Kernel slots: 0 nlm_kernel, P nlm_any_kernel<P>, kMaxP + P
 // nlm_cluster_kernel<P, 8> and 2 kMaxP + P nlm_cluster_kernel<P, 4> (P in
-// [1, kMaxP]).
+// [1, kMaxP]); 3 kMaxP + 1 nlm_cluster_rt_kernel<8>, 3 kMaxP + 2 <4>.
 const void* kernel_of(int slot) {
   switch (slot) {
     case 1: return (const void*)nlm_any_kernel<1>;
@@ -792,6 +979,8 @@ const void* kernel_of(int slot) {
     case 31: return (const void*)nlm_cluster_kernel<9, 4>;
     case 32: return (const void*)nlm_cluster_kernel<10, 4>;
     case 33: return (const void*)nlm_cluster_kernel<11, 4>;
+    case 34: return (const void*)nlm_cluster_rt_kernel<8>;
+    case 35: return (const void*)nlm_cluster_rt_kernel<4>;
     default: return (const void*)nlm_kernel;
   }
 }
@@ -819,7 +1008,7 @@ Device query_limits(int dev, int slot) {
 // query_limits of the current device, asked once a device and kernel.
 Device device_limits(int slot) {
   constexpr int kCached = 64;
-  static Device cache[kCached][3 * kMaxP + 1];
+  static Device cache[kCached][3 * kMaxP + 3];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return Device{};
   if (dev >= kCached) return query_limits(dev, slot);
@@ -880,10 +1069,12 @@ extern "C" int nlm_launch(const float* x, const float* h, const float* sigma,
 
 // The SMs of the current device and how many warps of nlm_cluster_kernel<P,
 // rows> one SM holds at once (registers, and the thread limit), for the
-// host's plan of clusters and warps; returns a cudaError_t.
+// host's plan of clusters and warps; patch_size 0 asks it of
+// nlm_cluster_rt_kernel<rows>. Returns a cudaError_t.
 extern "C" int nlm_cluster_limits(int patch_size, int rows, int* sms, int* warps_per_sm) {
-  if (patch_size < 1 || patch_size > kMaxP || (rows != 4 && rows != 8)) return cudaErrorInvalidValue;
-  const Device d = device_limits((rows == 8 ? 1 : 2) * kMaxP + patch_size);
+  if (patch_size < 0 || patch_size > kMaxP || (rows != 4 && rows != 8)) return cudaErrorInvalidValue;
+  const Device d = device_limits(patch_size == 0 ? 3 * kMaxP + (rows == 8 ? 1 : 2)
+                                                 : (rows == 8 ? 1 : 2) * kMaxP + patch_size);
   if (d.sms <= 0 || d.warps_per_sm <= 0) return cudaErrorInvalidDevice;
   *sms = d.sms;
   *warps_per_sm = d.warps_per_sm;
@@ -891,6 +1082,55 @@ extern "C" int nlm_cluster_limits(int patch_size, int rows, int* sms, int* warps
 }
 
 namespace {
+
+// `fn` (a cluster kernel) on `grid` in clusters of `cluster` CTAs along x
+// with `args`, `cluster` > 1.
+template <typename... Args>
+cudaError_t launch_clustered(void (*fn)(Args...), dim3 grid, int warps, int cluster, size_t smem,
+                             cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// nlm_cluster_rt_kernel<R> on `grid` in clusters of `cluster` CTAs along x,
+// opted into `smem` bytes.
+template <int R>
+cudaError_t launch_cluster_rt(dim3 grid, int warps, int cluster, size_t smem, cudaStream_t st,
+                              const float* x, const float* h, const float* sigma, float* out, int H,
+                              int W, int P, int D, int lo, int hi) {
+  static size_t granted = 48 * 1024;
+  static bool non_portable = false;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_rt_kernel<R>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  if (cluster == 1) {
+    nlm_cluster_rt_kernel<R><<<grid, warps * 32, smem, st>>>(x, h, sigma, out, H, W, P, D, lo, hi, 1);
+    return cudaGetLastError();
+  }
+  if (cluster > 8 && !non_portable) {
+    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_rt_kernel<R>,
+                                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    non_portable = true;
+  }
+  return launch_clustered(nlm_cluster_rt_kernel<R>, grid, warps, cluster, smem, st, x, h, sigma, out, H, W,
+                          P, D, lo, hi, cluster);
+}
 
 // nlm_cluster_kernel<P, R> on `grid` in clusters of `cluster` CTAs along x,
 // opted into `smem` bytes.
@@ -916,21 +1156,8 @@ cudaError_t launch_cluster(dim3 grid, int warps, int cluster, size_t smem, cudaS
     if (e != cudaSuccess) return e;
     non_portable = true;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(warps * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, nlm_cluster_kernel<P, R>, x, h, sigma, out, H, W, D, lo,
-                                           hi, cluster);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return launch_clustered(nlm_cluster_kernel<P, R>, grid, warps, cluster, smem, st, x, h, sigma, out, H, W, D,
+                          lo, hi, cluster);
 }
 
 }  // namespace
@@ -970,4 +1197,31 @@ extern "C" int nlm_cluster_launch(const float* x, const float* h, const float* s
 #undef PNP_NLM_CLUSTER
   }
   return cudaErrorInvalidValue;
+}
+
+// nlm_cluster_rt_kernel: the arguments of nlm_cluster_launch, for
+// patch_size in [1, 31] and patch_distance >= 1 (every setting
+// nlm_cluster_kernel is not compiled for; the host checks that the tile
+// fits shared memory). Returns the launch's cudaError_t.
+extern "C" int nlm_cluster_rt_launch(const float* x, const float* h, const float* sigma, float* out,
+                                     int B, int H, int W, int patch_size, int patch_distance, int lo,
+                                     int hi, int cluster, int warps, int rows, void* stream) {
+  if (patch_size < 1 || patch_size > kRtMaxP || patch_distance < 1) return cudaErrorInvalidValue;
+  const int pad = patch_size / 2;
+  if (H <= pad || W <= pad) return cudaErrorInvalidValue;
+  if (lo < 0 || hi > H || lo > hi || B > 65535) return cudaErrorInvalidValue;
+  if (cluster < 1 || cluster > kMaxCluster || warps < 1 || warps > kClusterMaxWarps ||
+      (rows != 4 && rows != 8))
+    return cudaErrorInvalidValue;
+  if (B <= 0) return cudaSuccess;
+  const int out_cols = 33 - patch_size;
+  const dim3 grid(((W + out_cols - 1) / out_cols) * cluster, (H + 2 * rows - 1) / (2 * rows), B);
+  const long long tile = (long long)(2 * rows + patch_size - 1 + 2 * patch_distance) * (32 + 2 * patch_distance);
+  const size_t smem = sizeof(float) * (2 * tile + 2 * warps * 2 * rows * 32);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows == 8)
+    return launch_cluster_rt<8>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, patch_size,
+                                patch_distance, lo, hi);
+  return launch_cluster_rt<4>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, patch_size,
+                              patch_distance, lo, hi);
 }

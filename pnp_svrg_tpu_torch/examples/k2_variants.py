@@ -1,6 +1,6 @@
 """Time K2's design choices on the card.
 
-    python -m pnp_svrg_tpu_torch.examples.k2_variants [--part compiled|runtime]
+    python -m pnp_svrg_tpu_torch.examples.k2_variants [--part compiled|runtime] [--row NAME ...]
 
 Part ``runtime``: the run-time path, every call but block 8 with K 16 or
 32, at the rows ``chip_smoke.py`` checks (:data:`ROWS`: block, step,
@@ -75,9 +75,12 @@ VARIANTS = {  # name -> (text of the built source, its replacement)
                    "constexpr bool kFull = false;"),
 }
 REPS, REPEATS = 50, 20
-# The run-time rows (block, step, search, K), as chip_smoke.ENVELOPE_K2 names them.
+# The run-time rows (block, step, search, K), as chip_smoke.ENVELOPE_K2 and
+# ENVELOPE_K2_WIDE name them (the last two: windows past the compiled
+# kernel's 2 x 2 tiles, where the replaced design does not fit either).
 ROWS = {"golden": (4, 2, 3, 4), "block2": (2, 1, 3, 4), "block6": (6, 3, 6, 8),
-        "block8_k8": (8, 4, 8, 8), "block16": (16, 8, 8, 16)}
+        "block8_k8": (8, 4, 8, 8), "block16": (16, 8, 8, 16), "search40": (8, 3, 40, 32),
+        "search_widest": (8, 3, 95, 16)}
 TILE_EDGES, WARPS = (2, 3, 4, 5, 6, 8, 10, 12), (1, 2, 4)
 
 
@@ -207,12 +210,13 @@ def packed_ptxas() -> dict:
     return out
 
 
-def runtime_rows() -> None:
-    """Part ``runtime`` (module docstring)."""
+def runtime_rows(rows) -> None:
+    """Part ``runtime`` (module docstring) at ``rows`` of :data:`ROWS`."""
     fns = k2._lib()
     source = build_variants(PACKED_VARIANTS, k2.K2_KERNELS[1])
     z, sigma, _ = first_input()
-    for label, (block, step, search, k) in ROWS.items():
+    for label in rows:
+        block, step, search, k = ROWS[label]
         params = BM3DParams(block=block, step=step, search=search, group_ht=k, match_dtype="bfloat16")
         idx, est, wgt, kai, h, w, geom = stage1_aggregate_inputs(z, sigma, params)[1]
         grid = tuple(_ref_grid(h, block, step).tolist())
@@ -233,7 +237,7 @@ def runtime_rows() -> None:
                 return k2.launch(k2.K2_KERNELS[1], source[name], *a, geom, own)
             return k2.launch(k2.K2_KERNELS[1], fns[k2.K2_KERNELS[1]], *a, geom, packed[name])
 
-        names = ["prev", *packed, *source]
+        names = ["prev"] * (geom.smem_bytes <= 227 * 1024) + [*packed, *source]
         calls = {name: (lambda name=name: call(name, idx, est, wgt, kai, h, w)) for name in names}
         calls["index_add"] = index_add_call(idx, est, wgt, kai, h, w)
         rec = {"row": label, "block": block, "step": step, "search": search, "k": k,
@@ -247,12 +251,13 @@ def runtime_rows() -> None:
                                 "scratch_bytes": geom.scratch_bytes(est.shape[0])}
         rec["checks"] = {name: held_to_plain(lambda *a, name=name: call(name, *a), (idx, est, wgt, kai, h, w))
                          for name in names}
-        rec["by_kernel_ms"] = {name: kernel_split(calls[name]) for name in ("packed", "prev")}
+        rec["by_kernel_ms"] = {name: kernel_split(calls[name]) for name in ("packed", "prev") if name in names}
         times = {name: [] for name in calls}
         for name in ("packed", "prev", "index_add", "index_add", "prev", "packed"):
-            times[name].append(device_ms(calls[name]))
-        for name in names[1:]:
-            if name != "packed":
+            if name in calls:
+                times[name].append(device_ms(calls[name]))
+        for name in names:
+            if name not in ("prev", "packed"):
                 for v in (name, "packed", "packed", name):
                     times[v].append(device_ms(calls[v]))
         rec["ms"] = times
@@ -287,12 +292,13 @@ def compiled_shapes() -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--part", choices=("compiled", "runtime"), action="append")
+    ap.add_argument("--row", choices=tuple(ROWS), action="append", help="part runtime's rows (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k2_variants: needs a CUDA card")
     parts = args.part or ["runtime", "compiled"]
     if "runtime" in parts:
-        runtime_rows()
+        runtime_rows(args.row or tuple(ROWS))
     if "compiled" in parts:
         compiled_shapes()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

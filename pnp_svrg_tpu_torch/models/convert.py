@@ -1,9 +1,27 @@
-"""Flax checkpoints (``checkpoints/*.npz``) to and from the port's ``torch.nn`` models.
+"""Flax checkpoints (``checkpoints/*.npz``) to and from the port's ``torch.nn``
+models, and the reference's PyTorch ``.pth`` checkpoints to Flax ``.npz``.
 
-:func:`load_flax_npz`, :func:`save_flax_npz`, :func:`_flatten` and
-:func:`_unflatten` are copies of the numpy-only helpers of
+The port keeps its own copy of every function of
 ``pnp_svrg_tpu/models/convert.py`` (importing that module would pull in the
-JAX package). :func:`torch_state_dict_from_flax` carries Flax variables onto
+JAX package), with the same semantics: :func:`load_flax_npz`,
+:func:`save_flax_npz`, :func:`_flatten` and :func:`_unflatten`, and the
+``.pth`` conversion, :func:`convert_all` over :data:`CONVERSIONS` from the
+reference checkout (:data:`REFERENCE_ROOT`) into :data:`DEFAULT_OUT`. It
+reads the reference's three checkpoint layouts:
+
+* plain state dicts with ``module.dncnn.N.*`` keys (DnCNN / RealSN variants,
+  saved from ``nn.DataParallel``-wrapped ``nn.Sequential`` models);
+* plain state dicts with ``dncnn.N.*`` keys (SimpleCNN);
+* fully pickled ``nn.DataParallel`` modules (the MMO ``DnCNN_nobn_*`` files),
+  unpickled against a stub ``models.basic_models.simple_CNN`` class and
+  reduced to their state dicts.
+
+Torch conv weights (O, I, kh, kw) become Flax (kh, kw, I, O) kernels, and
+BatchNorm (weight, bias, running_mean, running_var) Flax (scale, bias,
+mean, var) split across the params and batch_stats collections. It runs on
+the CPU and needs no card.
+
+:func:`torch_state_dict_from_flax` carries Flax variables onto
 a model of ``models/dncnn.py``, and :func:`flax_variables_from_torch` is its
 inverse, so the port's weights load in the JAX package's loaders:
 
@@ -24,11 +42,20 @@ The spectral-norm vectors of training (``u_state/Conv_i``) are NHWC
 
 from __future__ import annotations
 
+import sys
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 from torch import nn
+
+_REPO_ROOT = Path(__file__).resolve().parents[2]
+# The reference implementation's checkout beside this repository (as
+# ``utils/io.py``'s REFERENCE_DATA_DIR), and the converted checkpoints'
+# directory.
+REFERENCE_ROOT = _REPO_ROOT.parent / "reference"
+DEFAULT_OUT = _REPO_ROOT / "checkpoints"
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:
@@ -64,6 +91,126 @@ def save_flax_npz(variables: dict, path: Path) -> None:
     JAX package writes them."""
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **_flatten(variables))
+
+
+def _strip_prefix(sd: dict, prefix: str = "module.") -> dict:
+    return {
+        (k[len(prefix) :] if k.startswith(prefix) else k): v for k, v in sd.items()
+    }
+
+
+def _load_torch_state_dict(path: Path) -> dict:
+    """The state dict of a ``.pth`` file, its ``module.`` prefixes stripped.
+    A fully pickled module of the reference's ``models`` package unpickles
+    against a stub class of the same name (``nn.Module`` restores its state
+    through ``__dict__``; ``__init__`` is never called)."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    except ModuleNotFoundError:
+        models_pkg = types.ModuleType("models")
+        basic = types.ModuleType("models.basic_models")
+
+        class simple_CNN(nn.Module):  # noqa: N801 (reference class name)
+            pass
+
+        basic.simple_CNN = simple_CNN
+        models_pkg.basic_models = basic
+        sys.modules.setdefault("models", models_pkg)
+        sys.modules.setdefault("models.basic_models", basic)
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    return _strip_prefix(dict(obj))
+
+
+def _conv_to_flax(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def sequential_dncnn_to_flax(sd: dict) -> dict:
+    """Map ``dncnn.N.*`` Sequential keys to the Flax DnCNN/MMOSimpleCNN
+    naming (Conv_0, Conv_1, ..., BatchNorm_0, ...). Conv/BN order inside the
+    Sequential is positional; Flax numbering is by occurrence order, which
+    matches."""
+    idxs = sorted({int(k.split(".")[1]) for k in sd if k.startswith("dncnn.")})
+    params: dict = {}
+    batch_stats: dict = {}
+    conv_i = 0
+    bn_i = 0
+    for idx in idxs:
+        keys = {k.split(".", 2)[2] for k in sd if k.startswith(f"dncnn.{idx}.")}
+        get = lambda name: np.asarray(sd[f"dncnn.{idx}.{name}"].numpy())  # noqa: E731
+        if "running_mean" in keys:  # BatchNorm layer
+            params[f"BatchNorm_{bn_i}"] = {"scale": get("weight"), "bias": get("bias")}
+            batch_stats[f"BatchNorm_{bn_i}"] = {"mean": get("running_mean"), "var": get("running_var")}
+            bn_i += 1
+        elif "weight" in keys:  # Conv layer
+            layer = {"kernel": _conv_to_flax(get("weight"))}
+            if "bias" in keys:
+                layer["bias"] = get("bias")
+            params[f"Conv_{conv_i}"] = layer
+            conv_i += 1
+    out = {"params": params}
+    if batch_stats:
+        out["batch_stats"] = batch_stats
+    return out
+
+
+def mmo_simple_cnn_to_flax(sd: dict) -> dict:
+    """Map the MMO ``simple_CNN`` keys (in_conv / conv_list.N / out_conv) to
+    Flax ``Conv_0..Conv_{depth-1}``."""
+    n_mid = len({k.split(".")[1] for k in sd if k.startswith("conv_list.")})
+    order = ["in_conv"] + [f"conv_list.{i}" for i in range(n_mid)] + ["out_conv"]
+    params = {}
+    for i, base in enumerate(order):
+        params[f"Conv_{i}"] = {
+            "kernel": _conv_to_flax(np.asarray(sd[f"{base}.weight"].numpy())),
+            "bias": np.asarray(sd[f"{base}.bias"].numpy()),
+        }
+    return {"params": params}
+
+
+# Checkpoints shipped with the reference that convert (its RealSN_DnCNN .pth
+# files are not shipped), as paths under the reference checkout.
+CONVERSIONS = {
+    "dncnn_noise5": "denoisers/DeepDenoisers/Pretrained_models/DnCNN_noise5.pth",
+    "dncnn_noise15": "denoisers/DeepDenoisers/Pretrained_models/DnCNN_noise15.pth",
+    "dncnn_noise40": "denoisers/DeepDenoisers/Pretrained_models/DnCNN_noise40.pth",
+    "simplecnn_noise5": "denoisers/DeepDenoisers/Pretrained_models/SimpleCNN_noise5.pth",
+    "simplecnn_noise15": "denoisers/DeepDenoisers/Pretrained_models/SimpleCNN_noise15.pth",
+    "simplecnn_noise40": "denoisers/DeepDenoisers/Pretrained_models/SimpleCNN_noise40.pth",
+    "realsn_simplecnn_noise5": "denoisers/DeepDenoisers/Pretrained_models/RealSN_SimpleCNN_noise5.pth",
+    "realsn_simplecnn_noise15": "denoisers/DeepDenoisers/Pretrained_models/RealSN_SimpleCNN_noise15.pth",
+    "realsn_simplecnn_noise40": "denoisers/DeepDenoisers/Pretrained_models/RealSN_SimpleCNN_noise40.pth",
+    "mmo_dncnn_nobn_nch1_nlev0.009": "denoisers/checkpoints/pretrained/DnCNN_nobn_nch_1_nlev_0.009.pth",
+    "mmo_dncnn_nobn_nch1_nlev0.01": "denoisers/checkpoints/pretrained/DnCNN_nobn_nch_1_nlev_0.01.pth",
+    "mmo_dncnn_nobn_nch3_nlev0.01": "denoisers/checkpoints/pretrained/DnCNN_nobn_nch_3_nlev_0.01.pth",
+    "mmo_dncnn_nobn_nch3_nlev0.007": "denoisers/checkpoints/pretrained/DnCNN_nobn_nch_3_nlev_0.007.pth",
+}
+
+
+def convert_all(out_dir: Path = DEFAULT_OUT, reference_root: Path = REFERENCE_ROOT):
+    """Convert every :data:`CONVERSIONS` file found under ``reference_root``
+    into ``out_dir/<name>.npz`` (a missing one is skipped); returns the names
+    converted."""
+    converted = []
+    for name, rel in CONVERSIONS.items():
+        src = reference_root / rel
+        if not src.exists():
+            print(f"skip {name}: {src} missing")
+            continue
+        sd = _load_torch_state_dict(src)
+        if name.startswith("mmo_"):
+            variables = mmo_simple_cnn_to_flax(sd)
+        else:
+            variables = sequential_dncnn_to_flax(sd)
+        dst = out_dir / f"{name}.npz"
+        save_flax_npz(variables, dst)
+        n_params = sum(int(np.prod(v.shape)) for v in _flatten(variables).values())
+        print(f"converted {name}: {n_params:,} params -> {dst}")
+        converted.append(name)
+    return converted
 
 
 def flax_layers(model: nn.Module) -> list[tuple[str, str, nn.Module]]:
@@ -145,3 +292,7 @@ def u_state_to_flax(u_state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """The port's NCHW ``u_state`` in Flax's NHWC layout (numpy f32)."""
     return {name: np.ascontiguousarray(u.detach().cpu().numpy().transpose(0, 2, 3, 1))
             for name, u in u_state.items()}
+
+
+if __name__ == "__main__":
+    convert_all()

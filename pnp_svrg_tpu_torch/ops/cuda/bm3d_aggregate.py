@@ -25,15 +25,21 @@ in its order: the plain version sums by table row, then folds.
 The wrapper :func:`bm3d_aggregate` takes the plain version only for a CPU
 tensor; for a CUDA tensor it launches K2 or raises. :func:`aggregate_kernel`
 names the tile kernel of a call: ``bm3d_aggregate_kernel<BLOCK, KK>``,
-compiled for (8, 16) and (8, 32) on 2 x 2 tiles of reference blocks, and
+compiled for (8, 16) and (8, 32) on 2 x 2 tiles of reference blocks where
+those tiles' planes fit one CTA (search 37 at step 3), and
 ``bm3d_aggregate_packed_kernel<Q>`` for the rest of
-:data:`AGGREGATE_ENVELOPE`, on the larger tiles of :func:`packed_plan` with
-the idle lanes of small patches given members of their own. A setting
-outside the envelope raises before any launch
-(:func:`check_aggregate_envelope`). The design the packed kernel replaced,
-``bm3d_aggregate_kernel<0, 0>`` (block and K read at run time, 2 x 2
-tiles), stays reachable through :func:`launch` alone, so that a caller can
-time the two on one call (:data:`PREV_DESIGN`).
+:data:`AGGREGATE_ENVELOPE` (block 1-32, K up to 128: K1's), on the larger
+tiles of :func:`packed_plan` with the idle lanes of small patches given
+members of their own, and past block 16 with the values a lane read at run
+time (Q = 0). Its footprints are those of any grid: at a step past the
+block, pixels that no member covers keep ``den = 0``, as in the plain
+version. A setting outside the envelope, or a footprint whose planes pass
+one CTA's shared memory even at one reference block a tile, raises before
+any launch (:func:`check_aggregate_envelope`, :func:`aggregate_plan`; the
+BM3D denoiser asks the latter before K1 runs). The design the
+packed kernel replaced, ``bm3d_aggregate_kernel<0, 0>`` (block and K read
+at run time, 2 x 2 tiles), stays reachable through :func:`launch` alone, so
+that a caller can time the two on one call (:data:`PREV_DESIGN`).
 """
 
 from __future__ import annotations
@@ -59,13 +65,32 @@ PREV_DESIGN = "bm3d_aggregate_kernel<0, 0>"
 COMPILED = ((8, 16), (8, 32))  # the (block, K) bm3d_aggregate_kernel is compiled for
 # The settings K2 takes on the card, as K1 (``bm3d_match.MATCH_ENVELOPE``):
 # (least, most) of the patch edge and of the group size K, a power of two.
-# Its footprints are those of any grid and window K1 takes.
-AGGREGATE_ENVELOPE = {"block": (2, 16), "k": (1, 64)}
+# Its footprints are those of any grid and window K1 takes, as far as a
+# CTA's planes fit shared memory (bm3d_aggregate).
+AGGREGATE_ENVELOPE = {"block": (1, 32), "k": (1, 128)}
 
 
 def check_aggregate_envelope(block: int, k: int) -> None:
     """Raise ValueError, naming the bound, unless K2 takes this patch edge
-    and group size on the card."""
+    and group size on the card.
+
+    The bounds that stay, and why: block 1-32 and a power-of-two K up to
+    128 are K1's (``bm3d_match.check_match_envelope``): no BM3D call past
+    them reaches the aggregation, so no kernel is built for them (the
+    packed kernel's K is a shift, and a member past block 32 would be more
+    than 1,024 values a warp). The footprint is the other bound, which
+    :func:`aggregate_plan` checks on the call's geometry. The compiled
+    kernel's CTA holds 4 warps' (num, den) planes of a 2 x 2 tile's
+    footprint, 32 fh fw bytes: at step 3 and block 8, fh = fw = 2 search +
+    11, so from search 38 (87 x 87: 242,208 bytes) its calls go to the
+    packed kernel. A packed CTA holds a (num, den) pair of fh x fw f32
+    planes for each lane group of each warp, 8 fh fw bytes at the least
+    (one warp, one group, one reference block a tile, whose footprint is
+    2 search + block along each axis, clipped to the image), which must
+    fit one CTA's 227 KB (232,448 bytes): fh = fw = 170 at most, so at
+    block 8 search 81 on an image of 170 pixels or more (search 82 needs
+    8 x 172 x 172 = 236,672 bytes), and any window K1 takes on a 128 px
+    image (8 x 128 x 128 = 131,072 bytes)."""
     lo, hi = AGGREGATE_ENVELOPE["block"]
     if not lo <= block <= hi:
         raise ValueError(f"K2 takes block {lo}-{hi}, not {block}")
@@ -101,11 +126,14 @@ def bm3d_aggregate_plain(idx, est, wgt, kaiser, h: int, w: int):
     return unfold_table(table.view(b, hh * ww, 2 * bb), block, h, w)
 
 
-def aggregate_kernel(block: int, k: int) -> str:
+def aggregate_kernel(block: int, k: int, geometry: AggregateGeometry | None = None) -> str:
     """The K2 tile kernel that takes a call with this patch edge and group
-    size: ``bm3d_aggregate_kernel`` at its compiled (8, 16) and (8, 32),
+    size on ``geometry``: ``bm3d_aggregate_kernel`` at its compiled (8, 16)
+    and (8, 32) where its 2 x 2 tiles' planes fit one CTA (every BM3D
+    lane's; without a geometry, the window is taken to fit),
     ``bm3d_aggregate_packed_kernel`` everywhere else."""
-    return K2_KERNELS[0] if (block, k) in COMPILED else K2_KERNELS[1]
+    fits = geometry is None or geometry.smem_bytes <= _MAX_SMEM
+    return K2_KERNELS[0] if (block, k) in COMPILED and fits else K2_KERNELS[1]
 
 
 def lane_groups(block: int) -> int:
@@ -162,7 +190,9 @@ def packed_plan(h: int, w: int, rows, cols, search: int, block: int, k: int) -> 
     where its planes pass :data:`PACKED_SMEM` or its footprints would take
     more scratch than the 2 x 2 tiles'; at 2 x 2, a warp takes fewer lane
     groups where their planes do not fit (with one group its planes are the
-    2 x 2 kernel's a warp)."""
+    2 x 2 kernel's a warp). Where even those pass :data:`PACKED_SMEM` (a
+    window far wider than the step), a CTA is one warp and its tile grows
+    until its members' values are as many as its planes'."""
     groups = lane_groups(block)
     warps = 1 if groups > 1 else 2
     oy, ox, fh, fw = footprints(h, w, rows, cols, search, block)
@@ -177,7 +207,22 @@ def packed_plan(h: int, w: int, rows, cols, search: int, block: int, k: int) -> 
             return edge, warps, groups
     while groups > 1 and packed_smem(fh, fw, warps, groups) > PACKED_SMEM:
         groups //= 2
-    return TILE_R, warps, groups
+    if packed_smem(fh, fw, warps, groups) <= PACKED_SMEM:
+        return TILE_R, warps, groups
+    # A window far wider than the step: a CTA zeroes, stores and folds back
+    # planes larger than its members. One warp a CTA, and the smallest tile
+    # whose members' values are as many as its planes' (k2_variants' rows
+    # search40 and search_widest), as far as one CTA's shared memory holds;
+    # one reference block a tile where even 2 x 2 does not fit.
+    plan = (1, 1, groups)
+    for edge in range(TILE_R, n + 1):
+        fh, fw = footprints(h, w, rows, cols, search, block, (edge, edge))[2:]
+        if packed_smem(fh, fw, 1, groups) > _MAX_SMEM:
+            break
+        plan = (edge, 1, groups)
+        if edge * edge * k * block * block >= 2 * fh * fw:
+            break
+    return plan
 
 
 def covering_tiles(origins, extent: int, size: int) -> list:
@@ -305,6 +350,23 @@ def aggregate_geometry(h: int, w: int, rows: tuple, cols: tuple, search: int, bl
                              search, tuple(rows), tuple(cols))
 
 
+def aggregate_plan(geometry: AggregateGeometry, k: int) -> tuple:
+    """(kernel, tiles) of a K2 call on ``geometry`` at group size ``k``: the
+    kernel :func:`aggregate_kernel` names, and the geometry's own 2 x 2
+    tiles or its packed plan (:meth:`AggregateGeometry.packed`). Raises
+    ValueError, naming the bound, outside :data:`AGGREGATE_ENVELOPE` or
+    where even the packed kernel's planes pass one CTA's shared memory
+    (:func:`check_aggregate_envelope` gives the bytes)."""
+    check_aggregate_envelope(geometry.block, k)
+    kernel = aggregate_kernel(geometry.block, k, geometry)
+    plan = geometry.packed(k) if kernel == K2_KERNELS[1] else geometry
+    if plan.smem_bytes > _MAX_SMEM:
+        raise ValueError(f"K2 takes a footprint whose (num, den) planes fit one CTA's shared memory "
+                         f"({_MAX_SMEM} bytes): {plan.fh}x{plan.fw} needs {plan.smem_bytes} at search "
+                         f"{geometry.search}, block {geometry.block} on {geometry.h}x{geometry.w}")
+    return kernel, plan
+
+
 ENTRIES = {  # kernel name -> (its entry point in the source, its C argument types)
     K2_KERNELS[0]: ("bm3d_aggregate_launch", [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                     + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
@@ -374,7 +436,8 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
     reference grid and search, which K2 needs and the plain version does
     not. A CPU tensor takes the plain version; a CUDA tensor launches the
     K2 kernel :func:`aggregate_kernel` names inside
-    :data:`AGGREGATE_ENVELOPE` and raises outside it. Each call counts one
+    :data:`AGGREGATE_ENVELOPE` and raises outside it or where its
+    footprint does not fit (:func:`aggregate_plan`). Each call counts one
     in ``bm3d_aggregate.launches`` and one in ``bm3d_aggregate.by_kernel``
     under the kernel's name.
 
@@ -413,11 +476,7 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
         raise ValueError(f"bm3d_aggregate runs on cpu or cuda, not {est.device}")
     if geometry is None:
         raise ValueError("K2 needs the aggregate_geometry of the reference grid and search")
-    check_aggregate_envelope(geometry.block, p // g)
-    kernel = aggregate_kernel(block, p // g)
-    plan = geometry.packed(p // g) if kernel == K2_KERNELS[1] else geometry
-    if plan.smem_bytes > _MAX_SMEM:
-        raise ValueError(f"footprint {plan.fh}x{plan.fw} too large for shared memory")
+    kernel, _ = aggregate_plan(geometry, p // g)
     if geometry.tile_oy.device != est.device:
         raise ValueError(f"geometry on {geometry.tile_oy.device} but tensors on {est.device}")
     idx, est, wgt, kaiser = (t.contiguous() for t in (idx, est, wgt, kaiser))

@@ -29,11 +29,22 @@ at most 640 offsets (the headline's and the bench lanes'); else, at block 8,
 ``bm3d_match_tile_kernel`` (any step, window and k: the reference profile's
 step 3, 1,521 offsets, 16 / 32 matches); else ``bm3d_match_span_kernel``, for
 every other block of :data:`MATCH_ENVELOPE` (the golden oracle's block 4
-among them) on a strictly ascending grid; else ``bm3d_match_any_kernel``,
-which takes what is left (a grid with a repeated coordinate, which the BM3D
-denoiser never makes). A setting outside the envelope raises before any
-launch (:func:`check_match_envelope`). The design the span kernel replaced,
-the any-kernel, stays reachable by name through :func:`launch`, so that a
+among them; blocks 1 and 17-32 through a phase 1 that reads the block at run
+time) on a strictly ascending grid; else ``bm3d_match_any_kernel``, which
+takes what is left (a grid with a repeated coordinate, which the BM3D
+denoiser never makes) inside its own bounds (:data:`ANY_ENVELOPE`).
+
+The envelope: block 1-32, any step (past the block a tile simply holds fewer
+blocks), a power-of-two k up to 128, and any window whose staged region
+fits one CTA's shared memory (:func:`match_search_limit`). A window wider
+than the image is taken through its reach (:meth:`MatchGeometry.reach`): an
+offset with ``|dy| > H - block`` or ``|dx| > W - block`` is +inf for every
+reference block, so the tile and span kernels skip it and stage only the
+halo of the rest, and every index they return stays the offset's index in
+the full window (a fill is index 0, as there). A setting outside the
+envelope raises before any launch, naming its bound
+(:func:`check_match_envelope`). The design the span kernel replaced, the
+any-kernel, stays reachable by name through :func:`launch`, so that a
 caller can time the two on one call (:data:`PREV_DESIGN`).
 """
 
@@ -64,30 +75,97 @@ K1_KERNELS = ("bm3d_match_kernel", "bm3d_match_tile_kernel", "bm3d_match_any_ker
 PREV_DESIGN = "bm3d_match_any_kernel"
 # bm3d_match_span_kernel: at most SPAN_MOST blocks a tile (one a thread of
 # its CTA), and no more than let three CTAs share an SM's 228 KB (each with
-# the 1 KB the card keeps a CTA).
+# the 1 KB the card keeps a CTA); where that holds no block (a wide window's
+# region), as many as one CTA's shared memory holds.
 SPAN_MOST, SPAN_BUDGET = 256, 228 * 1024 // 3 - 1024
 _MAX_SMEM = 227 * 1024
 # The settings K1 takes on the card: (least, most) of each; k is also a
-# power of two (the Hadamard transform along the group needs one), the
-# reference step 1 to the block, the search step and the row bounds any.
-MATCH_ENVELOPE = {"block": (2, 16), "search": (0, 24), "k": (1, 64)}
+# power of two (the Hadamard transform along the group needs one); the
+# reference step, the search step and the row bounds any; the search
+# radius as far as match_search_limit(block, k).
+MATCH_ENVELOPE = {"block": (1, TILE_SPAN), "k": (1, 128)}
+# bm3d_match_any_kernel's own bounds (kMinBlock, kMaxBlock, kMaxK in the
+# source; its 4 x 4 tiles' regions at search 24): it takes only a grid with
+# a repeated coordinate, which the BM3D denoiser never makes.
+ANY_ENVELOPE = {"block": (2, 16), "search": (0, 24), "k": (1, 64)}
 
 
 def check_match_envelope(block: int, k: int, search: int, step: int) -> None:
     """Raise ValueError, naming the bound, unless K1 takes this ``block``,
-    group size ``k``, window radius ``search`` and reference ``step`` (the
-    largest stride of the grid) on the card."""
+    group size ``k``, window radius ``search`` (the reach's, on an image
+    narrower than the window: :meth:`MatchGeometry.reach`) and reference
+    ``step`` (the largest stride of the grid) on the card.
+
+    The bounds that stay, and why:
+
+    * block 1-32 (:data:`TILE_SPAN`): the tile and span kernels give each
+      lane of a warp one row of a tile's 32-pixel span and hold a tile's
+      reference columns as bits of a 32-bit mask, so a block's rows must fit
+      the warp's 32 lanes. Block 33 needs another tiling (not built).
+    * a power-of-two k (the Hadamard transform along the group needs one)
+      up to 128: a warp keeps a block's running top-k in one, two or four
+      slots a lane (k 32, 64, 128); k 256 would need eight (not built). Its
+      lists take 8 bytes an entry: 8 x 81 x 128 = 82,944 bytes a tile-kernel
+      CTA at k 128.
+    * step 1 or more (a grid that strictly ascends; at a step past the block
+      a tile holds fewer blocks, one from step 25 at block 8).
+    * search 0 to :func:`match_search_limit` (block, k): the CTA stages its
+      tile's 32-pixel span plus the window's halo, (32 + 2 search) rows of
+      (33 + 2 search) 4-byte words, beside its distance buffer and top-k
+      lists, in one CTA's 227 KB (232,448 bytes). At block 8 and k 16 that
+      is search 95: 222 x 224 x 4 = 198,912 bytes of region, 21,060 of
+      distances and 10,368 of lists. A wider window on a small image is
+      taken through its reach."""
     lo, hi = MATCH_ENVELOPE["block"]
     if not lo <= block <= hi:
-        raise ValueError(f"K1 takes block {lo}-{hi}, not {block}")
-    if not 1 <= step <= block:
-        raise ValueError(f"K1 takes a reference step of 1 to the block ({block}), not {step}")
-    lo, hi = MATCH_ENVELOPE["search"]
-    if not lo <= search <= hi:
-        raise ValueError(f"K1 takes search {lo}-{hi} (at most {(2 * hi + 1) ** 2} offsets), not {search}")
+        raise ValueError(f"K1 takes block {lo}-{hi} (a tile's span is {TILE_SPAN} pixels, one row a lane), "
+                         f"not {block}")
+    if step < 1:
+        raise ValueError(f"K1 takes a reference step of 1 or more, not {step}")
     lo, hi = MATCH_ENVELOPE["k"]
     if not (lo <= k <= hi and k & (k - 1) == 0):
-        raise ValueError(f"K1 takes a power-of-two k in {lo}-{hi}, not {k}")
+        raise ValueError(f"K1 takes a power-of-two k in {lo}-{hi} (at most four top-k slots a lane), not {k}")
+    most = match_search_limit(block, k)
+    if not 0 <= search <= most:
+        raise ValueError(f"K1 takes search 0-{most} at block {block}, k {k} (its CTA's "
+                         f"{match_smem_bytes(block, k, most)} bytes of shared memory of {_MAX_SMEM}), "
+                         f"not {search}")
+
+
+def check_any_envelope(block: int, k: int, search: int) -> None:
+    """Raise ValueError, naming the bound, unless ``bm3d_match_any_kernel``
+    (a grid with a repeated coordinate) takes this setting: block 2-16, k
+    up to 64 (two slots a lane), search 0-24 (:data:`ANY_ENVELOPE`)."""
+    for name, v in (("block", block), ("search", search), ("k", k)):
+        lo, hi = ANY_ENVELOPE[name]
+        if not lo <= v <= hi:
+            raise ValueError(f"K1 takes a grid that does not strictly ascend (bm3d_match_any_kernel) at "
+                             f"{name} {lo}-{hi}, not {v}")
+
+
+def tile_smem_bytes(search: int, k: int) -> int:
+    """Dynamic shared memory of a ``bm3d_match_tile_kernel`` CTA: the
+    staged region, the distances of a chunk and the running top-k's."""
+    region = (TILE_SPAN + 2 * search) * (((TILE_SPAN + 2 * search) | 1) + 1)  # f32, or bf16 pairs twice
+    return 4 * (region + TILE_MAX * (TILE_CHUNK + 1)) + 8 * TILE_MAX * k
+
+
+def match_smem_bytes(block: int, k: int, search: int) -> int:
+    """The least dynamic shared memory K1's tile kernel (block 8) or span
+    kernel (a tile of one block) needs at this window and k."""
+    if block == KERNEL_BLOCK:
+        return tile_smem_bytes(search, k)
+    return span_smem_bytes(search, (TILE_SPAN + 2 * search) | 1, 1, k) + 4  # with the lists' alignment word
+
+
+@functools.lru_cache(maxsize=None)
+def match_search_limit(block: int, k: int) -> int:
+    """The widest window radius whose K1 CTA fits :data:`_MAX_SMEM`
+    (:func:`match_smem_bytes`)."""
+    search = 0
+    while match_smem_bytes(block, k, search + 1) <= _MAX_SMEM:
+        search += 1
+    return search
 
 
 @functools.lru_cache(maxsize=32)
@@ -223,10 +301,11 @@ def column_plans(cols, search: int, block: int) -> np.ndarray:
 def tile_plan(grid, block: int, most: int) -> np.ndarray | None:
     """``bm3d_match_tile_kernel``'s tiles along one axis of the reference
     grid, cut greedily: (n, 3) int32 rows of (first index, count, mask),
-    where the tile's coordinates less its first are the mask's set bits and
-    span at most :data:`TILE_SPAN` pixels with their patches, and a tile has
-    at most ``most`` of them. None unless the grid strictly ascends (the
-    masks could not tell two equal coordinates apart)."""
+    where the tile's coordinates less its first are the mask's set bits
+    (bit 31, at block 1, as the int32's sign) and span at most
+    :data:`TILE_SPAN` pixels with their patches, and a tile has at most
+    ``most`` of them. None unless the grid strictly ascends (the masks could
+    not tell two equal coordinates apart)."""
     grid = [int(v) for v in grid]
     if any(b <= a for a, b in zip(grid[:-1], grid[1:])):
         return None
@@ -236,7 +315,7 @@ def tile_plan(grid, block: int, most: int) -> np.ndarray | None:
         while end < len(grid) and end - start < most and grid[end] - grid[start] + block <= TILE_SPAN:
             end += 1
         mask = sum(1 << (v - grid[start]) for v in grid[start:end])
-        tiles.append((start, end - start, mask))
+        tiles.append((start, end - start, mask - (1 << 32) if mask >= 1 << 31 else mask))
         start = end
     return np.asarray(tiles, np.int32)
 
@@ -259,10 +338,13 @@ def span_smem_bytes(search: int, pitch: int, most: int, k: int) -> int:
 def span_most(search: int, k: int) -> int:
     """The most blocks a span tile may hold at this window and k: one a
     thread, and no more than keep :func:`span_smem_bytes` within
-    :data:`SPAN_BUDGET`."""
+    :data:`SPAN_BUDGET`, or within :data:`_MAX_SMEM` where that budget
+    holds no block."""
     pitch = (TILE_SPAN + 2 * search) | 1
     fixed = span_smem_bytes(search, pitch, 0, k) + 4  # the lists' alignment word
-    return min(SPAN_MOST, (SPAN_BUDGET - fixed) // (4 * (TILE_CHUNK + 1) + 8 * span_entries(k)))
+    per = 4 * (TILE_CHUNK + 1) + 8 * span_entries(k)
+    most = (SPAN_BUDGET - fixed) // per
+    return min(SPAN_MOST, most if most >= 1 else (_MAX_SMEM - fixed) // per)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -306,6 +388,20 @@ def visit_order(offsets) -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class Reach:
+    """The offsets the tile and span kernels visit on one image size:
+    those some reference block can take (``|dy| <= H - block``, ``|dx| <= W
+    - block``; at least one), in :func:`visit_order` with each one's index
+    in the full window, the radius they need (``search``) and the staged
+    region's row pitch."""
+
+    order: torch.Tensor  # (S',) int32: the window indices, in the visiting order
+    offsets: torch.Tensor  # (S', 2) int32: the offsets, in that order
+    search: int
+    pitch: int  # odd, >= TILE_SPAN + 2 search
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class MatchGeometry:
     """Device copies of the grid and offsets and K1's shared-memory layouts,
     made once per shape, so that a call does no per-offset host work.
@@ -316,7 +412,8 @@ class MatchGeometry:
     neither it nor ``bm3d_match_span_kernel`` can (a grid that does not
     strictly ascend); ``bm3d_match_any_kernel`` takes every geometry.
     :meth:`span` gives the span kernel's tiles for a k, made at its first
-    call."""
+    call, and :meth:`reach` the offsets the tile and span kernels visit on
+    an image size."""
 
     rows_t: torch.Tensor
     cols_t: torch.Tensor
@@ -339,13 +436,36 @@ class MatchGeometry:
     tile_pitch: int  # the tile and span kernels' region row pitch (odd, >= TILE_SPAN + 2 search)
     rows: tuple = ()  # the reference coordinates, on the host
     cols: tuple = ()
-    plans: dict = dataclasses.field(default_factory=dict, repr=False)  # k -> SpanPlan
+    offsets: tuple = ()  # the (dy, dx) offsets, on the host
+    plans: dict = dataclasses.field(default_factory=dict, repr=False)  # (k, search) -> SpanPlan
+    reaches: dict = dataclasses.field(default_factory=dict, repr=False)  # (H, W) -> Reach
 
-    def span(self, k: int) -> SpanPlan:
-        """``bm3d_match_span_kernel``'s tiles for group size ``k`` (:func:`span_plan`)."""
-        if k not in self.plans:
-            self.plans[k] = span_plan(self.rows, self.cols, self.block, self.search, k, self.rows_t.device)
-        return self.plans[k]
+    def span(self, k: int, search: int | None = None) -> SpanPlan:
+        """``bm3d_match_span_kernel``'s tiles for group size ``k``
+        (:func:`span_plan`) at the window radius ``search`` (the geometry's
+        unless given: a reach's)."""
+        search = self.search if search is None else search
+        if (k, search) not in self.plans:
+            self.plans[k, search] = span_plan(self.rows, self.cols, self.block, search, k, self.rows_t.device)
+        return self.plans[k, search]
+
+    def reach(self, h: int, w: int) -> Reach:
+        """The offsets the tile and span kernels visit on an ``h`` x ``w``
+        image (:class:`Reach`): the whole window wherever some block can
+        take every offset of it (every window inside the image)."""
+        if (h, w) not in self.reaches:
+            order = visit_order(self.offsets)
+            offs = np.asarray(self.offsets, np.int64).reshape(-1, 2)[order]
+            keep = (np.abs(offs[:, 0]) <= h - self.block) & (np.abs(offs[:, 1]) <= w - self.block)
+            if keep.all():
+                r = Reach(self.tile_order, self.tile_offsets, self.search, self.tile_pitch)
+            else:
+                keep[0] |= not keep.any()  # at least one offset: an all-fill result, as the plain version's
+                search = int(np.abs(offs[keep]).max())
+                as_dev = lambda v: torch.as_tensor(v, dtype=torch.int32, device=self.rows_t.device)  # noqa: E731
+                r = Reach(as_dev(order[keep]), as_dev(offs[keep]), search, (TILE_SPAN + 2 * search) | 1)
+            self.reaches[h, w] = r
+        return self.reaches[h, w]
 
     @property
     def smem_bytes(self) -> int:
@@ -358,11 +478,11 @@ class MatchGeometry:
         """Dynamic shared memory of ``bm3d_match_any_kernel``'s CTA."""
         return 4 * self.any_smem_h * self.any_pitch
 
-    def tile_smem_bytes(self, k: int) -> int:
-        """Dynamic shared memory of ``bm3d_match_tile_kernel``'s CTA: the
-        staged region, the distances of a chunk and the running top-k's."""
-        region = (TILE_SPAN + 2 * self.search) * (self.tile_pitch + 1)  # f32, or bf16 pairs twice
-        return 4 * (region + TILE_MAX * (TILE_CHUNK + 1)) + 8 * TILE_MAX * k
+    def tile_smem_bytes(self, k: int, search: int | None = None) -> int:
+        """Dynamic shared memory of ``bm3d_match_tile_kernel``'s CTA
+        (:func:`tile_smem_bytes`) at the geometry's window radius, or
+        ``search`` (a reach's)."""
+        return tile_smem_bytes(self.search if search is None else search, k)
 
     def first_kernel_takes(self, block: int, k: int) -> bool:
         """Whether ``bm3d_match_kernel`` (8 x 8 blocks, 16 matches, a step-4
@@ -414,7 +534,7 @@ def _geometry(rows: tuple, cols: tuple, offsets: tuple, block: int,
     return MatchGeometry(as_dev(rows), as_dev(cols), as_dev(offsets), plan, block,
                          max(grid_step(rows), grid_step(cols)), search, ref_rows, smem_h, smem_w,
                          smem_w | 1, len(offsets) | 1, any_h, any_w | 1, *tiles,
-                         (TILE_SPAN + 2 * search) | 1, rows, cols)
+                         (TILE_SPAN + 2 * search) | 1, rows, cols, offsets)
 
 
 def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
@@ -468,16 +588,18 @@ def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor
         err = fn(*ptrs, g.col_plan.data_ptr(), out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k),
                  MODES[mode], g.search, g.smem_h, g.smem_w, g.pitch, g.d_pitch, lo, hi - block, stream)
     elif kernel == "bm3d_match_tile_kernel":
-        err = fn(*ptrs[:3], g.tile_offsets.data_ptr(), g.tile_order.data_ptr(), g.row_tiles.data_ptr(),
+        r = g.reach(h, w)
+        err = fn(*ptrs[:3], r.offsets.data_ptr(), r.order.data_ptr(), g.row_tiles.data_ptr(),
                  g.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, g.row_tiles.shape[0],
-                 g.col_tiles.shape[0], s, int(block), int(k), MODES[mode], g.search, g.tile_pitch, lo,
+                 g.col_tiles.shape[0], r.order.shape[0], int(block), int(k), MODES[mode], r.search, r.pitch, lo,
                  hi - block, stream)
     elif kernel == "bm3d_match_span_kernel":
-        p = g.span(int(k))
-        err = fn(*ptrs[:3], g.tile_offsets.data_ptr(), g.tile_order.data_ptr(), p.row_tiles.data_ptr(),
+        r = g.reach(h, w)
+        p = g.span(int(k), r.search)
+        err = fn(*ptrs[:3], r.offsets.data_ptr(), r.order.data_ptr(), p.row_tiles.data_ptr(),
                  p.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, p.row_tiles.shape[0],
-                 p.col_tiles.shape[0], s, int(block), int(k), MODES[mode], g.search, g.tile_pitch, p.most,
-                 lo, hi - block, stream)
+                 p.col_tiles.shape[0], r.order.shape[0], int(block), int(k), MODES[mode], r.search, r.pitch,
+                 p.most, lo, hi - block, stream)
     else:
         err = fn(*ptrs, out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k), MODES[mode], g.search,
                  g.any_smem_h, g.any_pitch, lo, hi - block, stream)
@@ -515,16 +637,19 @@ def bm3d_match(
     if imgs.device.type != "cuda":
         raise ValueError(f"bm3d_match runs on cpu or cuda, not {imgs.device}")
     g = geometry or match_geometry(rows, cols, offsets, block, imgs.device)
-    check_match_envelope(block, k, g.search, g.step)
     if g.block != block:
         raise ValueError(f"geometry for block {g.block}, called with block {block}")
     if g.rows_t.device != imgs.device:
         raise ValueError(f"geometry on {g.rows_t.device} but images on {imgs.device}")
-    if g.any_smem_bytes > _MAX_SMEM:  # not reached inside the envelope
-        raise ValueError(f"a tile's region needs {g.any_smem_bytes} bytes of shared memory")
+    kernel = match_kernel(g, block, k)
+    if kernel == PREV_DESIGN:
+        check_any_envelope(block, k, g.search)
+        if g.any_smem_bytes > _MAX_SMEM:  # not reached inside ANY_ENVELOPE
+            raise ValueError(f"a tile's region needs {g.any_smem_bytes} bytes of shared memory")
+    else:
+        check_match_envelope(block, k, g.reach(imgs.shape[1], imgs.shape[2]).search, g.step)
     x = imgs.contiguous()
     out = torch.empty((x.shape[0], g.rows_t.numel(), g.cols_t.numel(), k), dtype=torch.int32, device=x.device)
-    kernel = match_kernel(g, block, k)
     launch(kernel, _lib()[kernel], x, g, out, block, k, mode, lo, hi)
     bm3d_match.launches += 1
     bm3d_match.by_kernel[kernel] += 1

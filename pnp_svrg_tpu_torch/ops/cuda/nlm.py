@@ -24,10 +24,14 @@ tensor; for a CUDA tensor it launches K3 or raises. K3 reads ``h`` and
 ``(h, sigma)`` come from a sigma estimate on the card, never waits for it.
 
 :func:`nlm_kernel_name` names the kernel of a call: ``nlm_kernel``, built
-for (4, 5), or ``nlm_cluster_kernel<P, R>`` for the rest of
-:data:`NLM_ENVELOPE`, whose shifts the host splits over the CTAs of a
-thread-block cluster and their warps (:func:`cluster_plan`,
-:func:`split_chunks`). The design it replaced, ``nlm_any_kernel<P>``
+for (4, 5); ``nlm_cluster_kernel<P, R>``, compiled for patch 1-11 and
+distance 1-15, whose shifts the host splits over the CTAs of a thread-block
+cluster and their warps (:func:`cluster_plan`, :func:`split_chunks`); and
+for the rest of :data:`NLM_ENVELOPE` (patch up to 31, distance as far as
+:func:`nlm_distance_limit`) ``nlm_cluster_rt_kernel<R>``, the same design
+with the patch size read at run time. A setting outside the envelope raises
+before any launch, naming its bound (:func:`check_nlm_envelope`). The
+design the cluster kernel replaced, ``nlm_any_kernel<P>``
 (:data:`PREV_DESIGN`), stays reachable through :func:`launch` alone, so
 that a caller can time the two on one call.
 """
@@ -35,29 +39,42 @@ that a caller can time the two on one call.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from pnp_svrg_tpu_torch.ops.cuda import _build
 
-# The settings K3 takes on the card: (least, most) of each. ``nlm_kernel``
-# is built for (4, 5), ``nlm_cluster_kernel<P, R>`` takes the rest.
-NLM_ENVELOPE = {"patch_size": (1, 11), "patch_distance": (1, 15)}
-K3_KERNELS = ("nlm_kernel", "nlm_cluster_kernel")
+# The settings K3 takes on the card: (least, most) of each; the distance as
+# far as nlm_distance_limit(patch_size). ``nlm_kernel`` is built for (4, 5),
+# ``nlm_cluster_kernel<P, R>`` for COMPILED's, ``nlm_cluster_rt_kernel<R>``
+# takes the rest.
+NLM_ENVELOPE = {"patch_size": (1, 31), "patch_distance": (1, None)}
+COMPILED = {"patch_size": (1, 11), "patch_distance": (1, 15)}  # nlm_cluster_kernel's
+K3_KERNELS = ("nlm_kernel", "nlm_cluster_kernel", "nlm_cluster_rt_kernel")
 PREV_DESIGN = "nlm_any_kernel"  # the replaced design: launched only by name
 # nlm_cluster_kernel's constants in the source: warps a CTA and CTAs a
 # cluster at most, and the output rows a thread it is built for; an SM's
 # shared memory; and the warps an SM a plan aims at.
 CLUSTER_MAX_WARPS, MAX_CLUSTER, THREAD_ROWS = 8, 16, (4, 8)
 SM_SMEM = 228 * 1024
+_MAX_SMEM = 227 * 1024
 PLAN_WARPS_PER_SM = 9
 
 
+def compiled(patch_size: int, patch_distance: int) -> bool:
+    """Whether ``nlm_cluster_kernel<P, R>`` is compiled for this setting."""
+    return all(lo <= v <= hi for v, (lo, hi) in zip((patch_size, patch_distance), COMPILED.values()))
+
+
 def nlm_kernel_name(patch_size: int, patch_distance: int) -> str:
-    """The K3 kernel that takes a call: ``nlm_kernel`` at (4, 5), else
-    ``nlm_cluster_kernel``."""
-    return K3_KERNELS[0] if (patch_size, patch_distance) == (4, 5) else K3_KERNELS[1]
+    """The K3 kernel that takes a call: ``nlm_kernel`` at (4, 5),
+    ``nlm_cluster_kernel`` at the rest of :data:`COMPILED`, else
+    ``nlm_cluster_rt_kernel``."""
+    if (patch_size, patch_distance) == (4, 5):
+        return K3_KERNELS[0]
+    return K3_KERNELS[1] if compiled(patch_size, patch_distance) else K3_KERNELS[2]
 
 
 def thread_rows(patch_distance: int) -> int:
@@ -118,13 +135,43 @@ def split_chunks(shifts: int, cluster: int, warps: int) -> list:
     return [(c * shifts // n, (c + 1) * shifts // n) for c in range(n)]
 
 
+@functools.lru_cache(maxsize=None)
+def nlm_distance_limit(patch_size: int) -> int:
+    """The largest distance whose cluster-kernel CTA fits one CTA's shared
+    memory (:func:`cluster_smem` at 4 warps, the fallback plan of
+    :func:`cluster_plan`)."""
+    d = 1
+    while cluster_smem(patch_size, d + 1, 4, thread_rows(d + 1)) <= _MAX_SMEM:
+        d += 1
+    return d
+
+
 def check_nlm_envelope(patch_size: int, patch_distance: int) -> None:
     """Raise ValueError, naming the bound, unless K3 takes this patch size
-    and distance on the card."""
-    for name, v in (("patch_size", patch_size), ("patch_distance", patch_distance)):
-        lo, hi = NLM_ENVELOPE[name]
-        if not (isinstance(v, int) and lo <= v <= hi):
-            raise ValueError(f"K3 takes {name} {lo}-{hi}, not {v!r}")
+    and distance on the card.
+
+    The bounds that stay, and why:
+
+    * patch_size 1-31: a warp holds 32 canvas columns, whole windows for
+      33 - P output columns; from P = 32 (one column a CTA) another tiling
+      is needed (not built).
+    * patch_distance 1 to :func:`nlm_distance_limit` (P): a CTA stages its
+      tile twice (the copy shifted by one column), (2 R + P - 1 + 2 D) rows
+      of 32 + 2 D f32 each, beside 4 warps' partial planes (4 x 2 x 2 R x 32
+      f32), in one CTA's 227 KB (232,448 bytes): at P = 21, D = 65 takes
+      2 x 166 x 162 x 4 + 16,384 = 231,520 bytes, D = 66 passes it
+      (236,800)."""
+    lo, hi = NLM_ENVELOPE["patch_size"]
+    if not (isinstance(patch_size, int) and lo <= patch_size <= hi):
+        raise ValueError(f"K3 takes patch_size {lo}-{hi} (33 - P whole windows a warp's 32 columns), "
+                         f"not {patch_size!r}")
+    if not isinstance(patch_distance, int) or patch_distance < 1:
+        raise ValueError(f"K3 takes patch_distance 1 or more, not {patch_distance!r}")
+    most = nlm_distance_limit(patch_size)
+    if patch_distance > most:
+        raise ValueError(f"K3 takes patch_distance 1-{most} at patch_size {patch_size} (its CTA's "
+                         f"{cluster_smem(patch_size, most, 4, thread_rows(most))} bytes of shared memory "
+                         f"of {_MAX_SMEM}), not {patch_distance}")
 
 
 def _lane_values(v, b: int, device: torch.device, name: str) -> torch.Tensor:
@@ -185,6 +232,7 @@ def nlm_denoise_plain(
 ENTRIES = {  # kernel name -> (its entry point in the source, its C argument types)
     K3_KERNELS[0]: ("nlm_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
     K3_KERNELS[1]: ("nlm_cluster_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+    K3_KERNELS[2]: ("nlm_cluster_rt_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
     "limits": ("nlm_cluster_limits", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
 }
 ENTRIES[PREV_DESIGN] = ENTRIES[K3_KERNELS[0]]  # nlm_launch runs nlm_any_kernel<P> off (4, 5)
@@ -214,15 +262,17 @@ _LIMITS: dict = {}
 def device_plan(fns: dict, device: torch.device, b: int, h: int, w: int, patch_size: int,
                 patch_distance: int) -> tuple:
     """:func:`cluster_plan` on ``device`` from its SMs and the cluster
-    kernel's warps an SM (asked once a device, patch size and rows a
-    thread)."""
+    kernel's warps an SM (asked once a device, kernel and rows a thread:
+    ``nlm_cluster_kernel<P, R>``, or ``nlm_cluster_rt_kernel<R>``, asked as
+    patch size 0)."""
     rows = thread_rows(patch_distance)
-    key = (device.index, patch_size, rows, id(fns["limits"]))
+    asked = patch_size if compiled(patch_size, patch_distance) else 0
+    key = (device.index, asked, rows, id(fns["limits"]))
     if key not in _LIMITS:
         sms, wps = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(device):
-            _build.check(fns["limits"](patch_size, rows, ctypes.byref(sms), ctypes.byref(wps)),
-                         f"nlm_cluster_limits (patch_size={patch_size}, rows={rows})")
+            _build.check(fns["limits"](asked, rows, ctypes.byref(sms), ctypes.byref(wps)),
+                         f"nlm_cluster_limits (patch_size={asked}, rows={rows})")
         _LIMITS[key] = (sms.value, wps.value)
     return cluster_plan(b, h, w, patch_size, patch_distance, *_LIMITS[key])
 
@@ -232,7 +282,7 @@ def launch(kernel: str, fns: dict, x: torch.Tensor, hs: torch.Tensor, ss: torch.
            plan: tuple | None = None) -> None:
     """Launch ``kernel`` through its entry in ``fns`` (:func:`bind`) on the
     current stream: ``x`` and ``out`` (B, H, W) contiguous, ``hs`` and
-    ``ss`` (B,), candidate rows ``[lo, hi)``; the cluster kernel on
+    ``ss`` (B,), candidate rows ``[lo, hi)``; the cluster kernels on
     ``plan`` = (cluster, warps, rows), :func:`device_plan`'s by default. It
     checks nothing else and counts nothing (:func:`nlm_denoise` does both).
     :data:`PREV_DESIGN` takes any call but (4, 5), where the entry runs
@@ -242,7 +292,7 @@ def launch(kernel: str, fns: dict, x: torch.Tensor, hs: torch.Tensor, ss: torch.
         raise ValueError(f"{PREV_DESIGN} does not take (4, 5)")
     args = [x.data_ptr(), hs.data_ptr(), ss.data_ptr(), out.data_ptr(), b, hh, ww, patch_size,
             patch_distance, lo, hi]
-    if kernel == K3_KERNELS[1]:
+    if kernel in K3_KERNELS[1:]:
         args += list(plan or device_plan(fns, x.device, b, hh, ww, patch_size, patch_distance))
     err = fns[kernel](*args, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, f"nlm ({kernel}, patch_size={patch_size}, patch_distance={patch_distance})")

@@ -213,13 +213,13 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         k1.bm3d_match(x, rows, rows, bm3d.search_offsets(4, 1), 8, 16)
     with pytest.raises(ValueError, match="power-of-two k"):  # outside K1's envelope
         k1.bm3d_match(x.float(), rows, rows, bm3d.search_offsets(4, 1), 8, 5)
-    with pytest.raises(ValueError, match="block 2-16"):  # a patch edge past the envelope
-        k1.bm3d_match(x.float(), bm3d._ref_grid(32, 17, 4), bm3d._ref_grid(32, 17, 4),
-                      bm3d.search_offsets(4, 1), 17, 16)
+    x64 = torch.zeros((1, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="block 1-32"):  # a patch edge past the envelope
+        k1.bm3d_match(x64, bm3d._ref_grid(64, 33, 4), bm3d._ref_grid(64, 33, 4), bm3d.search_offsets(4, 1), 33, 16)
     big = torch.zeros((1, 256, 256), device=cuda)
     grid = bm3d._ref_grid(256, 8, 4)
-    with pytest.raises(ValueError, match="search 0-24"):  # a 121 x 121 window
-        k1.bm3d_match(big, grid, grid, bm3d.search_offsets(60, 1), 8, 16)
+    with pytest.raises(ValueError, match="search 0-95"):  # a 193 x 193 window: its region passes 227 KB
+        k1.bm3d_match(big, grid, grid, bm3d.search_offsets(96, 8), 8, 16)
     idx, est, wgt, kai, h, w, geom = _k2_inputs(cuda, 34, np.random.default_rng(0), dyadic=False)
     with pytest.raises(ValueError):
         k2.bm3d_aggregate(idx, est.double(), wgt, kai, h, w, geom)
@@ -302,10 +302,10 @@ def test_k3_refuses_what_it_is_not_built_for(cuda):
     z, h = _nlm_input(cuda, 1)
     with pytest.raises(ValueError):
         k3.nlm_denoise(z.double(), h, h)
-    with pytest.raises(ValueError, match="patch_size 1-11"):  # past K3's envelope
-        k3.nlm_denoise(z, h, h, patch_size=12)
-    with pytest.raises(ValueError, match="patch_distance 1-15"):
-        k3.nlm_denoise(z, h, h, patch_distance=16)
+    with pytest.raises(ValueError, match="patch_size 1-31"):  # past K3's envelope
+        k3.nlm_denoise(z, h, h, patch_size=32)
+    with pytest.raises(ValueError, match="patch_distance 1-69"):  # its tile passes 227 KB at patch 4
+        k3.nlm_denoise(z, h, h, patch_distance=70)
     with pytest.raises(ValueError):  # h on the host would make the launch wait
         k3.nlm_denoise(z, h.cpu(), h)
     with pytest.raises(ValueError):
@@ -1017,14 +1017,15 @@ def test_k1_tile_kernel_repeats_itself_bit_for_bit(cuda):
 # Registers of the headline's kernels, as ptxas gave them on an H100
 # (`cuobjdump -res-usage`): those later slices left as they were, the same
 # for the earlier trees' sources and this tree's: K1's first kernel 93 (96
-# at PER = 20), K1's tile kernel 80 (its six instantiations; its staging
+# at PER = 20), K1's tile kernel 80 (its six instantiations of one and two
+# slots a lane; the four-slot ones for k 128 came later; its staging
 # and phase 2 are now functions the span kernel shares), K2's fold 48
 # (streaming) / 179 (all at once), K3's (4, 5) kernel 79; and K2's (8, 16)
 # tiles, now the template's instantiation, 56 (the parent's own (8, 16)
 # kernel: 64), with the same order of adds and the same bits.
 UNTOUCHED_REGISTERS = {
     ("bm3d_match", r"bm3d_match_kernelILi\dELi(?:1|3|10)E"): 93,
-    ("bm3d_match", r"bm3d_match_tile_kernelILi\dELi\dEE"): 80,
+    ("bm3d_match", r"bm3d_match_tile_kernelILi\dELi[12]EE"): 80,
     ("bm3d_match", r"bm3d_match_kernelILi\dELi20E"): 96,
     ("bm3d_aggregate", r"bm3d_aggregate_kernelILi8ELi16EE"): 56,
     ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb0ELi2ELi2EE"): 48,
@@ -1339,3 +1340,178 @@ def test_k1_replaced_design_stays_reachable_by_name(cuda):
     dists = k1.match_distances_plain(x, rows, rows, offs, block, "bf16_xla")
     assert _multiset_agreement(got, want) >= 0.995
     assert float(_slot_gaps(got, want, dists).max()) <= _near_tie(block)
+
+
+# K1-K3 past the earlier envelope (block 1 and 17-32, a step past
+# the block, windows past search 24 and wider than the image, k 128; NLM
+# past patch 11 and distance 15), each through the kernel its naming
+# function gives, on its kernel's rules and exactly on dyadic inputs.
+WIDE_K1 = {"step_past_block": (8, 10, 19, 16), "block4_step6": (4, 6, 3, 4), "search32": (8, 3, 32, 16),
+           "block4_s40": (4, 2, 40, 16), "k128": (8, 3, 19, 128), "block1": (1, 1, 3, 4),
+           "block24": (24, 12, 8, 16), "block32": (32, 16, 4, 16), "block4_k128": (4, 2, 19, 128),
+           "block20_k64": (20, 7, 5, 64)}
+
+
+def _k1_wide_held(x, rows, cols, offs, block, k, mode, bounds=None):
+    g = k1.match_geometry(rows, cols, offs, block, x.device)
+    kernel = k1.match_kernel(g, block, k)
+    assert kernel in ("bm3d_match_tile_kernel", SPAN)
+    before = dict(k1.bm3d_match.by_kernel)
+    got = k1.bm3d_match(x, rows, cols, offs, block, k, mode, geometry=g, row_valid_bounds=bounds)
+    torch.cuda.synchronize()
+    assert k1.bm3d_match.by_kernel == before | {kernel: before[kernel] + 1}
+    want = k1.bm3d_match_plain(x, rows, cols, offs, block, k, mode, row_valid_bounds=bounds)
+    assert _multiset_agreement(got, want) >= (0.999 if mode == "f32" else 0.995)
+    dists = k1.match_distances_plain(x, rows, cols, offs, block, mode, row_valid_bounds=bounds)
+    assert float(_slot_gaps(got, want, dists).max()) <= _near_tie(block)
+    picked = [int(torch.isinf(dists.gather(-1, t.long())).sum()) for t in (got, want)]
+    assert picked[0] == picked[1]
+    return got
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("row", list(WIDE_K1))
+def test_k1_matches_plain_past_the_earlier_envelope(cuda, mode, row):
+    block, step, search, k = WIDE_K1[row]
+    x = torch.tensor(_profile_batch()[:4], device=cuda)
+    rows = bm3d._ref_grid(128, block, step)
+    _k1_wide_held(x, rows, rows, bm3d.search_offsets(search, 1), block, k, mode)
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("row", list(WIDE_K1))
+def test_k1_equals_plain_exactly_on_dyadic_images_past_the_earlier_envelope(cuda, mode, row):
+    block, step, search, k = WIDE_K1[row]
+    size = max(45, block + 13)
+    x = torch.tensor(_dyadic(np.random.default_rng(block + step), (2, size, size + 3), 4, 0.25), device=cuda)
+    rows, cols = bm3d._ref_grid(size, block, step), bm3d._ref_grid(size + 3, block, step)
+    for bounds in (None, (3, size - 5)):
+        offs = bm3d.search_offsets(search, 1)
+        got = k1.bm3d_match(x, rows, cols, offs, block, k, mode, row_valid_bounds=bounds)
+        assert torch.equal(got, k1.bm3d_match_plain(x, rows, cols, offs, block, k, mode, row_valid_bounds=bounds))
+
+
+@pytest.mark.parametrize("block,k", [(8, 16), (4, 4), (8, 128), (16, 64)])
+def test_k1_takes_a_window_wider_than_the_image_through_its_reach(cuda, block, k):
+    # search 48 on 40 x 44 images: offsets past H - block or W - block are
+    # +inf for every block; the kernels skip them and keep the full
+    # window's indices (k 128 past the finite candidates: index-0 fills).
+    size = 40
+    x = torch.tensor(_noisy(size + 4)[:, :size], device=cuda).contiguous()
+    rows, cols = bm3d._ref_grid(size, block, 4), bm3d._ref_grid(size + 4, block, 4)
+    offs = bm3d.search_offsets(48, 1)
+    g = k1.match_geometry(rows, cols, offs, block, cuda)
+    r = g.reach(size, size + 4)
+    assert r.search == size + 4 - block and r.order.numel() < len(offs)
+    for mode in k1.MODES:
+        _k1_wide_held(x, rows, cols, offs, block, k, mode)
+    d = torch.tensor(_dyadic(np.random.default_rng(k), (2, size, size + 4), 4, 0.25), device=cuda)
+    assert torch.equal(k1.bm3d_match(d, rows, cols, offs, block, k, "f32"),
+                       k1.bm3d_match_plain(d, rows, cols, offs, block, k, "f32"))
+
+
+def test_k1_at_the_widest_search_at_block_8(cuda):
+    search = k1.match_search_limit(8, 16)
+    x = torch.tensor(_profile_batch()[:2], device=cuda)
+    rows = bm3d._ref_grid(128, 8, 8)
+    _k1_wide_held(x, rows, rows, bm3d.search_offsets(search, 4), 8, 16, "bf16_xla")
+
+
+WIDE_K2 = [(8, 10, 19, 16), (4, 6, 3, 4), (8, 3, 19, 128), (1, 1, 3, 4), (24, 12, 8, 16), (32, 16, 4, 16),
+           (17, 5, 3, 8), (4, 2, 19, 128), (8, 3, 32, 16)]
+
+
+def _k2_wide_held(cuda, args, kernel, seed):
+    """One K2 call on ``args`` goes to ``kernel`` and is held to the plain
+    version (1e-5 of the planes' magnitude, den = 0 where it is, three
+    repeats and dyadic values bit for bit)."""
+    idx, est, wgt, kai, h, w, geom = args
+    before = dict(k2.bm3d_aggregate.by_kernel)
+    num, den = k2.bm3d_aggregate(idx, est, wgt, kai, h, w, geom)
+    torch.cuda.synchronize()
+    assert k2.bm3d_aggregate.by_kernel == before | {kernel: before[kernel] + 1}
+    want_num, want_den = k2.bm3d_aggregate_plain(idx, est, wgt, kai, h, w)
+    for got, want in ((num, want_num), (den, want_den)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(den == 0, want_den == 0)  # gaps between blocks keep den = 0
+    for _ in range(3):
+        again = k2.bm3d_aggregate(idx, est, wgt, kai, h, w, geom)
+        assert torch.equal(again[0], num) and torch.equal(again[1], den)
+    d = _k2_dyadic(np.random.default_rng(seed), est, wgt, kai, cuda)
+    got = k2.bm3d_aggregate(idx, *d, h, w, geom)
+    want = k2.bm3d_aggregate_plain(idx, *d, h, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("block,step,search,k", WIDE_K2)
+def test_k2_matches_plain_past_the_earlier_envelope(cuda, block, step, search, k):
+    args = _k2_stage1_args(cuda, block, step, search, k, size=96)
+    kernel = k2.aggregate_kernel(block, k, args[-1])  # the compiled (8, 16) kernel at 16 matches of 8 x 8
+    assert kernel == ("bm3d_aggregate_kernel" if (block, k) == (8, 16) else "bm3d_aggregate_packed_kernel")
+    _k2_wide_held(cuda, args, kernel, block * 10 + step)
+
+
+@pytest.mark.parametrize("k", [16, 32])
+@pytest.mark.parametrize("window", ["search40", "widest"])
+def test_k2_takes_windows_past_the_compiled_tiles(cuda, window, k):
+    # (8, 16) / (8, 32) at step 3 on 128 px images: from search 38 the
+    # compiled kernel's 2 x 2 tiles pass a CTA's shared memory, so the
+    # packed kernel takes the call (at K1's widest, one warp a CTA).
+    search = 40 if window == "search40" else k1.match_search_limit(8, k)
+    args = _k2_stage1_args(cuda, 8, 3, search, k, size=128)
+    assert k2.aggregate_kernel(8, k, args[-1]) == "bm3d_aggregate_packed_kernel"
+    _k2_wide_held(cuda, args, "bm3d_aggregate_packed_kernel", search + k)
+
+
+def test_bm3d_refuses_a_k2_footprint_before_k1_launches(cuda):
+    # Search 82 at block 8 on a 256 px image: K1 takes it, but one reference
+    # block's 172 x 172 footprint passes a packed CTA's shared memory.
+    x = torch.tensor(_noisy(256, b=1)[0], device=cuda)
+    p = bm3d.BM3DParams(block=8, step=3, search=82, group_ht=16, group_wie=32)
+    k1.check_match_envelope(8, 32, 82, 3)
+    before = (k1.bm3d_match.launches, k2.bm3d_aggregate.launches)
+    with pytest.raises(ValueError, match="footprint .* 172x172 needs 236672"):
+        bm3d.bm3d_denoise(x, 0.1, p)
+    assert (k1.bm3d_match.launches, k2.bm3d_aggregate.launches) == before
+
+
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("patch_size,patch_distance", [(13, 21), (21, 31), (7, 16), (31, 3), (12, 1), (1, 40)])
+def test_k3_runtime_patch_kernel_matches_plain(cuda, patch_size, patch_distance, b):
+    z, h = _nlm_noise_input(cuda, b, 48, 40)
+    assert k3.nlm_kernel_name(patch_size, patch_distance) == "nlm_cluster_rt_kernel"
+    for bounds in (None, (6, 42)):
+        before = dict(k3.nlm_denoise.by_kernel)
+        got = k3.nlm_denoise(z, h, 0.8 * h, patch_size, patch_distance, row_valid_bounds=bounds)
+        torch.cuda.synchronize()
+        assert k3.nlm_denoise.by_kernel["nlm_cluster_rt_kernel"] == before["nlm_cluster_rt_kernel"] + 1
+        want = k3.nlm_denoise_plain(z, h, 0.8 * h, patch_size, patch_distance, row_valid_bounds=bounds)
+        assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, k3.nlm_denoise(z, h, 0.8 * h, patch_size, patch_distance, row_valid_bounds=bounds))
+    zero = torch.zeros(b, device=cuda)
+    assert bool(torch.isnan(k3.nlm_denoise(z, zero, zero, patch_size, patch_distance)).all())
+
+
+def test_k3_runtime_patch_kernel_on_other_plans(cuda):
+    z, h = _nlm_noise_input(cuda, 1, 64, 56)
+    fns = k3._lib()
+    want = k3.nlm_denoise_plain(z, h, 0.8 * h, 13, 21)
+    hs = h.expand(1).contiguous()
+    for plan in ((1, 4, 8), (3, 6, 8), (16, 8, 8), (2, 4, 4)):
+        out = torch.empty_like(z)
+        k3.launch("nlm_cluster_rt_kernel", fns, z, hs, (0.8 * hs).contiguous(), out, 13, 21, 0, z.shape[1], plan)
+        assert float((out - want).abs().max()) <= 1e-5
+
+
+def test_bm3d_and_nlm_past_the_earlier_envelope_on_the_card_match_the_cpu(cuda):
+    x = _noisy(64)
+    for p in (bm3d.BM3DParams(block=8, step=10, search=19, group_ht=16, group_wie=32, match_dtype="bfloat16"),
+              bm3d.BM3DParams(block=8, step=3, search=19, group_ht=16, group_wie=128),
+              bm3d.BM3DParams(block=24, step=12, search=8, group_ht=16, group_wie=16)):
+        gpu = bm3d.bm3d_denoise_batch(torch.tensor(x, device=cuda), 0.1, p)
+        cpu = bm3d.bm3d_denoise_batch(torch.tensor(x), 0.1, p)
+        assert float((gpu.cpu() - cpu).abs().mean()) < 1e-3
+    z = torch.tensor(_noisy(48))
+    den = NLMDenoiser(sigma_modifier=1.0, patch_size=13, patch_distance=21)
+    got = den.denoise(z.to(cuda), torch.full((2,), 0.1, device=cuda), 0)
+    assert float((got.cpu() - den.denoise(z, torch.full((2,), 0.1), 0)).abs().max()) <= 1e-5

@@ -78,7 +78,12 @@ f32_match and search12 lanes (``bench.py:384-400``) on the headline
 problems. ``realsn_export_jax.npz`` holds what ``tools/check_realsn_export.py``
 computes for the three committed RealSN-DnCNN exports, through the JAX
 functions it calls (per-layer sigmas, dense singular values, Set12 PSNR and
-SSIM per image).
+SSIM per image). ``params_wide_jax.npz`` holds the JAX CPU outputs of the
+calls past the kernels' earlier envelope that ``chip_smoke.py`` makes
+through the public entry points (``WIDE_BM3D`` on two lanes of
+bm3d_profile's first denoise input; ``WIDE_NLM`` on the CSMRI + NLM lane's
+first denoise input, which it stores with its sigma estimate); rebuild it
+with ``python tests/test_torch_fixture.py wide``.
 
 Regenerate them all with ``python tests/test_torch_fixture.py``, or some
 with ``python tests/test_torch_fixture.py headline nlm deblur pr pr_sarah
@@ -103,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import importlib
 import importlib.util
 import itertools
@@ -130,6 +136,7 @@ from pnp_svrg_tpu.denoisers.bm3d import bm3d_denoise_batch as jax_bm3d_denoise_b
 from pnp_svrg_tpu.denoisers.dncnn import DnCNNDenoiser as JaxDnCNNDenoiser
 from pnp_svrg_tpu.denoisers.nlm import NLMDenoiser as JaxNLMDenoiser
 from pnp_svrg_tpu.ops.metrics import ssim as jax_ssim
+from pnp_svrg_tpu.ops.pallas import nlm_kernel as jax_nlm_kernel
 from pnp_svrg_tpu.problems import make_csmri
 from pnp_svrg_tpu.problems import make_deblur as jax_make_deblur
 from pnp_svrg_tpu.problems.csmri import CSMRI
@@ -186,6 +193,10 @@ from pnp_svrg_tpu_torch.convert import (
     TRAIN_STEP_LR,
     TRAIN_STEPS,
     VAL_DIR,
+    WIDE_BM3D,
+    WIDE_FIXTURE,
+    WIDE_LANES,
+    WIDE_NLM,
     bench_config,
     checksum,
     lane_params,
@@ -311,6 +322,40 @@ def jax_first_bm3d_call(probs: list, lanes: list) -> dict:
     out = denoise(z, sigma, params=JaxBM3DParams(**dataclasses.asdict(p)))
     return {"first_input": np.asarray(z, np.float32), "first_sigma": np.asarray(sigma, np.float32),
             "first_output": np.asarray(out, np.float32)}
+
+
+def build_wide_arrays() -> dict:
+    """The JAX CPU outputs ``chip_smoke.py`` holds its calls past the kernels'
+    earlier envelope to (``WIDE_FIXTURE``): ``BM3DDenoiser.denoise``-equal
+    ``bm3d_denoise_batch`` calls at each :data:`WIDE_BM3D` row on lanes
+    :data:`WIDE_LANES` of bm3d_profile's first denoise input (the envelope
+    fixture's), and the CSMRI + NLM lane's first denoise input with JAX's
+    ``NLMDenoiser`` at :data:`WIDE_NLM` (its tuned modifier) through the
+    JAX package's Pallas kernel in interpret mode: the jnp path unrolls its
+    1,849 shifts into one XLA program, whose CPU compile passed 17 GB
+    before it finished."""
+    ref = load_envelope_reference("bm3d_profile")
+    lanes = np.asarray(WIDE_LANES, np.int32)
+    z, sigma = jnp.asarray(ref["first_input"][lanes]), jnp.asarray(ref["first_sigma"][lanes])
+    out = {"bm3d/lanes": lanes}
+    denoise = jax.jit(jax_bm3d_denoise_batch, static_argnames=("params", "stages"))
+    for row, p in WIDE_BM3D.items():
+        got = denoise(z, sigma, params=JaxBM3DParams(**dataclasses.asdict(p)))
+        out[f"bm3d/{row}/output"] = np.asarray(got, np.float32)
+        print(f"JAX BM3D {row}: done", file=sys.stderr, flush=True)
+    cfg = nlm_params()
+    prob = nlm_problem()
+    x = prob.x_init
+    zn = x - cfg["eta"] * prob.grad_full(x)
+    est = jax_estimate_sigma(zn)
+    den = JaxNLMDenoiser(sigma_modifier=cfg["sigma_modifier"], use_pallas=True, **WIDE_NLM)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_nlm_kernel, "nlm_denoise_pallas",
+                   functools.partial(jax_nlm_kernel.nlm_denoise_pallas, interpret=True))
+        output = den.denoise(zn, est, 0)
+    out |= {"nlm/input": np.asarray(zn, np.float32), "nlm/sigma_est": np.asarray(est, np.float32),
+            "nlm/output": np.asarray(output, np.float32)}
+    return out
 
 
 def run_jax_nlm_skimage() -> dict:
@@ -1249,7 +1294,7 @@ def cpu_lanes(parts=CPU_LANE_PARTS) -> None:
 def build(names) -> None:
     """Write the named fixtures (``headline``, ``nlm``, ``deblur``, ``pr``,
     ``pr_sarah``, ``train``, ``drivers``, ``uniform``, ``variants``,
-    ``realsn_export``, ``envelope``)."""
+    ``realsn_export``, ``envelope``, ``wide``)."""
     if "headline" in names or "nlm" in names:
         arrays = build_headline_arrays()
         arrays.pop("x")  # rebuilt by the port's load_image
@@ -1316,6 +1361,8 @@ def build(names) -> None:
               f"per lane {np.round(profile['psnr_per_iter'][-1], 4).tolist()}", file=sys.stderr, flush=True)
         np.savez_compressed(ENVELOPE_FIXTURE, **{f"bm3d_profile/{k}": v for k, v in profile.items()},
                             **{f"csmri_nlm_skimage/{k}": v for k, v in skimage.items()})
+    if "wide" in names:
+        np.savez_compressed(WIDE_FIXTURE, **build_wide_arrays())
     if "realsn_export" in names:
         images = [jax_train_data.load_gray(p) for p in sorted(VAL_DIR.glob("*.png"))]
         arrays = {}
@@ -1336,13 +1383,13 @@ def build(names) -> None:
               f"losses {train['losses'].tolist()}, {int(train['n_patches'])} patches", file=sys.stderr)
     for path in (HEADLINE_FIXTURE, HEADLINE_MASKS, NLM_MASKS, DEBLUR_FIXTURE, PR_FIXTURE, PR_SARAH_FIXTURE,
                  TRAIN_FIXTURE, PAPER_DRIVERS_FIXTURE, UNIFORM_FIXTURE, UNIFORM_MASKS, HEADLINE_VARIANTS_FIXTURE,
-                 REALSN_EXPORT_FIXTURE, ENVELOPE_FIXTURE):
+                 REALSN_EXPORT_FIXTURE, ENVELOPE_FIXTURE, WIDE_FIXTURE):
         if path.exists():
             print(f"{path} ({path.stat().st_size} bytes)", file=sys.stderr)
 
 
 FIXTURES = ("headline", "nlm", "deblur", "pr", "pr_sarah", "train", "drivers", "uniform", "variants",
-            "realsn_export", "envelope")
+            "realsn_export", "envelope", "wide")
 
 ULP_SHIFTS = ("down", "up")  # x_init moved one ulp towards -inf / +inf
 # The PR + SARAH lane's starts: one to four ulps down and up.

@@ -207,3 +207,16 @@ def test_envelope_rows_off_block_8_go_to_the_span_kernel():
         grid = bm3d._ref_grid(128, block, step)
         g = k1.match_geometry(grid, grid, bm3d.search_offsets(search, 1), block, "cpu")
         assert k1.match_kernel(g, block, k) == "bm3d_match_span_kernel" != k1.PREV_DESIGN
+
+
+@pytest.mark.parametrize("search,k", [(3, 4), (19, 16), (40, 16), (50, 16), (60, 128), (103, 16)])
+def test_span_tiles_let_three_ctas_share_an_sm_or_else_fill_one(search, k):
+    # Within SPAN_BUDGET (three CTAs an SM) where it holds a block; past
+    # that (a wide window's region), as many blocks as one CTA's 227 KB hold.
+    most = k1.span_most(search, k)
+    pitch = (k1.TILE_SPAN + 2 * search) | 1
+    need = lambda n: k1.span_smem_bytes(search, pitch, n, k) + 4  # noqa: E731  (with the alignment word)
+    budget = k1.SPAN_BUDGET if need(1) <= k1.SPAN_BUDGET else 227 * 1024
+    assert 1 <= most <= k1.SPAN_MOST and need(most) <= budget
+    assert most == k1.SPAN_MOST or need(most + 1) > budget
+    assert (budget == k1.SPAN_BUDGET) == (search <= 50)  # (60, 128) and (103, 16): one CTA an SM

@@ -46,7 +46,7 @@ from pnp_svrg_tpu_torch.ops.cuda import nlm as k3
 from pnp_svrg_tpu_torch.utils.io import DATA_DIR
 
 COMPILED, PACKED = k2.K2_KERNELS
-FIRST_NLM, CLUSTER = k3.K3_KERNELS
+FIRST_NLM, CLUSTER = k3.K3_KERNELS[:2]
 MAX_SMEM = 227 * 1024
 FIXTURE = DATA_DIR.parent / "pnp_svrg_tpu_torch" / "data" / "nlm_bounds_jax.npz"
 
@@ -71,11 +71,44 @@ def _bm3d_calls() -> dict:
     return calls
 
 
+def _k2_geometry(size: int, p: bm3d.BM3DParams):
+    """K2's geometry of a BM3D call on a ``size`` px image, on the CPU (its
+    plans are made on the host)."""
+    grid = tuple(bm3d._ref_grid(size, p.block, p.step).tolist())
+    search = int(np.abs(bm3d.search_offsets(p.search, p.search_step)).max())
+    return k2.aggregate_geometry(size, size, grid, grid, search, p.block, torch.device("cpu"))
+
+
 @pytest.mark.parametrize("label", list(_bm3d_calls()))
 def test_every_bm3d_lane_keeps_the_compiled_k2_kernel(label):
     p = _bm3d_calls()[label]
     for k in (p.group_ht, p.group_wie):
         assert k2.aggregate_kernel(p.block, k) == COMPILED
+        for size in (128, 256):  # the lanes' images
+            geometry = _k2_geometry(size, p)
+            assert k2.aggregate_kernel(p.block, k, geometry) == COMPILED
+            assert k2.aggregate_plan(geometry, k) == (COMPILED, geometry)
+
+
+@pytest.mark.parametrize("size", [128, 256])
+@pytest.mark.parametrize("k", [16, 32])
+def test_k2_sends_windows_past_the_compiled_tiles_to_the_packed_kernel(size, k):
+    # (8, 16) and (8, 32) at step 3: the compiled kernel's 4 warps hold a 2
+    # x 2 tile's (2 search + 11)^2 planes to search 37 (231,200 bytes), not
+    # 38 (242,208); past that the packed kernel takes the call, one warp a
+    # CTA on tiles whose planes fit one CTA (one reference block a tile on
+    # 256 px images at search 81).
+    for search in (19, 37, 38, 40, 81, 95):
+        p = bm3d.BM3DParams(block=8, step=3, search=search, group_ht=k, group_wie=k)
+        geometry = _k2_geometry(size, p)
+        want = COMPILED if search <= 37 else PACKED
+        assert k2.aggregate_kernel(8, k, geometry) == want
+        if size == 256 and search > 81:
+            continue  # refused: tests/test_torch_params.py
+        kernel, plan = k2.aggregate_plan(geometry, k)
+        assert kernel == want and plan.smem_bytes <= MAX_SMEM
+        if kernel == PACKED:
+            assert plan.warps == 1 and plan.fh == plan.fw == min(size, 2 * search + 8 + 3 * (plan.tile - 1))
 
 
 @pytest.mark.parametrize("block", list(range(2, 17)))

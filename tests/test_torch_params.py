@@ -6,8 +6,10 @@ CPU, their wrappers take the plain versions, which are held to the JAX
 package at points inside it and off the kernels' first instantiations: the
 golden oracle's BM3D (block 4, step 2, search 3, groups 4 / 4), a window
 past 640 offsets with 32 Wiener matches, an odd block, and NLM at skimage's
-defaults (patch 7, distance 11) and at the envelope's corners. Inputs come
-from a numpy seed at 32-48 px. The kernels themselves are held to the plain
+defaults (patch 7, distance 11) and at the envelope's corners; and at the
+corners the widened envelope took: a window wider than the image, a step
+past the block, blocks 1 and 24, 128 Wiener matches, NLM at (13, 21) and
+(21, 31). Inputs come from a numpy seed at 32-48 px. The kernels themselves are held to the plain
 versions on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 
 Also here, without a card: each envelope function accepts its table's
@@ -41,7 +43,16 @@ from pnp_svrg_tpu_torch.parallel import bm3d_denoise_spatial, make_spatial_mesh,
 # (tests/test_golden_parity.py), a 27 x 27 window (729 offsets, past the
 # first K1 kernel's 640) with the reference profile's 16 / 32 matches, and
 # an odd block.
-BM3D_POINTS = {"golden": (4, 2, 3, 4, 4), "window729_k32": (8, 3, 13, 16, 32), "odd_block": (5, 2, 4, 8, 8)}
+BM3D_POINTS = {"golden": (4, 2, 3, 4, 4), "window729_k32": (8, 3, 13, 16, 32), "odd_block": (5, 2, 4, 8, 8),
+               # Past the earlier envelope: a step past the block (gaps
+               # between blocks), blocks 1 and 24, 128 Wiener matches of 169
+               # offsets; and a window wider than the image (search 28 on a
+               # 32 px image, every 4th offset: those past 24 are +inf).
+               "step_past_block": (8, 10, 6, 16, 16), "block1": (1, 1, 2, 4, 4), "block24": (24, 12, 4, 4, 4),
+               "k128": (4, 2, 6, 16, 128), "search_past_image": (8, 3, 28, 16, 16)}
+# The points' search_step (1 unless named) and image size (32 unless named).
+BM3D_SEARCH_STEP = {"search_past_image": 4}
+BM3D_SIZE = {"window729_k32": 40, "step_past_block": 40, "block24": 40}
 # Mean absolute difference of the denoised images, as test_torch_bm3d.py
 # holds the default point: f32 sums in another order flip near-tied
 # matches; bf16 distances tie more often.
@@ -52,7 +63,7 @@ BM3D_TOL = {"float32": 1e-3, "bfloat16": 5e-3}
 # Pallas kernel in interpret mode, which the JAX package's own tests hold to
 # ``nlm_denoise`` (tests/test_pallas_nlm.py).
 NLM_POINTS = [(1, 1), (3, 8)]
-NLM_PALLAS_POINTS = [(7, 11), (11, 15)]
+NLM_PALLAS_POINTS = [(7, 11), (11, 15), (13, 21), (21, 31)]
 NLM_TOL = 1e-5  # f32 sums in another order (test_torch_nlm.py)
 H_LANES = np.asarray([0.05, 0.08, 0.12], np.float32)
 S_LANES = np.asarray([0.05, 0.08, 0.0], np.float32)
@@ -70,7 +81,7 @@ def _noisy(shape, seed=0, sigma=0.1):
 def _params(point: str, match_dtype: str) -> dict:
     block, step, search, ght, gwie = BM3D_POINTS[point]
     return dict(block=block, step=step, search=search, group_ht=ght, group_wie=gwie,
-                match_dtype=match_dtype)
+                match_dtype=match_dtype, search_step=BM3D_SEARCH_STEP.get(point, 1))
 
 
 def _set_agreement(a, b) -> float:
@@ -81,7 +92,7 @@ def _set_agreement(a, b) -> float:
 @pytest.mark.parametrize("match_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("point", list(BM3D_POINTS))
 def test_bm3d_matches_jax_across_the_envelope(point, match_dtype):
-    size = 40 if point == "window729_k32" else 32
+    size = BM3D_SIZE.get(point, 32)
     x = _noisy((2, size, size), seed=1)
     sig = np.asarray([0.1, 0.12], np.float32)
     kw = _params(point, match_dtype)
@@ -163,38 +174,78 @@ def _raises_naming(bound: str, fn, *args):
 
 
 def test_envelopes_take_their_corners_and_refuse_one_past_each_bound():
-    # K1: (block, k, search, step).
-    for block in (2, 16):
-        for k in (1, 64):
-            for search in (0, 24):
-                for step in (1, block):
+    # K1: (block, k, search, step); the search as far as the CTA's shared
+    # memory allows at that block and k, the step any.
+    for block in (1, 8, 32):
+        for k in (1, 128):
+            for search in (0, k1.match_search_limit(block, k)):
+                for step in (1, block, 40):
                     k1.check_match_envelope(block, k, search, step)
-    _raises_naming("block 2-16", k1.check_match_envelope, 1, 16, 8, 1)
-    _raises_naming("block 2-16", k1.check_match_envelope, 17, 16, 8, 1)
-    _raises_naming("step of 1 to the block", k1.check_match_envelope, 8, 16, 8, 9)
-    _raises_naming("step of 1 to the block", k1.check_match_envelope, 8, 16, 8, 0)
-    _raises_naming("search 0-24", k1.check_match_envelope, 8, 16, 25, 4)
-    _raises_naming("search 0-24", k1.check_match_envelope, 8, 16, -1, 4)
-    _raises_naming("k in 1-64", k1.check_match_envelope, 8, 128, 8, 4)
-    _raises_naming("k in 1-64", k1.check_match_envelope, 8, 0, 8, 4)
-    _raises_naming("power-of-two k", k1.check_match_envelope, 8, 24, 8, 4)
-    # K2: (block, K).
-    for block in (2, 16):
-        for k in (1, 64):
+    assert k1.match_search_limit(8, 16) == 95 and k1.match_search_limit(8, 128) == 73
+    assert k1.match_search_limit(4, 16) == k1.match_search_limit(24, 128) == 103
+    for block, k in ((8, 16), (8, 128), (4, 16), (24, 128)):
+        most = k1.match_search_limit(block, k)
+        assert k1.match_smem_bytes(block, k, most) <= 227 * 1024 < k1.match_smem_bytes(block, k, most + 1)
+    # K2: (block, K); the footprint any window K1 takes at 128 px, search 81
+    # at block 8 on a larger image.
+    for block in (1, 32):
+        for k in (1, 128):
             k2.check_aggregate_envelope(block, k)
-    _raises_naming("block 2-16", k2.check_aggregate_envelope, 1, 16)
-    _raises_naming("block 2-16", k2.check_aggregate_envelope, 17, 16)
-    _raises_naming("K in 1-64", k2.check_aggregate_envelope, 8, 128)
-    _raises_naming("K in 1-64", k2.check_aggregate_envelope, 8, 0)
-    _raises_naming("power-of-two", k2.check_aggregate_envelope, 8, 48)
-    # K3: (patch_size, patch_distance).
-    for p in (1, 11):
-        for d in (1, 15):
+    assert _k2_plan(128, k1.match_search_limit(8, 16))[1].smem_bytes <= 227 * 1024
+    assert _k2_plan(256, 81)[1].smem_bytes <= 227 * 1024
+    # K3: (patch_size, patch_distance); the distance as far as the CTA's
+    # shared memory allows at that patch.
+    for p in (1, 31):
+        for d in (1, k3.nlm_distance_limit(p)):
             k3.check_nlm_envelope(p, d)
-    _raises_naming("patch_size 1-11", k3.check_nlm_envelope, 0, 5)
-    _raises_naming("patch_size 1-11", k3.check_nlm_envelope, 12, 5)
-    _raises_naming("patch_distance 1-15", k3.check_nlm_envelope, 4, 0)
-    _raises_naming("patch_distance 1-15", k3.check_nlm_envelope, 4, 16)
+    assert (k3.nlm_distance_limit(13), k3.nlm_distance_limit(21), k3.nlm_distance_limit(31)) == (67, 65, 62)
+    for p in (1, 13, 21, 31):
+        most = k3.nlm_distance_limit(p)
+        assert k3.cluster_smem(p, most, 4, 8) <= 227 * 1024 < k3.cluster_smem(p, most + 1, 4, 8)
+
+
+def _k2_plan(size: int, search: int):
+    """K2's plan of a BM3D call at block 8, step 3, K 16 on a ``size`` px
+    image (made on the host, so on the CPU here)."""
+    grid = tuple(bm3d._ref_grid(size, 8, 3).tolist())
+    return k2.aggregate_plan(k2.aggregate_geometry(size, size, grid, grid, search, 8, torch.device("cpu")), 16)
+
+
+# The first refused value past each bound that stays, and the reason its
+# message names (the envelope functions' docstrings give the bytes).
+REFUSALS = {
+    "k1_block_0": (k1.check_match_envelope, (0, 16, 8, 1), "block 1-32 .a tile's span is 32 pixels, one row a lane"),
+    "k1_block_33": (k1.check_match_envelope, (33, 16, 8, 1), "block 1-32 .a tile's span is 32 pixels, one row a lane"),
+    "k1_step_0": (k1.check_match_envelope, (8, 16, 8, 0), "step of 1 or more"),
+    "k1_k_0": (k1.check_match_envelope, (8, 0, 8, 4), "k in 1-128 .at most four top-k slots a lane"),
+    "k1_k_256": (k1.check_match_envelope, (8, 256, 8, 4), "k in 1-128 .at most four top-k slots a lane"),
+    "k1_k_24": (k1.check_match_envelope, (8, 24, 8, 4), "power-of-two k"),
+    "k1_search_96_block8": (k1.check_match_envelope, (8, 16, 96, 3), "search 0-95 at block 8, k 16 .its CTA's 230340 bytes of shared memory"),
+    "k1_search_74_block8_k128": (k1.check_match_envelope, (8, 128, 74, 3), "search 0-73 at block 8, k 128"),
+    "k1_search_104_block4": (k1.check_match_envelope, (4, 16, 104, 2), "search 0-103 at block 4, k 16"),
+    "k1_search_minus_1": (k1.check_match_envelope, (8, 16, -1, 4), "search 0-95"),
+    "k1_any_block_17": (k1.check_any_envelope, (17, 16, 8), "does not strictly ascend .bm3d_match_any_kernel. at block 2-16"),
+    "k1_any_k_128": (k1.check_any_envelope, (8, 128, 8), "does not strictly ascend .bm3d_match_any_kernel. at k 1-64"),
+    "k1_any_search_25": (k1.check_any_envelope, (8, 16, 25), "at search 0-24"),
+    "k2_block_0": (k2.check_aggregate_envelope, (0, 16), "block 1-32"),
+    "k2_block_33": (k2.check_aggregate_envelope, (33, 16), "block 1-32"),
+    "k2_k_0": (k2.check_aggregate_envelope, (8, 0), "K in 1-128"),
+    "k2_k_256": (k2.check_aggregate_envelope, (8, 256), "K in 1-128"),
+    "k2_k_48": (k2.check_aggregate_envelope, (8, 48), "power-of-two"),
+    "k2_footprint_search_82_256px": (_k2_plan, (256, 82), "footprint whose .num, den. planes fit one CTA's "
+                                     "shared memory .232448 bytes.: 172x172 needs 236672"),
+    "k3_patch_0": (k3.check_nlm_envelope, (0, 5), "patch_size 1-31 .33 - P whole windows"),
+    "k3_patch_32": (k3.check_nlm_envelope, (32, 5), "patch_size 1-31 .33 - P whole windows"),
+    "k3_distance_0": (k3.check_nlm_envelope, (4, 0), "patch_distance 1 or more"),
+    "k3_distance_66_patch_21": (k3.check_nlm_envelope, (21, 66), "patch_distance 1-65 at patch_size 21 .its CTA's 231520 bytes"),
+    "k3_distance_63_patch_31": (k3.check_nlm_envelope, (31, 63), "patch_distance 1-62 at patch_size 31"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_each_remaining_bound_refuses_by_name(case):
+    fn, args, reason = REFUSALS[case]
+    _raises_naming(reason, fn, *args)
 
 
 def test_k1_geometry_picks_its_kernel_by_setting():
@@ -272,3 +323,30 @@ def test_lossy_device_ms_counts_every_kernel_name():
     assert chip_smoke.LOST_RECORDS.pop()["launches_a_call"] == {"tile": 2, "fold": 1}
     with pytest.raises(RuntimeError, match="device records"):
         chip_smoke.lossy_device_ms([([tile], [tile] * 50 + [fold] * 5)], 50)
+
+
+@pytest.mark.parametrize("row", ["step_past_block", "search32", "k128", "nlm"])
+def test_the_wide_calls_fixture_holds_the_port_on_the_cpu(row):
+    """``params_wide_jax.npz``, which ``chip_smoke.py``'s ``wide_calls``
+    holds the card to (each lane within 0.01 dB of the JAX CPU output),
+    against the port's plain path on the same inputs: the BM3D rows within
+    that (their bf16 distances flip near-ties), NLM within 1e-5."""
+    from pnp_svrg_tpu_torch.convert import (WIDE_BM3D, WIDE_NLM, load_envelope_reference, load_headline_problems,
+                                            load_nlm_problem, load_wide_reference, nlm_params)
+    from pnp_svrg_tpu_torch.ops.metrics import psnr
+
+    ref = load_wide_reference()
+    if row == "nlm":
+        got = NLMDenoiser(sigma_modifier=nlm_params()["sigma_modifier"], **WIDE_NLM).denoise(
+            torch.tensor(ref["nlm/input"]), torch.tensor(ref["nlm/sigma_est"]), 0)
+        assert float((got - torch.tensor(ref["nlm/output"])).abs().max()) <= NLM_TOL
+        clean, want = load_nlm_problem("cpu").x, torch.tensor(ref["nlm/output"])
+    else:
+        env = load_envelope_reference("bm3d_profile")
+        lanes = ref["bm3d/lanes"]
+        assert lanes.tolist() == [0, 12]
+        clean = load_headline_problems("cpu")[0].x[torch.as_tensor(lanes).long()]
+        got = bm3d.BM3DDenoiser(params=WIDE_BM3D[row]).denoise(
+            torch.tensor(env["first_input"][lanes]), torch.tensor(env["first_sigma"][lanes]), torch.zeros(()))
+        want = torch.tensor(ref[f"bm3d/{row}/output"])
+    assert float((psnr(clean, got) - psnr(clean, want)).abs().max()) <= chip_smoke.PROFILE_CALL_TOL_DB

@@ -42,11 +42,6 @@ EXCEPTIONS = {
     # The port's training step is a function, ``train_step``, not a factory
     # of jitted steps.
     "training.train_dncnn": {"make_train_step"},
-    # The .pth conversion reads the reference checkout's PyTorch weights,
-    # which are not in the repository; the port reads the converted
-    # checkpoints/*.npz.
-    "models.convert": {"CONVERSIONS", "DEFAULT_OUT", "REFERENCE_ROOT", "convert_all",
-                       "mmo_simple_cnn_to_flax", "sequential_dncnn_to_flax"},
 }
 # Port names in an ``__all__`` that the JAX package's lacks, and why.
 ADDITIONS = {
