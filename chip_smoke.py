@@ -593,8 +593,9 @@ ENVELOPE_K3 = ((7, 11), (1, 1), (11, 15))
 # over one call after one warm-up call (PLAIN_WIDE_REPS: calls, warm-up
 # calls; K3's, 1-5 s each, one call after its two checking calls), K1 held
 # on the row's image alone. K2's search40 and search_widest rows are the
-# (8, 16) / (8, 32) calls whose 2 x 2 tiles pass a CTA's shared memory, on
-# the packed kernel. Each row records its seconds.
+# (8, 16) / (8, 32) calls whose 2 x 2 tiles pass a CTA's shared memory;
+# those two, block1, block4_step6 and block24 go to the gather form, each
+# beside the packed kernel on the same call. Each row records its seconds.
 ENVELOPE_K1_WIDE = {"step_past_block": (8, 10, 19, 16, "input"), "block4_step6": (4, 6, 3, 4, "input"),
                     "search32": (8, 3, 32, 16, "input"), "block4_s40": (4, 2, 40, 16, "input"),
                     "k128": (8, 3, 19, 128, "basic"), "block1": (1, 1, 3, 4, "input"),
@@ -631,7 +632,8 @@ KERNELS = {"bm3d_match": bm3d_match, "bm3d_aggregate": bm3d_aggregate, "nlm": nl
 K2_REPEATS = 50  # more K2 calls on one call's arguments, each bit for bit the first
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("K1 bm3d_match", K1_KERNELS),
-    ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel", "bm3d_aggregate_fold_kernel", "bm3d_aggregate_packed_kernel")),
+    ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel", "bm3d_aggregate_fold_kernel", "bm3d_aggregate_packed_kernel",
+                           "bm3d_aggregate_index_kernel", "bm3d_aggregate_gather_kernel")),
     ("K3 nlm", ("nlm_kernel", "nlm_any_kernel", "nlm_cluster_kernel", "nlm_cluster_rt_kernel")),
     # Before the matmul group: cuDNN's implicit-GEMM convolutions
     # (``sm80_xmma_fprop_implicit_gemm_*``) carry "gemm" too; cuBLAS's
@@ -1088,8 +1090,12 @@ def aggregate_record(agg_in, prev_design: bool = False, plain_reps: tuple = (50,
     :func:`aggregate_kernel` names. With ``prev_design``, where that is the
     packed kernel, the design it replaced (``bm3d_aggregate_kernel<0, 0>``
     on 2 x 2 tiles) is timed on the same arguments too, after it is held to
-    the same 1e-5 and to two calls bit for bit equal. The plain version is
-    timed over ``plain_reps`` = (calls, warm-up calls)."""
+    the same 1e-5 and to two calls bit for bit equal. Where the gather form
+    takes the call, the design it is held against is the packed kernel on
+    its plan for the call (held and timed the same way, with or without
+    ``prev_design``), and the record splits its device ms into the member
+    index's build and the sums. The plain version is timed over
+    ``plain_reps`` = (calls, warm-up calls)."""
     idx, est, wgt, kai, h, w, geom = agg_in
     b, p, bb = est.shape
     kernel = aggregate_kernel(math.isqrt(bb), p // wgt.shape[1], geom)
@@ -1135,7 +1141,8 @@ def aggregate_record(agg_in, prev_design: bool = False, plain_reps: tuple = (50,
     require(lib_err <= 1e-5 * max(scales.values()), f"index_add_ yardstick err {lib_err}")
     library = lambda: torch.zeros(2 * b * h * w, device=idx.device).index_add_(0, flat, terms)  # noqa: E731
     library_ms, library_event_ms = device_ms(library), cuda_ms(library)
-    plan = geom.packed(p // wgt.shape[1]) if kernel == K2_KERNELS[1] else geom
+    k = p // wgt.shape[1]
+    plan = k2_module.aggregate_plan(geom, k)[1]
     rec = {
         "kernel": kernel,
         "max_abs_err": max(errs.values()), "max_abs_err_by_plane": errs,
@@ -1146,11 +1153,38 @@ def aggregate_record(agg_in, prev_design: bool = False, plain_reps: tuple = (50,
         "speedup_vs_library": library_ms / ms,
         "library_max_abs_err": lib_err, "repeat_launches": K2_REPEATS,
         "repeat_bitwise": repeat_bitwise, "dyadic_bitwise": dyadic_equal,
-        "smem_bytes": plan.smem_bytes, "footprint": [plan.fh, plan.fw],
-        "scratch_bytes": geom.scratch_bytes(b, plan if kernel == K2_KERNELS[1] else None),
+        "smem_bytes": plan.smem_bytes,
         "shape": {"idx": list(idx.shape), "est": list(est.shape), "wgt": list(wgt.shape),
                   "planes": [2, b, h, w]},
     }
+    if kernel == K2_KERNELS[2]:
+        n_rows = (h - block + 1) * (w - block + 1)
+        chunk, cap, threads = k2_module.index_plan(b, n_rows, p)
+        rec["plan"] = {"rows": plan.rows, "warps": plan.warps, "wx": plan.wx, "unroll": plan.unroll,
+                       "tile": list(plan.tile),
+                       "index_rows_a_run": chunk, "index_cap": cap, "index_threads": threads}
+        rec["index_bytes"] = sum(t.numel() * 4 for t in geom.index_workspace(b, p))
+        rec |= gather_split_ms(lambda: bm3d_aggregate(*agg_in))
+        packed = geom.packed(k)
+        fn = k2_module._lib()[K2_KERNELS[1]]
+        call_prev = lambda: k2_module.launch(K2_KERNELS[1], fn, idx, est, wgt, kai, h, w, geom, packed)  # noqa: E731
+        rec |= {"prev_design": K2_KERNELS[1], "prev_design_plan": {"tile": packed.tile, "warps": packed.warps,
+                                                                  "groups": packed.groups,
+                                                                  "footprint": [packed.fh, packed.fw],
+                                                                  "smem_bytes": packed.smem_bytes}}
+        if packed.smem_bytes <= 227 * 1024:  # else no packed CTA fits: there is no earlier design to time
+            first = call_prev()
+            c = {"max_abs_err": max((a - r).abs().max().item() for a, r in zip(first, want)),
+                 "repeat_bitwise": all(torch.equal(a, r) for a, r in zip(call_prev(), first))}
+            require(c["max_abs_err"] <= 1e-5 * max(scales.values()) and c["repeat_bitwise"],
+                    f"K2's {K2_KERNELS[1]} at {list(est.shape)}: {c}")
+            rec |= {"prev_design_checks": c, "prev_design_ms": device_ms(call_prev),
+                    "prev_design_event_ms": cuda_ms(call_prev),
+                    "prev_design_scratch_bytes": geom.scratch_bytes(b, packed)}
+            rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / ms
+        return rec
+    rec |= {"footprint": [plan.fh, plan.fw],
+            "scratch_bytes": geom.scratch_bytes(b, plan if kernel == K2_KERNELS[1] else None)}
     if kernel == K2_KERNELS[1]:
         rec["plan"] = {"tile": plan.tile, "warps": plan.warps, "groups": plan.groups,
                        "ctas": len(plan.tile_oy) * len(plan.tile_ox) * b}
@@ -1168,6 +1202,29 @@ def aggregate_record(agg_in, prev_design: bool = False, plain_reps: tuple = (50,
                 "prev_design_smem_bytes": geom.smem_bytes, "prev_design_scratch_bytes": geom.scratch_bytes(b)}
         rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / ms
     return rec
+
+
+def gather_split_ms(fn, reps: int = 50, windows: int = PROFILE_WINDOWS) -> dict:
+    """The gather form's device ms apart: the member index's build (the
+    index kernel) and the sums (the gather kernel), each the mean of its
+    records over ``reps`` calls of ``fn`` (one launch of each a call), so a
+    window that lost some records still gives them; a window that lost all
+    of one kernel's is measured again, up to ``windows`` times, and past
+    that the part is None (listed in :data:`LOST_RECORDS`)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    parts = {"index_build_ms": "bm3d_aggregate_index_kernel", "accumulate_ms": "bm3d_aggregate_gather_kernel"}
+    for _ in range(windows):
+        by = collections.defaultdict(list)
+        for e in device_records(fn, reps):
+            for part, name in parts.items():
+                if name in e.name:
+                    by[part].append(e.time_range.elapsed_us() / 1e3)
+        if len(by) == len(parts):
+            return {part: sum(t) / len(t) for part, t in by.items()}
+    LOST_RECORDS.append({"gather_split": sorted(by), "windows": windows})
+    return {part: (sum(by[part]) / len(by[part]) if by[part] else None) for part in parts}
 
 
 def check_aggregate(agg_in) -> dict:
@@ -1894,7 +1951,8 @@ def run_lane(label: str, expect: dict, prob, lanes, ref_masks, floor_db: float |
     require(launches == expect, f"{label}: launches {launches}, expected {expect}")
     check_k1_kernels(label, k1_kernels, launches, rec["profile_k1_kernels"])
     check_k2_k3_kernels(label, k2_k3_kernels, launches)
-    require(K2_KERNELS[1] not in rec["profile_k2_kernels"], f"{label}: the profile ran {K2_KERNELS[1]}")
+    ran = {K2_KERNELS[1], K2_KERNELS[2], "bm3d_aggregate_index_kernel"} & set(rec["profile_k2_kernels"])
+    require(not ran, f"{label}: the profile ran {sorted(ran)}")
     require(ref["set12_vd_mean_psnr_db"] >= floor_db,
             f"{label}: Set12-VD mean {ref['set12_vd_mean_psnr_db']:.4f} dB on the JAX masks < {floor_db:.4f}")
     for cond, what in checks:
@@ -2808,7 +2866,7 @@ def _counts() -> dict:
 # (ALLOWED: the kernel rows and the csmri_nlm_skimage lane); no other
 # launch may go to one of those three.
 TALLY, ALLOWED = collections.Counter(), collections.Counter()
-REDESIGNED_OFF_LANES = (K1_KERNELS[3], K2_KERNELS[1], K3_KERNELS[1], K3_KERNELS[2])
+REDESIGNED_OFF_LANES = (K1_KERNELS[3], K2_KERNELS[1], K2_KERNELS[2], K3_KERNELS[1], K3_KERNELS[2])
 
 
 def _fold_tally() -> None:
@@ -3567,12 +3625,13 @@ def main() -> None:
         "replaces": SOURCES["bm3d_match"][1], "launches": tile_by_lane["bm3d_profile"],
         "launches_by_lane": tile_by_lane, **{k: ht[k] for k in fields + REDESIGN_FIELDS},
         "card": dev["nvidia_smi"], "bench_shapes": tile_rows})
-    # K1's span kernel and K2's packed kernel (the paths off block 8 and
-    # off (8, 16) / (8, 32): no lane runs them; their rows are the
-    # envelope's, golden first) and K3's cluster kernel (csmri_nlm_skimage's
-    # path; its row that lane's shape, B = 1 at (7, 11)).
+    # K1's span kernel and K2's packed and gather kernels (the paths off
+    # block 8 and off (8, 16) / (8, 32): no lane runs them; their rows are
+    # the envelope's, golden and search40 first) and K3's cluster kernel
+    # (csmri_nlm_skimage's path; its row that lane's shape, B = 1 at (7, 11)).
     for name, group, kernel, main in (("bm3d_match_span", "bm3d_match", K1_KERNELS[3], "golden"),
                                       ("bm3d_aggregate_packed", "bm3d_aggregate", K2_KERNELS[1], "golden"),
+                                      ("bm3d_aggregate_gather", "bm3d_aggregate", K2_KERNELS[2], "search40"),
                                       ("nlm_cluster", "nlm", K3_KERNELS[1], "p7_d11_b1"),
                                       ("nlm_cluster_rt", "nlm", K3_KERNELS[2], "p13_d21_b1")):
         rows = {label: r for label, r in next(k for k in kernels if k["name"] == group)["bench_shapes"].items()

@@ -123,6 +123,39 @@
 // blocks (a step past the block) leave pixels no member covers: no tile's
 // footprint holds them, so the fold writes 0 to both planes there, as the
 // plain version's sums of nothing are.
+//
+// The calls where staged footprints lose (`aggregate_plan` in
+// ops/cuda/bm3d_aggregate.py names them: one-pixel or sparse members, blocks
+// past 16, windows far wider than the step): `bm3d_aggregate_gather_kernel`,
+// output-stationary, with no footprint, scratch plane or fold. Its bound is
+// the same (bytes). Two launches. (1) `bm3d_aggregate_index_kernel` builds a
+// per-call member index: each image's members bucketed by patch position
+// (row `py * ww + px`), a CSR of B * (hh * ww + 1) offsets and the member ids
+// of each bucket in ascending order. One CTA per (image, run of table rows)
+// reads the image's rows once (16-byte loads), counts its own rows in shared
+// memory (integer atomics) and keeps their members there, scans the counts,
+// fills its buckets and sorts each by member id (an entry's rank is the
+// number of smaller ids in its bucket), so the index does not depend on the
+// order in which the fill's atomics land. A run whose members pass the CTA's
+// shared memory fills and sorts through global scratch instead, same result.
+// Rows outside [0, hh * ww) enter no bucket: they are dropped. (2) The
+// gather kernel: one CTA per (image, tile of output pixels). From block 3 on
+// (R = 1) a warp owns 8 columns x 4 rows, a lane a pixel with its sums in
+// registers: the warp stages the offsets of every bucket whose patch
+// overlaps them (a few rows of the CSR) in its shared memory and walks those
+// buckets' members as one list in ascending (py, px, member id), 32 entries
+// a window (the next window's ids in flight), U members a batch: for each
+// member the lanes its patch covers load their values (a patch row's
+// contiguous floats a lane row), form wk = wgt * kaiser and then est * wk,
+// and add. At blocks 1-2 (R = 0) a thread owns one pixel and walks its own b
+// x b buckets in the same order (a one-pixel member has no patch row to
+// share). Every pixel so sums its terms in ascending patch position, then
+// member id, whatever lies where: no float atomic, no out-of-footprint scan,
+// and pixels no member covers get 0. A member overlapping several warps'
+// tiles is read by each (from L2 for the most part). At the wide windows
+// the walk is bound by its instructions and by its heaviest warps (the
+// walks' loads: `walk_load` in examples/k2_variants.py), not by the
+// estimates' bytes (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -136,6 +169,9 @@ constexpr int kFoldThreads = 256;
 constexpr int kMaxCover = 6;  // the fold's covering tiles an axis, loaded at once
 constexpr long long kFewPixels = 1 << 17;  // fold all at once up to this many pixels
 constexpr int kPackedMaxWarps = 8;  // the packed kernel's warps a CTA, at most
+constexpr int kIndexMaxThreads = 1024;  // the index kernel's threads a CTA, at most
+constexpr int kIndexUnroll = 4;  // rows each index thread has in flight (an int4)
+constexpr int kGatherMaxWarps = 16;  // the gather kernel's warps a CTA, at most
 
 // Whether a block x block member at (py, px) lies inside the fh x fw
 // footprint at (oy, ox).
@@ -611,6 +647,414 @@ cudaError_t launch_packed(dim3 grid, int warps, size_t smem, cudaStream_t s, con
   return cudaGetLastError();
 }
 
+// The CTA's sum of one int a thread (`warp_sums`: 33 ints of shared memory).
+__device__ int cta_sum(int v, int* warp_sums) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += warp_sums[w];
+  __syncthreads();
+  return total;
+}
+
+// Exclusive scan of s[0, n) in place by the CTA (each thread a contiguous
+// run of ceil(n / blockDim.x) entries); returns the total.
+__device__ int cta_exclusive_scan(int* s, int n, int* warp_sums) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (n + (int)blockDim.x - 1) / (int)blockDim.x;
+  const int lo = min(tid * per, n), hi = min(lo + per, n);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += s[i];
+  int inc = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += v;
+  }
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
+    int vi = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, vi, o);
+      if (lane >= o) vi += u;
+    }
+    warp_sums[lane] = vi - v;
+    if (lane == 31) warp_sums[32] = vi;
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + inc - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int c = s[i];
+    s[i] = run;
+    run += c;
+  }
+  const int total = warp_sums[32];
+  __syncthreads();
+  return total;
+}
+
+// The index kernel's sort of one run's filled rows (members sp, rows less
+// r0 sr, `total` of them; start: each row's first slot, then the end) into
+// `ids` from `first` on: an entry's place in its row is the number of
+// smaller ids there (an image's ids are distinct). Called on shared or on
+// global memory, each call site its own.
+__device__ __forceinline__ void sort_run(const int* sp, const int* sr, const int* start, int first, int total,
+                                         int* __restrict__ ids) {
+  for (int j = threadIdx.x; j < total; j += blockDim.x) {
+    const int v = sp[j], row = sr[j];
+    const int s = start[row] - first, e = start[row + 1] - first;
+    int rank = 0;
+    for (int q = s; q < e; ++q) rank += sp[q] < v;
+    ids[first + s + rank] = v;
+  }
+}
+
+// The gather form's member index, for image blockIdx.y and its run of table
+// rows [r0, r0 + rn), r0 = blockIdx.x * chunk_rows: the CSR offsets of those
+// rows (positions in `ids`, image b's entries from b * P on; the last run
+// also writes the image's end) and each row's member ids in ascending
+// order. The CTA reads the image's rows once (the next batch's loads in
+// flight over this one's counting); up to `cap` members of its run stay in
+// shared memory, where they are filled into their rows and sorted; a run
+// with more goes through `any_ids` / `any_rows` (B * P ints each) instead,
+// with the same result.
+__global__ void __launch_bounds__(kIndexMaxThreads)
+bm3d_aggregate_index_kernel(const int* __restrict__ idx, int* __restrict__ offsets, int* __restrict__ ids,
+                            int* any_ids, int* any_rows, int P, int nrows, int chunk_rows, int cap) {
+  extern __shared__ int sm[];
+  int* start = sm;                    // chunk_rows + 1: each row's first slot, then the run's end
+  int* cur = start + chunk_rows + 1;  // chunk_rows: the counts, then the fill's cursors
+  int* warp_sums = cur + chunk_rows;  // 33
+  int* n_list = warp_sums + 33;       // 1: members of the run
+  int* list_p = n_list + 1;           // cap: the run's members, in arrival order
+  int* list_r = list_p + cap;         // cap: their rows less r0
+  int* slot_p = list_r + cap;         // cap: the filled rows' members
+  int* slot_r = slot_p + cap;         // cap: their rows less r0
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * chunk_rows;
+  const int rn = min(chunk_rows, nrows - r0);
+  const int* rows = idx + (long long)b * P;
+  for (int i = tid; i < rn; i += nt) cur[i] = 0;
+  if (tid == 0) *n_list = 0;
+  __syncthreads();
+
+  // Count the run's rows, keep its members, count the members of earlier
+  // rows: each row less r0, which is the run's if below rn. A thread takes
+  // kIndexUnroll consecutive members a batch (one 16-byte load where the
+  // image's rows are so aligned), the next batch in flight.
+  const bool vec = (P & 3) == 0 && (reinterpret_cast<unsigned long long>(idx) & 15) == 0;
+  auto load = [&](int p, int* r) {
+    if (vec && p + kIndexUnroll <= P) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(rows + p));
+      r[0] = v.x;
+      r[1] = v.y;
+      r[2] = v.z;
+      r[3] = v.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < kIndexUnroll; ++u) r[u] = p + u < P ? __ldg(rows + p + u) : -1;
+    }
+  };
+  int below = 0;
+  int r[kIndexUnroll];
+  load(tid * kIndexUnroll, r);
+  for (int p0 = 0; p0 < P; p0 += nt * kIndexUnroll) {
+    const int p1 = p0 + tid * kIndexUnroll;
+    int next[kIndexUnroll];
+    load(p1 + nt * kIndexUnroll, next);
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kIndexUnroll; ++u) {
+      below += (unsigned)r[u] < (unsigned)r0;
+      r[u] = (int)((unsigned)r[u] - (unsigned)r0);
+      any |= (unsigned)r[u] < (unsigned)rn;
+    }
+    if (__any_sync(0xffffffffu, any)) {
+      int mine = 0;
+#pragma unroll
+      for (int u = 0; u < kIndexUnroll; ++u) mine += (unsigned)r[u] < (unsigned)rn;
+      int inc = mine;  // the warp's members of the run before this lane's, and all
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += v;
+      }
+      int at = 0;
+      if (lane == 31) at = atomicAdd(n_list, inc);
+      at = __shfl_sync(0xffffffffu, at, 31) + inc - mine;
+#pragma unroll
+      for (int u = 0; u < kIndexUnroll; ++u) {
+        if ((unsigned)r[u] < (unsigned)rn) {
+          atomicAdd(&cur[r[u]], 1);
+          if (at < cap) {
+            list_p[at] = p1 + u;
+            list_r[at] = r[u];
+          }
+          ++at;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kIndexUnroll; ++u) r[u] = next[u];
+  }
+  const int first = b * P + cta_sum(below, warp_sums);
+  for (int i = tid; i < rn; i += nt) start[i] = cur[i];
+  __syncthreads();
+  const int total = cta_exclusive_scan(start, rn, warp_sums);
+  int* off = offsets + (long long)b * (nrows + 1) + r0;
+  for (int i = tid; i < rn; i += nt) {
+    start[i] += first;
+    off[i] = start[i];
+    cur[i] = 0;
+  }
+  if (tid == 0) {
+    start[rn] = first + total;
+    if (r0 + rn == nrows) off[rn] = first + total;
+  }
+  __syncthreads();
+
+  // Fill each row of the run with its members, in any order, then sort
+  // each by member id: in shared memory where the run's members fit, else
+  // through global scratch.
+  if (total <= cap) {
+    for (int i = tid; i < total; i += nt) {
+      const int row = list_r[i];
+      const int at = start[row] - first + atomicAdd(&cur[row], 1);
+      slot_p[at] = list_p[i];
+      slot_r[at] = row;
+    }
+    __syncthreads();
+    sort_run(slot_p, slot_r, start, first, total, ids);
+  } else {
+    int* sp = any_ids + first;
+    int* sr = any_rows + first;
+    for (int p = tid; p < P; p += nt) {
+      const int row = (int)((unsigned)__ldg(rows + p) - (unsigned)r0);
+      if ((unsigned)row < (unsigned)rn) {
+        const int at = start[row] - first + atomicAdd(&cur[row], 1);
+        sp[at] = p;
+        sr[at] = row;
+      }
+    }
+    __syncthreads();
+    sort_run(sp, sr, start, first, total, ids);
+  }
+}
+
+// A walking warp's staged ints in the gather kernel: its bucket offsets
+// (the patch rows of its 4R rows by its 8 columns and one past) and its
+// patch rows' first entries.
+__host__ __device__ constexpr int gather_stage_ints(int r, int block) {
+  return (4 * r + block - 1) * (block + 9) + 1;
+}
+
+// The gather form's sums: one CTA per (image blockIdx.z, tile of output
+// pixels), every pixel's terms in ascending (patch position, member id)
+// from the index (`offsets`, `ids`), written straight to num and den. R > 0:
+// each warp 8 columns x 4R rows (`wx` warps across a CTA), lane l column
+// l % 8 and rows l / 8 + 4i (i < R), one walk a warp; R = 0: 32 columns x 1
+// row a warp, one walk a thread. U: members a walking warp has in flight.
+template <int R, int U>
+__global__ void __launch_bounds__(kGatherMaxWarps * 32)
+bm3d_aggregate_gather_kernel(const float* __restrict__ est, const float* __restrict__ wgt,
+                             const float* __restrict__ kaiser, const int* __restrict__ offsets,
+                             const int* __restrict__ ids, float* __restrict__ num, float* __restrict__ den,
+                             int H, int W, int P, int G, int block, int k_shift, int wx) {
+  extern __shared__ float s_kai[];  // block^2, then (R > 0) each warp's staged offsets
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bb = block * block;
+  for (int i = tid; i < bb; i += blockDim.x) s_kai[i] = __ldg(kaiser + i);
+  __syncthreads();
+  const int b = blockIdx.z;
+  const int hh = H - block + 1, ww = W - block + 1;
+  const int* off = offsets + (long long)b * (hh * ww + 1);
+  const float* est_b = est + (long long)b * P * bb;
+  const float* wgt_b = wgt + (long long)b * G;
+  const long long plane = (long long)b * H * W;
+
+  if constexpr (R == 0) {
+    const int x = blockIdx.x * 32 + lane;
+    const int y = blockIdx.y * (blockDim.x >> 5) + warp;
+    if (x >= W || y >= H) return;
+    float n = 0.f, d = 0.f;
+    const int px_lo = max(0, x - block + 1), px_hi = min(x, ww - 1);
+    for (int py = max(0, y - block + 1); py <= min(y, hh - 1); ++py) {
+      const int* row_off = off + py * ww;
+      int s = __ldg(row_off + px_lo);
+      for (int px = px_lo; px <= px_hi; ++px) {
+        const int e = __ldg(row_off + px + 1);
+        const int k = (y - py) * block + x - px;
+        const float kai = s_kai[k];
+        for (; s < e; s += 2) {  // two members in flight, in ascending id
+          const bool two = s + 1 < e;
+          const int m0 = __ldg(ids + s);
+          const int m1 = two ? __ldg(ids + s + 1) : m0;
+          const float w0 = __ldg(wgt_b + (m0 >> k_shift)), v0 = __ldg(est_b + (long long)m0 * bb + k);
+          const float w1 = __ldg(wgt_b + (m1 >> k_shift)), v1 = __ldg(est_b + (long long)m1 * bb + k);
+          const float wk0 = __fmul_rn(w0, kai);
+          n += __fmul_rn(v0, wk0);
+          d += wk0;
+          if (two) {
+            const float wk1 = __fmul_rn(w1, kai);
+            n += __fmul_rn(v1, wk1);
+            d += wk1;
+          }
+        }
+        s = e;
+      }
+    }
+    num[plane + (long long)y * W + x] = n;
+    den[plane + (long long)y * W + x] = d;
+  } else {
+    const int sx = (blockIdx.x * wx + warp % wx) * 8;
+    const int sy = (blockIdx.y * ((int)(blockDim.x >> 5) / wx) + warp / wx) * (4 * R);
+    if (sx >= W || sy >= H) return;  // a whole warp's tile
+    const int x = sx + (lane & 7);
+    const int y0 = sy + (lane >> 3);
+    float n[R], d[R];
+    int c[R];  // pixel i's (y, x) as y * block + x: its patch value k = c - (py * block + px)
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      n[i] = 0.f;
+      d[i] = 0.f;
+      c[i] = (y0 + 4 * i) * block + x;
+    }
+    const int px_lo = max(0, sx - block + 1), px_hi = min(sx + 7, ww - 1);
+    const int py_lo = max(0, sy - block + 1), py_hi = min(sy + 4 * R - 1, hh - 1);
+    // The offsets of the warp's buckets (patch rows py_lo..py_hi, columns
+    // px_lo..px_hi and one past) staged at once in its own shared memory,
+    // and each patch row's first entry in the warp's walk (rp).
+    const int ncol = px_hi - px_lo + 2, nrow = py_hi - py_lo + 1;
+    int* so = reinterpret_cast<int*>(s_kai + bb) + warp * gather_stage_ints(R, block);
+    int* rp = so + nrow * ncol;
+    for (int i = lane; i < nrow * ncol; i += 32) {
+      const int r = i / ncol;
+      so[i] = __ldg(off + (py_lo + r) * ww + px_lo + i - r * ncol);
+    }
+    __syncwarp();
+    int carry = 0;
+    for (int r0 = 0; r0 < nrow; r0 += 32) {  // a warp's exclusive scan of the rows' entries
+      const int r = r0 + lane;
+      const int cr = r < nrow ? so[r * ncol + ncol - 1] - so[r * ncol] : 0;
+      int inc = cr;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += v;
+      }
+      if (r < nrow) rp[r] = carry + inc - cr;
+      carry += __shfl_sync(0xffffffffu, inc, 31);
+    }
+    if (lane == 0) rp[nrow] = carry;
+    __syncwarp();
+    const int total = rp[nrow];
+    // The walk's entry t: its patch row (the last row starting at or before
+    // it), its place in the index and its bucket column (the first bucket
+    // of that row ending past it).
+    auto entry = [&](int t, int& r, int& q, int& px) {
+      int lo = 0, hi = nrow - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (rp[mid] <= t) lo = mid;
+        else hi = mid - 1;
+      }
+      r = lo;
+      const int* row = so + r * ncol;
+      q = row[0] + t - rp[r];
+      int a = 0, z = ncol - 2;
+      while (a < z) {
+        const int mid = (a + z) >> 1;
+        if (row[mid + 1] > q) z = mid;
+        else a = mid + 1;
+      }
+      px = px_lo + a;
+    };
+    // The walk in ascending (py, px, member id), 32 entries a window (lane
+    // j holding entry j's id and bucket), U a batch; the next window's ids
+    // in flight over this one's members.
+    int r_, q_, px_;
+    entry(lane, r_, q_, px_);
+    int id = lane < total ? __ldg(ids + q_) : 0;
+    for (int w0 = 0; w0 < total; w0 += 32) {
+      const int cnt = min(32, total - w0);
+      const int pyq = py_lo + r_, pxq = px_;
+      int id2 = 0;
+      if (w0 + 32 + lane < total) {
+        entry(w0 + 32 + lane, r_, q_, px_);
+        id2 = __ldg(ids + q_);
+      }
+      for (int t0 = 0; t0 < cnt; t0 += U) {
+        float ev[U][R], wv[U];
+        int kk[U][R];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int t = t0 + u;
+          const int m = __shfl_sync(0xffffffffu, id, t & 31);
+          const int px = __shfl_sync(0xffffffffu, pxq, t & 31);
+          const int py = __shfl_sync(0xffffffffu, pyq, t & 31);
+          const bool okx = t < cnt && (unsigned)(x - px) < (unsigned)block;
+          wv[u] = okx ? __ldg(wgt_b + (m >> k_shift)) : 0.f;
+          const int k0 = py * block + px;
+          const float* src = est_b + (long long)m * bb - k0;
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const bool ok = okx && (unsigned)(y0 + 4 * i - py) < (unsigned)block;
+            kk[u][i] = ok ? c[i] - k0 : -1;
+            ev[u][i] = ok ? __ldg(src + c[i]) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            if (kk[u][i] < 0) continue;
+            const float wk = __fmul_rn(wv[u], s_kai[kk[u][i]]);
+            n[i] += __fmul_rn(ev[u][i], wk);
+            d[i] += wk;
+          }
+        }
+      }
+      id = id2;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int y = y0 + 4 * i;
+      if (y < H && x < W) {
+        num[plane + (long long)y * W + x] = n[i];
+        den[plane + (long long)y * W + x] = d[i];
+      }
+    }
+  }
+}
+
+// The gather kernel of R pixel rows a lane and U members in flight, opted
+// into its shared memory:
+// the Kaiser window, and with R > 0 each warp's staged bucket offsets and
+// its patch rows' first entries.
+template <int R, int U>
+cudaError_t launch_gather(dim3 grid, int threads, cudaStream_t s, const float* est, const float* wgt,
+                          const float* kaiser, const int* offsets, const int* ids, float* num, float* den,
+                          int H, int W, int P, int G, int block, int k_shift, int wx) {
+  const size_t smem = (block * block + (R > 0 ? (threads / 32) * gather_stage_ints(R, block) : 0)) * 4;
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(bm3d_aggregate_gather_kernel<R, U>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  bm3d_aggregate_gather_kernel<R, U><<<grid, threads, smem, s>>>(est, wgt, kaiser, offsets, ids, num, den, H, W, P,
+                                                               G, block, k_shift, wx);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // `idx` (B, P) int32 patch-position rows, `est` (B, P, block^2) f32, `wgt`
@@ -708,4 +1152,56 @@ extern "C" int bm3d_aggregate_packed_launch(const int* idx, const float* est, co
                                             nC, fh, fw, block_size, K, tile_r, tile_c,
                                             (nR + tile_r - 1) / tile_r, (nC + tile_c - 1) / tile_c);
   return cudaGetLastError();
+}
+
+// The gather form: `bm3d_aggregate_index_kernel` (the member index), then
+// `bm3d_aggregate_gather_kernel<rows>`. `idx`, `est`, `wgt`, `kaiser`, `num`,
+// `den`, B, H, W, nR, nC, K and block as for bm3d_aggregate_packed_launch;
+// `offsets` B * ((H - block + 1) * (W - block + 1) + 1) ints, `ids`,
+// `any_ids` and `any_rows` B * nR * nC * K ints each (the index, and the
+// scratch of runs past `cap`); `chunk_rows` table rows an index CTA, `cap`
+// members it keeps in shared memory, `index_threads` (32-1024, a multiple
+// of 32) its threads; `rows` (0 or 1) pixel rows a lane, `unroll` (4 or 8)
+// members a walking warp has in flight,
+// `warps` (1-16) a gather CTA, `wx` of them across (rows 1).
+extern "C" int bm3d_aggregate_gather_launch(const int* idx, const float* est, const float* wgt,
+                                            const float* kaiser, int* offsets, int* ids, int* any_ids,
+                                            int* any_rows, float* num, float* den, int B, int H, int W,
+                                            int nR, int nC, int K, int block_size, int chunk_rows, int cap,
+                                            int index_threads, int rows, int unroll, int warps, int wx,
+                                            void* stream) {
+  int k_shift = 0;
+  while ((1 << k_shift) < K) ++k_shift;
+  const size_t smem = (size_t)(2 * chunk_rows + 35 + 4 * (size_t)cap) * sizeof(int);
+  if (block_size < 1 || block_size > 32 || block_size > H || block_size > W || K < 1 || K > 128 ||
+      (1 << k_shift) != K || chunk_rows < 1 || cap < 0 || smem > 227 * 1024 || index_threads < 32 ||
+      index_threads > kIndexMaxThreads || index_threads % 32 != 0 || rows < 0 || rows > 1 ||
+      (rows == 1 && unroll != 4 && unroll != 8) || warps < 1 ||
+      warps > kGatherMaxWarps || wx < 1 || warps % wx != 0)
+    return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nrows = (H - block_size + 1) * (W - block_size + 1);
+  const int G = nR * nC, P = G * K;
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(bm3d_aggregate_index_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  bm3d_aggregate_index_kernel<<<dim3((nrows + chunk_rows - 1) / chunk_rows, B), index_threads, smem, s>>>(
+      idx, offsets, ids, any_ids, any_rows, P, nrows, chunk_rows, cap);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (rows == 0) {
+    const dim3 grid((W + 31) / 32, (H + warps - 1) / warps, B);
+    return launch_gather<0, 1>(grid, warps * 32, s, est, wgt, kaiser, offsets, ids, num, den, H, W, P, G,
+                               block_size, k_shift, 1);
+  }
+  const int tile_h = 4 * (warps / wx);
+  const dim3 grid((W + 8 * wx - 1) / (8 * wx), (H + tile_h - 1) / tile_h, B);
+  return (unroll == 4 ? launch_gather<1, 4> : launch_gather<1, 8>)(grid, warps * 32, s, est, wgt, kaiser, offsets,
+                                                                    ids, num, den, H, W, P, G, block_size, k_shift,
+                                                                    wx);
 }

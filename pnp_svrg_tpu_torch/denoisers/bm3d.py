@@ -48,7 +48,6 @@ import torch
 from pnp_svrg_tpu_torch.ops.cuda.bm3d_aggregate import (
     AggregateGeometry,
     aggregate_geometry,
-    aggregate_plan,
     bm3d_aggregate,
     unfold_table,
 )
@@ -169,8 +168,6 @@ def _geometry(h: int, w: int, p: BM3DParams, device: torch.device,
     elif on_card:
         agg = aggregate_geometry(h, w, tuple(rows.tolist()), tuple(cols.tolist()),
                                  int(np.abs(offsets).max()), p.block, torch.device(device))
-        for k in (p.group_ht, p.group_wie):  # K2's refusals, before K1 launches
-            aggregate_plan(agg, k)
     return _Geometry(
         rows=rows, cols=cols, offsets=offsets,
         rows_t=dev(rows, torch.int64), cols_t=dev(cols, torch.int64),

@@ -1,6 +1,6 @@
 """Time K2's design choices on the card.
 
-    python -m pnp_svrg_tpu_torch.examples.k2_variants [--part compiled|runtime] [--row NAME ...]
+    python -m pnp_svrg_tpu_torch.examples.k2_variants [--part compiled|runtime|gather] [--row NAME ...]
 
 Part ``runtime``: the run-time path, every call but block 8 with K 16 or
 32, at the rows ``chip_smoke.py`` checks (:data:`ROWS`: block, step,
@@ -35,9 +35,24 @@ JSON line a shape: each build's device ms, whether 20 calls repeat the
 first bit for bit, and its largest difference from the built kernel (0
 for the fold variants, whose order of adds is the built kernel's).
 
+Part ``gather``: ``bm3d_aggregate_gather_kernel`` (the member index, then
+the sums per output tile) at :data:`GATHER_ROWS`, the rows where staged
+footprints lose and the run-time rows the packed kernel keeps, on the same
+inputs: the gather form on its plan (``gather``), the packed kernel on its
+plan (``packed``) and ``index_add``, in turns (gather, packed, index_add,
+index_add, packed, gather), then the gather form on other plans beside its
+own (variant, gather, gather, variant): :data:`GATHER_PLANS` (pixel rows a
+lane x warps a CTA x warps across, and for a warp's walk 4 or 8 members in
+flight: ``r<rows>_w<warps>_x<across>[_u<unroll>]``). Each is held to the
+plain version first, as above. Each row also gives, for the gather form
+and the packed kernel, the device ms by kernel (the index and the sums
+apart), the rule's inputs (``gather_takes``: the packed plan's scratch
+over the estimates' bytes and its warps an SM) and how evenly the walks
+are loaded (:func:`walk_load`).
+
 Every time is the summed device records of 50 calls under
-``torch.profiler``. Both parts run by default; the last line is the
-card's name and power limit. Needs a CUDA card.
+``torch.profiler``. The parts ``runtime`` and ``compiled`` run by default;
+the last line is the card's name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ import math
 import subprocess
 
 import torch
+import torch.nn.functional as F
 
 from pnp_svrg_tpu_torch.convert import load_headline_problems
 from pnp_svrg_tpu_torch.denoisers.bm3d import BM3DParams, _ref_grid, stage1_aggregate_inputs
@@ -82,6 +98,13 @@ ROWS = {"golden": (4, 2, 3, 4), "block2": (2, 1, 3, 4), "block6": (6, 3, 6, 8),
         "block8_k8": (8, 4, 8, 8), "block16": (16, 8, 8, 16), "search40": (8, 3, 40, 32),
         "search_widest": (8, 3, 95, 16)}
 TILE_EDGES, WARPS = (2, 3, 4, 5, 6, 8, 10, 12), (1, 2, 4)
+# Part gather's rows: the five where staged footprints lost to index_add_,
+# then the run-time rows.
+GATHER_ROWS = {"block1": (1, 1, 3, 4), "block4_step6": (4, 6, 3, 4), "block24": (24, 12, 8, 16),
+               "search40": ROWS["search40"], "search_widest": ROWS["search_widest"],
+               **{row: ROWS[row] for row in ("golden", "block2", "block6", "block8_k8", "block16")}}
+# The gather kernel's other plans: (pixel rows a lane, warps a CTA, warps across).
+GATHER_PLANS = ((0, 4, 1), (0, 8, 1), (0, 16, 1), (1, 2, 2), (1, 4, 2), (1, 4, 4), (1, 8, 2), (1, 8, 4), (1, 16, 4))
 
 
 def build_variants(variants: dict, kernel: str) -> dict:
@@ -265,6 +288,81 @@ def runtime_rows(rows) -> None:
     print(json.dumps({"ptxas": packed_ptxas()}), flush=True)
 
 
+def walk_load(idx, h: int, w: int, block: int) -> dict:
+    """How evenly the gather form's walks are loaded on these rows: the
+    entries a warp of the 8 x 4 walk visits (the members of every bucket
+    whose patch overlaps its pixels) and the terms a pixel adds, each as
+    (mean, most) over the call's images, from the rows alone."""
+    hh, ww = h - block + 1, w - block + 1
+    keep = (idx >= 0) & (idx < hh * ww)
+    counts = torch.stack([torch.bincount(r[k].long(), minlength=hh * ww) for r, k in zip(idx, keep)]).view(-1, hh, ww)
+
+    def box_sums(height: int, width: int, ys, xs):  # members of buckets [y - block + 1, y + height) x [...]
+        pad = F.pad(counts, (block - 1, width + block, block - 1, height + block)).cumsum(1).cumsum(2).double()
+        pad = F.pad(pad, (1, 0, 1, 0))
+        y0, x0 = ys[:, None], xs[None, :]
+        y1, x1 = y0 + height + block - 1, x0 + width + block - 1
+        return pad[:, y1, x1] - pad[:, y0, x1] - pad[:, y1, x0] + pad[:, y0, x0]
+
+    dev = idx.device
+    entries = box_sums(4, 8, torch.arange(0, h, 4, device=dev), torch.arange(0, w, 8, device=dev))
+    terms = box_sums(1, 1, torch.arange(h, device=dev), torch.arange(w, device=dev))
+    return {"warp_entries": [entries.mean().item(), entries.max().item()],
+            "pixel_terms": [terms.mean().item(), terms.max().item()]}
+
+
+def gather_rows(rows) -> None:
+    """Part ``gather`` (module docstring) at ``rows`` of :data:`GATHER_ROWS`."""
+    fns = k2._lib()
+    z, sigma, _ = first_input()
+    for label in rows:
+        block, step, search, k = GATHER_ROWS[label]
+        params = BM3DParams(block=block, step=step, search=search, group_ht=k, match_dtype="bfloat16")
+        idx, est, wgt, kai, h, w, geom = stage1_aggregate_inputs(z, sigma, params)[1]
+        own = k2.gather_plan(block, k2.per_row(geom, k))
+        plans = {"gather": own}
+        for rows_, warps, wx in GATHER_PLANS:
+            for unroll in (4, 8) if rows_ else (8,):
+                plan = k2.gather_plan(block, 1.0, rows_, warps, wx, unroll)
+                if plan != own:
+                    plans[f"r{rows_}_w{warps}_x{wx}" + (f"_u{unroll}" if rows_ else "")] = plan
+        packed = geom.packed(k)
+
+        def call(name, *a):
+            if name == "packed":
+                return k2.launch(k2.K2_KERNELS[1], fns[k2.K2_KERNELS[1]], *a, geom, packed)
+            return k2.launch(k2.K2_KERNELS[2], fns[k2.K2_KERNELS[2]], *a, geom, plans[name])
+
+        names = [*plans, "packed"] if packed.smem_bytes <= 227 * 1024 else list(plans)
+        calls = {name: (lambda name=name: call(name, idx, est, wgt, kai, h, w)) for name in names}
+        calls["index_add"] = index_add_call(idx, est, wgt, kai, h, w)
+        b = est.shape[0]
+        rec = {"row": label, "block": block, "step": step, "search": search, "k": k, "est": list(est.shape),
+               "kernel": k2.aggregate_kernel(block, k, geom),
+               "rule": {"scratch_ratio": k2.scratch_ratio(packed, block, k, geom.n_r, geom.n_c),
+                        "packed_warps_an_sm": k2.packed_warps_an_sm(packed)},
+               "index_plan": list(k2.index_plan(b, (h - block + 1) * (w - block + 1), est.shape[1])),
+               "walk_load": walk_load(idx, h, w, block),
+               "plans": {name: {"rows": pl.rows, "warps": pl.warps, "wx": pl.wx, "unroll": pl.unroll,
+                                "tile": list(pl.tile)}
+                         for name, pl in plans.items()},
+               "packed_plan": {"tile": packed.tile, "warps": packed.warps, "groups": packed.groups,
+                               "footprint": [packed.fh, packed.fw], "smem_bytes": packed.smem_bytes}}
+        rec["checks"] = {name: held_to_plain(lambda *a, name=name: call(name, *a), (idx, est, wgt, kai, h, w))
+                         for name in names}
+        rec["by_kernel_ms"] = {name: kernel_split(calls[name]) for name in ("gather", "packed") if name in names}
+        times = {name: [] for name in calls}
+        for name in ("gather", "packed", "index_add", "index_add", "packed", "gather"):
+            if name in calls:
+                times[name].append(device_ms(calls[name]))
+        for name in plans:
+            if name != "gather":
+                for v in (name, "gather", "gather", name):
+                    times[v].append(device_ms(calls[v]))
+        rec["ms"] = times
+        print(json.dumps(rec), flush=True)
+
+
 def compiled_shapes() -> None:
     """Part ``compiled`` (module docstring)."""
     fns = {"built": k2._lib()[k2.K2_KERNELS[0]], **build_variants(VARIANTS, k2.K2_KERNELS[0])}
@@ -291,14 +389,17 @@ def compiled_shapes() -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--part", choices=("compiled", "runtime"), action="append")
-    ap.add_argument("--row", choices=tuple(ROWS), action="append", help="part runtime's rows (default: all)")
+    ap.add_argument("--part", choices=("compiled", "runtime", "gather"), action="append")
+    ap.add_argument("--row", choices=tuple(ROWS | GATHER_ROWS), action="append",
+                    help="part runtime's or part gather's rows (default: all of the part's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k2_variants: needs a CUDA card")
     parts = args.part or ["runtime", "compiled"]
     if "runtime" in parts:
-        runtime_rows(args.row or tuple(ROWS))
+        runtime_rows([r for r in args.row or ROWS if r in ROWS])
+    if "gather" in parts:
+        gather_rows([r for r in args.row or GATHER_ROWS if r in GATHER_ROWS])
     if "compiled" in parts:
         compiled_shapes()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

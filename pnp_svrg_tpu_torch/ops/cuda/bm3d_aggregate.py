@@ -24,22 +24,24 @@ in its order: the plain version sums by table row, then folds.
 
 The wrapper :func:`bm3d_aggregate` takes the plain version only for a CPU
 tensor; for a CUDA tensor it launches K2 or raises. :func:`aggregate_kernel`
-names the tile kernel of a call: ``bm3d_aggregate_kernel<BLOCK, KK>``,
-compiled for (8, 16) and (8, 32) on 2 x 2 tiles of reference blocks where
-those tiles' planes fit one CTA (search 37 at step 3), and
+names the kernel of a call: ``bm3d_aggregate_kernel<BLOCK, KK>``, compiled
+for (8, 16) and (8, 32) on 2 x 2 tiles of reference blocks where those
+tiles' planes fit one CTA (search 37 at step 3: every BM3D lane's calls);
+``bm3d_aggregate_gather_kernel`` where staged footprints lose
+(:func:`gather_takes`: past block 16, or where the packed kernel's planes
+pass a CTA, its scratch passes the estimates' bytes or its CTAs leave
+fewer than eight warps an SM), which builds a member index per call and
+sums every output pixel from it, with no footprint; and
 ``bm3d_aggregate_packed_kernel<Q>`` for the rest of
 :data:`AGGREGATE_ENVELOPE` (block 1-32, K up to 128: K1's), on the larger
 tiles of :func:`packed_plan` with the idle lanes of small patches given
-members of their own, and past block 16 with the values a lane read at run
-time (Q = 0). Its footprints are those of any grid: at a step past the
-block, pixels that no member covers keep ``den = 0``, as in the plain
-version. A setting outside the envelope, or a footprint whose planes pass
-one CTA's shared memory even at one reference block a tile, raises before
-any launch (:func:`check_aggregate_envelope`, :func:`aggregate_plan`; the
-BM3D denoiser asks the latter before K1 runs). The design the
-packed kernel replaced, ``bm3d_aggregate_kernel<0, 0>`` (block and K read
-at run time, 2 x 2 tiles), stays reachable through :func:`launch` alone, so
-that a caller can time the two on one call (:data:`PREV_DESIGN`).
+members of their own. Their footprints are those of any grid: at a step
+past the block, pixels that no member covers keep ``den = 0``, as in the
+plain version. A setting outside the envelope raises before any launch
+(:func:`check_aggregate_envelope`). The design the packed kernel replaced,
+``bm3d_aggregate_kernel<0, 0>`` (block and K read at run time, 2 x 2
+tiles), stays reachable through :func:`launch` alone, so that a caller can
+time the two on one call (:data:`PREV_DESIGN`).
 """
 
 from __future__ import annotations
@@ -59,15 +61,22 @@ _MAX_SMEM = 227 * 1024
 PACKED_MAX_WARPS = 8  # kPackedMaxWarps in the source
 PACKED_SMEM = 64 * 1024  # the packed plans' shared memory a CTA, at most
 PACKED_VALUES = 1024  # member values a warp of the packed kernel adds, at least
-K2_KERNELS = ("bm3d_aggregate_kernel", "bm3d_aggregate_packed_kernel")
+K2_KERNELS = ("bm3d_aggregate_kernel", "bm3d_aggregate_packed_kernel", "bm3d_aggregate_gather_kernel")
 # The run-time design the packed kernel replaced: launched only by name.
 PREV_DESIGN = "bm3d_aggregate_kernel<0, 0>"
 COMPILED = ((8, 16), (8, 32))  # the (block, K) bm3d_aggregate_kernel is compiled for
 # The settings K2 takes on the card, as K1 (``bm3d_match.MATCH_ENVELOPE``):
 # (least, most) of the patch edge and of the group size K, a power of two.
-# Its footprints are those of any grid and window K1 takes, as far as a
-# CTA's planes fit shared memory (bm3d_aggregate).
+# Its footprints are those of any grid and window K1 takes (the gather form
+# takes those no packed CTA holds).
 AGGREGATE_ENVELOPE = {"block": (1, 32), "k": (1, 128)}
+# The gather form's rule (gather_takes), from k2_variants' timings: the
+# packed kernel's scratch over the estimates' bytes, and its resident warps
+# an SM, on its plan for the call.
+GATHER_SCRATCH_RATIO, GATHER_MIN_WARPS = 1.0, 8
+N_SMS = 132  # an H100's SMs: the index kernel's CTAs are planned for them
+INDEX_MAX_ROWS = 8192  # table rows a run, at most
+INDEX_SMEM = 160 * 1024  # an index CTA's shared memory: its rows and the members it keeps
 
 
 def check_aggregate_envelope(block: int, k: int) -> None:
@@ -78,19 +87,10 @@ def check_aggregate_envelope(block: int, k: int) -> None:
     128 are K1's (``bm3d_match.check_match_envelope``): no BM3D call past
     them reaches the aggregation, so no kernel is built for them (the
     packed kernel's K is a shift, and a member past block 32 would be more
-    than 1,024 values a warp). The footprint is the other bound, which
-    :func:`aggregate_plan` checks on the call's geometry. The compiled
-    kernel's CTA holds 4 warps' (num, den) planes of a 2 x 2 tile's
-    footprint, 32 fh fw bytes: at step 3 and block 8, fh = fw = 2 search +
-    11, so from search 38 (87 x 87: 242,208 bytes) its calls go to the
-    packed kernel. A packed CTA holds a (num, den) pair of fh x fw f32
-    planes for each lane group of each warp, 8 fh fw bytes at the least
-    (one warp, one group, one reference block a tile, whose footprint is
-    2 search + block along each axis, clipped to the image), which must
-    fit one CTA's 227 KB (232,448 bytes): fh = fw = 170 at most, so at
-    block 8 search 81 on an image of 170 pixels or more (search 82 needs
-    8 x 172 x 172 = 236,672 bytes), and any window K1 takes on a 128 px
-    image (8 x 128 x 128 = 131,072 bytes)."""
+    than 1,024 values a warp). The footprint bounds no call: where a
+    packed CTA's planes would pass its shared memory (at block 8, search
+    82 on a 256 px image), :func:`aggregate_plan` gives the call to the
+    gather form, whose CTAs hold only the Kaiser window."""
     lo, hi = AGGREGATE_ENVELOPE["block"]
     if not lo <= block <= hi:
         raise ValueError(f"K2 takes block {lo}-{hi}, not {block}")
@@ -127,13 +127,19 @@ def bm3d_aggregate_plain(idx, est, wgt, kaiser, h: int, w: int):
 
 
 def aggregate_kernel(block: int, k: int, geometry: AggregateGeometry | None = None) -> str:
-    """The K2 tile kernel that takes a call with this patch edge and group
-    size on ``geometry``: ``bm3d_aggregate_kernel`` at its compiled (8, 16)
-    and (8, 32) where its 2 x 2 tiles' planes fit one CTA (every BM3D
-    lane's; without a geometry, the window is taken to fit),
-    ``bm3d_aggregate_packed_kernel`` everywhere else."""
-    fits = geometry is None or geometry.smem_bytes <= _MAX_SMEM
-    return K2_KERNELS[0] if (block, k) in COMPILED and fits else K2_KERNELS[1]
+    """The K2 kernel that takes a call with this patch edge and group size
+    on ``geometry``: ``bm3d_aggregate_kernel`` at its compiled (8, 16) and
+    (8, 32) where its 2 x 2 tiles' planes fit one CTA (every BM3D lane's;
+    without a geometry, the window is taken to fit),
+    ``bm3d_aggregate_gather_kernel`` where staged footprints lose
+    (:func:`gather_takes`), ``bm3d_aggregate_packed_kernel`` everywhere
+    else (and, without a geometry, off (8, 16) and (8, 32))."""
+    if geometry is None:
+        return K2_KERNELS[0] if (block, k) in COMPILED else K2_KERNELS[1]
+    if (block, k) in COMPILED and geometry.smem_bytes <= _MAX_SMEM:
+        return K2_KERNELS[0]
+    gathers = gather_takes(block, k, geometry.packed(k), geometry.n_r, geometry.n_c)
+    return K2_KERNELS[2] if gathers else K2_KERNELS[1]
 
 
 def lane_groups(block: int) -> int:
@@ -223,6 +229,121 @@ def packed_plan(h: int, w: int, rows, cols, search: int, block: int, k: int) -> 
         if edge * edge * k * block * block >= 2 * fh * fw:
             break
     return plan
+
+
+def packed_warps_an_sm(plan: PackedPlan) -> int:
+    """Warps of ``plan``'s CTAs resident on one SM of an H100: as many CTAs
+    as its 228 KB of shared memory (1 KB a CTA reserved), 64 warps and 32
+    CTAs allow."""
+    ctas = min(32, 64 // plan.warps, (228 * 1024) // (plan.smem_bytes + 1024))
+    return ctas * plan.warps
+
+
+def scratch_ratio(plan: PackedPlan, block: int, k: int, n_r: int, n_c: int) -> float:
+    """Bytes of footprints ``plan``'s CTAs store to scratch (and its fold
+    reads back) over the bytes of estimates the call holds (``n_r`` x
+    ``n_c`` groups of ``k`` members of ``block``^2 values), for any batch."""
+    return plan.scratch_bytes(1) / (n_r * n_c * k * block * block * 4)
+
+
+def gather_takes(block: int, k: int, plan: PackedPlan, n_r: int, n_c: int) -> bool:
+    """Whether a call off the compiled kernel goes to the gather form, on
+    the packed kernel's plan for it: past block 16 (where the packed kernel
+    reads a member's values at run time, a warp a member), where that plan's
+    planes pass one CTA's shared memory, where its scratch passes
+    :data:`GATHER_SCRATCH_RATIO` times the estimates' bytes
+    (:func:`scratch_ratio`), or where its CTAs leave fewer than
+    :data:`GATHER_MIN_WARPS` warps an SM (:func:`packed_warps_an_sm`)."""
+    return (block > 16 or plan.smem_bytes > _MAX_SMEM
+            or scratch_ratio(plan, block, k, n_r, n_c) > GATHER_SCRATCH_RATIO
+            or packed_warps_an_sm(plan) < GATHER_MIN_WARPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """The gather kernel's CTAs: ``rows`` pixel rows a lane (0: one pixel a
+    thread, its own walk; 1: a warp's 8 columns x 4 rows, one walk a warp,
+    ``unroll`` members in flight), ``warps`` a CTA, ``wx`` of them side by
+    side."""
+
+    rows: int
+    warps: int
+    wx: int
+    block: int
+    unroll: int = 8
+
+    @property
+    def tile(self) -> tuple:
+        """(rows, columns) of output pixels a CTA."""
+        if self.rows == 0:
+            return self.warps, 32
+        return 4 * self.rows * (self.warps // self.wx), 8 * self.wx
+
+    @property
+    def smem_bytes(self) -> int:
+        """A CTA's shared memory: the Kaiser window, and with ``rows`` > 0
+        each warp's staged bucket offsets (its patch rows by its columns and
+        one past) and its patch rows' first entries (gather_stage_ints in
+        the source)."""
+        b = self.block
+        return 4 * (b * b + (self.warps * ((4 * self.rows + b - 1) * (b + 9) + 1) if self.rows else 0))
+
+
+def gather_plan(block: int, per_row: float = 1.0, rows: int | None = None, warps: int | None = None,
+                wx: int | None = None, unroll: int | None = None) -> GatherPlan:
+    """The gather kernel's plan at this patch edge for ``per_row`` members a
+    table row on average, or one with the rows a lane, warps, warps across
+    or members in flight given (a caller timing other choices): one pixel a
+    thread, 8 warps a CTA (32 x 8 pixels), up to block 2, where a member has
+    no patch row for lanes to share; past it one walk a warp over 8 x 4
+    pixels, 4 warps, 2 across (16 x 8 pixels a CTA), each member's patch
+    rows read by the lanes together, 8 members in flight, or 4 where a
+    warp's walk holds fewer than 32 (fewer registers: more warps an SM;
+    ``examples/k2_variants.py --part gather`` times the others)."""
+    if rows is None:
+        rows = 0 if block <= 2 else 1
+    warps = warps or (8 if rows == 0 else 4)
+    wx = wx or (1 if rows == 0 else min(2, warps))
+    if unroll is None:
+        unroll = 4 if rows and (4 * rows + block - 1) * (block + 7) * per_row < 32 else 8
+    return GatherPlan(rows, warps, wx, block, unroll)
+
+
+def index_plan(b: int, n_rows: int, p: int) -> tuple:
+    """(table rows a run, members an index CTA keeps in shared memory, its
+    threads) of the gather form's member index for ``b`` images of
+    ``n_rows`` table rows and ``p`` members each: runs of rows as even as
+    the rows allow, about :data:`N_SMS` CTAs in all (each reads all its
+    image's rows), from 256 to :data:`INDEX_MAX_ROWS` rows a run, as many
+    members as the rest of :data:`INDEX_SMEM` holds (16 bytes a member, 8 a
+    row), and 1,024 threads where an image has more than 16,384 members,
+    else 512 (k2_variants: fewer threads lose where the rows are many, gain
+    where they are few)."""
+    runs = max(-(-n_rows // INDEX_MAX_ROWS), min(-(-n_rows // 256), N_SMS // max(b, 1)), 1)
+    chunk = -(-(-(-n_rows // runs)) // 32) * 32
+    return chunk, (INDEX_SMEM // 4 - 2 * chunk - 35) // 4, 1024 if p > 16384 else 512
+
+
+def member_index_plain(idx: torch.Tensor, n_rows: int) -> tuple:
+    """The plain version of the gather form's member index: (offsets, ids),
+    offsets (B, n_rows + 1) into ids (B * P), image b's entries from b * P
+    on, each row's members (their index p in the image) in ascending order;
+    rows outside ``[0, n_rows)`` are left out. A stable sort by row, and the
+    counts by ``bincount``."""
+    b, p = idx.shape
+    rows = idx.to(torch.int64)
+    keep = (rows >= 0) & (rows < n_rows)
+    ids = torch.full((b * p,), -1, dtype=torch.int32, device=idx.device)
+    offsets = torch.empty((b, n_rows + 1), dtype=torch.int32, device=idx.device)
+    for i in range(b):
+        r = rows[i][keep[i]]
+        members = torch.arange(p, device=idx.device)[keep[i]]
+        order = torch.sort(r, stable=True).indices
+        ids[i * p : i * p + len(r)] = members[order].to(torch.int32)
+        counts = torch.bincount(r, minlength=n_rows)
+        offsets[i, 0] = i * p
+        offsets[i, 1:] = i * p + torch.cumsum(counts, 0)
+    return offsets, ids
 
 
 def covering_tiles(origins, extent: int, size: int) -> list:
@@ -336,6 +457,19 @@ class AggregateGeometry:
         self.work["epoch"] = self.work.get("epoch", 0) % (2**31 - 1) + 1
         return self.work["scratch"], self.work["overflow"], self.work["epoch"]
 
+    def index_workspace(self, b: int, p: int) -> tuple:
+        """(offsets, ids, any_ids, any_rows) of the gather form's member index
+        for ``b`` images of ``p`` members: int32, B * (hh * ww + 1) and B * P
+        (three times) long, allocated once and grown with the call; each
+        call writes what it reads."""
+        n = (b * ((self.h - self.block + 1) * (self.w - self.block + 1) + 1), b * p)
+        dev = self.tile_oy.device
+        if any(a < c for a, c in zip(self.work.get("index", (0, 0)), n)):
+            self.work["index"] = n
+            self.work["offsets"] = torch.empty(n[0], dtype=torch.int32, device=dev)
+            self.work["ids"] = torch.empty((3, max(n[1], 1)), dtype=torch.int32, device=dev)
+        return self.work["offsets"], *self.work["ids"]
+
 
 @functools.lru_cache(maxsize=16)
 def aggregate_geometry(h: int, w: int, rows: tuple, cols: tuple, search: int, block: int,
@@ -350,21 +484,23 @@ def aggregate_geometry(h: int, w: int, rows: tuple, cols: tuple, search: int, bl
                              search, tuple(rows), tuple(cols))
 
 
+def per_row(geometry: AggregateGeometry, k: int) -> float:
+    """Members a table row on ``geometry`` at group size ``k``, on average."""
+    n_rows = (geometry.h - geometry.block + 1) * (geometry.w - geometry.block + 1)
+    return geometry.n_r * geometry.n_c * k / n_rows
+
+
 def aggregate_plan(geometry: AggregateGeometry, k: int) -> tuple:
-    """(kernel, tiles) of a K2 call on ``geometry`` at group size ``k``: the
+    """(kernel, plan) of a K2 call on ``geometry`` at group size ``k``: the
     kernel :func:`aggregate_kernel` names, and the geometry's own 2 x 2
-    tiles or its packed plan (:meth:`AggregateGeometry.packed`). Raises
-    ValueError, naming the bound, outside :data:`AGGREGATE_ENVELOPE` or
-    where even the packed kernel's planes pass one CTA's shared memory
-    (:func:`check_aggregate_envelope` gives the bytes)."""
+    tiles, its packed plan (:meth:`AggregateGeometry.packed`) or the gather
+    plan (:func:`gather_plan`, which holds no footprint). Raises ValueError,
+    naming the bound, outside :data:`AGGREGATE_ENVELOPE`."""
     check_aggregate_envelope(geometry.block, k)
     kernel = aggregate_kernel(geometry.block, k, geometry)
-    plan = geometry.packed(k) if kernel == K2_KERNELS[1] else geometry
-    if plan.smem_bytes > _MAX_SMEM:
-        raise ValueError(f"K2 takes a footprint whose (num, den) planes fit one CTA's shared memory "
-                         f"({_MAX_SMEM} bytes): {plan.fh}x{plan.fw} needs {plan.smem_bytes} at search "
-                         f"{geometry.search}, block {geometry.block} on {geometry.h}x{geometry.w}")
-    return kernel, plan
+    if kernel == K2_KERNELS[2]:
+        return kernel, gather_plan(geometry.block, per_row(geometry, k))
+    return kernel, (geometry.packed(k) if kernel == K2_KERNELS[1] else geometry)
 
 
 ENTRIES = {  # kernel name -> (its entry point in the source, its C argument types)
@@ -372,6 +508,7 @@ ENTRIES = {  # kernel name -> (its entry point in the source, its C argument typ
                     + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     K2_KERNELS[1]: ("bm3d_aggregate_packed_launch", [ctypes.c_void_p] * 10 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 13 + [ctypes.c_void_p]),
+    K2_KERNELS[2]: ("bm3d_aggregate_gather_launch", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_void_p]),
 }
 ENTRIES[PREV_DESIGN] = ENTRIES[K2_KERNELS[0]]  # the same entry: it runs <0, 0> off (8, 16), (8, 32)
 
@@ -394,23 +531,35 @@ def _lib() -> dict:
 
 
 def launch(kernel: str, fn, idx, est, wgt, kaiser, h: int, w: int, geometry: AggregateGeometry,
-           plan: PackedPlan | None = None):
+           plan: PackedPlan | GatherPlan | None = None):
     """One call of ``kernel`` through its bound entry point ``fn``
     (:func:`bind`) on checked, contiguous arguments: (num, den), each (B, H,
-    W), in new memory; raises if the launch fails. The packed kernel runs on
-    ``plan``, by default the geometry's for the call's K. It checks nothing
-    else and counts nothing (:func:`bm3d_aggregate` does both): a caller
-    that times one kernel or plan against another on one call launches
-    through it. :data:`PREV_DESIGN` takes any call but (8, 16) and (8, 32),
-    where the entry runs the compiled kernel."""
+    W), in new memory; raises if the launch fails. The packed and gather
+    kernels run on ``plan``, by default the geometry's for the call's K
+    (:meth:`AggregateGeometry.packed`, :func:`gather_plan` as
+    :func:`aggregate_plan` makes it). It checks
+    nothing else and counts nothing (:func:`bm3d_aggregate` does both): a
+    caller that times one kernel or plan against another on one call
+    launches through it. :data:`PREV_DESIGN` takes any call but (8, 16) and
+    (8, 32), where the entry runs the compiled kernel."""
     b, p, bb = est.shape
     block, k = math.isqrt(bb), p // wgt.shape[1]
     if kernel == PREV_DESIGN and (block, k) in COMPILED:
         raise ValueError(f"{PREV_DESIGN} does not take (block, K) = {(block, k)}")
+    planes = torch.empty((2, b, h, w), dtype=torch.float32, device=est.device)
+    stream = torch.cuda.current_stream(est.device).cuda_stream
+    if kernel == K2_KERNELS[2]:
+        plan = plan or gather_plan(block, per_row(geometry, k))
+        chunk, cap, threads = index_plan(b, (h - block + 1) * (w - block + 1), p)
+        index = geometry.index_workspace(b, p)
+        err = fn(idx.data_ptr(), est.data_ptr(), wgt.data_ptr(), kaiser.data_ptr(), *(t.data_ptr() for t in index),
+                 planes[0].data_ptr(), planes[1].data_ptr(), b, h, w, geometry.n_r, geometry.n_c, k, block, chunk,
+                 cap, threads, plan.rows, plan.unroll, plan.warps, plan.wx, stream)
+        _build.check(err, f"bm3d_aggregate ({kernel}, block={block}, K={k})")
+        return planes[0], planes[1]
     if kernel == K2_KERNELS[1]:
         plan = plan or geometry.packed(k)
     scratch, overflow, epoch = geometry.workspace(b, plan)
-    planes = torch.empty((2, b, h, w), dtype=torch.float32, device=est.device)
     g = plan or geometry
     args = [idx.data_ptr(), est.data_ptr(), wgt.data_ptr(), kaiser.data_ptr(), g.tile_oy.data_ptr(),
             g.tile_ox.data_ptr(), g.cover_y.data_ptr(), g.cover_x.data_ptr(), scratch.data_ptr(),
@@ -418,7 +567,7 @@ def launch(kernel: str, fn, idx, est, wgt, kaiser, h: int, w: int, geometry: Agg
             geometry.n_r, geometry.n_c, k, block, g.fh, g.fw]
     if kernel == K2_KERNELS[1]:
         args += [g.tile, g.tile, g.warps, g.groups]
-    err = fn(*args, torch.cuda.current_stream(est.device).cuda_stream)
+    err = fn(*args, stream)
     _build.check(err, f"bm3d_aggregate ({kernel}, block={block}, K={k})")
     return planes[0], planes[1]
 
@@ -442,14 +591,15 @@ def bm3d_aggregate(idx: torch.Tensor, est: torch.Tensor, wgt: torch.Tensor,
     under the kernel's name.
 
     A row outside ``[0, hh * ww)`` makes the plain version's ``index_add_``
-    raise; the kernel cannot raise, and drops that member (checking the rows
+    raise; the kernels cannot raise, and drop that member (checking the rows
     on the host would make every call wait for the device). A member whose
     patch lies outside its tile's footprint (BM3D's clipped members never
-    do) is still added, in a fixed order, by a slow scan.
+    do) is still added, in a fixed order: by a slow scan in the tile
+    kernels, through its patch position in the gather form.
 
-    K2 is two launches (the tiles, then the fold), counted once; calls
-    with one geometry share its scratch and must run in order on one
-    stream."""
+    Each K2 kernel is two launches (the tiles, then the fold; the index,
+    then the sums), counted once; calls with one geometry share its scratch
+    and must run in order on one stream."""
     if est.dim() != 3 or est.dtype != torch.float32:
         raise ValueError(f"expected (B, P, b*b) float32 estimates, got {tuple(est.shape)} {est.dtype}")
     b, p, bb = est.shape

@@ -232,12 +232,16 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):  # no footprints: the kernel cannot run
         k2.bm3d_aggregate(idx, est, wgt, kai, h, w)
     grid = tuple(bm3d._ref_grid(256, 8, 4).tolist())
-    huge = k2.aggregate_geometry(256, 256, grid, grid, 100, 8, cuda)  # 220 x 236 footprint
+    huge = k2.aggregate_geometry(256, 256, grid, grid, 100, 8, cuda)  # 220 x 236 footprint: no packed CTA holds it
     n = len(grid) ** 2
-    with pytest.raises(ValueError):
-        k2.bm3d_aggregate(torch.zeros((1, n * 16), dtype=torch.int32, device=cuda),
-                          torch.zeros((1, n * 16, 64), device=cuda),
+    with pytest.raises(ValueError, match="power-of-two group size"):  # 12 members a group
+        k2.bm3d_aggregate(torch.zeros((1, n * 12), dtype=torch.int32, device=cuda),
+                          torch.zeros((1, n * 12, 64), device=cuda),
                           torch.zeros((1, n), device=cuda), kai, 256, 256, huge)
+    num, den = k2.bm3d_aggregate(torch.zeros((1, n * 16), dtype=torch.int32, device=cuda),
+                                 torch.zeros((1, n * 16, 64), device=cuda),
+                                 torch.zeros((1, n), device=cuda), kai, 256, 256, huge)  # the gather form's
+    assert not bool(num.any()) and not bool(den.any())
 
 
 def _nlm_input(cuda, b):
@@ -1443,11 +1447,17 @@ def _k2_wide_held(cuda, args, kernel, seed):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# The kernel each WIDE_K2 row takes on 96 px images (aggregate_plan's rule;
+# the gather form's where not listed).
+WIDE_K2_KERNEL = {(8, 10, 19, 16): "bm3d_aggregate_kernel", (8, 3, 32, 16): "bm3d_aggregate_kernel",
+                  (8, 3, 19, 128): "bm3d_aggregate_packed_kernel"}
+
+
 @pytest.mark.parametrize("block,step,search,k", WIDE_K2)
 def test_k2_matches_plain_past_the_earlier_envelope(cuda, block, step, search, k):
     args = _k2_stage1_args(cuda, block, step, search, k, size=96)
-    kernel = k2.aggregate_kernel(block, k, args[-1])  # the compiled (8, 16) kernel at 16 matches of 8 x 8
-    assert kernel == ("bm3d_aggregate_kernel" if (block, k) == (8, 16) else "bm3d_aggregate_packed_kernel")
+    kernel = k2.aggregate_kernel(block, k, args[-1])
+    assert kernel == WIDE_K2_KERNEL.get((block, step, search, k), "bm3d_aggregate_gather_kernel")
     _k2_wide_held(cuda, args, kernel, block * 10 + step)
 
 
@@ -1455,24 +1465,28 @@ def test_k2_matches_plain_past_the_earlier_envelope(cuda, block, step, search, k
 @pytest.mark.parametrize("window", ["search40", "widest"])
 def test_k2_takes_windows_past_the_compiled_tiles(cuda, window, k):
     # (8, 16) / (8, 32) at step 3 on 128 px images: from search 38 the
-    # compiled kernel's 2 x 2 tiles pass a CTA's shared memory, so the
-    # packed kernel takes the call (at K1's widest, one warp a CTA).
+    # compiled kernel's 2 x 2 tiles pass a CTA's shared memory, and the
+    # packed kernel's one-warp CTAs leave an SM too few warps, so the gather
+    # form takes the call.
     search = 40 if window == "search40" else k1.match_search_limit(8, k)
     args = _k2_stage1_args(cuda, 8, 3, search, k, size=128)
-    assert k2.aggregate_kernel(8, k, args[-1]) == "bm3d_aggregate_packed_kernel"
-    _k2_wide_held(cuda, args, "bm3d_aggregate_packed_kernel", search + k)
+    assert k2.aggregate_kernel(8, k, args[-1]) == "bm3d_aggregate_gather_kernel"
+    _k2_wide_held(cuda, args, "bm3d_aggregate_gather_kernel", search + k)
 
 
-def test_bm3d_refuses_a_k2_footprint_before_k1_launches(cuda):
-    # Search 82 at block 8 on a 256 px image: K1 takes it, but one reference
-    # block's 172 x 172 footprint passes a packed CTA's shared memory.
-    x = torch.tensor(_noisy(256, b=1)[0], device=cuda)
+def test_bm3d_takes_a_k2_footprint_past_a_cta_through_the_gather_form(cuda):
+    # Search 82 at block 8 on a 256 px image: one reference block's 172 x
+    # 172 footprint passes a packed CTA's shared memory, so the gather form
+    # takes both stages' aggregations, held to the plain version.
+    x = torch.tensor(_noisy(256, b=1)[:1], device=cuda)
     p = bm3d.BM3DParams(block=8, step=3, search=82, group_ht=16, group_wie=32)
-    k1.check_match_envelope(8, 32, 82, 3)
-    before = (k1.bm3d_match.launches, k2.bm3d_aggregate.launches)
-    with pytest.raises(ValueError, match="footprint .* 172x172 needs 236672"):
-        bm3d.bm3d_denoise(x, 0.1, p)
-    assert (k1.bm3d_match.launches, k2.bm3d_aggregate.launches) == before
+    before = dict(k2.bm3d_aggregate.by_kernel)
+    out = bm3d.bm3d_denoise_batch(x, 0.1, p)
+    torch.cuda.synchronize()
+    assert k2.bm3d_aggregate.by_kernel == before | {"bm3d_aggregate_gather_kernel":
+                                                    before["bm3d_aggregate_gather_kernel"] + 2}
+    assert bool(torch.isfinite(out).all())
+    _k2_wide_held(cuda, bm3d.stage1_aggregate_inputs(x, 0.1, p)[1], "bm3d_aggregate_gather_kernel", 82)
 
 
 @pytest.mark.parametrize("b", [1, 9])
@@ -1515,3 +1529,90 @@ def test_bm3d_and_nlm_past_the_earlier_envelope_on_the_card_match_the_cpu(cuda):
     den = NLMDenoiser(sigma_modifier=1.0, patch_size=13, patch_distance=21)
     got = den.denoise(z.to(cuda), torch.full((2,), 0.1, device=cuda), 0)
     assert float((got.cpu() - den.denoise(z, torch.full((2,), 0.1), 0)).abs().max()) <= 1e-5
+
+
+# K2's gather form: the five rows where staged footprints lost to
+# index_add_ (chip_smoke.py's ENVELOPE_K2_WIDE rows), on 2 images of 128 px.
+GATHER = "bm3d_aggregate_gather_kernel"
+GATHER_ROWS = {"block1": (1, 1, 3, 4), "block4_step6": (4, 6, 3, 4), "block24": (24, 12, 8, 16),
+               "search40": (8, 3, 40, 32), "search_widest": (8, 3, 95, 16)}
+
+
+@pytest.mark.parametrize("row", list(GATHER_ROWS))
+def test_k2_gather_form_matches_plain_at_the_five_rows(cuda, row):
+    block, step, search, k = GATHER_ROWS[row]
+    idx, est, wgt, kai, h, w, geom = _k2_stage1_args(cuda, block, step, search, k, size=128)
+    assert k2.aggregate_kernel(block, k, geom) == GATHER
+    before = dict(k2.bm3d_aggregate.by_kernel)
+    num, den = k2.bm3d_aggregate(idx, est, wgt, kai, h, w, geom)
+    torch.cuda.synchronize()
+    assert k2.bm3d_aggregate.by_kernel == before | {GATHER: before[GATHER] + 1}
+    want_num, want_den = k2.bm3d_aggregate_plain(idx, est, wgt, kai, h, w)
+    for got, want in ((num, want_num), (den, want_den)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(den == 0, want_den == 0)
+    for _ in range(50):
+        again = k2.bm3d_aggregate(idx, est, wgt, kai, h, w, geom)
+        assert torch.equal(again[0], num) and torch.equal(again[1], den)
+    d = _k2_dyadic(np.random.default_rng(block * 100 + search), est, wgt, kai, cuda)
+    got = k2.bm3d_aggregate(idx, *d, h, w, geom)
+    want = k2.bm3d_aggregate_plain(idx, *d, h, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("plan", [(0, 4, 1), (0, 16, 1), (1, 2, 2, 4), (1, 4, 4, 8), (1, 16, 4, 4), (1, 16, 16, 8)])
+@pytest.mark.parametrize("row", ["block4_step6", "block24", "search40"])
+def test_k2_gather_form_on_other_plans(cuda, row, plan):
+    # Either walk, any warps a CTA and warps across give the plain version's
+    # bits on dyadic values.
+    block, step, search, k = GATHER_ROWS[row]
+    idx, est, wgt, kai, h, w, geom = _k2_stage1_args(cuda, block, step, search, k, size=96)
+    d = _k2_dyadic(np.random.default_rng(11), est, wgt, kai, cuda)
+    got = k2.launch(GATHER, k2._lib()[GATHER], idx, *d, h, w, geom, k2.gather_plan(block, 1.0, *plan))
+    want = k2.bm3d_aggregate_plain(idx, *d, h, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k2_gather_index_is_the_plain_index(cuda):
+    # After a call the workspace holds the member index: the plain version's
+    # offsets, and its ids wherever a row has members.
+    idx, est, wgt, kai, h, w, geom = _k2_stage1_args(cuda, 8, 3, 40, 32, size=96)
+    k2.launch(GATHER, k2._lib()[GATHER], idx, est, wgt, kai, h, w, geom)
+    torch.cuda.synchronize()
+    n_rows = (h - 7) * (w - 7)
+    want_off, want_ids = k2.member_index_plain(idx, n_rows)
+    offsets, ids = geom.work["offsets"], geom.work["ids"][0]
+    b, p = idx.shape
+    assert torch.equal(offsets[: b * (n_rows + 1)].view(b, n_rows + 1), want_off)
+    for i in range(b):
+        end = int(want_off[i, -1])
+        assert torch.equal(ids[i * p : end], want_ids[i * p : end])
+
+
+def test_k2_gather_form_adds_rows_anywhere_and_drops_rows_outside_the_table(cuda, monkeypatch):
+    # Rows anywhere in the table, one crowded row, and rows before, just
+    # past and far past the table (dropped); exact on dyadic values, also
+    # where a run's members pass what an index CTA keeps in shared memory.
+    rng = np.random.default_rng(12)
+    idx, est, wgt, kai, h, w, geom = _k2_stage1_args(cuda, 4, 2, 3, 4, size=48)
+    d_est, d_wgt, d_kai = _k2_dyadic(rng, est, wgt, kai, cuda)
+    ww = w - 3
+    rows = rng.integers(0, (h - 3) * ww, tuple(idx.shape))
+    rows[1, 100:400] = 77
+    idx = torch.tensor(rows.astype(np.int32), device=cuda)
+    want_num, want_den = k2.bm3d_aggregate_plain(idx, d_est, d_wgt, d_kai, h, w)
+    bad = idx.clone()
+    for (b, p), row in zip(((0, 5), (1, 77), (1, idx.shape[1] - 1)), (-1, (h - 3) * ww, 2**30)):
+        py, px = divmod(int(idx[b, p]), ww)
+        wk = (d_wgt[b, p // 4] * d_kai).view(4, 4)
+        want_num[b, py : py + 4, px : px + 4] -= d_est[b, p].view(4, 4) * wk
+        want_den[b, py : py + 4, px : px + 4] -= wk
+        bad[b, p] = row
+    fn = k2._lib()[GATHER]
+    for plan in (k2.gather_plan(4, 1.0, 0), k2.gather_plan(4, 1.0, 1, unroll=4), k2.gather_plan(4, 1.0, 1, unroll=8)):
+        num, den = k2.launch(GATHER, fn, bad, d_est, d_wgt, d_kai, h, w, geom, plan)
+        assert torch.equal(num, want_num) and torch.equal(den, want_den)
+    keep = k2.index_plan
+    monkeypatch.setattr(k2, "index_plan", lambda b, n, p: (keep(b, n, p)[0], 16, keep(b, n, p)[2]))
+    num, den = k2.launch(GATHER, fn, bad, d_est, d_wgt, d_kai, h, w, geom)
+    assert torch.equal(num, want_num) and torch.equal(den, want_den)

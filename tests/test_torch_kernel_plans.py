@@ -45,7 +45,7 @@ from pnp_svrg_tpu_torch.ops.cuda import bm3d_aggregate as k2
 from pnp_svrg_tpu_torch.ops.cuda import nlm as k3
 from pnp_svrg_tpu_torch.utils.io import DATA_DIR
 
-COMPILED, PACKED = k2.K2_KERNELS
+COMPILED, PACKED, GATHER = k2.K2_KERNELS
 FIRST_NLM, CLUSTER = k3.K3_KERNELS[:2]
 MAX_SMEM = 227 * 1024
 FIXTURE = DATA_DIR.parent / "pnp_svrg_tpu_torch" / "data" / "nlm_bounds_jax.npz"
@@ -95,20 +95,22 @@ def test_every_bm3d_lane_keeps_the_compiled_k2_kernel(label):
 def test_k2_sends_windows_past_the_compiled_tiles_to_the_packed_kernel(size, k):
     # (8, 16) and (8, 32) at step 3: the compiled kernel's 4 warps hold a 2
     # x 2 tile's (2 search + 11)^2 planes to search 37 (231,200 bytes), not
-    # 38 (242,208); past that the packed kernel takes the call, one warp a
-    # CTA on tiles whose planes fit one CTA (one reference block a tile on
-    # 256 px images at search 81).
+    # 38 (242,208). Past that the packed kernel's plan for the call is one
+    # warp a CTA on tiles whose planes fit one CTA (one reference block a
+    # tile on 256 px images at search 81, none past it), leaving fewer than
+    # GATHER_MIN_WARPS warps an SM, so the gather form takes the call.
     for search in (19, 37, 38, 40, 81, 95):
         p = bm3d.BM3DParams(block=8, step=3, search=search, group_ht=k, group_wie=k)
         geometry = _k2_geometry(size, p)
-        want = COMPILED if search <= 37 else PACKED
+        want = COMPILED if search <= 37 else GATHER
         assert k2.aggregate_kernel(8, k, geometry) == want
-        if size == 256 and search > 81:
-            continue  # refused: tests/test_torch_params.py
         kernel, plan = k2.aggregate_plan(geometry, k)
         assert kernel == want and plan.smem_bytes <= MAX_SMEM
-        if kernel == PACKED:
-            assert plan.warps == 1 and plan.fh == plan.fw == min(size, 2 * search + 8 + 3 * (plan.tile - 1))
+        if kernel == GATHER:
+            assert plan == k2.gather_plan(8, k2.per_row(geometry, k))
+            packed = geometry.packed(k)
+            assert packed.warps == 1 and packed.fh == packed.fw == min(size, 2 * search + 8 + 3 * (packed.tile - 1))
+            assert k2.packed_warps_an_sm(packed) < k2.GATHER_MIN_WARPS
 
 
 @pytest.mark.parametrize("block", list(range(2, 17)))

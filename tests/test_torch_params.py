@@ -232,8 +232,6 @@ REFUSALS = {
     "k2_k_0": (k2.check_aggregate_envelope, (8, 0), "K in 1-128"),
     "k2_k_256": (k2.check_aggregate_envelope, (8, 256), "K in 1-128"),
     "k2_k_48": (k2.check_aggregate_envelope, (8, 48), "power-of-two"),
-    "k2_footprint_search_82_256px": (_k2_plan, (256, 82), "footprint whose .num, den. planes fit one CTA's "
-                                     "shared memory .232448 bytes.: 172x172 needs 236672"),
     "k3_patch_0": (k3.check_nlm_envelope, (0, 5), "patch_size 1-31 .33 - P whole windows"),
     "k3_patch_32": (k3.check_nlm_envelope, (32, 5), "patch_size 1-31 .33 - P whole windows"),
     "k3_distance_0": (k3.check_nlm_envelope, (4, 0), "patch_distance 1 or more"),
@@ -246,6 +244,19 @@ REFUSALS = {
 def test_each_remaining_bound_refuses_by_name(case):
     fn, args, reason = REFUSALS[case]
     _raises_naming(reason, fn, *args)
+
+
+def test_k2_takes_a_footprint_past_a_cta_through_the_gather_form():
+    # Search 82 at block 8 on a 256 px image: one reference block's 172 x
+    # 172 footprint needs 236,672 bytes of packed planes, past a CTA's
+    # 232,448, so K2 refused the call before K1 ran. The gather form holds
+    # no footprint: the plan takes the call, and K1 takes it too.
+    k1.check_match_envelope(8, 16, 82, 3)
+    kernel, plan = _k2_plan(256, 82)
+    assert kernel == k2.K2_KERNELS[2] and (plan.block, plan.rows) == (8, 1) and plan.smem_bytes <= 48 * 1024
+    grid = tuple(bm3d._ref_grid(256, 8, 3).tolist())
+    geometry = k2.aggregate_geometry(256, 256, grid, grid, 82, 8, torch.device("cpu"))
+    assert geometry.packed(16).smem_bytes == 236_672 > 227 * 1024
 
 
 def test_k1_geometry_picks_its_kernel_by_setting():
