@@ -48,7 +48,9 @@ imports no JAX. Phases, each printing one JSON line:
    step past the block, block 4 at step 6, search 32, block 4 at search 40,
    k 128, blocks 1 and 24, the widest search at block 8 and k 16; K2 at the
    first five of those with their K; K3 at (13, 21) and (21, 31), whose
-   kernel reads the patch at run time); then ``wide_calls``: one
+   kernel reads the patch at run time, and at (7, 17) and (11, 17), the
+   cluster kernel past distance 15, each beside the run-time design it
+   replaced on the same call); then ``wide_calls``: one
    ``BM3DDenoiser`` denoise at search 32, a step past the block and 128
    Wiener matches on two lanes of bm3d_profile's first denoise input, and
    one ``NLMDenoiser`` denoise at (13, 21) on the CSMRI + NLM lane's, each
@@ -588,12 +590,12 @@ ENVELOPE_K2 = {"profile_ht": (8, 3, 19, 16), "profile_wiener": (8, 3, 19, 32), "
 # packed kernel's.
 ENVELOPE_K2_RUNTIME = {row: v for row, v in ENVELOPE_K2.items() if aggregate_kernel(v[0], v[3]) == K2_KERNELS[1]}
 ENVELOPE_K3 = ((7, 11), (1, 1), (11, 15))
-# The rows past the earlier envelope, on the same inputs and
-# rules; no replaced design takes them, and their plain versions are timed
-# over one call after one warm-up call (PLAIN_WIDE_REPS: calls, warm-up
-# calls; K3's, 1-5 s each, one call after its two checking calls), K1 held
-# on the row's image alone. K2's search40 and search_widest rows are the
-# (8, 16) / (8, 32) calls whose 2 x 2 tiles pass a CTA's shared memory;
+# The rows past the earlier envelope, on the same inputs and rules; their
+# plain versions are timed over one call after one warm-up call
+# (PLAIN_WIDE_REPS: calls, warm-up calls; K3's, 1-5 s each, one call after
+# its two checking calls), K1 held on the row's image alone. K2's search40
+# and search_widest rows are the (8, 16) / (8, 32) calls whose 2 x 2 tiles
+# pass a CTA's shared memory;
 # those two, block1, block4_step6 and block24 go to the gather form, each
 # beside the packed kernel on the same call. Each row records its seconds.
 ENVELOPE_K1_WIDE = {"step_past_block": (8, 10, 19, 16, "input"), "block4_step6": (4, 6, 3, 4, "input"),
@@ -604,7 +606,12 @@ ENVELOPE_K1_WIDE = {"step_past_block": (8, 10, 19, 16, "input"), "block4_step6":
 ENVELOPE_K2_WIDE = {"step_past_block": (8, 10, 19, 16), "block4_step6": (4, 6, 3, 4), "k128": (8, 3, 19, 128),
                     "block1": (1, 1, 3, 4), "block24": (24, 12, 8, 16), "search40": (8, 3, 40, 32),
                     "search_widest": (8, 3, match_search_limit(8, 16), 16)}
-ENVELOPE_K3_WIDE = ((13, 21), (21, 31))
+# K3's: the run-time-patch kernel at (13, 21) and (21, 31), and the
+# cluster kernel past distance 15 at (7, 17) and (11, 17) (patch 7 and 11
+# in IPOL's 35 x 35 research window: Buades, Coll and Morel, "Non-Local
+# Means Denoising", 2011), each beside nlm_rt_serial_kernel, the run-time
+# design both replaced, on the same call.
+ENVELOPE_K3_WIDE = ((13, 21), (21, 31), (7, 17), (11, 17))
 PLAIN_WIDE_REPS = (1, 1)
 # The committed checkpoints the convert phase rebuilds in the reference's
 # three .pth layouts, and the layout of each.
@@ -634,7 +641,8 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("K1 bm3d_match", K1_KERNELS),
     ("K2 bm3d_aggregate", ("bm3d_aggregate_kernel", "bm3d_aggregate_fold_kernel", "bm3d_aggregate_packed_kernel",
                            "bm3d_aggregate_index_kernel", "bm3d_aggregate_gather_kernel")),
-    ("K3 nlm", ("nlm_kernel", "nlm_any_kernel", "nlm_cluster_kernel", "nlm_cluster_rt_kernel")),
+    ("K3 nlm", ("nlm_kernel", "nlm_any_kernel", "nlm_cluster_kernel", "nlm_cluster_rt_kernel",
+                "nlm_rt_serial_kernel")),
     # Before the matmul group: cuDNN's implicit-GEMM convolutions
     # (``sm80_xmma_fprop_implicit_gemm_*``) carry "gemm" too; cuBLAS's
     # matmuls are ``*_xmma_gemm_*`` with no "fprop". cuDNN's BatchNorm
@@ -690,7 +698,7 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 25) -> float:
     return start.elapsed_time(end) / reps
 
 
-PROFILE_WINDOWS = 3  # profiled windows tried before a check that needs device records fails
+PROFILE_WINDOWS = 5  # profiled windows tried before a check that needs device records fails
 
 
 MARKER_KERNEL = "spin_kernel"  # the kernel of torch.cuda._sleep
@@ -852,7 +860,9 @@ def phase_build() -> dict:
 def ptxas_summary(log: str) -> dict:
     """Registers, spills and static shared memory of each kernel that ptxas
     compiled, keyed by its name and template arguments (``<mode, offsets a
-    lane>`` for K1's first kernel, ``<mode, slots a lane>`` for its tile
+    lane>`` for K1's first kernel, ``<P, R, kWide>`` for K3's cluster
+    kernel, ``<R, G>`` for its run-time-patch kernel, ``<mode, slots a
+    lane>`` for K1's tile
     kernel, ``<mode, offsets a lane, block>`` for its any-kernel, ``<mode,
     keys a thread, slots a lane>`` for its span kernel, ``<block, K>`` for
     K2's tiles)."""
@@ -860,7 +870,8 @@ def ptxas_summary(log: str) -> dict:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            base = re.search(r"(bm3d_match(?:_any|_tile|_span)?|bm3d_aggregate(?:_fold)?|nlm(?:_any)?)_kernel",
+            base = re.search(r"(bm3d_match(?:_any|_tile|_span)?|bm3d_aggregate(?:_fold)?|"
+                             r"nlm(?:_any|_cluster|_cluster_rt|_rt_serial)?)_kernel",
                              m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (f"<{', '.join(args)}>" if args else "")
@@ -1558,10 +1569,10 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
         wide = pd in ENVELOPE_K3_WIDE
         for lanes, (x, h) in inputs.items():
             t0 = time.perf_counter()
-            errs = {}
+            errs, wants = {}, {}
             for bounds in (None, (16, 112)):
                 got = nlm_denoise(x, h, h, *pd, row_valid_bounds=bounds)
-                want = nlm_denoise_plain(x, h, h, *pd, row_valid_bounds=bounds)
+                want = wants[bounds] = nlm_denoise_plain(x, h, h, *pd, row_valid_bounds=bounds)
                 errs[str(bounds)] = (got - want).abs().max().item()
             require(max(errs.values()) <= 1e-5, f"K3 max abs err {errs} at {pd}, {lanes}")
             zero = torch.zeros(x.shape[0], device="cuda")
@@ -1572,34 +1583,29 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
             b, hh, ww = x.shape
             fns = k3_module._lib()
             hs = h.expand(b).contiguous()
-            if wide:  # no replaced design takes these
-                k3[f"p{pd[0]}_d{pd[1]}_{lanes}"] = {
-                    "shape": {"images": list(x.shape), "patch_size": pd[0], "patch_distance": pd[1]},
-                    "kernel": nlm_kernel_name(*pd),
-                    "plan": list(k3_module.device_plan(fns, x.device, b, hh, ww, *pd)),
-                    "max_abs_err": max(errs.values()), "max_abs_err_by_bounds": errs, "nan_at_h0": nan,
-                    "repeat_bitwise": repeat, "library_ms": None,
-                    **nlm_times(x, h, h, clock_hz, *pd, plain_ms=cuda_ms(
-                        lambda: nlm_denoise_plain(x, h, h, *pd), reps=1, warmup=0)),
-                    "seconds": time.perf_counter() - t0}
-                continue
+            prev = k3_module.prev_design(*pd)
 
-            def call_prev(x=x, hs=hs, pd=pd, fns=fns):  # through the kernel's own entry: no launch counted
+            def call_prev(x=x, hs=hs, pd=pd, fns=fns, prev=prev):  # by the kernel's name: no launch counted
                 out = torch.empty_like(x)
-                k3_module.launch(k3_module.PREV_DESIGN, fns, x, hs, hs, out, *pd, 0, x.shape[1])
+                k3_module.launch(prev, fns, x, hs, hs, out, *pd, 0, x.shape[1])
                 return out
 
-            prev_err = (call_prev() - nlm_denoise_plain(x, h, h, *pd)).abs().max().item()
-            require(prev_err <= 1e-5, f"K3's {k3_module.PREV_DESIGN} max abs err {prev_err} at {pd}, {lanes}")
+            prev_err = (call_prev() - wants[None]).abs().max().item()
+            require(prev_err <= 1e-5, f"K3's {prev} max abs err {prev_err} at {pd}, {lanes}")
+            plain_ms = cuda_ms(lambda: nlm_denoise_plain(x, h, h, *pd), reps=1, warmup=0) if wide else None
             rec = k3[f"p{pd[0]}_d{pd[1]}_{lanes}"] = {
                 "shape": {"images": list(x.shape), "patch_size": pd[0], "patch_distance": pd[1]},
                 "kernel": nlm_kernel_name(*pd),
                 "plan": list(k3_module.device_plan(fns, x.device, b, hh, ww, *pd)),
                 "max_abs_err": max(errs.values()), "max_abs_err_by_bounds": errs, "nan_at_h0": nan,
-                "repeat_bitwise": repeat, **nlm_times(x, h, h, clock_hz, *pd), "library_ms": None,
-                "prev_design": k3_module.PREV_DESIGN, "prev_design_max_abs_err": prev_err,
+                "repeat_bitwise": repeat, **nlm_times(x, h, h, clock_hz, *pd, plain_ms=plain_ms),
+                "library_ms": None, "prev_design": prev, "prev_design_max_abs_err": prev_err,
+                "prev_design_plan": list(k3_module.device_plan(fns, x.device, b, hh, ww, *pd, prev))
+                if prev in k3_module.PLANNED else None,
                 "prev_design_ms": device_ms(call_prev), "prev_design_event_ms": cuda_ms(call_prev)}
             rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / rec["ms"]
+            if wide:
+                rec["seconds"] = time.perf_counter() - t0
     return k1, k2, k3
 
 
@@ -3637,16 +3643,17 @@ def main() -> None:
         rows = {label: r for label, r in next(k for k in kernels if k["name"] == group)["bench_shapes"].items()
                 if r.get("kernel") == kernel}
         rows = {main: rows.pop(main)} | rows
-        # nlm_cluster_rt_kernel replaced no design: it has no prev-design keys.
-        redesign = REDESIGN_FIELDS[:1] if kernel == K3_KERNELS[2] else REDESIGN_FIELDS
         key = "k1_kernels" if group == "bm3d_match" else "k2_k3_kernels"
         by_lane = {lane: (r[key] if key == "k1_kernels" else r[key][group])[kernel]
                    for lane, r in lanes_run.items() if key in r}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[group][0], "replaces": SOURCES[group][1],
             "launches": by_lane.get(ROW_LANE.get(main, ("",))[0], 0), "launches_by_lane": by_lane,
-            **{k: rows[main][k] for k in fields + redesign}, "card": dev["nvidia_smi"],
+            **{k: rows[main][k] for k in fields + REDESIGN_FIELDS}, "card": dev["nvidia_smi"],
             "bench_shapes": rows})
+        if group == "nlm":  # ptxas's registers and spills of the kernel and the design it replaced
+            kernels[-1]["ptxas"] = {n: s for n, s in ptxas.get("nlm", {}).items()
+                                    if n.startswith((kernel, "nlm_rt_serial_kernel"))}
         if kernel == K1_KERNELS[3]:  # with row bounds
             bounded = k1["bench_shapes"][K1_BOUNDED_ROW]["bounded"]
             kernels[-1]["bounded"] = {"launches": 0, **{k: bounded[k] for k in ("shape", "bounds", "kernel") + fields}}

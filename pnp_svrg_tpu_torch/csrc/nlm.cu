@@ -74,7 +74,7 @@
 // weight as above. skimage's defaults (P = 7, D = 11) make 529 shifts and
 // 26 output columns a warp. The wrapper no longer launches it on its own:
 // it stays for timing against its redesign, `nlm_cluster_kernel<P, R>`,
-// which takes every (P, D) but (4, 5).
+// which takes every P <= 11 but (4, 5).
 //
 // nlm_cluster_kernel<P, R>. Its bound is the any-kernel's: one exponential
 // a valid (pixel, shift) pair at the MUFU rate (at (7, 11), 0.0019 ms for
@@ -108,17 +108,45 @@
 //    row, four rows in flight. A one-CTA cluster is a plain launch and
 //    reads no remote memory.
 //
-// nlm_cluster_rt_kernel<R>. The cluster kernel is compiled for P in [1, 11]
-// (its windows are trees of up to three doubling levels) and D in [1, 15]
-// (a lane loads two tile columns: pitch <= 62). Every other setting the
-// JAX package takes, up to P = 31 and the D whose tile fits one CTA's
-// shared memory, runs in the same design with P read at run time and the
-// tile loaded a warp a row, its lanes every 32nd column: the same CTAs,
-// clusters, chunks of shifts and order of partial sums, but each box sum a
-// column's P squares one after another (rows first) and each window its P
-// columns one after another (by a shuffle inside the half-warp), the plain
-// version's order. A warp's 32 columns hold 33 - P whole windows, so P 32
-// needs another tiling (not built). Its bound is the cluster kernel's.
+// The cluster kernel is compiled for P in [1, 11] (its windows are trees
+// of up to three doubling levels) and takes any D whose CTA fits shared
+// memory: where its tile passes 64 columns (D > 16) the kWide instantiation
+// stages it, a lane every 32nd column (`stage_tile`); the instantiations
+// for D <= 16 are the code they were.
+//
+// nlm_cluster_rt_kernel<R, G>: P in [12, 31], read at run time (up to the
+// D whose CTA fits shared memory). The same CTAs, clusters, chunks of
+// shifts, order of partial sums and weight as the cluster kernel. Its bound
+// is the cluster kernel's. The design it replaced (nlm_rt_serial_kernel<R>,
+// kept for timing) ran 80-210x that bound at (13, 21) and (21, 31), for
+// three reasons, and the redesign answers each:
+// 1. A pair's box sums cost grew with P: each column's R box sums were R x
+//    (R + P - 1) predicated adds, each window P + 1 shuffles and adds one
+//    after another. Here a column's box sum of output row 0 is its P
+//    squares in order, and each later row slides it down (add the row
+//    entering, take away the row leaving, whose square the thread kept), so
+//    a column costs P + R - 1 squares and about P + 2 R adds for R rows.
+//    Across columns the sums of 1, 2, 4 and 8 column pairs from each lane
+//    come by doubling (a shuffle a level), and a window is the pieces that
+//    window_of gives for P, worked out at run time (`rt_window`): a lone
+//    odd column, the runs P's bits select, a lone even column, a piece both
+//    of a lane's windows hold fetched once: 5-9 shuffles a row for 12 <= P
+//    <= 31 in place of P + 1, each piece's shuffles of a thread's R rows
+//    issued together.
+// 2. A warp's 32 canvas columns held 33 - P whole windows: 62 % of them at
+//    P = 13, 6 % at 31. A warp here covers 2 G canvas columns, two a lane,
+//    with G = 32 (64 columns: 81 % / 53 %) wherever that CTA fits shared
+//    memory, else G = 16 (two row groups of 32 columns, the earlier
+//    tiling, which keeps every distance the earlier design took).
+// 3. At B = 9 its plan fell back to one CTA of 4 warps a tile, the grid not
+//    resident at once. Here the partial planes take the tile's bytes once
+//    the shifts are done, and the host's plan (`rt_plan`) splits every
+//    tile's shifts over 24 warps (4 CTAs of 6) at any batch, in as many
+//    waves as that takes: at R = 8 (133 registers) an SM holds two such
+//    CTAs.
+// The sliding sums and the subtraction are not the plain version's order of
+// adds: a box sum is within a few ulps of the largest box sum it slid
+// through, and the kernel is held to the plain version at 1e-5 max abs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -395,7 +423,7 @@ constexpr int kMaxCluster = 16;  // past 8: H100's non-portable cluster sizes
 // terms one after another, as nlm_any_kernel does (a variant that
 // examples/k3_variants.py times).
 constexpr bool kDoublingTree = true;
-constexpr int kRowBatch = 4;  // tile rows a warp loads at once
+constexpr int kRowBatch = 4;  // loads a lane keeps in flight while staging a tile
 
 // min(a, b) that returns NaN if either is NaN (min.NaN).
 __device__ __forceinline__ float min_keep_nan(float a, float b) {
@@ -556,10 +584,45 @@ __device__ __forceinline__ void column_boxes(const float (&sq)[R + P - 1], float
   }
 }
 
+// Tile rows [t_lo, t_hi) of any pitch into `tile` and its one-column shift
+// `odd`: tile row t, column u holds image row r0 + t, column c0 + u,
+// reflected by `pad` (and clamped past the canvas, where only candidates
+// whose weight is zeroed read). A warp a row, a lane every 32nd column,
+// kRowBatch columns in flight.
+__device__ __forceinline__ void stage_tile(const float* __restrict__ img, float* tile, float* odd, int pitch,
+                                           int t_lo, int t_hi, int r0, int c0, int H, int W, int pad) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int u0 = 0; u0 < pitch; u0 += 32 * kRowBatch) {
+    int q[kRowBatch];
+#pragma unroll
+    for (int i = 0; i < kRowBatch; ++i) {
+      const int u = u0 + 32 * i + lane;
+      q[i] = u < pitch ? reflect_index(c0 + u, W, pad) : 0;
+    }
+    for (int t = t_lo + warp; t < t_hi; t += nwarps) {
+      const float* row = img + (long long)reflect_index(r0 + t, H, pad) * W;
+      float v[kRowBatch];
+#pragma unroll
+      for (int i = 0; i < kRowBatch; ++i)
+        if (u0 + 32 * i + lane < pitch) v[i] = __ldg(row + q[i]);
+#pragma unroll
+      for (int i = 0; i < kRowBatch; ++i) {
+        const int u = u0 + 32 * i + lane;
+        if (u < pitch) {
+          tile[t * pitch + u] = v[i];
+          if (u > 0) odd[t * pitch + u - 1] = v[i];
+        }
+      }
+    }
+  }
+}
+
 // Dynamic shared memory: the tile (tile_rows x pitch), the tile shifted by
 // one column (so that every lane's pair of candidates is one aligned 8-byte
-// load), and each warp's partial wsum and acc planes.
-template <int P, int R>
+// load), and each warp's partial wsum and acc planes. kWide: the tile's
+// pitch passes 64 columns (D > 16), staged a lane every 32nd column; the
+// rest of the kernel is the same.
+template <int P, int R, bool kWide = false>
 __global__ void __launch_bounds__(kClusterMaxWarps * 32)
 nlm_cluster_kernel(const float* __restrict__ x, const float* __restrict__ hs,
                    const float* __restrict__ ss, float* __restrict__ out, int H, int W, int D,
@@ -595,7 +658,10 @@ nlm_cluster_kernel(const float* __restrict__ x, const float* __restrict__ hs,
   const int qa = rank * nwarps * shifts / (cluster * nwarps);
   const int qb = (rank + 1) * nwarps * shifts / (cluster * nwarps);
   const int t_lo = min(qa / span, D), t_hi = max((qb - 1) / span, D) + kClusterRows + P - 1;
-  // A warp a row, a lane the columns lane and lane + 32 (pitch <= 62),
+  if constexpr (kWide) {
+    stage_tile(img, tile, odd, pitch, t_lo, t_hi, i0 - kPad - D, j0 - kPad - D, H, W, kPad);
+  } else {
+  // A warp a row, a lane the columns lane and lane + 32 (pitch <= 64),
   // kRowBatch rows' loads in flight before their stores.
   const int u1 = lane + 32;
   const int qc0 = reflect_index(j0 - kPad - D + lane, W, kPad);
@@ -623,6 +689,7 @@ nlm_cluster_kernel(const float* __restrict__ x, const float* __restrict__ hs,
         }
       }
     }
+  }
   }
   __syncthreads();
 
@@ -764,12 +831,16 @@ nlm_cluster_kernel(const float* __restrict__ x, const float* __restrict__ hs,
   if (cluster > 1) cl.sync();  // no CTA leaves while another reads its shared memory
 }
 
-// nlm_cluster_rt_kernel<R>: the cluster kernel's design with the patch size
-// P at run time (see the top of this file). The CTA's tile rows are loaded
-// a warp a row, the lanes every 32nd column of any pitch.
+// nlm_rt_serial_kernel<R>: the replaced run-time-P design (the earlier
+// nlm_cluster_rt_kernel<R>), kept for timing against its redesign: the cluster
+// kernel's CTAs and order of partial sums with the patch size P at run time,
+// each box sum a column's P squares one after another (rows first) and each
+// window its P columns one after another (by a shuffle inside the
+// half-warp). The CTA's tile rows are loaded a warp a row, the lanes every
+// 32nd column of any pitch.
 template <int R>
 __global__ void __launch_bounds__(kClusterMaxWarps * 32)
-nlm_cluster_rt_kernel(const float* __restrict__ x, const float* __restrict__ hs,
+nlm_rt_serial_kernel(const float* __restrict__ x, const float* __restrict__ hs,
                       const float* __restrict__ ss, float* __restrict__ out, int H, int W, int P, int D,
                       int lo, int hi, int cluster) {
   const int pad = P / 2;
@@ -938,12 +1009,323 @@ nlm_cluster_rt_kernel(const float* __restrict__ x, const float* __restrict__ hs,
   if (cluster > 1) cl.sync();
 }
 
-constexpr int kMaxP = 11, kMaxD = 15;  // the any-kernel's envelope
-constexpr int kRtMaxP = 31;           // nlm_cluster_rt_kernel's: 33 - P output columns a warp
+// ---------------------------------------------------------------------------
+// nlm_cluster_rt_kernel<R, G>: patch sizes past the cluster kernel's (the
+// design note is at the top of this file).
+//
+// A warp covers 2 G canvas columns (G lanes a row group, two columns a lane)
+// and R output rows a row group (32 / G row groups a warp), so a CTA owns
+// (32 / G) R output rows and 2 G + 1 - P output columns of one lane. P is
+// read at run time: a window's pieces (`RtWindow`) are worked out once a
+// kernel, and every choice between them is the same for the whole warp.
+
+// The pieces of a window as window_of cuts it, for a P known at run time:
+// a lone odd column first, then the runs of 1, 2, 4 and 8 column pairs that
+// make up P's pairs (ascending), then a lone even column; each the lane
+// offset it lies at, or kNoPiece.
+constexpr int kNoPiece = -1024;
+// CTAs of kClusterMaxWarps warps an SM that nlm_cluster_rt_kernel's
+// register budget must leave room for (its launch bounds).
+constexpr int kRtMinCtas = 1;
+struct RtWindow {
+  int odd, run[4], even;
+};
+
+__device__ __forceinline__ RtWindow rt_window(int P, int e) {
+  RtWindow w;
+  int delta = e - P / 2;  // the first column, relative to 2 j
+  int cols = P;
+  w.odd = kNoPiece;
+  if (delta & 1) {
+    w.odd = (delta - 1) / 2;
+    ++delta;
+    --cols;
+  }
+  int lane = delta / 2;
+  const int pairs = cols / 2;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w.run[k] = kNoPiece;
+    if (pairs & (1 << k)) {
+      w.run[k] = lane;
+      lane += 1 << k;
+    }
+  }
+  w.even = (cols & 1) ? lane : kNoPiece;
+  return w;
+}
+
+// `v` at each of the R rows from the lane `off` lanes away in this lane's
+// row group (G lanes), the rows' shuffles issued together; this lane's own
+// where off = 0.
+template <int R, int G>
+__device__ __forceinline__ void rows_from(const float (&v)[R], int j, int off, float (&f)[R]) {
+  if (off == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) f[r] = v[r];
+    return;
+  }
+  const int src = (j + off) & (G - 1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) f[r] = __shfl_sync(0xffffffffu, v[r], src, G);
+}
+
+// The window sums d0, d1 of this lane's two outputs (columns 2 j and 2 j +
+// 1) at each of its R rows from its two columns' box sums b0, b1: the sums
+// of 1, 2, 4 and 8 column pairs from each lane (pairs of pairs by a
+// shuffle, as far as `levels` runs need), each window its pieces in order
+// (the lone odd column, the runs by ascending length, the lone even
+// column), a piece both windows hold fetched once. Every choice is the
+// same for the whole warp, and each piece's shuffles of the R rows are
+// issued together.
+template <int R, int G>
+__device__ __forceinline__ void rt_window_sums(const float (&b0)[R], const float (&b1)[R], const RtWindow& w0,
+                                               const RtWindow& w1, int levels, int j, float (&d0)[R],
+                                               float (&d1)[R]) {
+  float v[R], f[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) d0[r] = d1[r] = 0.0f;
+  if (w0.odd != kNoPiece) rows_from<R, G>(b1, j, w0.odd, d0);
+  if (w1.odd != kNoPiece) rows_from<R, G>(b1, j, w1.odd, d1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = __fadd_rn(b0[r], b1[r]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (k > 0) {
+      if (k >= levels) break;
+#pragma unroll
+      for (int r = 0; r < R; ++r) f[r] = __shfl_down_sync(0xffffffffu, v[r], 1 << (k - 1), G);
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = __fadd_rn(v[r], f[r]);
+    }
+    const int o0 = w0.run[k], o1 = w1.run[k];
+    if (o0 != kNoPiece) {
+      rows_from<R, G>(v, j, o0, f);
+#pragma unroll
+      for (int r = 0; r < R; ++r) d0[r] = __fadd_rn(d0[r], f[r]);
+      if (o1 == o0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) d1[r] = __fadd_rn(d1[r], f[r]);
+      }
+    }
+    if (o1 != kNoPiece && o1 != o0) {
+      rows_from<R, G>(v, j, o1, f);
+#pragma unroll
+      for (int r = 0; r < R; ++r) d1[r] = __fadd_rn(d1[r], f[r]);
+    }
+  }
+  if (w0.even != kNoPiece) {
+    rows_from<R, G>(b0, j, w0.even, f);
+#pragma unroll
+    for (int r = 0; r < R; ++r) d0[r] = __fadd_rn(d0[r], f[r]);
+  }
+  if (w1.even != kNoPiece) {
+    rows_from<R, G>(b0, j, w1.even, f);
+#pragma unroll
+    for (int r = 0; r < R; ++r) d1[r] = __fadd_rn(d1[r], f[r]);
+  }
+}
+
+// A bit a row: bit r set where row row0 + r + dy is a candidate row.
+template <int R>
+__device__ __forceinline__ unsigned candidate_rows(int row0, int dy, int lo, int hi) {
+  unsigned m = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int ii = row0 + r + dy;
+    m |= (ii >= lo && ii < hi) ? 1u << r : 0u;
+  }
+  return m;
+}
+
+// Dynamic shared memory: the tile ((32 / G) R + P - 1 + 2 D rows of 2 G +
+// 2 D) and its copy shifted by one column; after the shifts, each warp's
+// partial wsum and acc planes ((32 / G) R x 2 G each) in the same bytes.
+template <int R, int G>
+__global__ void __launch_bounds__(kClusterMaxWarps * 32, kRtMinCtas)
+nlm_cluster_rt_kernel(const float* __restrict__ x, const float* __restrict__ hs,
+                      const float* __restrict__ ss, float* __restrict__ out, int H, int W, int P, int D,
+                      int lo, int hi, int cluster) {
+  constexpr int kCols = 2 * G;               // canvas columns a CTA
+  constexpr int kCtaRows = (32 / G) * R;     // output rows a CTA
+  const int pad = P / 2;
+  const int out_cols = kCols + 1 - P;        // output columns a CTA
+  const int span = 2 * D + 1;
+  const int shifts = span * span;
+  const int tile_rows = kCtaRows + P - 1 + 2 * D;
+  const int pitch = kCols + 2 * D;  // even: 8-byte aligned pairs
+  extern __shared__ float2 smem2[];
+  float* tile = reinterpret_cast<float*>(smem2);
+  float* odd = tile + tile_rows * pitch;  // odd[t][u] = tile[t][u + 1]
+  const int nwarps = blockDim.x >> 5;
+  float* part_w = tile;  // [warps][kCtaRows][kCols], once the tile is read
+  float* part_a = part_w + nwarps * kCtaRows * kCols;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * kCtaRows;
+  const int j0 = (blockIdx.x / cluster) * out_cols;
+  const float* img = x + (long long)b * H * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The tile rows this CTA reads: its shifts' candidate rows and its own
+  // windows'.
+  const int qa = rank * nwarps * shifts / (cluster * nwarps);
+  const int qb = (rank + 1) * nwarps * shifts / (cluster * nwarps);
+  const int t_lo = min(qa / span, D), t_hi = max((qb - 1) / span, D) + kCtaRows + P - 1;
+  stage_tile(img, tile, odd, pitch, t_lo, t_hi, i0 - pad - D, j0 - pad - D, H, W, pad);
+  __syncthreads();
+
+  const int group = lane / G, j = lane % G;
+  const int c = j0 - pad + 2 * j;  // the image column of this lane's first canvas column
+  const float hv = __ldg(hs + b), sv = __ldg(ss + b);
+  const float inv_h2 = 1.0f / (hv * hv * P * P);
+  const float offset = 2.0f * sv * sv * (P * P);
+  const float k = -(inv_h2 * kLog2e);
+  const float c0 = -(offset * k);
+  // This lane's own two columns as one aligned pair, window row t at own[t pitch].
+  const int ocol = 2 * j + D;
+  const float* own = ((ocol & 1) ? odd + ocol - 1 : tile + ocol) + (R * group + D) * pitch;
+  const RtWindow w0 = rt_window(P, 0), w1 = rt_window(P, 1);
+  int levels = 1;  // the sums of 2^k column pairs the windows take: k < levels
+#pragma unroll
+  for (int l = 1; l < 4; ++l)
+    if (w0.run[l] != kNoPiece || w1.run[l] != kNoPiece) levels = l + 1;
+
+  float wsum0[R], acc0[R], wsum1[R], acc1[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) wsum0[r] = acc0[r] = wsum1[r] = acc1[r] = 0.0f;
+
+  const int chunk = rank * nwarps + warp, chunks = cluster * nwarps;
+  const int q0 = chunk * shifts / chunks, q1 = (chunk + 1) * shifts / chunks;
+  int dy = q0 / span - D, dx = q0 % span - D;
+  const int row0 = i0 + R * group;  // this row group's first output row
+  unsigned rows_in = candidate_rows<R>(row0, dy, lo, hi);
+  for (int q = q0; q < q1; ++q) {
+    const float bcol0 = (c + dx >= 0 && c + dx < W) ? 0.0f : -CUDART_INF_F;
+    const float bcol1 = (c + 1 + dx >= 0 && c + 1 + dx < W) ? 0.0f : -CUDART_INF_F;
+    const int col = 2 * j + dx + D;
+    const float* cand = ((col & 1) ? odd + col - 1 : tile + col) + (dy + D + R * group) * pitch;
+    // The box sums of every output row: row 0's the squares of window rows
+    // 0 .. P - 1 in order, each later row's the row above's plus the row
+    // entering, less the row leaving (the squares of rows 0 .. R - 2 kept).
+    float s0[R - 1], s1[R - 1], b0[R], b1[R];
+    b0[0] = b1[0] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < R - 1; ++t) {
+      const float2 o = *reinterpret_cast<const float2*>(own + t * pitch);
+      const float2 v = *reinterpret_cast<const float2*>(cand + t * pitch);
+      const float e0 = __fsub_rn(o.x, v.x), e1 = __fsub_rn(o.y, v.y);
+      s0[t] = __fmul_rn(e0, e0);
+      s1[t] = __fmul_rn(e1, e1);
+      if (t < P) {
+        b0[0] = __fadd_rn(b0[0], s0[t]);
+        b1[0] = __fadd_rn(b1[0], s1[t]);
+      }
+    }
+#pragma unroll 4
+    for (int t = R - 1; t < P; ++t) {
+      const float2 o = *reinterpret_cast<const float2*>(own + t * pitch);
+      const float2 v = *reinterpret_cast<const float2*>(cand + t * pitch);
+      const float e0 = __fsub_rn(o.x, v.x), e1 = __fsub_rn(o.y, v.y);
+      b0[0] = __fadd_rn(b0[0], __fmul_rn(e0, e0));
+      b1[0] = __fadd_rn(b1[0], __fmul_rn(e1, e1));
+    }
+    const float* enter_o = own + (P - 1) * pitch;  // window row r + P - 1 enters at row r
+    const float* enter_c = cand + (P - 1) * pitch;
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      const float2 o = *reinterpret_cast<const float2*>(enter_o + r * pitch);
+      const float2 v = *reinterpret_cast<const float2*>(enter_c + r * pitch);
+      const float e0 = __fsub_rn(o.x, v.x), e1 = __fsub_rn(o.y, v.y);
+      b0[r] = __fsub_rn(__fadd_rn(b0[r - 1], __fmul_rn(e0, e0)), s0[r - 1]);
+      b1[r] = __fsub_rn(__fadd_rn(b1[r - 1], __fmul_rn(e1, e1)), s1[r - 1]);
+    }
+    float d0[R], d1[R];
+    rt_window_sums<R, G>(b0, b1, w0, w1, levels, j, d0, d1);
+    const float* centre = cand + pad * pitch;  // the candidate pixels: window row r + pad
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float2 cv = *reinterpret_cast<const float2*>(centre + r * pitch);
+      const float brow = (rows_in & (1u << r)) ? 0.0f : -CUDART_INF_F;
+      const float w_0 = exp2_approx(min_keep_nan(fmaf(d0[r], k, c0), min_keep_nan(brow, bcol0)));
+      const float w_1 = exp2_approx(min_keep_nan(fmaf(d1[r], k, c0), min_keep_nan(brow, bcol1)));
+      wsum0[r] += w_0;
+      acc0[r] = fmaf(w_0, cv.x, acc0[r]);
+      wsum1[r] += w_1;
+      acc1[r] = fmaf(w_1, cv.y, acc1[r]);
+    }
+    if (++dx > D) {
+      dx = -D;
+      ++dy;
+      rows_in = candidate_rows<R>(row0, dy, lo, hi);
+    }
+  }
+
+  __syncthreads();  // every warp done with the tile, whose bytes take the partial sums
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = (warp * kCtaRows + R * group + r) * kCols + 2 * j;
+    part_w[e] = wsum0[r];
+    part_w[e + 1] = wsum1[r];
+    part_a[e] = acc0[r];
+    part_a[e + 1] = acc1[r];
+  }
+  __syncthreads();
+  // The CTA's sum, in warp order, into warp 0's planes.
+  for (int e = threadIdx.x; e < kCtaRows * kCols; e += blockDim.x) {
+    float ws = part_w[e], ac = part_a[e];
+    for (int s = 1; s < nwarps; ++s) {
+      ws += part_w[s * kCtaRows * kCols + e];
+      ac += part_a[s * kCtaRows * kCols + e];
+    }
+    part_w[e] = ws;
+    part_a[e] = ac;
+  }
+  if (cluster > 1) cl.sync();
+  else __syncthreads();
+  // This CTA's share of the pixels, summed over the cluster in rank order.
+  for (int e = rank * blockDim.x + threadIdx.x; e < kCtaRows * kCols; e += cluster * blockDim.x) {
+    const int r = e / kCols, t = e % kCols;
+    const int i = i0 + r, jj = j0 - pad + t;
+    if (t < pad || t >= pad + out_cols || i >= H || jj >= W) continue;
+    float ws = part_w[e], ac = part_a[e];
+    if (cluster > 1) {
+      float wv[kMaxCluster], av[kMaxCluster];
+#pragma unroll
+      for (int s = 0; s < kMaxCluster; ++s) {
+        if (s < cluster) {
+          wv[s] = *cl.map_shared_rank(part_w + e, s);
+          av[s] = *cl.map_shared_rank(part_a + e, s);
+        }
+      }
+      ws = wv[0];
+      ac = av[0];
+#pragma unroll
+      for (int s = 1; s < kMaxCluster; ++s) {
+        if (s < cluster) {
+          ws += wv[s];
+          ac += av[s];
+        }
+      }
+    }
+    out[(long long)b * H * W + (long long)i * W + jj] = ac / max_keep_nan(ws, 1e-12f);
+  }
+  if (cluster > 1) cl.sync();
+}
+
+constexpr int kMaxP = 11;  // the any-kernel's envelope, and the cluster kernel's patch sizes
+constexpr int kMaxD = 15;  // the any-kernel's distances
+constexpr int kRtMaxP = 31;            // the run-time-P kernels': 2 G + 1 - P output columns a CTA
+constexpr int kMaxSmem = 232448;       // a CTA's dynamic shared memory at most (227 KB): the cluster kernels' limit
 
 // Kernel slots: 0 nlm_kernel, P nlm_any_kernel<P>, kMaxP + P
 // nlm_cluster_kernel<P, 8> and 2 kMaxP + P nlm_cluster_kernel<P, 4> (P in
-// [1, kMaxP]); 3 kMaxP + 1 nlm_cluster_rt_kernel<8>, 3 kMaxP + 2 <4>.
+// [1, kMaxP]), 3 kMaxP + P and 4 kMaxP + P the same with kWide; from
+// kRtSlot nlm_cluster_rt_kernel<8, 16>, <4, 16>, <8, 32>, <4, 32>, then
+// nlm_rt_serial_kernel<8>, <4>.
+constexpr int kRtSlot = 5 * kMaxP + 1, kSlots = kRtSlot + 6;
 const void* kernel_of(int slot) {
   switch (slot) {
     case 1: return (const void*)nlm_any_kernel<1>;
@@ -979,8 +1361,34 @@ const void* kernel_of(int slot) {
     case 31: return (const void*)nlm_cluster_kernel<9, 4>;
     case 32: return (const void*)nlm_cluster_kernel<10, 4>;
     case 33: return (const void*)nlm_cluster_kernel<11, 4>;
-    case 34: return (const void*)nlm_cluster_rt_kernel<8>;
-    case 35: return (const void*)nlm_cluster_rt_kernel<4>;
+    case 34: return (const void*)nlm_cluster_kernel<1, 8, true>;
+    case 35: return (const void*)nlm_cluster_kernel<2, 8, true>;
+    case 36: return (const void*)nlm_cluster_kernel<3, 8, true>;
+    case 37: return (const void*)nlm_cluster_kernel<4, 8, true>;
+    case 38: return (const void*)nlm_cluster_kernel<5, 8, true>;
+    case 39: return (const void*)nlm_cluster_kernel<6, 8, true>;
+    case 40: return (const void*)nlm_cluster_kernel<7, 8, true>;
+    case 41: return (const void*)nlm_cluster_kernel<8, 8, true>;
+    case 42: return (const void*)nlm_cluster_kernel<9, 8, true>;
+    case 43: return (const void*)nlm_cluster_kernel<10, 8, true>;
+    case 44: return (const void*)nlm_cluster_kernel<11, 8, true>;
+    case 45: return (const void*)nlm_cluster_kernel<1, 4, true>;
+    case 46: return (const void*)nlm_cluster_kernel<2, 4, true>;
+    case 47: return (const void*)nlm_cluster_kernel<3, 4, true>;
+    case 48: return (const void*)nlm_cluster_kernel<4, 4, true>;
+    case 49: return (const void*)nlm_cluster_kernel<5, 4, true>;
+    case 50: return (const void*)nlm_cluster_kernel<6, 4, true>;
+    case 51: return (const void*)nlm_cluster_kernel<7, 4, true>;
+    case 52: return (const void*)nlm_cluster_kernel<8, 4, true>;
+    case 53: return (const void*)nlm_cluster_kernel<9, 4, true>;
+    case 54: return (const void*)nlm_cluster_kernel<10, 4, true>;
+    case 55: return (const void*)nlm_cluster_kernel<11, 4, true>;
+    case kRtSlot: return (const void*)nlm_cluster_rt_kernel<8, 16>;
+    case kRtSlot + 1: return (const void*)nlm_cluster_rt_kernel<4, 16>;
+    case kRtSlot + 2: return (const void*)nlm_cluster_rt_kernel<8, 32>;
+    case kRtSlot + 3: return (const void*)nlm_cluster_rt_kernel<4, 32>;
+    case kRtSlot + 4: return (const void*)nlm_rt_serial_kernel<8>;
+    case kRtSlot + 5: return (const void*)nlm_rt_serial_kernel<4>;
     default: return (const void*)nlm_kernel;
   }
 }
@@ -1008,7 +1416,7 @@ Device query_limits(int dev, int slot) {
 // query_limits of the current device, asked once a device and kernel.
 Device device_limits(int slot) {
   constexpr int kCached = 64;
-  static Device cache[kCached][3 * kMaxP + 3];
+  static Device cache[kCached][kSlots];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return Device{};
   if (dev >= kCached) return query_limits(dev, slot);
@@ -1067,14 +1475,20 @@ extern "C" int nlm_launch(const float* x, const float* h, const float* sigma,
   return cudaGetLastError();
 }
 
-// The SMs of the current device and how many warps of nlm_cluster_kernel<P,
-// rows> one SM holds at once (registers, and the thread limit), for the
-// host's plan of clusters and warps; patch_size 0 asks it of
-// nlm_cluster_rt_kernel<rows>. Returns a cudaError_t.
-extern "C" int nlm_cluster_limits(int patch_size, int rows, int* sms, int* warps_per_sm) {
-  if (patch_size < 0 || patch_size > kMaxP || (rows != 4 && rows != 8)) return cudaErrorInvalidValue;
-  const Device d = device_limits(patch_size == 0 ? 3 * kMaxP + (rows == 8 ? 1 : 2)
-                                                 : (rows == 8 ? 1 : 2) * kMaxP + patch_size);
+// The SMs of the current device and how many warps one SM holds at once
+// (registers, and the thread limit) of: kernel 0, nlm_cluster_kernel<P =
+// patch_size, rows, kWide = form>; 1, nlm_cluster_rt_kernel<rows, form /
+// 2> (form: the canvas columns); 2, nlm_rt_serial_kernel<rows>; for the
+// host's plan of clusters and warps. Returns a cudaError_t.
+extern "C" int nlm_cluster_limits(int kernel, int patch_size, int rows, int form, int* sms,
+                                  int* warps_per_sm) {
+  if ((rows != 4 && rows != 8) || kernel < 0 || kernel > 2) return cudaErrorInvalidValue;
+  if (kernel == 0 && (patch_size < 1 || patch_size > kMaxP || form < 0 || form > 1)) return cudaErrorInvalidValue;
+  if (kernel == 1 && form != 32 && form != 64) return cudaErrorInvalidValue;
+  const int r = rows == 8 ? 0 : 1;
+  const int slot = kernel == 0 ? (2 * form + r + 1) * kMaxP + patch_size
+                               : (kernel == 1 ? kRtSlot + (form == 64 ? 2 : 0) + r : kRtSlot + 4 + r);
+  const Device d = device_limits(slot);
   if (d.sms <= 0 || d.warps_per_sm <= 0) return cudaErrorInvalidDevice;
   *sms = d.sms;
   *warps_per_sm = d.warps_per_sm;
@@ -1104,93 +1518,152 @@ cudaError_t launch_clustered(void (*fn)(Args...), dim3 grid, int warps, int clus
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// nlm_cluster_rt_kernel<R> on `grid` in clusters of `cluster` CTAs along x,
+// nlm_rt_serial_kernel<R> on `grid` in clusters of `cluster` CTAs along x,
 // opted into `smem` bytes.
 template <int R>
+cudaError_t launch_rt_serial(dim3 grid, int warps, int cluster, size_t smem, cudaStream_t st,
+                             const float* x, const float* h, const float* sigma, float* out, int H,
+                             int W, int P, int D, int lo, int hi) {
+  static size_t granted = 48 * 1024;
+  static bool non_portable = false;
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(nlm_rt_serial_kernel<R>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted = smem;
+  }
+  if (cluster == 1) {
+    nlm_rt_serial_kernel<R><<<grid, warps * 32, smem, st>>>(x, h, sigma, out, H, W, P, D, lo, hi, 1);
+    return cudaGetLastError();
+  }
+  if (cluster > 8 && !non_portable) {
+    const cudaError_t e = cudaFuncSetAttribute(nlm_rt_serial_kernel<R>,
+                                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    non_portable = true;
+  }
+  return launch_clustered(nlm_rt_serial_kernel<R>, grid, warps, cluster, smem, st, x, h, sigma, out, H, W,
+                          P, D, lo, hi, cluster);
+}
+
+// nlm_cluster_rt_kernel<R, G> on `grid` in clusters of `cluster` CTAs along
+// x, opted into `smem` bytes.
+template <int R, int G>
 cudaError_t launch_cluster_rt(dim3 grid, int warps, int cluster, size_t smem, cudaStream_t st,
                               const float* x, const float* h, const float* sigma, float* out, int H,
                               int W, int P, int D, int lo, int hi) {
   static size_t granted = 48 * 1024;
   static bool non_portable = false;
   if (smem > granted) {
-    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_rt_kernel<R>,
+    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_rt_kernel<R, G>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     granted = smem;
   }
   if (cluster == 1) {
-    nlm_cluster_rt_kernel<R><<<grid, warps * 32, smem, st>>>(x, h, sigma, out, H, W, P, D, lo, hi, 1);
+    nlm_cluster_rt_kernel<R, G><<<grid, warps * 32, smem, st>>>(x, h, sigma, out, H, W, P, D, lo, hi, 1);
     return cudaGetLastError();
   }
   if (cluster > 8 && !non_portable) {
-    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_rt_kernel<R>,
+    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_rt_kernel<R, G>,
                                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     non_portable = true;
   }
-  return launch_clustered(nlm_cluster_rt_kernel<R>, grid, warps, cluster, smem, st, x, h, sigma, out, H, W,
-                          P, D, lo, hi, cluster);
+  return launch_clustered(nlm_cluster_rt_kernel<R, G>, grid, warps, cluster, smem, st, x, h, sigma, out, H,
+                          W, P, D, lo, hi, cluster);
 }
 
-// nlm_cluster_kernel<P, R> on `grid` in clusters of `cluster` CTAs along x,
-// opted into `smem` bytes.
-template <int P, int R>
+// nlm_cluster_kernel<P, R, kWide> on `grid` in clusters of `cluster` CTAs
+// along x, opted into `smem` bytes.
+template <int P, int R, bool kWide = false>
 cudaError_t launch_cluster(dim3 grid, int warps, int cluster, size_t smem, cudaStream_t st,
                            const float* x, const float* h, const float* sigma, float* out, int H,
                            int W, int D, int lo, int hi) {
   static size_t granted = 48 * 1024;
   static bool non_portable = false;
   if (smem > granted) {
-    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_kernel<P, R>,
+    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_kernel<P, R, kWide>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     granted = smem;
   }
   if (cluster == 1) {  // a plain launch: each CTA its own cluster
-    nlm_cluster_kernel<P, R><<<grid, warps * 32, smem, st>>>(x, h, sigma, out, H, W, D, lo, hi, 1);
+    nlm_cluster_kernel<P, R, kWide><<<grid, warps * 32, smem, st>>>(x, h, sigma, out, H, W, D, lo, hi, 1);
     return cudaGetLastError();
   }
   if (cluster > 8 && !non_portable) {
-    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_kernel<P, R>,
+    const cudaError_t e = cudaFuncSetAttribute(nlm_cluster_kernel<P, R, kWide>,
                                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     non_portable = true;
   }
-  return launch_clustered(nlm_cluster_kernel<P, R>, grid, warps, cluster, smem, st, x, h, sigma, out, H, W, D,
-                          lo, hi, cluster);
+  return launch_clustered(nlm_cluster_kernel<P, R, kWide>, grid, warps, cluster, smem, st, x, h, sigma, out, H, W,
+                          D, lo, hi, cluster);
+}
+
+// The arguments every cluster entry checks alike; cudaSuccess if they hold.
+cudaError_t check_call(int B, int H, int W, int patch_size, int patch_distance, int lo, int hi, int cluster,
+                       int warps, int rows) {
+  const int pad = patch_size / 2;
+  if (patch_distance < 1 || H <= pad || W <= pad) return cudaErrorInvalidValue;
+  if (lo < 0 || hi > H || lo > hi || B > 65535) return cudaErrorInvalidValue;
+  if (cluster < 1 || cluster > kMaxCluster || warps < 1 || warps > kClusterMaxWarps ||
+      (rows != 4 && rows != 8))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Dynamic shared memory of a cluster-kernel CTA: the tile (rows x cols
+// canvas, P - 1 + 2 D more of each) twice, then `warps` partial wsum and acc
+// planes of rows x cols.
+size_t cluster_smem_bytes(int rows, int cols, int patch_size, int patch_distance, int warps) {
+  const long long tile = (long long)(rows + patch_size - 1 + 2 * patch_distance) * (cols + 2 * patch_distance);
+  return sizeof(float) * (2 * tile + 2LL * warps * rows * cols);
+}
+
+// nlm_cluster_rt_kernel's: the partial planes take the tile's bytes once the
+// shifts are done, so the larger of the two.
+size_t rt_smem_bytes(int rows, int cols, int patch_size, int patch_distance, int warps) {
+  const long long tile = (long long)(rows + patch_size - 1 + 2 * patch_distance) * (cols + 2 * patch_distance);
+  const long long planes = 2LL * warps * rows * cols;
+  return sizeof(float) * (2 * tile > planes ? 2 * tile : planes);
 }
 
 }  // namespace
 
 // nlm_cluster_kernel: the arguments of nlm_launch (any patch_size in [1,
-// 11], patch_distance in [1, 15]) and the host's plan: `cluster` CTAs (1-16)
-// split each tile's shifts, each of `warps` warps (1-8) whose threads own
-// `rows` (4 or 8) output rows. Returns the launch's cudaError_t.
+// 11], any patch_distance whose CTA fits kMaxSmem) and the host's plan:
+// `cluster` CTAs (1-16) split each tile's shifts, each of `warps` warps
+// (1-8) whose threads own `rows` (4 or 8) output rows. Returns the launch's
+// cudaError_t.
 extern "C" int nlm_cluster_launch(const float* x, const float* h, const float* sigma, float* out,
                                   int B, int H, int W, int patch_size, int patch_distance, int lo,
                                   int hi, int cluster, int warps, int rows, void* stream) {
-  if (patch_size < 1 || patch_size > kMaxP || patch_distance < 1 || patch_distance > kMaxD)
-    return cudaErrorInvalidValue;
-  const int pad = patch_size / 2;
-  if (H <= pad || W <= pad) return cudaErrorInvalidValue;
-  if (lo < 0 || hi > H || lo > hi || B > 65535) return cudaErrorInvalidValue;
-  if (cluster < 1 || cluster > kMaxCluster || warps < 1 || warps > kClusterMaxWarps ||
-      (rows != 4 && rows != 8))
-    return cudaErrorInvalidValue;
+  if (patch_size < 1 || patch_size > kMaxP) return cudaErrorInvalidValue;
+  const cudaError_t bad = check_call(B, H, W, patch_size, patch_distance, lo, hi, cluster, warps, rows);
+  if (bad != cudaSuccess) return bad;
+  const size_t smem = cluster_smem_bytes(2 * rows, 32, patch_size, patch_distance, warps);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
   const int out_cols = 32 - patch_size + 1;
   const dim3 grid(((W + out_cols - 1) / out_cols) * cluster, (H + 2 * rows - 1) / (2 * rows), B);
-  const int tile = (2 * rows + patch_size - 1 + 2 * patch_distance) * (32 + 2 * patch_distance);
-  const size_t smem = sizeof(float) * (2 * tile + 2 * warps * 2 * rows * 32);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (patch_size * 2 + (rows == 8)) {
+  const int wide = 32 + 2 * patch_distance > 64 ? 4 * kMaxP : 0;  // the kWide instantiations' cases
+  switch (patch_size * 4 + (rows == 8) + wide) {
 #define PNP_NLM_CLUSTER(P)                                                                          \
-  case 2 * P:                                                                                        \
+  case 4 * P:                                                                                        \
     return launch_cluster<P, 4>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, patch_distance, \
                                 lo, hi);                                                             \
-  case 2 * P + 1:                                                                                    \
+  case 4 * P + 1:                                                                                    \
     return launch_cluster<P, 8>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, patch_distance, \
-                                lo, hi);
+                                lo, hi);                                                             \
+  case 4 * P + 4 * kMaxP:                                                                            \
+    return launch_cluster<P, 4, true>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W,          \
+                                      patch_distance, lo, hi);                                       \
+  case 4 * P + 4 * kMaxP + 1:                                                                        \
+    return launch_cluster<P, 8, true>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W,          \
+                                      patch_distance, lo, hi);
     PNP_NLM_CLUSTER(1) PNP_NLM_CLUSTER(2) PNP_NLM_CLUSTER(3) PNP_NLM_CLUSTER(4) PNP_NLM_CLUSTER(5)
     PNP_NLM_CLUSTER(6) PNP_NLM_CLUSTER(7) PNP_NLM_CLUSTER(8) PNP_NLM_CLUSTER(9) PNP_NLM_CLUSTER(10)
     PNP_NLM_CLUSTER(11)
@@ -1199,29 +1672,49 @@ extern "C" int nlm_cluster_launch(const float* x, const float* h, const float* s
   return cudaErrorInvalidValue;
 }
 
-// nlm_cluster_rt_kernel: the arguments of nlm_cluster_launch, for
-// patch_size in [1, 31] and patch_distance >= 1 (every setting
-// nlm_cluster_kernel is not compiled for; the host checks that the tile
-// fits shared memory). Returns the launch's cudaError_t.
+// nlm_cluster_rt_kernel: the arguments of nlm_cluster_launch for
+// patch_size in [1, kRtMaxP] (the wrapper sends it 12-31), and the canvas
+// `cols` (32 or 64 columns a row group) of its plan. Returns the launch's
+// cudaError_t.
 extern "C" int nlm_cluster_rt_launch(const float* x, const float* h, const float* sigma, float* out,
                                      int B, int H, int W, int patch_size, int patch_distance, int lo,
-                                     int hi, int cluster, int warps, int rows, void* stream) {
-  if (patch_size < 1 || patch_size > kRtMaxP || patch_distance < 1) return cudaErrorInvalidValue;
-  const int pad = patch_size / 2;
-  if (H <= pad || W <= pad) return cudaErrorInvalidValue;
-  if (lo < 0 || hi > H || lo > hi || B > 65535) return cudaErrorInvalidValue;
-  if (cluster < 1 || cluster > kMaxCluster || warps < 1 || warps > kClusterMaxWarps ||
-      (rows != 4 && rows != 8))
-    return cudaErrorInvalidValue;
+                                     int hi, int cluster, int warps, int rows, int cols, void* stream) {
+  if (patch_size < 1 || patch_size > kRtMaxP || (cols != 32 && cols != 64)) return cudaErrorInvalidValue;
+  const cudaError_t bad = check_call(B, H, W, patch_size, patch_distance, lo, hi, cluster, warps, rows);
+  if (bad != cudaSuccess) return bad;
+  const int cta_rows = rows * 64 / cols;
+  const size_t smem = rt_smem_bytes(cta_rows, cols, patch_size, patch_distance, warps);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  if (B <= 0) return cudaSuccess;
+  const int out_cols = cols + 1 - patch_size;
+  const dim3 grid(((W + out_cols - 1) / out_cols) * cluster, (H + cta_rows - 1) / cta_rows, B);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int P = patch_size, D = patch_distance;
+  if (cols == 64)
+    return rows == 8 ? launch_cluster_rt<8, 32>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, P, D, lo, hi)
+                     : launch_cluster_rt<4, 32>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, P, D, lo, hi);
+  return rows == 8 ? launch_cluster_rt<8, 16>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, P, D, lo, hi)
+                   : launch_cluster_rt<4, 16>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, P, D, lo, hi);
+}
+
+// nlm_rt_serial_kernel (the replaced run-time-P design, launched only by
+// name): the arguments of nlm_cluster_launch for patch_size in [1,
+// kRtMaxP]. Returns the launch's cudaError_t.
+extern "C" int nlm_rt_serial_launch(const float* x, const float* h, const float* sigma, float* out,
+                                    int B, int H, int W, int patch_size, int patch_distance, int lo,
+                                    int hi, int cluster, int warps, int rows, void* stream) {
+  if (patch_size < 1 || patch_size > kRtMaxP) return cudaErrorInvalidValue;
+  const cudaError_t bad = check_call(B, H, W, patch_size, patch_distance, lo, hi, cluster, warps, rows);
+  if (bad != cudaSuccess) return bad;
+  const size_t smem = cluster_smem_bytes(2 * rows, 32, patch_size, patch_distance, warps);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
   const int out_cols = 33 - patch_size;
   const dim3 grid(((W + out_cols - 1) / out_cols) * cluster, (H + 2 * rows - 1) / (2 * rows), B);
-  const long long tile = (long long)(2 * rows + patch_size - 1 + 2 * patch_distance) * (32 + 2 * patch_distance);
-  const size_t smem = sizeof(float) * (2 * tile + 2 * warps * 2 * rows * 32);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows == 8)
-    return launch_cluster_rt<8>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, patch_size,
-                                patch_distance, lo, hi);
-  return launch_cluster_rt<4>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, patch_size,
-                              patch_distance, lo, hi);
+    return launch_rt_serial<8>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, patch_size,
+                               patch_distance, lo, hi);
+  return launch_rt_serial<4>(grid, warps, cluster, smem, st, x, h, sigma, out, H, W, patch_size,
+                             patch_distance, lo, hi);
 }

@@ -1026,7 +1026,10 @@ def test_k1_tile_kernel_repeats_itself_bit_for_bit(cuda):
 # and phase 2 are now functions the span kernel shares), K2's fold 48
 # (streaming) / 179 (all at once), K3's (4, 5) kernel 79; and K2's (8, 16)
 # tiles, now the template's instantiation, 56 (the parent's own (8, 16)
-# kernel: 64), with the same order of adds and the same bits.
+# kernel: 64), with the same order of adds and the same bits. K3's cluster
+# kernel at distance 1-16 (``kWide`` false: its tile's pitch within 64
+# columns) keeps the registers it had before it took any distance,
+# ``nlm_cluster_kernel<P, R>`` then (64-178).
 UNTOUCHED_REGISTERS = {
     ("bm3d_match", r"bm3d_match_kernelILi\dELi(?:1|3|10)E"): 93,
     ("bm3d_match", r"bm3d_match_tile_kernelILi\dELi[12]EE"): 80,
@@ -1035,6 +1038,28 @@ UNTOUCHED_REGISTERS = {
     ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb0ELi2ELi2EE"): 48,
     ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb1ELi2ELi2EE"): 179,
     ("nlm", r"nlm_kernelEPKf"): 79,
+    ("nlm", r"nlm_cluster_kernelILi1ELi4ELb0EE"): 64,
+    ("nlm", r"nlm_cluster_kernelILi1ELi8ELb0EE"): 96,
+    ("nlm", r"nlm_cluster_kernelILi2ELi4ELb0EE"): 79,
+    ("nlm", r"nlm_cluster_kernelILi2ELi8ELb0EE"): 123,
+    ("nlm", r"nlm_cluster_kernelILi3ELi4ELb0EE"): 80,
+    ("nlm", r"nlm_cluster_kernelILi3ELi8ELb0EE"): 128,
+    ("nlm", r"nlm_cluster_kernelILi4ELi4ELb0EE"): 92,
+    ("nlm", r"nlm_cluster_kernelILi4ELi8ELb0EE"): 144,
+    ("nlm", r"nlm_cluster_kernelILi5ELi4ELb0EE"): 98,
+    ("nlm", r"nlm_cluster_kernelILi5ELi8ELb0EE"): 144,
+    ("nlm", r"nlm_cluster_kernelILi6ELi4ELb0EE"): 101,
+    ("nlm", r"nlm_cluster_kernelILi6ELi8ELb0EE"): 178,
+    ("nlm", r"nlm_cluster_kernelILi7ELi4ELb0EE"): 99,
+    ("nlm", r"nlm_cluster_kernelILi7ELi8ELb0EE"): 159,
+    ("nlm", r"nlm_cluster_kernelILi8ELi4ELb0EE"): 112,
+    ("nlm", r"nlm_cluster_kernelILi8ELi8ELb0EE"): 160,
+    ("nlm", r"nlm_cluster_kernelILi9ELi4ELb0EE"): 115,
+    ("nlm", r"nlm_cluster_kernelILi9ELi8ELb0EE"): 154,
+    ("nlm", r"nlm_cluster_kernelILi10ELi4ELb0EE"): 119,
+    ("nlm", r"nlm_cluster_kernelILi10ELi8ELb0EE"): 163,
+    ("nlm", r"nlm_cluster_kernelILi11ELi4ELb0EE"): 118,
+    ("nlm", r"nlm_cluster_kernelILi11ELi8ELb0EE"): 162,
 }
 
 
@@ -1066,8 +1091,11 @@ def untouched_fingerprints(device) -> dict:
     with and without row bounds, K1's first kernel at the headline's shape
     (B = 13, 289 offsets, ``bf16_xla``) and at B = 1 in ``f32``, and K1's
     tile kernel at the reference profile's step 3 and search 19 with 16 and
-    32 matches (B = 2). Run from a checkout of the earlier tree, the same
-    function gives the fingerprints :data:`UNTOUCHED_FINGERPRINTS` holds."""
+    32 matches (B = 2), and K3's cluster kernel at distance 15 or less: (7,
+    11) at B = 9 with and without row bounds and on a three-CTA cluster,
+    (11, 15) and (1, 1) at B = 1. Run from a checkout of the earlier tree,
+    the same function gives the fingerprints :data:`UNTOUCHED_FINGERPRINTS`
+    holds."""
     import hashlib
 
     def digest(*ts):
@@ -1104,18 +1132,28 @@ def untouched_fingerprints(device) -> dict:
     h = torch.tensor(rng.uniform(0.06, 0.2, 9).astype(np.float32), device=device)
     out["k3_4_5_b9"] = digest(k3.nlm_denoise(z, h, 0.8 * h, 4, 5),
                               k3.nlm_denoise(z, h, 0.8 * h, 4, 5, row_valid_bounds=(10, 70)))
+    out["k3_cluster_7_11_b9"] = digest(k3.nlm_denoise(z, h, 0.8 * h, 7, 11),
+                                       k3.nlm_denoise(z, h, 0.8 * h, 7, 11, row_valid_bounds=(10, 70)))
+    hs, ss, planned = h.contiguous(), (0.8 * h).contiguous(), torch.empty_like(z)
+    k3.launch("nlm_cluster_kernel", k3._lib(), z, hs, ss, planned, 7, 11, 0, 96, (3, 5, 8))
+    out["k3_cluster_7_11_plan_3x5"] = digest(planned)
+    out["k3_cluster_11_15_1_1_b1"] = digest(k3.nlm_denoise(z[4], h[4], 0.8 * h[4], 11, 15),
+                                            k3.nlm_denoise(z[4], h[4], 0.8 * h[4], 1, 1))
     return out
 
 
 
 # What the untouched kernels gave before later slices: untouched_fingerprints
 # run on the card from a checkout of the tree before the packed K2 and the
-# cluster K3 kernel existed (K2, K3), and of the tree before the span kernel
-# (K1).
+# cluster K3 kernel existed (K2, K3's (4, 5)), of the tree before the span
+# kernel (K1), and of the tree before the cluster kernel took distances past
+# 15 (its rows).
 UNTOUCHED_FINGERPRINTS = {"k1_first_b13": "8c32060885cf6de7", "k1_first_b1": "3bce27305ffce817",
                           "k1_tile_k16": "9114f14fe3172631", "k1_tile_k32": "c345dae18744ff93",
                           "k2_8_16_b2": "dbc3785f3b6a9d07", "k2_8_16_b13": "1296a69990bc7c8c",
-                          "k2_8_32_b2": "d1ad9bdf49a12841", "k3_4_5_b9": "ccc2b23c008bf2e8"}
+                          "k2_8_32_b2": "d1ad9bdf49a12841", "k3_4_5_b9": "ccc2b23c008bf2e8",
+                          "k3_cluster_7_11_b9": "92b62ebe2b09ec08", "k3_cluster_7_11_plan_3x5": "0150c9508ceeb812",
+                          "k3_cluster_11_15_1_1_b1": "c412c1d26193b9fc"}
 
 
 def test_untouched_kernels_give_their_earlier_bits(cuda):
@@ -1489,12 +1527,19 @@ def test_bm3d_takes_a_k2_footprint_past_a_cta_through_the_gather_form(cuda):
     _k2_wide_held(cuda, bm3d.stage1_aggregate_inputs(x, 0.1, p)[1], "bm3d_aggregate_gather_kernel", 82)
 
 
+# The run-time-patch kernel's points: chip_smoke.py's rows, the patch that
+# takes the 16-pair level (16), the envelope's corners at patch 12 and 31,
+# and a patch whose windows start on an odd column (17); on 48 x 40 images,
+# narrower than the 64-column canvas.
+K3_RT_ROWS = [(13, 21), (21, 31), (16, 17), (31, 3), (12, 1), (17, 40)]
+
+
 @pytest.mark.parametrize("b", [1, 9])
-@pytest.mark.parametrize("patch_size,patch_distance", [(13, 21), (21, 31), (7, 16), (31, 3), (12, 1), (1, 40)])
+@pytest.mark.parametrize("patch_size,patch_distance", K3_RT_ROWS)
 def test_k3_runtime_patch_kernel_matches_plain(cuda, patch_size, patch_distance, b):
     z, h = _nlm_noise_input(cuda, b, 48, 40)
     assert k3.nlm_kernel_name(patch_size, patch_distance) == "nlm_cluster_rt_kernel"
-    for bounds in (None, (6, 42)):
+    for bounds in (None, (6, 42), (20, 21)):
         before = dict(k3.nlm_denoise.by_kernel)
         got = k3.nlm_denoise(z, h, 0.8 * h, patch_size, patch_distance, row_valid_bounds=bounds)
         torch.cuda.synchronize()
@@ -1506,15 +1551,92 @@ def test_k3_runtime_patch_kernel_matches_plain(cuda, patch_size, patch_distance,
     assert bool(torch.isnan(k3.nlm_denoise(z, zero, zero, patch_size, patch_distance)).all())
 
 
-def test_k3_runtime_patch_kernel_on_other_plans(cuda):
+@pytest.mark.parametrize("plan", [(1, 4, 8, 64), (3, 6, 8, 64), (16, 8, 8, 64), (2, 4, 4, 64), (1, 1, 8, 64),
+                                  (1, 4, 8, 32), (3, 6, 8, 32), (16, 8, 8, 32), (2, 4, 4, 32), (5, 3, 4, 32)])
+def test_k3_runtime_patch_kernel_on_other_plans(cuda, plan):
+    # Any split of the shifts, either canvas and either count of rows a
+    # thread sums the same terms in its own fixed order and repeats itself.
     z, h = _nlm_noise_input(cuda, 1, 64, 56)
     fns = k3._lib()
-    want = k3.nlm_denoise_plain(z, h, 0.8 * h, 13, 21)
-    hs = h.expand(1).contiguous()
-    for plan in ((1, 4, 8), (3, 6, 8), (16, 8, 8), (2, 4, 4)):
-        out = torch.empty_like(z)
-        k3.launch("nlm_cluster_rt_kernel", fns, z, hs, (0.8 * hs).contiguous(), out, 13, 21, 0, z.shape[1], plan)
+    hs, ss = h.expand(1).contiguous(), (0.8 * h).expand(1).contiguous()
+    for bounds in ((0, 64), (9, 50)):
+        want = k3.nlm_denoise_plain(z, h, 0.8 * h, 13, 21, row_valid_bounds=bounds)
+        out, again = torch.empty_like(z), torch.empty_like(z)
+        k3.launch("nlm_cluster_rt_kernel", fns, z, hs, ss, out, 13, 21, *bounds, plan)
+        k3.launch("nlm_cluster_rt_kernel", fns, z, hs, ss, again, 13, 21, *bounds, plan)
         assert float((out - want).abs().max()) <= 1e-5
+        assert torch.equal(out, again)
+    zero = torch.zeros(1, device=cuda)
+    k3.launch("nlm_cluster_rt_kernel", fns, z, zero, zero, out, 13, 21, 0, 64, plan)
+    assert bool(torch.isnan(out).all())
+
+
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("patch_size,patch_distance", [(13, 21), (12, 5), (21, 9), (31, 2)])
+def test_k3_runtime_patch_kernel_at_widths_past_its_columns(cuda, patch_size, patch_distance, b):
+    # 100 and 150 columns: no whole number of 65 - P output columns a
+    # canvas; 37 rows: no whole number of 8-row strips.
+    for hh, ww in ((37, 100), (64, 150)):
+        z, h = _nlm_noise_input(cuda, b, hh, ww)
+        for bounds in (None, (4, hh - 7)):
+            got = k3.nlm_denoise(z, h, 0.8 * h, patch_size, patch_distance, row_valid_bounds=bounds)
+            want = k3.nlm_denoise_plain(z, h, 0.8 * h, patch_size, patch_distance, row_valid_bounds=bounds)
+            assert float((got - want).abs().max()) <= 1e-5
+        assert torch.equal(got, k3.nlm_denoise(z, h, 0.8 * h, patch_size, patch_distance, row_valid_bounds=bounds))
+        zero = torch.zeros(b, device=cuda)
+        assert bool(torch.isnan(k3.nlm_denoise(z, zero, zero, patch_size, patch_distance)).all())
+
+
+@pytest.mark.parametrize("patch_size", [12, 13, 21, 31])
+def test_k3_runtime_patch_kernel_at_the_envelopes_distance(cuda, patch_size):
+    # The largest distance the envelope takes: past the 64-column canvas,
+    # so on the 32-column one.
+    d = k3.nlm_distance_limit(patch_size)
+    assert k3.rt_canvas(patch_size, d) == 32
+    z, h = _nlm_noise_input(cuda, 2, 24, 28)
+    for bounds in (None, (3, 20)):
+        got = k3.nlm_denoise(z, h, 0.8 * h, patch_size, d, row_valid_bounds=bounds)
+        want = k3.nlm_denoise_plain(z, h, 0.8 * h, patch_size, d, row_valid_bounds=bounds)
+        assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, k3.nlm_denoise(z, h, 0.8 * h, patch_size, d, row_valid_bounds=bounds))
+    zero = torch.zeros(2, device=cuda)
+    assert bool(torch.isnan(k3.nlm_denoise(z, zero, zero, patch_size, d)).all())
+
+
+# The cluster kernel past distance 15 (the tile's pitch past 64 columns
+# from 17): the cases that went to the run-time kernel before it took any
+# distance, (7, 16) and (1, 40), and IPOL's 35 x 35 research window at
+# patch 7 and 11.
+K3_CLUSTER_WIDE = [(7, 16), (1, 40), (7, 17), (11, 17), (3, 33), (11, 40), (6, 25)]
+
+
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("patch_size,patch_distance", K3_CLUSTER_WIDE)
+def test_k3_cluster_kernel_past_distance_15_matches_plain(cuda, patch_size, patch_distance, b):
+    z, h = _nlm_noise_input(cuda, b, 48, 40)
+    pd = (patch_size, patch_distance)
+    assert k3.nlm_kernel_name(*pd) == "nlm_cluster_kernel"
+    before = dict(k3.nlm_denoise.by_kernel)
+    for bounds in (None, (6, 42), (10, 11)):
+        got = k3.nlm_denoise(z, h, 0.8 * h, *pd, row_valid_bounds=bounds)
+        want = k3.nlm_denoise_plain(z, h, 0.8 * h, *pd, row_valid_bounds=bounds)
+        assert float((got - want).abs().max()) <= 1e-5
+        assert torch.equal(k3.nlm_denoise(z, h, 0.8 * h, *pd, row_valid_bounds=bounds), got)
+    torch.cuda.synchronize()
+    assert k3.nlm_denoise.by_kernel["nlm_cluster_kernel"] == before["nlm_cluster_kernel"] + 6
+    zero = torch.zeros(b, device=cuda)
+    assert bool(torch.isnan(k3.nlm_denoise(z, zero, zero, *pd)).all())
+
+
+@pytest.mark.parametrize("patch_size,patch_distance", [(13, 21), (7, 17)])
+def test_k3_replaced_runtime_design_stays_reachable_by_name(cuda, patch_size, patch_distance):
+    z, h = _nlm_noise_input(cuda, 1, 64, 56)
+    assert k3.prev_design(patch_size, patch_distance) == k3.RT_PREV_DESIGN
+    before = dict(k3.nlm_denoise.by_kernel)
+    out = torch.empty_like(z)
+    k3.launch(k3.RT_PREV_DESIGN, k3._lib(), z, h, h, out, patch_size, patch_distance, 0, 64)
+    assert k3.nlm_denoise.by_kernel == before
+    assert float((out - k3.nlm_denoise_plain(z, h, h, patch_size, patch_distance)).abs().max()) <= 1e-5
 
 
 def test_bm3d_and_nlm_past_the_earlier_envelope_on_the_card_match_the_cpu(cuda):

@@ -7,12 +7,15 @@ kernel of a call: ``bm3d_aggregate_kernel`` keeps its compiled (8, 16) and
 (8, 32), every BM3D lane's; ``bm3d_aggregate_packed_kernel`` takes the rest,
 on the tiles ``packed_plan`` chooses. ``nlm_kernel_name``
 (``ops/cuda/nlm.py``) names the K3 kernel: ``nlm_kernel`` keeps (4, 5),
-every NLM lane's but csmri_nlm_skimage's; ``nlm_cluster_kernel`` takes the
-rest, its shifts split by ``cluster_plan`` and ``split_chunks``. Here each
-plan is held to what its kernel reads of it, over the envelope, and the
-cluster kernel's order of adds (box sums by doubling trees, each lane two
-columns, partial sums by warp, then by CTA) is emulated in torch and held
-to the JAX package's ``nlm_denoise`` within 1e-5. The kernels themselves
+every NLM lane's but csmri_nlm_skimage's; ``nlm_cluster_kernel`` takes
+every other patch size up to 11, at any distance, its shifts split by
+``cluster_plan`` and ``split_chunks``; ``nlm_cluster_rt_kernel`` takes
+patch 12-31 on ``rt_plan``. Here each plan is held to what its kernel
+reads of it, over the envelope, and the two cluster kernels' orders of adds
+(box sums by doubling trees, or by sums sliding down a thread's rows; each
+lane two columns, windows from doubled column pairs, partial sums by warp,
+then by CTA) are emulated in torch and held to the JAX package's
+``nlm_denoise`` within 1e-5. The kernels themselves
 are held to their plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 
@@ -46,7 +49,7 @@ from pnp_svrg_tpu_torch.ops.cuda import nlm as k3
 from pnp_svrg_tpu_torch.utils.io import DATA_DIR
 
 COMPILED, PACKED, GATHER = k2.K2_KERNELS
-FIRST_NLM, CLUSTER = k3.K3_KERNELS[:2]
+FIRST_NLM, CLUSTER, RT = k3.K3_KERNELS
 MAX_SMEM = 227 * 1024
 FIXTURE = DATA_DIR.parent / "pnp_svrg_tpu_torch" / "data" / "nlm_bounds_jax.npz"
 
@@ -131,6 +134,22 @@ def test_every_nlm_lane_keeps_its_k3_kernel():
             assert k3.nlm_kernel_name(p, d) == (FIRST_NLM if (p, d) == (4, 5) else CLUSTER)
 
 
+@pytest.mark.parametrize("p", list(range(1, 32)))
+def test_k3_sends_every_distance_of_a_patch_to_one_kernel(p):
+    # Patch 1-11 at distance 16 to the envelope's limit to the cluster
+    # kernel (compiled for the patch, D at run time), patch 12-31 at every
+    # distance to the run-time kernel; each call's replaced design is the
+    # any-kernel's up to (11, 15), else the serial run-time kernel.
+    most = k3.nlm_distance_limit(p)
+    for d in range(1 if p > 11 else 16, most + 1):
+        k3.check_nlm_envelope(p, d)
+        assert k3.nlm_kernel_name(p, d) == (CLUSTER if p <= 11 else RT)
+        assert k3.prev_design(p, d) == k3.RT_PREV_DESIGN
+    for d in range(1, 16):
+        want = None if (p, d) == (4, 5) else (k3.PREV_DESIGN if p <= 11 else k3.RT_PREV_DESIGN)
+        assert k3.prev_design(p, d) == want
+
+
 # --- K2's packed plan ---------------------------------------------------------
 
 
@@ -207,7 +226,22 @@ def test_k3_plan_constants_are_the_sources():
     assert built == {(str(p), str(r)) for p in range(1, 12) for r in k3.THREAD_ROWS}
 
 
-@pytest.mark.parametrize("distance", [1, 2, 5, 11, 15])
+def test_k3_runtime_kernel_constants_are_the_sources():
+    text = (_build.SRC_DIR / "nlm.cu").read_text()
+    built = set(re.findall(r"nlm_cluster_rt_kernel<(\d+), (\d+)>;", text))  # kernel_of's instantiations
+    assert built == {(str(r), str(c // 2)) for r in k3.THREAD_ROWS for c in k3.RT_CANVAS}
+    assert set(re.findall(r"nlm_rt_serial_kernel<(\d+)>;", text)) == {str(r) for r in k3.THREAD_ROWS}
+    # The cluster kernel's tiles past 64 columns (distance past 16): the
+    # same instantiations, kWide.
+    wide = set(re.findall(r"nlm_cluster_kernel<(\d+), (\d+), true>;", text))
+    assert wide == {(str(p), str(r)) for p in range(1, 12) for r in k3.THREAD_ROWS}
+    assert _constant("nlm", "kMaxSmem") == MAX_SMEM == k3._MAX_SMEM
+    assert _constant("nlm", "kRtMaxP") == k3.NLM_ENVELOPE["patch_size"][1]
+    assert (_constant("nlm", "kMaxP"), _constant("nlm", "kMaxD")) == k3.ANY_DESIGN_MOST
+    assert k3.COMPILED["patch_size"] == (1, _constant("nlm", "kMaxP"))
+
+
+@pytest.mark.parametrize("distance", [1, 2, 5, 11, 15, 16, 17, 40, 67])
 def test_k3_split_assigns_every_shift_once_in_dy_major_order(distance):
     shifts = (2 * distance + 1) ** 2
     for cluster in range(1, k3.MAX_CLUSTER + 1):
@@ -231,6 +265,63 @@ def test_k3_cluster_plan_fits_the_card(b, wps):
             assert smem <= MAX_SMEM
             resident = per_sm * warps <= wps and per_sm * (smem + 1024) <= k3.SM_SMEM
             assert resident or (cluster, warps) == (1, 4)  # else one CTA of 4 warps a tile
+
+
+@pytest.mark.parametrize("b", [1, 9, 36])
+@pytest.mark.parametrize("wps", [8, 12, 16, 20, 32])
+def test_k3_rt_plan_fits_the_card(b, wps):
+    # Every tile's shifts over RT_TILE_WARPS warps or more where it has that
+    # many shifts (each warp one at least), each CTA within one CTA's shared
+    # memory; the grid need not be resident at once.
+    for p in (12, 13, 16, 21, 31):
+        for d in (1, 2, 3, 17, 21, 31, 45, k3.nlm_distance_limit(p)):
+            cluster, warps, rows, cols = k3.rt_plan(b, 128, 128, p, d, 132, wps)
+            shifts = (2 * d + 1) ** 2
+            assert 1 <= cluster <= k3.MAX_CLUSTER and warps in (4, 6, 8) and rows == (4 if d <= 2 else 8)
+            assert cols == k3.rt_canvas(p, d) and cluster * warps <= shifts
+            assert cluster * warps >= min(k3.RT_TILE_WARPS, shifts) - 3
+            assert k3.rt_smem(p, d, warps, rows, cols) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("p", list(range(12, 32)))
+def test_k3_rt_canvas_is_the_widest_that_fits(p):
+    # The 64-column canvas wherever its CTA fits at 4 warps (to distance
+    # 59-65), the 32-column one past it, as far as the envelope goes.
+    most = k3.nlm_distance_limit(p)
+    wide = [d for d in range(1, most + 1) if k3.rt_canvas(p, d) == 64]
+    assert wide == list(range(1, len(wide) + 1)) and 59 <= len(wide) < most
+    for d in (len(wide), len(wide) + 1, most):
+        rows = k3.thread_rows(d)
+        assert (k3.rt_smem(p, d, 4, rows, 64) <= MAX_SMEM) == (d <= len(wide))
+        assert k3.rt_smem(p, d, 4, rows, 32) <= MAX_SMEM
+        assert k3.kernel_smem(p, d, 4, rows) == k3.rt_smem(p, d, 4, rows, k3.rt_canvas(p, d))
+    assert k3.rt_smem(p, most + 1, 4, 8, 32) > MAX_SMEM
+
+
+def test_k3_rt_partial_buffers_are_sized_right():
+    # nlm_cluster_rt_kernel<R, G>'s layout: a CTA of (32 / G) R rows and 2 G
+    # canvas columns, its tile and one-column shift ((32 / G) R + P - 1 + 2D
+    # rows of 2 G + 2 D f32), whose bytes then take the wsum and acc planes
+    # of (32 / G) R x 2 G a warp.
+    for p in (12, 20, 31):
+        for d in (1, 2, 9, 40):
+            for warps in range(1, 9):
+                for rows in k3.THREAD_ROWS:
+                    for cols in k3.RT_CANVAS:
+                        cta = rows * 64 // cols
+                        tile = (cta + p - 1 + 2 * d) * (cols + 2 * d)
+                        planes = 2 * warps * cta * cols
+                        assert k3.rt_smem(p, d, warps, rows, cols) == 4 * max(2 * tile, planes)
+
+
+def test_k3_rt_plan_at_the_rows():
+    # chip_smoke.py's run-time rows on an H100 (132 SMs, 15 warps an SM at
+    # the kernel's 133 registers): the plan k3_variants.py found fastest,
+    # at B = 1 and 9.
+    for pd in ((13, 21), (21, 31)):
+        for b in (1, 9):
+            assert k3.rt_plan(b, 128, 128, *pd, 132, 15) == (4, 6, 8, 64)
+    assert k3.rt_plan(1, 128, 128, 12, 1, 132, 15) == (1, 8, 4, 64)  # 9 shifts
 
 
 def test_k3_cluster_plan_at_the_rows():
@@ -261,16 +352,16 @@ def test_k3_partial_buffers_are_sized_right():
 
 
 def window_of(p: int, e: int) -> list:
-    """csrc/nlm.cu's ``window_of``: the pieces (kind, lane offset) of the
-    window of the output at column 2 j + e of a lane j, in adding order:
-    kind 0 column 2 j', 1 column 2 j' + 1, 2 + k the 2^k column pairs from
-    lane j'."""
+    """csrc/nlm.cu's ``window_of`` (and ``rt_window``, the same pieces for a
+    P read at run time): the pieces (kind, lane offset) of the window of the
+    output at column 2 j + e of a lane j, in adding order: kind 0 column 2
+    j', 1 column 2 j' + 1, 2 + k the 2^k column pairs from lane j'."""
     pieces, delta, cols = [], e - p // 2, p
     if delta & 1:
         pieces.append((1, (delta - 1) // 2))
         delta, cols = delta + 1, cols - 1
     lane, pairs = delta // 2, cols // 2
-    for k in range(3):
+    for k in range(4):
         if pairs & (1 << k):
             pieces.append((2 + k, lane))
             lane += 1 << k
@@ -279,7 +370,7 @@ def window_of(p: int, e: int) -> list:
     return pieces
 
 
-@pytest.mark.parametrize("p", list(range(1, 12)))
+@pytest.mark.parametrize("p", list(range(1, 32)))
 def test_k3_windows_cover_each_output_window_once(p):
     for e in (0, 1):
         cols = []
@@ -306,25 +397,26 @@ def _column_boxes(sq: torch.Tensor, p: int, rows: int) -> torch.Tensor:
     return out
 
 
-def _window_sums(box: torch.Tensor, p: int, w: int) -> torch.Tensor:
+def _window_sums(box: torch.Tensor, p: int, w: int, cols: int = 32) -> torch.Tensor:
     """(B, H, W) window sums of the (B, H, W + 2 pad) column boxes in the
-    kernel's order: strips of 33 - P output columns, each lane two columns,
-    pair sums and their doubling across lanes, each window its pieces."""
-    pad, out_cols = p // 2, 33 - p
+    kernel's order: strips of ``cols`` + 1 - P output columns, each lane two
+    columns, pair sums and their doubling across lanes, each window its
+    pieces."""
+    pad, out_cols, lanes = p // 2, cols + 1 - p, cols // 2
     b, h, wc = box.shape
     dist = torch.empty((b, h, w), dtype=box.dtype)
-    lane = torch.arange(16)
+    lane = torch.arange(lanes)
     for j0 in range(0, w, out_cols):
-        c = F.pad(box[..., j0 : j0 + 32], (0, 32 - min(32, wc - j0)))
+        c = F.pad(box[..., j0 : j0 + cols], (0, cols - min(cols, wc - j0)))
         kinds = {0: c[..., 0::2], 1: c[..., 1::2]}
         kinds[2] = kinds[0] + kinds[1]
-        for k in (3, 4):
+        for k in (3, 4, 5):
             prev, half = kinds[k - 1], 1 << (k - 3)
-            kinds[k] = prev + prev[..., torch.clamp(lane + half, max=15)]
+            kinds[k] = prev + prev[..., torch.clamp(lane + half, max=lanes - 1)]
         for e in (0, 1):
             s = None
             for kind, off in window_of(p, e):
-                v = kinds[kind][..., torch.clamp(lane + off, 0, 15)]
+                v = kinds[kind][..., torch.clamp(lane + off, 0, lanes - 1)]
                 s = v if s is None else s + v
             t = 2 * lane + e  # local column; output column j0 - pad + t
             keep = (t >= pad) & (t < pad + out_cols) & (j0 - pad + t < w)
@@ -332,9 +424,30 @@ def _window_sums(box: torch.Tensor, p: int, w: int) -> torch.Tensor:
     return dist
 
 
+def _sliding_boxes(sq: torch.Tensor, p: int, rows: int, h: int) -> torch.Tensor:
+    """P-row box sums of the ``h`` output rows of (B, H + P - 1 or more, C)
+    squares as nlm_cluster_rt_kernel forms them: each strip of ``rows``
+    output rows (from row 0) its first box the P squares in order, each
+    later row the one above plus the row entering, less the row leaving."""
+    b, hp, c = sq.shape
+    strips = -(-h // rows)
+    sq = F.pad(sq, (0, 0, 0, max(0, strips * rows + p - 1 - hp)))
+    start = torch.arange(strips) * rows
+    box = torch.zeros((b, strips, c), dtype=sq.dtype)
+    for t in range(p):
+        box = box + sq[:, start + t]
+    out = [box]
+    for m in range(1, rows):
+        box = (box + sq[:, start + m + p - 1]) - sq[:, start + m - 1]
+        out.append(box)
+    return torch.stack(out, 2).reshape(b, strips * rows, c)[:, :h]
+
+
 def cluster_order_nlm(x: torch.Tensor, h, sigma, p: int, d: int, bounds, plan: tuple) -> torch.Tensor:
     """nlm_cluster_kernel's order of adds in torch (f32; ``exp`` for its
-    ``ex2.approx``): each shift's box sums as :func:`_column_boxes` and
+    ``ex2.approx``), or with a four-entry ``plan`` (cluster, warps, rows,
+    cols) nlm_cluster_rt_kernel's: each shift's box sums as
+    :func:`_column_boxes` (the run-time kernel: :func:`_sliding_boxes`) and
     :func:`_window_sums` form them, each (CTA rank, warp) chunk of
     :func:`split_chunks` summed shift by shift, the chunks of a CTA in warp
     order, then the CTAs in rank order."""
@@ -352,13 +465,18 @@ def cluster_order_nlm(x: torch.Tensor, h, sigma, p: int, d: int, bounds, plan: t
     partial = []
     for q0, q1 in k3.split_chunks(len(shifts), cluster, warps):
         wsum, acc = torch.zeros_like(x), torch.zeros_like(x)
-        for dy, dx in shifts[q0:q1]:
-            sq = (xp - torch.roll(xp, (-dy, -dx), dims=(-2, -1))) ** 2
-            dist = _window_sums(_column_boxes(sq, p, hh), p, ww)
-            wgt = torch.exp(-torch.clamp_min(dist - offset, 0.0) * inv_h2)
-            wgt = wgt * ((row + dy >= lo) & (row + dy < hi) & (col + dx >= 0) & (col + dx < ww)).float()
-            wsum = wsum + wgt
-            acc = acc + wgt * torch.roll(x, (-dy, -dx), dims=(-2, -1))
+        for s0 in range(q0, q1, 64):  # the box and window sums of 64 shifts at a time
+            block = shifts[s0 : min(q1, s0 + 64)]
+            sq = torch.cat([(xp - torch.roll(xp, (-dy, -dx), dims=(-2, -1))) ** 2 for dy, dx in block])
+            if len(plan) == 4:
+                dist = _window_sums(_sliding_boxes(sq, p, plan[2], hh), p, ww, plan[3])
+            else:
+                dist = _window_sums(_column_boxes(sq, p, hh), p, ww)
+            wgt = torch.exp(-torch.clamp_min(dist.reshape(len(block), b, hh, ww) - offset, 0.0) * inv_h2)
+            for i, (dy, dx) in enumerate(block):  # then added shift by shift
+                w_ = wgt[i] * ((row + dy >= lo) & (row + dy < hi) & (col + dx >= 0) & (col + dx < ww)).float()
+                wsum = wsum + w_
+                acc = acc + w_ * torch.roll(x, (-dy, -dx), dims=(-2, -1))
         partial.append((wsum, acc))
     ctas = []
     for r in range(cluster):
@@ -381,6 +499,17 @@ def _batch() -> tuple:
     return x, np.asarray([0.05, 0.08, 0.12], np.float32), np.asarray([0.05, 0.08, 0.0], np.float32)
 
 
+@pytest.fixture
+def one_thread():
+    # The emulations' many small torch ops under the test run's workers,
+    # each of several intra-op threads, ran tens of times slower than alone;
+    # one thread while an emulation runs, restored after.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NLM_POINTS = [(1, 1), (2, 3), (7, 11), (11, 15)]
 NLM_BOUNDS = (4, 28)
 FIXTURE_POINTS = ((7, 11), (11, 15))  # the bounded JAX reference in the fixture
@@ -398,7 +527,7 @@ def _jax_reference(x, h, s, p, d, bounds):
 
 @pytest.mark.parametrize("bounds", [None, NLM_BOUNDS])
 @pytest.mark.parametrize("p,d", NLM_POINTS)
-def test_k3_cluster_order_of_adds_matches_jax(p, d, bounds):
+def test_k3_cluster_order_of_adds_matches_jax(p, d, bounds, one_thread):
     x, h, s = _batch()
     want = _jax_reference(x, h, s, p, d, bounds)
     # The plan an H100 takes for this batch (132 SMs, 16 warps an SM), and
@@ -406,6 +535,39 @@ def test_k3_cluster_order_of_adds_matches_jax(p, d, bounds):
     for plan in (k3.cluster_plan(3, 32, 40, p, d, 132, 16), (3, 5, 8)):
         got = cluster_order_nlm(torch.tensor(x), h, s, p, d, bounds, plan).numpy()
         assert float(np.abs(got - want).max()) <= 1e-5, plan
+
+
+RT_POINTS = [(13, 21), (21, 31), (31, 3), (12, 1)]
+
+
+@pytest.mark.parametrize("p,d", RT_POINTS)
+def test_k3_runtime_kernel_order_of_adds_matches_jax(p, d, one_thread):
+    # Without row bounds against the JAX package's Pallas kernel (interpret
+    # mode), on the plan an H100 takes for this batch and on the 32-column
+    # canvas; with row bounds against the port's plain version.
+    x, h, s = _batch()
+    want = np.asarray(nlm_denoise_pallas(jnp.asarray(x), jnp.asarray(h), jnp.asarray(s), p, d, interpret=True))
+    plan = k3.rt_plan(3, 32, 40, p, d, 132, 16)
+    for plan_ in (plan, (2, 3, plan[2], 32)):
+        got = cluster_order_nlm(torch.tensor(x), h, s, p, d, None, plan_).numpy()
+        assert float(np.abs(got - want).max()) <= 1e-5, plan_
+    got = cluster_order_nlm(torch.tensor(x), h, s, p, d, NLM_BOUNDS, plan)
+    ref = k3.nlm_denoise_plain(torch.tensor(x), torch.tensor(h), torch.tensor(s), p, d, row_valid_bounds=NLM_BOUNDS)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_k3_sliding_box_sums_hold_the_window_sums():
+    # Rows that slide past a large square: each box within a few ulps of the
+    # largest box it slid through, every strip's first row exact in order.
+    rng = np.random.default_rng(3)
+    sq = torch.tensor(rng.uniform(0, 1, (2, 40 + 30, 9)).astype(np.float32) ** 4)
+    sq[:, 11] += 50.0
+    for p, rows in ((21, 8), (13, 4), (31, 8)):
+        got = _sliding_boxes(sq[:, : 40 + p - 1], p, rows, 40)
+        exact = torch.stack([sq[:, i : i + p].double().sum(1) for i in range(40)], 1)
+        assert float((got.double() - exact).abs().max()) <= 8 * 2.0 ** -24 * float(exact.max())
+        assert torch.equal(got[:, ::rows], torch.stack([sum(sq[:, i + u] for u in range(p))
+                                                         for i in range(0, 40, rows)], 1))
 
 
 def build_bounds_fixture() -> None:
