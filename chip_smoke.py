@@ -602,7 +602,12 @@ ENVELOPE_K1_WIDE = {"step_past_block": (8, 10, 19, 16, "input"), "block4_step6":
                     "search32": (8, 3, 32, 16, "input"), "block4_s40": (4, 2, 40, 16, "input"),
                     "k128": (8, 3, 19, 128, "basic"), "block1": (1, 1, 3, 4, "input"),
                     "block24": (24, 12, 8, 16, "input"),
-                    "search_widest": (8, 3, match_search_limit(8, 16), 16, "input")}
+                    "search_widest": (8, 3, match_search_limit(8, 16), 16, "input"),
+                    "block4_k128": (4, 2, 19, 128, "basic")}
+# The wide K1 rows whose kernel or merge was redesigned (the rank merge at
+# k 128, the pixel kernel at block 1, the run-time span kernel past block
+# 16): each beside the design it replaced on the same call (prev_design).
+K1_REDESIGNED_WIDE = ("k128", "block1", "block24", "block4_k128")
 ENVELOPE_K2_WIDE = {"step_past_block": (8, 10, 19, 16), "block4_step6": (4, 6, 3, 4), "k128": (8, 3, 19, 128),
                     "block1": (1, 1, 3, 4), "block24": (24, 12, 8, 16), "search40": (8, 3, 40, 32),
                     "search_widest": (8, 3, match_search_limit(8, 16), 16)}
@@ -863,14 +868,17 @@ def ptxas_summary(log: str) -> dict:
     lane>`` for K1's first kernel, ``<P, R, kWide>`` for K3's cluster
     kernel, ``<R, G>`` for its run-time-patch kernel, ``<mode, slots a
     lane>`` for K1's tile
-    kernel, ``<mode, offsets a lane, block>`` for its any-kernel, ``<mode,
-    keys a thread, slots a lane>`` for its span kernel, ``<block, K>`` for
-    K2's tiles)."""
+    kernel, ``<mode>`` for the four-slot design it replaced at k 128,
+    ``<mode, offsets a lane, block>`` for its any-kernel, ``<pairs>`` (1:
+    mode 1's bf16 pairs) for its span, run-time span and serial span
+    kernels, ``<mode, keys a thread>`` for its pixel kernel, ``<block, K>``
+    for K2's tiles)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            base = re.search(r"(bm3d_match(?:_any|_tile|_span)?|bm3d_aggregate(?:_fold)?|"
+            base = re.search(r"(bm3d_match(?:_any|_tile_slots|_tile|_span_rt|_span_serial|_span|_pixel)?|"
+                             r"bm3d_aggregate(?:_fold)?|"
                              r"nlm(?:_any|_cluster|_cluster_rt|_rt_serial)?)_kernel",
                              m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
@@ -1401,12 +1409,15 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     invalid picks (index-0 fills) as the plain version; then its device
     time in ``lane_mode`` on the first image, the plain version's and the
     bound. ``kernel`` is the kernel :func:`match_kernel` names for the
-    call, with its shared memory (and the span kernel's tiles). With
-    ``prev_design``, where that is not the any-kernel, the any-kernel (the
-    design the tile and span kernels replaced) is timed on the same
-    arguments too (``prev_design_ms``, its ``event_ms`` and the ratio),
-    after it is held to the same rules in ``lane_mode``. The plain version
-    is timed over ``plain_reps`` = (calls, warm-up calls)."""
+    call, with its shared memory (and the span kernels' or the k-128 tile
+    kernel's tiles). With ``prev_design``, the design the call's kernel
+    replaced (``prev_design`` of the K1 module: the any-kernel for the tile
+    and span kernels, the four-slot tile kernel at block 8 and k 128, the
+    serial span kernel for the pixel and run-time kernels and for the span
+    kernel at k 128) is timed on the same arguments too (``prev_design_ms``,
+    its ``event_ms`` and the ratio), after it is held to the same rules in
+    ``lane_mode``. The plain version is timed over ``plain_reps`` = (calls,
+    warm-up calls)."""
     z = next(iter(imgs.values()))
     b, h, w = z.shape
     rows, cols = _ref_grid(h, block, step), _ref_grid(w, block, step)
@@ -1437,9 +1448,13 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     kernel = match_kernel(geom, block, k)
     reach = geom.reach(h, w)
     smem = {"bm3d_match_kernel": lambda: geom.smem_bytes,
-            "bm3d_match_tile_kernel": lambda: geom.tile_smem_bytes(k, reach.search),
+            "bm3d_match_tile_kernel": lambda: geom.tile(k, reach.search).smem_bytes,
             "bm3d_match_any_kernel": lambda: geom.any_smem_bytes,
-            "bm3d_match_span_kernel": lambda: geom.span(k, reach.search).smem_bytes}
+            "bm3d_match_span_kernel": lambda: geom.span(k, reach.search).smem_bytes,
+            "bm3d_match_span_rt_kernel": lambda: geom.span(k, reach.search).smem_bytes,
+            "bm3d_match_pixel_kernel": lambda: geom.pixel(reach.search).smem_bytes,
+            "bm3d_match_tile_slots_kernel": lambda: geom.tile_smem_bytes(k, reach.search),
+            "bm3d_match_span_serial_kernel": lambda: geom.span(k, reach.search).smem_bytes}
     rec = {
         "shape": {"images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
                   "mode": lane_mode},
@@ -1451,10 +1466,12 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
         "smem_bytes": smem[kernel](), "ctas_per_sm_by_smem": (228 * 1024) // (smem[kernel]() + 1024),
         "near_tie": tie, "checks": checks, **bounds,
     }
-    if kernel == "bm3d_match_span_kernel":
-        plan = geom.span(k, reach.search)
+    plan = {"bm3d_match_span_kernel": geom.span, "bm3d_match_span_rt_kernel": geom.span,
+            "bm3d_match_pixel_kernel": lambda k, s: geom.pixel(s), "bm3d_match_tile_kernel": geom.tile}.get(kernel)
+    if plan is not None:
+        plan = plan(k, reach.search)
         rec["span_tiles"] = {"blocks_a_tile": plan.most, "tiles": [len(plan.row_tiles), len(plan.col_tiles)]}
-    prev = k1_module.PREV_DESIGN
+    prev = k1_module.prev_design(kernel, k)
     if prev_design and kernel != prev:
         fn = k1_module._lib()[prev]
 
@@ -1546,7 +1563,7 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
     for row, (block, step, search, k, first) in ENVELOPE_K1_WIDE.items():
         t0 = time.perf_counter()
         k1[row] = match_record({first: imgs[first]}, block, step, search, k, "bf16_xla",
-                               plain_reps=PLAIN_WIDE_REPS)
+                               plain_reps=PLAIN_WIDE_REPS, prev_design=row in K1_REDESIGNED_WIDE)
         k1[row]["seconds"] = time.perf_counter() - t0
     block, step, search, k, _ = ENVELOPE_K1[K1_BOUNDED_ROW]
     k1[K1_BOUNDED_ROW]["bounded"] = match_bounded_record(imgs, block, step, search, k, "bf16_xla", K1_BOUNDS)
@@ -2872,7 +2889,7 @@ def _counts() -> dict:
 # (ALLOWED: the kernel rows and the csmri_nlm_skimage lane); no other
 # launch may go to one of those three.
 TALLY, ALLOWED = collections.Counter(), collections.Counter()
-REDESIGNED_OFF_LANES = (K1_KERNELS[3], K2_KERNELS[1], K2_KERNELS[2], K3_KERNELS[1], K3_KERNELS[2])
+REDESIGNED_OFF_LANES = (*K1_KERNELS[3:], K2_KERNELS[1], K2_KERNELS[2], K3_KERNELS[1], K3_KERNELS[2])
 
 
 def _fold_tally() -> None:
@@ -3630,12 +3647,16 @@ def main() -> None:
         "name": "bm3d_match_tile", "route": "cuda", "source": SOURCES["bm3d_match"][0],
         "replaces": SOURCES["bm3d_match"][1], "launches": tile_by_lane["bm3d_profile"],
         "launches_by_lane": tile_by_lane, **{k: ht[k] for k in fields + REDESIGN_FIELDS},
-        "card": dev["nvidia_smi"], "bench_shapes": tile_rows})
+        "card": dev["nvidia_smi"], "bench_shapes": tile_rows,
+        "ptxas": {n: s for n, s in (ptxas.get("bm3d_match", {}) | ptxas.get("bm3d_match_replaced", {})).items()
+                  if n.startswith(("bm3d_match_tile_kernel<", k1_module.TILE_SLOTS + "<"))}})
     # K1's span kernel and K2's packed and gather kernels (the paths off
     # block 8 and off (8, 16) / (8, 32): no lane runs them; their rows are
     # the envelope's, golden and search40 first) and K3's cluster kernel
     # (csmri_nlm_skimage's path; its row that lane's shape, B = 1 at (7, 11)).
     for name, group, kernel, main in (("bm3d_match_span", "bm3d_match", K1_KERNELS[3], "golden"),
+                                      ("bm3d_match_span_rt", "bm3d_match", K1_KERNELS[4], "block24"),
+                                      ("bm3d_match_pixel", "bm3d_match", K1_KERNELS[5], "block1"),
                                       ("bm3d_aggregate_packed", "bm3d_aggregate", K2_KERNELS[1], "golden"),
                                       ("bm3d_aggregate_gather", "bm3d_aggregate", K2_KERNELS[2], "search40"),
                                       ("nlm_cluster", "nlm", K3_KERNELS[1], "p7_d11_b1"),
@@ -3654,6 +3675,9 @@ def main() -> None:
         if group == "nlm":  # ptxas's registers and spills of the kernel and the design it replaced
             kernels[-1]["ptxas"] = {n: s for n, s in ptxas.get("nlm", {}).items()
                                     if n.startswith((kernel, "nlm_rt_serial_kernel"))}
+        if group == "bm3d_match":  # and of the K1 kernel, with the designs its calls' kernels replaced
+            kernels[-1]["ptxas"] = {n: s for n, s in (ptxas.get("bm3d_match", {}) | ptxas.get("bm3d_match_replaced", {}))
+                                    .items() if n.startswith((kernel + "<", k1_module.SPAN_SERIAL + "<"))}
         if kernel == K1_KERNELS[3]:  # with row bounds
             bounded = k1["bench_shapes"][K1_BOUNDED_ROW]["bounded"]
             kernels[-1]["bounded"] = {"launches": 0, **{k: bounded[k] for k in ("shape", "bounds", "kernel") + fields}}

@@ -516,7 +516,7 @@ cudaError_t launch_any_mode(int S, int block, dim3 grid, size_t smem, cudaStream
 // and rebuilds its top-k by k rounds a chunk. This kernel takes block 8 at
 // any strictly ascending reference grid (at any step: past the block a tile
 // holds fewer blocks), any window whose region fits shared memory and any
-// power-of-two k up to 128 (one, two or four slots a lane), and computes the
+// power-of-two k up to 128 (one or two slots a lane; k 128 by ranks), and computes the
 // same function in the separable form. A window wider than the image visits
 // only the offsets some block can take (|dy| <= H - 8, |dx| <= W - 8: the
 // host's reach), and stages only their halo; each keeps its index in the
@@ -555,7 +555,12 @@ cudaError_t launch_any_mode(int S, int block, dim3 grid, size_t smem, cudaStream
 //     best, so the k-th entry falls early and fewer later candidates get
 //     in; the comparisons use each offset's own index, so the result is
 //     `top_k_offsets_plain`'s whatever the order: ascending, ties to the
-//     lowest index, an entry still at +inf written as index 0.
+//     lowest index, an entry still at +inf written as index 0. At k 128
+//     the candidates below the k-th entry are merged by ranks instead
+//     (`merge_chunk_ranks`), on tiles of at most `most` blocks (host-made:
+//     as many as let three, or else two, CTAs share an SM, where that is at
+//     least half of kTileMax; 81 blocks' lists alone took 82,944 bytes, one
+//     CTA an SM).
 // The choices were timed on an H100 at the reference profile's shapes
 // against variants of this source (`examples/k1_variants.py`): 4 warps a
 // CTA, chunks of 32 or 128 offsets, two CTAs an SM (more registers) and
@@ -805,23 +810,131 @@ __device__ __forceinline__ void merge_chunk_warps(const float* dist, unsigned* l
   }
 }
 
-template <int MODE, int KS>
-__global__ void __launch_bounds__(kTileWarps * 32, 3)
-bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ rows,
-                       const int* __restrict__ cols, const int* __restrict__ offsets,
-                       const int* __restrict__ order, const int* __restrict__ row_tiles,
-                       const int* __restrict__ col_tiles,
-                       int* __restrict__ out, int H, int W, int nR, int nC, int S, int K,
-                       int search, int pitch, int cand_lo, int cand_hi) {
+// Phase 2 at k 128 (kRankK: the tile and span kernels' four slots a lane),
+// by ranks. `merge_chunk_warps<4>` inserted each candidate below the k-th
+// entry in turn, 4 ballots, 8 shuffles and 8 selects each, every one
+// waiting on the one before; at k 128 the first two chunks insert all their
+// candidates and the k-th entry falls slowly, so ~450 insertions a block at
+// 1,521 offsets. Here a block's running top-k is kept between chunks as
+// 64-bit keys (distance bits << 32 | offset index, which order as the pairs
+// do lexicographically; ~0 for an empty entry), [block][entry], entry e in
+// lane e % 32, slot e / 32. A warp takes one block at a time: a ballot
+// finds the chunk's candidates below the k-th entry (the survivors); each
+// survivor's place in the merged list is the count of entries below it (a
+// binary search of the list in shared memory) plus the count of survivors
+// below it, and each entry's place is its own plus the survivors below it;
+// one pass over the survivors, each broadcast to the warp, counts both, its
+// steps independent of each other. Then every entry and survivor goes to
+// its place at once (the list, or at the last chunk `out`); those past the
+// k-th drop out. Keys are distinct (each offset is visited once), so the
+// places are too, and the list after the last chunk is
+// `top_k_offsets_plain`'s, whatever the visiting order: an entry still
+// empty is written as index 0.
+constexpr int kRankK = 128;
+static_assert(kRankK == 1 << 7, "the binary search below takes 7 steps");
+
+__device__ __forceinline__ void merge_chunk_ranks(const float* dist, unsigned long long* keys,
+                                                  const int* __restrict__ order, int s0, int n_chunk,
+                                                  int nt, int nc, bool last, int* out, int b, int nR, int nC,
+                                                  int r0, int c0, int lane, int warp) {
+  constexpr int KS = kRankK / 32, PER = kChunk / 32;
+  int cs[PER];
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int c = lane + 32 * m;
+    cs[m] = c < n_chunk ? __ldg(order + s0 + c) : 0;
+  }
+  for (int tb = warp; tb < nt; tb += kTileWarps) {
+    unsigned long long* list = keys + (size_t)tb * kRankK;
+    unsigned long long lk[KS];
+#pragma unroll
+    for (int q = 0; q < KS; ++q) lk[q] = list[lane + 32 * q];
+    const unsigned long long kth = __shfl_sync(kAllLanes, lk[KS - 1], 31);
+    unsigned long long ck[PER];
+    unsigned below[PER];
+    int n_below = 0;
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const int c = lane + 32 * m;
+      const unsigned d = c < n_chunk ? __float_as_uint(dist[tb * kDPitch + c]) : kInfBits;
+      ck[m] = (unsigned long long)d << 32 | (unsigned)cs[m];
+      below[m] = __ballot_sync(kAllLanes, d != kInfBits && ck[m] < kth);
+      n_below += __popc(below[m]);
+    }
+    if (n_below == 0 && !last) continue;
+    // The survivors' places: the entries below each (a lower bound over the
+    // list's kRankK sorted keys: the k-th is above every survivor) ...
+    int place[PER];
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      int lo = 0;
+      if ((below[m] >> lane) & 1u) {
+#pragma unroll
+        for (int lv = 6; lv >= 0; --lv) lo += list[lo + (1 << lv) - 1] < ck[m] ? 1 << lv : 0;  // kRankK = 2^7
+      }
+      place[m] = lo;
+    }
+    // ... and the survivors below each survivor and each entry.
+    int shift[KS];
+#pragma unroll
+    for (int q = 0; q < KS; ++q) shift[q] = 0;
+#pragma unroll
+    for (int m2 = 0; m2 < PER; ++m2) {
+      unsigned bits = below[m2];
+      while (bits) {
+        const int src = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const unsigned long long c = __shfl_sync(kAllLanes, ck[m2], src);
+#pragma unroll
+        for (int q = 0; q < KS; ++q) shift[q] += c < lk[q];
+#pragma unroll
+        for (int m = 0; m < PER; ++m) place[m] += c < ck[m];
+      }
+    }
+    __syncwarp();  // every lane's search has read the list
+    const int bi = tb / nc, bj = tb - bi * nc;
+    int* o = out + (((size_t)b * nR + r0 + bi) * nC + c0 + bj) * kRankK;
+    auto put = [&](int at, unsigned long long key) {
+      if (last)
+        o[at] = (unsigned)(key >> 32) >= kInfBits ? 0 : (int)(unsigned)key;
+      else
+        list[at] = key;
+    };
+#pragma unroll
+    for (int q = 0; q < KS; ++q) {
+      const int at = lane + 32 * q + shift[q];
+      if (at < kRankK) put(at, lk[q]);
+    }
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      if (((below[m] >> lane) & 1u) && place[m] < kRankK) put(place[m], ck[m]);
+    }
+    __syncwarp();
+  }
+}
+
+// The tile kernel's body: KS slots a lane merged by `merge_chunk_warps`
+// (the lists [block][entry] for kTileMax blocks), or with RANKS (k 128)
+// by `merge_chunk_ranks` (64-bit keys for `most` blocks, past the distance
+// buffer's `most` rows).
+template <int MODE, int KS, bool RANKS>
+__device__ __forceinline__ void tile_kernel_body(const float* __restrict__ img, const int* __restrict__ rows,
+                                                 const int* __restrict__ cols, const int* __restrict__ offsets,
+                                                 const int* __restrict__ order, const int* __restrict__ row_tiles,
+                                                 const int* __restrict__ col_tiles, int* __restrict__ out, int H,
+                                                 int W, int nR, int nC, int S, int K, int search, int pitch,
+                                                 int cand_lo, int cand_hi, int most) {
   extern __shared__ float smem[];
   const int reg_n = kTileSpan + 2 * search;  // the staged region's rows and columns (even)
   // The region as `stage_span_region` lays it out: f32 (modes 0, 2) or bf16 pairs (mode 1).
   float* region = smem;
   unsigned* pairs = reinterpret_cast<unsigned*>(smem);
   const int pp = (reg_n / 2) | 1;               // the pairs' row pitch in words (odd)
-  float* dist = smem + reg_n * (pitch + 1);     // kTileMax x kDPitch, past either layout
+  float* dist = smem + reg_n * (pitch + 1);     // kTileMax (RANKS: most) x kDPitch, past either layout
   unsigned* list_k = reinterpret_cast<unsigned*>(dist + kTileMax * kDPitch);  // [block][entry]
   int* list_i = reinterpret_cast<int*>(list_k + kTileMax * K);
+  unsigned long long* keys =  // RANKS: [block][entry], 8-byte aligned
+      reinterpret_cast<unsigned long long*>(smem + ((reg_n * (pitch + 1) + most * kDPitch + 1) & ~1));
   const int r0 = row_tiles[3 * blockIdx.y], nr = row_tiles[3 * blockIdx.y + 1];
   const unsigned rmask = (unsigned)row_tiles[3 * blockIdx.y + 2];
   const int c0 = col_tiles[3 * blockIdx.x], nc = col_tiles[3 * blockIdx.x + 1];
@@ -832,8 +945,12 @@ bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ ro
                           pairs);
   const int nt = nr * nc;
   for (int q = threadIdx.x; q < nt * K; q += kTileWarps * 32) {
-    list_k[q] = kInfBits;
-    list_i[q] = 0x7fffffff;
+    if constexpr (RANKS) {
+      keys[q] = ~0ull;
+    } else {
+      list_k[q] = kInfBits;
+      list_i[q] = 0x7fffffff;
+    }
   }
   __syncthreads();
 
@@ -900,48 +1017,74 @@ bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ ro
     __syncthreads();
 
     // Phase 2: each warp merges the chunk into its blocks' running top-k.
-    merge_chunk_warps<KS>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, s0 + kChunk >= S, out,
-                          b, nR, nC, r0, c0, lane, warp);
+    if constexpr (RANKS)
+      merge_chunk_ranks(dist, keys, order, s0, n_chunk, nt, nc, s0 + kChunk >= S, out, b, nR, nC, r0, c0, lane,
+                        warp);
+    else
+      merge_chunk_warps<KS>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, s0 + kChunk >= S, out,
+                            b, nR, nC, r0, c0, lane, warp);
     __syncthreads();
   }
 }
 
+// KS = 1, 2: k <= 32, 64; KS = 4: k 128, merged by ranks.
 template <int MODE, int KS>
-cudaError_t launch_tile(dim3 grid, size_t smem, cudaStream_t stream, const float* img,
-                        const int* rows, const int* cols, const int* offsets, const int* order,
-                        const int* row_tiles, const int* col_tiles, int* out, int H, int W,
-                        int nR, int nC, int S, int K, int search, int pitch, int cand_lo,
-                        int cand_hi) {
-  auto fn = bm3d_match_tile_kernel<MODE, KS>;
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ rows,
+                       const int* __restrict__ cols, const int* __restrict__ offsets,
+                       const int* __restrict__ order, const int* __restrict__ row_tiles,
+                       const int* __restrict__ col_tiles,
+                       int* __restrict__ out, int H, int W, int nR, int nC, int S, int K,
+                       int search, int pitch, int cand_lo, int cand_hi, int most) {
+  tile_kernel_body<MODE, KS, KS == 4>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, H, W, nR, nC, S,
+                                      K, search, pitch, cand_lo, cand_hi, most);
+}
+
+// The design the rank merge replaced at k 128 (four slots a lane, each
+// candidate inserted in turn, kTileMax blocks a tile): by name only.
+template <int MODE>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+bm3d_match_tile_slots_kernel(const float* __restrict__ img, const int* __restrict__ rows,
+                             const int* __restrict__ cols, const int* __restrict__ offsets,
+                             const int* __restrict__ order, const int* __restrict__ row_tiles,
+                             const int* __restrict__ col_tiles, int* __restrict__ out, int H, int W, int nR,
+                             int nC, int S, int K, int search, int pitch, int cand_lo, int cand_hi) {
+  tile_kernel_body<MODE, 4, false>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, H, W, nR, nC, S, K,
+                                   search, pitch, cand_lo, cand_hi, kTileMax);
+}
+
+// Launches the kernel FN with `smem` bytes of dynamic shared memory, opting
+// in above 48 KB once for each size it grows to.
+template <auto FN, typename... A>
+cudaError_t launch_granted(dim3 grid, size_t smem, cudaStream_t stream, A... args) {
   static size_t granted = 48 * 1024;  // dynamic shared memory opted into so far
   if (smem > granted) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(FN, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     granted = smem;
   }
-  fn<<<grid, kTileWarps * 32, smem, stream>>>(img, rows, cols, offsets, order, row_tiles, col_tiles,
-                                              out, H, W, nR, nC, S, K, search, pitch, cand_lo,
-                                              cand_hi);
+  FN<<<grid, kTileWarps * 32, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// One slot a lane for k <= 32, two for k <= 64, four for k <= 128.
+// One slot a lane for k <= 32, two for k <= 64, the rank merge at k 128.
 template <int MODE>
 cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const float* img,
                              const int* rows, const int* cols, const int* offsets,
                              const int* order, const int* row_tiles, const int* col_tiles,
                              int* out, int H, int W, int nR, int nC, int S, int K, int search,
-                             int pitch, int cand_lo, int cand_hi) {
+                             int pitch, int cand_lo, int cand_hi, int most) {
   if (K <= 32)
-    return launch_tile<MODE, 1>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
-                                col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
-                                cand_hi);
+    return launch_granted<bm3d_match_tile_kernel<MODE, 1>>(grid, smem, st, img, rows, cols, offsets, order,
+                                                           row_tiles, col_tiles, out, H, W, nR, nC, S, K, search,
+                                                           pitch, cand_lo, cand_hi, most);
   if (K <= 64)
-    return launch_tile<MODE, 2>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
-                                col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo, cand_hi);
-  return launch_tile<MODE, 4>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
-                              col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo, cand_hi);
+    return launch_granted<bm3d_match_tile_kernel<MODE, 2>>(grid, smem, st, img, rows, cols, offsets, order,
+                                                           row_tiles, col_tiles, out, H, W, nR, nC, S, K, search,
+                                                           pitch, cand_lo, cand_hi, most);
+  return launch_granted<bm3d_match_tile_kernel<MODE, 4>>(grid, smem, st, img, rows, cols, offsets, order,
+                                                         row_tiles, col_tiles, out, H, W, nR, nC, S, K, search,
+                                                         pitch, cand_lo, cand_hi, most);
 }
 
 // ---- Every other block: `bm3d_match_span_kernel` ------------------------
@@ -953,8 +1096,10 @@ cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const floa
 // grids that do not strictly ascend. It computes the same function: any
 // power-of-two k up to 128, any window whose tile fits shared memory (the
 // host's reach, as the tile kernel's), the three rounding modes, the row
-// bounds. Blocks 1 and 17-32 (up to the span: one tile row a lane) take a
-// run-time phase 1 (`span_distances_rt`), each sum one term after another. Bound as above: f32 arithmetic in the separable
+// bounds. Blocks 2-16 take this kernel; blocks 1 and 17-32 (up to the
+// span: one tile row a lane) take `bm3d_match_span_rt_kernel`, the same
+// structure with the block read at run time (`span_distances_tree`), and
+// block 1 at k up to 8 `bm3d_match_pixel_kernel` (below). Bound as above: f32 arithmetic in the separable
 // form, one term a (pixel, offset) and the box sums shared by the blocks a
 // tile holds. The any-kernel paid three costs, and this kernel answers each
 // as the block-8 tile kernel does:
@@ -980,9 +1125,10 @@ cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const floa
 //     pairs do); a candidate below the last enters by a compare-exchange
 //     chain, and any other costs one compare. For k 16 to 64 the tile
 //     kernel's phase 2 (`merge_chunk_warps`): a warp a block, a ballot of
-//     the candidates below the k-th entry. Either gives
-//     `top_k_offsets_plain`'s result: ascending, ties to the lowest index,
-//     an entry still at +inf written as index 0.
+//     the candidates below the k-th entry; at k 128 its rank merge
+//     (`merge_chunk_ranks`). Each gives `top_k_offsets_plain`'s result:
+//     ascending, ties to the lowest index, an entry still at +inf written
+//     as index 0.
 //  3. Its CTAs were 4 x 4 blocks with a warp a block. Here a tile holds as
 //     many blocks as the span does, up to `most` (host-made: the distance
 //     buffer, most x kDPitch floats, and the top-k lists, 8 bytes an entry,
@@ -1000,7 +1146,9 @@ cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const floa
 // merging k <= 8 by a warp, k 16 by a thread, two CTAs an SM, chunks of
 // 128, tiles of half the blocks, offsets in ascending order and modes 0
 // and 2 holding the reference row in registers were each slower at most
-// rows.
+// rows. The run-time blocks and the design they replaced live in kernels
+// of their own (`PNP_SPAN_KERNEL` below): the tree at a run-time block needs
+// more registers than the compiled cases, which keep their bits.
 
 __host__ __device__ constexpr int high_bit(int b) { return b >= 16 ? 16 : b >= 8 ? 8 : b >= 4 ? 4 : b >= 2 ? 2 : 1; }
 
@@ -1171,6 +1319,223 @@ __device__ __forceinline__ void span_distances_rt(const SpanTile& p, int block, 
   }
 }
 
+// The lanes' sum of v over lanes y to y + 16 + rest - 1 (lanes past 31 read
+// their own value) by `lane_window_sum`'s tree for the block 16 + rest (rest
+// in [1, 16], read at run time): doubling sums to 16, the remainder gathered
+// from its lowest bit up as the doubling passes each bit's width, each step
+// behind a branch the whole warp takes.
+__device__ __forceinline__ float lane_window_sum_rt(float v, int rest) {
+  float r = 0.f;
+#pragma unroll
+  for (int lv = 0; lv < 4; ++lv) {  // width w = 2^lv (a level count, so the loop unrolls)
+    const int w = 1 << lv;
+    if (rest & w) r = (rest & (w - 1)) == 0 ? v : __fadd_rn(v, __shfl_down_sync(kAllLanes, r, w));
+    v = __fadd_rn(v, __shfl_down_sync(kAllLanes, v, w));
+  }
+  if (rest == 16) r = v;
+  return __fadd_rn(v, __shfl_down_sync(kAllLanes, r, 16));
+}
+
+// The 32-wide pairwise tree in place, widths W to 16: t[0] becomes the
+// sum (template recursion, so every index is a constant).
+template <int W = 1>
+__device__ __forceinline__ void pairwise_sum(float (&t)[kTileSpan]) {
+#pragma unroll
+  for (int x = 0; x + W < kTileSpan; x += 2 * W) t[x] = __fadd_rn(t[x], t[x + W]);
+  if constexpr (2 * W < kTileSpan) pairwise_sum<2 * W>(t);
+}
+
+// `row_window_sums` with the remainder `rest` (1-16) read at run time: t
+// doubles in place to 16-wide sums; at width W, if bit W of rest is set, r
+// (columns 16-31) gathers the W-wide sums ahead of the lower bits' (the
+// lowest bit: r starts as t).
+template <int W = 1>
+__device__ __forceinline__ void row_sums_rt(float (&t)[kTileSpan], float (&r)[kTileSpan - 16], int rest) {
+  if (rest & W) {
+    const bool first = (rest & (W - 1)) == 0;
+#pragma unroll
+    for (int x = 16; x < kTileSpan; ++x) {
+      if (x + W < kTileSpan)
+        r[x - 16] = first ? t[x] : __fadd_rn(t[x], r[x - 16 + W]);
+      else if (first)
+        r[x - 16] = t[x];
+    }
+  }
+  if constexpr (W < 16) {
+#pragma unroll
+    for (int x = 0; x + W < kTileSpan; ++x) t[x] = __fadd_rn(t[x], t[x + W]);
+    row_sums_rt<2 * W>(t, r, rest);
+  }
+}
+
+// Phase 1 at a block of 17-32 read at run time, by the compiled blocks'
+// tree (`row_window_sums`, `lane_window_sum`): 16 is every such block's
+// largest part (32 = 16 + 16), so the doubling to 16 is straight-line code
+// and only the remainder rest = block - 16 follows its bits at run time.
+// Along the row, a tile with one reference column (the span's first, as
+// every tile past step 32 - block has) takes the tree over the span's 32
+// terms with those past the block added as 0, which leaves every partial
+// sum as it is: 15 selects and 31 adds, depth 5. A tile with more columns
+// doubles every column position to 16 in place and gathers the remainder
+// in a second row of registers (columns 16-31) by its bits, lowest first;
+// each column's sum is then its 16-wide sum plus the remainder 16 columns on.
+// Down the lanes, `lane_window_sum_rt`. The same adds in the same order as
+// the compiled tree of the block would make (the numpy model in
+// tests/test_torch_k1_span.py), f32, no FMA.
+// The lane's kTileSpan terms against the candidate row at offset o, as
+// `span_distances` forms them (mode 1 from the bf16 pairs `ref2`); the
+// pairs of columns past both 16 and `cols` (the columns a caller reads)
+// are 0, not formed.
+template <bool PAIRS, typename Ref>  // Ref: the pairs in registers, or a pointer into shared memory
+__device__ __forceinline__ void span_terms(const SpanTile& p, const Ref& ref2, const float* ref_at, int2 o,
+                                           int lane, int cols, float (&t)[kTileSpan]) {
+  const unsigned* cand2 = p.pairs + (((p.search + o.y) & 1) * p.reg_n + p.search + lane + o.x) * p.pp +
+                          ((p.search + o.y) >> 1);
+  const float* cand = ref_at + o.x * p.pitch + o.y;
+#pragma unroll
+  for (int xx = 0; xx < kTileSpan; xx += 2) {
+    if (xx >= 16 && xx >= cols)
+      t[xx] = t[xx + 1] = 0.f;
+    else if constexpr (PAIRS)
+      sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);
+    else if (p.round_sq)
+      sq_terms2<2>(0u, 0u, ref_at[xx], ref_at[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
+    else
+      sq_terms2<0>(0u, 0u, ref_at[xx], ref_at[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
+  }
+}
+
+template <bool PAIRS>
+__device__ __forceinline__ void span_distances_tree(const SpanTile& p, int block, int s0, int n_chunk, int lane,
+                                                    int warp) {
+  const float inf = __int_as_float(kInfBits);
+  const int rest = block - 16;
+  const bool one_col = p.cmask == 1u;
+  const float* ref_at = p.region + (p.search + lane) * p.pitch + p.search;
+  auto pair_at = [&](int y, int c) { return p.pairs + ((c & 1) * p.reg_n + y) * p.pp + (c >> 1); };
+  unsigned ref2[PAIRS ? kTileSpan / 2 : 1];
+  if constexpr (PAIRS) {
+#pragma unroll
+    for (int xx = 0; xx < kTileSpan; xx += 2) ref2[xx / 2] = pair_at(p.search + lane, p.search)[xx / 2];
+  }
+  for (int c = warp; c < n_chunk; c += kTileWarps) {
+    const int2 o = __ldg(p.offsets + s0 + c);
+    float t[kTileSpan];
+    const int cy = p.ry0 + lane + o.x;
+    const bool row_ok = p.ref_row && cy >= p.cand_lo && cy <= p.cand_hi;
+    if (one_col) {
+      span_terms<PAIRS>(p, ref2, ref_at, o, lane, block, t);
+#pragma unroll
+      for (int x = 17; x < kTileSpan; x += 2) t[x] = x < block ? t[x] : 0.f;  // a pair the block's edge splits
+      pairwise_sum(t);
+      const float v = lane_window_sum_rt(t[0], rest);
+      const int cx = p.rx0 + o.y;
+      if (p.ref_row) p.dist[p.i * p.nc * kDPitch + c] = row_ok && cx >= 0 && cx <= p.last_c ? v : inf;
+    } else {
+      span_terms<PAIRS>(p, ref2, ref_at, o, lane, kTileSpan, t);  // every column: no branch
+      float r[kTileSpan - 16];  // the remainder's sums from columns 16-31
+      row_sums_rt(t, r, rest);
+#pragma unroll
+      for (int xx = 0; xx < 16; ++xx) {
+        if (xx + block <= kTileSpan && ((p.cmask >> xx) & 1u)) {
+          const float v = lane_window_sum_rt(__fadd_rn(t[xx], r[xx]), rest);
+          const int j = __popc(p.cmask & ((1u << xx) - 1u));
+          const int cx = p.rx0 + xx + o.y;
+          if (p.ref_row) p.dist[(p.i * p.nc + j) * kDPitch + c] = row_ok && cx >= 0 && cx <= p.last_c ? v : inf;
+        }
+      }
+    }
+  }
+}
+
+// A tile of one block at a block of 17-32 (one reference row and column:
+// every tile of a step past 32 - block) with k <= 32, in place of the
+// chunks: a chunk's phase 2 there is one warp merging while the other seven
+// wait at the barrier. Each warp walks its offsets (c = warp, warp + 8, ...)
+// over the whole window, kOneInFlight at a time (independent chains the
+// warp interleaves), and keeps their running top-k itself, one 64-bit key
+// (distance bits << 32 | offset index) a lane, sorted across the lanes. The
+// block's distance: the row's masked 32-wide tree (only the term pairs that
+// reach into the block are formed), then the lanes' by a butterfly over
+// the lanes with those past the block as 0, the same pairwise tree (each
+// add's operands in either order), so every lane holds it. One below the
+// k-th key enters by a ballot for its place and one shuffle of the keys
+// after it. After the last offset the eight lists go to shared memory
+// (over the staged region) and warp 0 takes k rounds of a warp argmin over
+// their 256 keys: `top_k_offsets_plain`'s result, as the chunked path
+// gives, with no distance buffer, one barrier pair in all and every warp
+// busy.
+constexpr int kOneInFlight = 2;
+
+template <bool PAIRS>
+__device__ __forceinline__ void span_one_block_rt(const SpanTile& p, int block, int S, int K,
+                                                  const int* __restrict__ order, float* smem, int* out, int lane,
+                                                  int warp) {
+  const float* ref_at = p.region + (p.search + lane) * p.pitch + p.search;
+  unsigned ref2[PAIRS ? kTileSpan / 2 : 1];
+  if constexpr (PAIRS) {
+#pragma unroll
+    for (int xx = 0; xx < kTileSpan; xx += 2)
+      ref2[xx / 2] = p.pairs[((p.search & 1) * p.reg_n + p.search + lane) * p.pp + (p.search >> 1) + xx / 2];
+  }
+  const bool in_block = lane < block;
+  unsigned long long mine = ~0ull, kth = ~0ull;  // this lane's entry of the warp's list, and entry K - 1
+  for (int c0 = warp; c0 < S; c0 += kTileWarps * kOneInFlight) {
+    float v[kOneInFlight];
+    int2 o[kOneInFlight];
+#pragma unroll
+    for (int f = 0; f < kOneInFlight; ++f) {
+      o[f] = __ldg(p.offsets + min(c0 + f * kTileWarps, S - 1));
+      float t[kTileSpan];
+      span_terms<PAIRS>(p, ref2, ref_at, o[f], lane, block, t);
+#pragma unroll
+      for (int x = 17; x < kTileSpan; x += 2) t[x] = x < block ? t[x] : 0.f;  // a pair the block's edge splits
+      pairwise_sum(t);
+      v[f] = in_block ? t[0] : 0.f;
+    }
+#pragma unroll
+    for (int w = 1; w < 32; w *= 2) {  // the butterfly: every lane gets lane 0's pairwise tree
+#pragma unroll
+      for (int f = 0; f < kOneInFlight; ++f) v[f] = __fadd_rn(v[f], __shfl_xor_sync(kAllLanes, v[f], w));
+    }
+#pragma unroll
+    for (int f = 0; f < kOneInFlight; ++f) {
+      const int c = c0 + f * kTileWarps;
+      const int cy = p.ry0 + o[f].x, cx = p.rx0 + o[f].y;
+      if (c >= S || cy < p.cand_lo || cy > p.cand_hi || cx < 0 || cx > p.last_c) continue;  // the whole warp
+      const unsigned long long key = (unsigned long long)__float_as_uint(v[f]) << 32 | (unsigned)__ldg(order + c);
+      if (key < kth) {
+        const int at = __popc(__ballot_sync(kAllLanes, mine < key));
+        const unsigned long long up = __shfl_up_sync(kAllLanes, mine, 1);
+        mine = lane > at ? up : lane == at ? key : mine;
+        kth = __shfl_sync(kAllLanes, mine, K - 1);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the region
+  unsigned long long* lists = reinterpret_cast<unsigned long long*>(smem);  // [warp][lane]
+  lists[warp * 32 + lane] = mine;
+  __syncthreads();
+  if (warp != 0) return;
+  unsigned long long v[kTileWarps];
+#pragma unroll
+  for (int w = 0; w < kTileWarps; ++w) v[w] = lists[w * 32 + lane];
+  unsigned long long res = ~0ull;
+#pragma unroll 1
+  for (int e = 0; e < K; ++e) {
+    unsigned long long best = v[0];
+#pragma unroll
+    for (int w = 1; w < kTileWarps; ++w) best = v[w] < best ? v[w] : best;
+    const unsigned hi = __reduce_min_sync(kAllLanes, (unsigned)(best >> 32));
+    const unsigned lo = __reduce_min_sync(kAllLanes, (unsigned)(best >> 32) == hi ? (unsigned)best : ~0u);
+    const unsigned long long win = (unsigned long long)hi << 32 | lo;
+    res = lane == e ? win : res;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) v[w] = v[w] == win ? ~0ull : v[w];
+  }
+  if (lane < K) out[lane] = res == ~0ull ? 0 : (int)(unsigned)res;
+}
+
 // Phase 2 for k <= KL: thread tb merges the chunk into block tb's running
 // KL least keys (`list`, [entry][most], kept between chunks) and, at the
 // last chunk, writes the first K to `out`.
@@ -1221,14 +1586,21 @@ __host__ __device__ inline int span_lists_at(int search, int pitch, int most) {
   return ((kTileSpan + 2 * search) * (pitch + 1) + most * kDPitch + kChunk + 1) & ~1;
 }
 
-template <bool PAIRS>
-__global__ void __launch_bounds__(kTileWarps * 32, 3)
-bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ rows,
-                       const int* __restrict__ cols, const int* __restrict__ offsets,
-                       const int* __restrict__ order, const int* __restrict__ row_tiles,
-                       const int* __restrict__ col_tiles, int* __restrict__ out, int H, int W,
-                       int nR, int nC, int S, int K, int block, bool round_sq, int search, int pitch,
-                       int most, int cand_lo, int cand_hi) {
+// The span kernels' phase 1 and phase 2 forms (`span_kernel_body`):
+// compiled blocks 2-16 with the rank merge at k 128 (`bm3d_match_span_kernel`),
+// the tree at a run-time block 17-32 or block 1 compiled, with the rank merge
+// (`bm3d_match_span_rt_kernel`), and the design those replaced, the serial
+// run-time phase 1 and the four-slot merge (`bm3d_match_span_serial_kernel`).
+enum SpanForm { kSpanCompiled, kSpanRunTime, kSpanSerial };
+
+template <bool PAIRS, SpanForm FORM>
+__device__ __forceinline__ void span_kernel_body(const float* __restrict__ img, const int* __restrict__ rows,
+                                                 const int* __restrict__ cols, const int* __restrict__ offsets,
+                                                 const int* __restrict__ order, const int* __restrict__ row_tiles,
+                                                 const int* __restrict__ col_tiles, int* __restrict__ out, int H,
+                                                 int W, int nR, int nC, int S, int K, int block, bool round_sq,
+                                                 int search, int pitch, int most, int cand_lo, int cand_hi) {
+  constexpr bool kRanks = FORM != kSpanSerial;  // k 128 by `merge_chunk_ranks`
   extern __shared__ float smem[];
   const int reg_n = kTileSpan + 2 * search;  // the staged region's rows and columns (even)
   float* region = smem;
@@ -1238,6 +1610,7 @@ bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ ro
   int* chunk_order = reinterpret_cast<int*>(dist + most * kDPitch);  // kChunk
   float* lists = smem + span_lists_at(search, pitch, most);
   unsigned long long* list = reinterpret_cast<unsigned long long*>(lists);  // k <= 8: [entry][most]
+  unsigned long long* keys = list;                                          // k 128, ranks: [block][entry]
   unsigned* list_k = reinterpret_cast<unsigned*>(lists);                    // else [block][entry]
   int* list_i = reinterpret_cast<int*>(list_k + most * K);
   const int r0 = row_tiles[3 * blockIdx.y], nr = row_tiles[3 * blockIdx.y + 1];
@@ -1250,8 +1623,11 @@ bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ ro
                                    region, pairs);
   const int nt = nr * nc;
   const bool by_threads = K <= 8;
+  const bool by_ranks = kRanks && K > 64;
   if (by_threads) {
     for (int q = threadIdx.x; q < span_entries(K) * most; q += kTileWarps * 32) list[q] = ~0ull;
+  } else if (by_ranks) {
+    for (int q = threadIdx.x; q < nt * K; q += kTileWarps * 32) keys[q] = ~0ull;
   } else {
     for (int q = threadIdx.x; q < nt * K; q += kTileWarps * 32) {
       list_k[q] = kInfBits;
@@ -1265,21 +1641,36 @@ bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ ro
   const SpanTile tile{region, pairs, reg_n, pp, pitch, search, reinterpret_cast<const int2*>(offsets),
                       cmask, nc, rx0, ry0, cand_lo, cand_hi, W - block, ((rmask >> lane) & 1u) != 0,
                       __popc(rmask & ((1u << lane) - 1u)), round_sq, dist};
+  if constexpr (FORM == kSpanRunTime) {
+    if (block > 16 && nt == 1 && K <= 32) {  // a tile of one block: no chunks
+      __syncthreads();
+      span_one_block_rt<PAIRS>(tile, block, S, K, order, smem, out + (((size_t)b * nR + r0) * nC + c0) * K, lane,
+                               warp);
+      return;
+    }
+  }
   for (int s0 = 0; s0 < S; s0 += kChunk) {  // positions in the visiting order
     const int n_chunk = min(kChunk, S - s0);
     if (by_threads && (int)threadIdx.x < n_chunk) chunk_order[threadIdx.x] = __ldg(order + s0 + threadIdx.x);
     __syncthreads();
-    switch (block) {  // phase 1: distances
+    if constexpr (FORM == kSpanRunTime) {  // phase 1: distances
+      if (block == 1)
+        span_distances<PAIRS, 1>(tile, s0, n_chunk, lane, warp);
+      else
+        span_distances_tree<PAIRS>(tile, block, s0, n_chunk, lane, warp);
+    } else {
+      switch (block) {
 #define PNP_SPAN_BLOCK(B) \
   case B:                 \
     span_distances<PAIRS, B>(tile, s0, n_chunk, lane, warp); \
     break;
-      PNP_SPAN_BLOCK(2) PNP_SPAN_BLOCK(3) PNP_SPAN_BLOCK(4) PNP_SPAN_BLOCK(5) PNP_SPAN_BLOCK(6)
-      PNP_SPAN_BLOCK(7) PNP_SPAN_BLOCK(9) PNP_SPAN_BLOCK(10) PNP_SPAN_BLOCK(11) PNP_SPAN_BLOCK(12)
-      PNP_SPAN_BLOCK(13) PNP_SPAN_BLOCK(14) PNP_SPAN_BLOCK(15) PNP_SPAN_BLOCK(16)
+        PNP_SPAN_BLOCK(2) PNP_SPAN_BLOCK(3) PNP_SPAN_BLOCK(4) PNP_SPAN_BLOCK(5) PNP_SPAN_BLOCK(6)
+        PNP_SPAN_BLOCK(7) PNP_SPAN_BLOCK(9) PNP_SPAN_BLOCK(10) PNP_SPAN_BLOCK(11) PNP_SPAN_BLOCK(12)
+        PNP_SPAN_BLOCK(13) PNP_SPAN_BLOCK(14) PNP_SPAN_BLOCK(15) PNP_SPAN_BLOCK(16)
 #undef PNP_SPAN_BLOCK
-      default:  // 1 and 17-32
-        span_distances_rt<PAIRS>(tile, block, s0, n_chunk, lane, warp);
+        default:  // 1 and 17-32 (the serial design; the host sends them nowhere else)
+          if constexpr (FORM == kSpanSerial) span_distances_rt<PAIRS>(tile, block, s0, n_chunk, lane, warp);
+      }
     }
     __syncthreads();
 
@@ -1295,6 +1686,8 @@ bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ ro
     else if (K <= 64)
       merge_chunk_warps<2>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
                            c0, lane, warp);
+    else if constexpr (kRanks)
+      merge_chunk_ranks(dist, keys, order, s0, n_chunk, nt, nc, last, out, b, nR, nC, r0, c0, lane, warp);
     else
       merge_chunk_warps<4>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
                            c0, lane, warp);
@@ -1302,27 +1695,172 @@ bm3d_match_span_kernel(const float* __restrict__ img, const int* __restrict__ ro
   }
 }
 
-template <bool PAIRS>
-cudaError_t launch_span(dim3 grid, size_t smem, cudaStream_t stream, const float* img,
-                        const int* rows, const int* cols, const int* offsets, const int* order,
-                        const int* row_tiles, const int* col_tiles, int* out, int H, int W,
-                        int nR, int nC, int S, int K, int block, bool round_sq, int search, int pitch,
-                        int most, int cand_lo, int cand_hi) {
-  auto fn = bm3d_match_span_kernel<PAIRS>;
-  static size_t granted = 48 * 1024;  // dynamic shared memory opted into so far
-  if (smem > granted) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    granted = smem;
+// CTAs an SM the run-time kernel's registers allow (launch bounds).
+constexpr int kRtMinCtas = 3;
+#define PNP_SPAN_KERNEL(NAME, FORM, CTAS)                                                                      \
+  template <bool PAIRS>                                                                                        \
+  __global__ void __launch_bounds__(kTileWarps * 32, CTAS)                                                     \
+  NAME(const float* __restrict__ img, const int* __restrict__ rows, const int* __restrict__ cols,              \
+       const int* __restrict__ offsets, const int* __restrict__ order, const int* __restrict__ row_tiles,      \
+       const int* __restrict__ col_tiles, int* __restrict__ out, int H, int W, int nR, int nC, int S, int K,   \
+       int block, bool round_sq, int search, int pitch, int most, int cand_lo, int cand_hi) {                  \
+    span_kernel_body<PAIRS, FORM>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, H, W, nR, nC, S, \
+                                  K, block, round_sq, search, pitch, most, cand_lo, cand_hi);                  \
   }
-  fn<<<grid, kTileWarps * 32, smem, stream>>>(img, rows, cols, offsets, order, row_tiles, col_tiles,
-                                              out, H, W, nR, nC, S, K, block, round_sq, search, pitch,
-                                              most, cand_lo, cand_hi);
-  return cudaGetLastError();
+PNP_SPAN_KERNEL(bm3d_match_span_kernel, kSpanCompiled, 3)
+PNP_SPAN_KERNEL(bm3d_match_span_rt_kernel, kSpanRunTime, kRtMinCtas)
+PNP_SPAN_KERNEL(bm3d_match_span_serial_kernel, kSpanSerial, 3)
+#undef PNP_SPAN_KERNEL
+
+// ---- Block 1 at k <= 8: `bm3d_match_pixel_kernel` ------------------------
+//
+// At block 1 a distance is one term, so the span kernel's structure wastes
+// most of its work there: a warp formed the 32 x 32 terms of a span for
+// each offset, of which a tile of at most 256 blocks (16 x 16 at step 1)
+// used a quarter, wrote each to the distance buffer and merged it a chunk
+// at a time. Here a thread takes one reference pixel of the tile (the span
+// kernel's plans, at most a block a thread) and walks every offset in the
+// visiting order: one term, rounded as `sq_term` says (the region staged
+// as f32, rounded to bf16 in mode 1), checked against the image and the row
+// bounds, and kept in the thread's KL least keys (sorted 64-bit keys in
+// registers, `merge_chunk_threads`' compare-exchange chain), with no
+// distance buffer and no barrier after the staging. A distance is a single
+// rounded term, so the result is `top_k_offsets_plain`'s bit for bit in
+// every mode. Bound: the image read once (bytes), or one sub, mul and
+// compare a (pixel, offset).
+template <int MODE, int KL>
+__global__ void __launch_bounds__(kTileWarps * 32)
+bm3d_match_pixel_kernel(const float* __restrict__ img, const int* __restrict__ rows,
+                        const int* __restrict__ cols, const int* __restrict__ offsets,
+                        const int* __restrict__ order, const int* __restrict__ row_tiles,
+                        const int* __restrict__ col_tiles, int* __restrict__ out, int H, int W, int nR, int nC,
+                        int S, int K, int search, int pitch, int cand_lo, int cand_hi) {
+  extern __shared__ float region[];  // reg_n x pitch
+  const int reg_n = kTileSpan + 2 * search;
+  const int r0 = row_tiles[3 * blockIdx.y], nr = row_tiles[3 * blockIdx.y + 1];
+  const int c0 = col_tiles[3 * blockIdx.x], nc = col_tiles[3 * blockIdx.x + 1];
+  const int b = blockIdx.z;
+  const int ry0 = rows[r0], rx0 = cols[c0];
+  const float* x = img + (size_t)b * H * W;
+  for (int q = threadIdx.x; q < reg_n * reg_n; q += kTileWarps * 32) {
+    const int yy = ry0 - search + q / reg_n, xx = rx0 - search + q % reg_n;
+    float v = yy >= 0 && yy < H && xx >= 0 && xx < W ? x[yy * W + xx] : 0.f;
+    if (MODE == 1) v = round_bf16(v);
+    region[(q / reg_n) * pitch + q % reg_n] = v;
+  }
+  __syncthreads();
+  const int tb = threadIdx.x;
+  if (tb >= nr * nc) return;
+  const int bi = tb / nc, bj = tb - bi * nc;
+  const int ry = rows[r0 + bi], rx = cols[c0 + bj];
+  const float* ref = region + (ry - ry0 + search) * pitch + rx - rx0 + search;
+  const float r = *ref;
+  const int2* offs2 = reinterpret_cast<const int2*>(offsets);
+  unsigned long long l[KL];
+#pragma unroll
+  for (int e = 0; e < KL; ++e) l[e] = ~0ull;
+#pragma unroll 4
+  for (int s = 0; s < S; ++s) {
+    const int2 o = __ldg(offs2 + s);
+    const int cy = ry + o.x, cx = rx + o.y;
+    if (cy < cand_lo || cy > cand_hi || cx < 0 || cx >= W) continue;
+    unsigned long long v =
+        (unsigned long long)__float_as_uint(sq_term<MODE>(r, ref[o.x * pitch + o.y])) << 32 | (unsigned)__ldg(order + s);
+    if (v < l[KL - 1]) {
+#pragma unroll
+      for (int e = 0; e < KL; ++e) {
+        const bool lt = v < l[e];
+        const unsigned long long lo = lt ? v : l[e];
+        v = lt ? l[e] : v;
+        l[e] = lo;
+      }
+    }
+  }
+  int* o = out + (((size_t)b * nR + r0 + bi) * nC + c0 + bj) * K;
+#pragma unroll
+  for (int e = 0; e < KL; ++e) {
+    if (e < K) o[e] = l[e] == ~0ull ? 0 : (int)(unsigned)l[e];
+  }
+}
+
+// The span kernels' entries share their arguments: those of the tile
+// kernel, with `block_size` the block and `most` the blocks a tile holds at
+// most (in [1, 256]; the plans' rows' count times the columns' at most
+// that), on a strictly ascending reference grid, k a power of two in [1,
+// 128] and any window whose tile fits shared memory. FORM's kernel takes
+// the blocks `span_takes` lets through. Each returns the launch's
+// cudaError_t.
+enum SpanEntry { kEntryCompiled, kEntryRunTime, kEntrySerial, kEntryPixel };
+
+__host__ inline bool span_takes(SpanEntry form, int block, int K) {
+  switch (form) {
+    case kEntryCompiled: return block >= 2 && block <= 16 && block != kBlock;
+    case kEntryRunTime: return block == 1 || block >= 17;
+    case kEntrySerial: return block != kBlock;
+    default: return block == 1 && K <= 8;
+  }
+}
+
+// The kernel of a form, bf16 pairs (mode 1) or f32 (modes 0, 2); only the
+// forms a source's entries launch are instantiated.
+template <SpanEntry FORM, bool PAIRS>
+constexpr auto span_kernel_of() {
+  if constexpr (FORM == kEntryCompiled)
+    return &bm3d_match_span_kernel<PAIRS>;
+  else if constexpr (FORM == kEntryRunTime)
+    return &bm3d_match_span_rt_kernel<PAIRS>;
+  else
+    return &bm3d_match_span_serial_kernel<PAIRS>;
+}
+
+template <SpanEntry FORM>
+int span_entry(const float* img, const int* rows, const int* cols, const int* offsets, const int* order,
+               const int* row_tiles, const int* col_tiles, int* out, int B, int H, int W, int nR, int nC,
+               int n_row_tiles, int n_col_tiles, int S, int block_size, int K, int mode, int search, int pitch,
+               int most, int cand_lo, int cand_hi, void* stream) {
+  if (block_size < kSpanMinBlock || block_size > kSpanMaxBlock || !span_takes(FORM, block_size, K) || K < 1 ||
+      K > kSpanMaxK || (K & (K - 1)) != 0 || S < 1 || mode < 0 || mode > 2 || search < 0 ||
+      pitch < kTileSpan + 2 * search || n_row_tiles < 1 || n_col_tiles < 1 || most < 1 ||
+      most > kTileWarps * 32 || cand_lo < 0 || cand_hi > H - block_size)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const dim3 grid(n_col_tiles, n_row_tiles, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (FORM == kEntryPixel) {
+    const size_t smem = sizeof(float) * (size_t)(kTileSpan + 2 * search) * pitch;
+#define PNP_PIXEL(M, KL)                                                                                        \
+  if (mode == M && K <= KL)                                                                                     \
+    return launch_granted<bm3d_match_pixel_kernel<M, KL>>(grid, smem, st, img, rows, cols, offsets, order,      \
+                                                          row_tiles, col_tiles, out, H, W, nR, nC, S, K, search, \
+                                                          pitch, cand_lo, cand_hi);
+    PNP_PIXEL(0, 4) PNP_PIXEL(0, 8) PNP_PIXEL(1, 4) PNP_PIXEL(1, 8) PNP_PIXEL(2, 4) PNP_PIXEL(2, 8)
+#undef PNP_PIXEL
+    return cudaErrorInvalidValue;
+  } else {
+    const size_t smem = sizeof(float) * span_lists_at(search, pitch, most) +
+                        sizeof(unsigned long long) * most * span_entries(K);
+    if (mode == 1)
+      return launch_granted<span_kernel_of<FORM, true>()>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+                                                      col_tiles, out, H, W, nR, nC, S, K, block_size, false, search,
+                                                      pitch, most, cand_lo, cand_hi);
+    return launch_granted<span_kernel_of<FORM, false>()>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
+                                                  col_tiles, out, H, W, nR, nC, S, K, block_size, mode == 2, search,
+                                                  pitch, most, cand_lo, cand_hi);
+  }
 }
 
 }  // namespace
+
+#define PNP_SPAN_ENTRY(NAME, FORM)                                                                              \
+  extern "C" int NAME(const float* img, const int* rows, const int* cols, const int* offsets, const int* order, \
+                      const int* row_tiles, const int* col_tiles, int* out, int B, int H, int W, int nR, int nC,  \
+                      int n_row_tiles, int n_col_tiles, int S, int block_size, int K, int mode, int search,       \
+                      int pitch, int most, int cand_lo, int cand_hi, void* stream) {                              \
+    return span_entry<FORM>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, B, H, W, nR, nC,         \
+                            n_row_tiles, n_col_tiles, S, block_size, K, mode, search, pitch, most, cand_lo,       \
+                            cand_hi, stream);                                                                     \
+  }
+#ifndef PNP_K1_REPLACED_DESIGNS  // the kernels K1's calls take
 
 // Top-K offset indices for every reference block. `img` (B, H, W) f32,
 // `rows` (nR,) / `cols` (nC,) int32 reference coordinates, `offsets` (S, 2)
@@ -1394,25 +1932,65 @@ extern "C" int bm3d_match_any_launch(const float* img, const int* rows, const in
   }
 }
 
-// Block 8 at any strictly ascending reference grid, k in [1, 128] and any
-// window whose region fits shared memory (the host's reckoning): `offsets`
-// (S, 2) in the order the kernel visits
+// Block 8 at any strictly ascending reference grid, k a power of two in
+// [1, 128] and any window whose region fits shared memory (the host's
+// reckoning): `offsets` (S, 2) in the order the kernel visits
 // them and `order` (S,) the index of each in the window's ascending order
 // (the index a match returns), `row_tiles` (n_row_tiles, 3) / `col_tiles`
 // (n_col_tiles, 3) int32, each tile's first index into `rows` / `cols`, its
 // count and the mask of its coordinates less the first (bits 0-24; the
-// rows' count times the columns' at most kTileMax). `pitch` (odd, at least
-// kTileSpan + 2 search) is the staged region's row pitch. The rest as
-// above. Returns the launch's cudaError_t.
+// rows' count times the columns' at most `most`). `pitch` (odd, at least
+// kTileSpan + 2 search) is the staged region's row pitch. `most` (in [1,
+// kTileMax]) lays out the rank merge's shared memory at k 128; below it is
+// kTileMax. The rest as above. Returns the launch's cudaError_t.
 extern "C" int bm3d_match_tile_launch(const float* img, const int* rows, const int* cols,
                                       const int* offsets, const int* order, const int* row_tiles,
                                       const int* col_tiles, int* out, int B, int H, int W, int nR,
                                       int nC, int n_row_tiles, int n_col_tiles, int S,
                                       int block_size, int K, int mode, int search, int pitch,
-                                      int cand_lo, int cand_hi, void* stream) {
-  if (block_size != kBlock || K < 1 || K > kSpanMaxK || S < 1 || search < 0 ||
-      pitch < kTileSpan + 2 * search || n_row_tiles < 1 || n_col_tiles < 1 || cand_lo < 0 ||
-      cand_hi > H - kBlock)
+                                      int most, int cand_lo, int cand_hi, void* stream) {
+  if (block_size != kBlock || K < 1 || K > kSpanMaxK || (K > 64 && K != kRankK) || S < 1 || search < 0 ||
+      pitch < kTileSpan + 2 * search || n_row_tiles < 1 || n_col_tiles < 1 || most < 1 || most > kTileMax ||
+      (K <= 64 && most != kTileMax) || cand_lo < 0 || cand_hi > H - kBlock)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const dim3 grid(n_col_tiles, n_row_tiles, B);
+  const size_t region = (size_t)(kTileSpan + 2 * search) * (pitch + 1);
+  const size_t smem = K > 64 ? sizeof(float) * ((region + (size_t)most * kDPitch + 1) & ~(size_t)1) +
+                                   sizeof(unsigned long long) * most * K
+                             : sizeof(float) * (region + (size_t)kTileMax * kDPitch) + 2 * sizeof(int) * kTileMax * K;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+#define PNP_TILE_MODE(M)                                                                                       \
+  case M:                                                                                                      \
+    return launch_tile_mode<M>(grid, smem, st, img, rows, cols, offsets, order, row_tiles, col_tiles, out, H, W, \
+                               nR, nC, S, K, search, pitch, cand_lo, cand_hi, most);
+    PNP_TILE_MODE(0) PNP_TILE_MODE(1) PNP_TILE_MODE(2)
+#undef PNP_TILE_MODE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Blocks 2-16 but 8.
+PNP_SPAN_ENTRY(bm3d_match_span_launch, kEntryCompiled)
+// Blocks 1 and 17-32.
+PNP_SPAN_ENTRY(bm3d_match_span_rt_launch, kEntryRunTime)
+// Block 1 at k <= 8.
+PNP_SPAN_ENTRY(bm3d_match_pixel_launch, kEntryPixel)
+#else  // the designs they replaced (csrc/bm3d_match_replaced.cu)
+
+// The tile kernel's design at k 128 before the rank merge (the four-slot
+// merge, kTileMax blocks a tile): the tile kernel's arguments without
+// `most`, k 128 only. Launched by name only, to time the two on one call.
+extern "C" int bm3d_match_tile_slots_launch(const float* img, const int* rows, const int* cols,
+                                            const int* offsets, const int* order, const int* row_tiles,
+                                            const int* col_tiles, int* out, int B, int H, int W, int nR,
+                                            int nC, int n_row_tiles, int n_col_tiles, int S,
+                                            int block_size, int K, int mode, int search, int pitch,
+                                            int cand_lo, int cand_hi, void* stream) {
+  if (block_size != kBlock || K != kSpanMaxK || S < 1 || search < 0 || pitch < kTileSpan + 2 * search ||
+      n_row_tiles < 1 || n_col_tiles < 1 || cand_lo < 0 || cand_hi > H - kBlock)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dim3 grid(n_col_tiles, n_row_tiles, B);
@@ -1421,48 +1999,21 @@ extern "C" int bm3d_match_tile_launch(const float* img, const int* rows, const i
                       2 * sizeof(int) * kTileMax * K;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0:
-      return launch_tile_mode<0>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
-                                 col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
-                                 cand_hi);
-    case 1:
-      return launch_tile_mode<1>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
-                                 col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
-                                 cand_hi);
-    case 2:
-      return launch_tile_mode<2>(grid, smem, st, img, rows, cols, offsets, order, row_tiles,
-                                 col_tiles, out, H, W, nR, nC, S, K, search, pitch, cand_lo,
-                                 cand_hi);
+#define PNP_TILE_MODE(M)                                                                                       \
+  case M:                                                                                                      \
+    return launch_granted<bm3d_match_tile_slots_kernel<M>>(grid, smem, st, img, rows, cols, offsets, order,     \
+                                                           row_tiles, col_tiles, out, H, W, nR, nC, S, K, search, \
+                                                           pitch, cand_lo, cand_hi);
+    PNP_TILE_MODE(0) PNP_TILE_MODE(1) PNP_TILE_MODE(2)
+#undef PNP_TILE_MODE
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// Any block in [1, 32] but 8 (the tile kernel's) on a strictly ascending
-// reference grid, k a power of two in [1, 128] and any window whose tile
-// fits shared memory: the tile kernel's arguments, with `block_size` the
-// block and `most` the blocks a tile holds at most (in [1, 256]; the
-// plans' rows' count times the columns' at most that). Returns the
-// launch's cudaError_t.
-extern "C" int bm3d_match_span_launch(const float* img, const int* rows, const int* cols,
-                                      const int* offsets, const int* order, const int* row_tiles,
-                                      const int* col_tiles, int* out, int B, int H, int W, int nR,
-                                      int nC, int n_row_tiles, int n_col_tiles, int S,
-                                      int block_size, int K, int mode, int search, int pitch,
-                                      int most, int cand_lo, int cand_hi, void* stream) {
-  if (block_size < kSpanMinBlock || block_size > kSpanMaxBlock || block_size == kBlock || K < 1 || K > kSpanMaxK ||
-      S < 1 || mode < 0 || mode > 2 || search < 0 || pitch < kTileSpan + 2 * search ||
-      n_row_tiles < 1 || n_col_tiles < 1 || most < 1 || most > kTileWarps * 32 || cand_lo < 0 ||
-      cand_hi > H - block_size)
-    return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
-  const dim3 grid(n_col_tiles, n_row_tiles, B);
-  const size_t smem = sizeof(float) * span_lists_at(search, pitch, most) +
-                      sizeof(unsigned long long) * most * span_entries(K);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == 1)
-    return launch_span<true>(grid, smem, st, img, rows, cols, offsets, order, row_tiles, col_tiles, out,
-                             H, W, nR, nC, S, K, block_size, false, search, pitch, most, cand_lo, cand_hi);
-  return launch_span<false>(grid, smem, st, img, rows, cols, offsets, order, row_tiles, col_tiles, out, H,
-                            W, nR, nC, S, K, block_size, mode == 2, search, pitch, most, cand_lo, cand_hi);
-}
+// Any block 1-32 but 8, the design the three above replaced (the serial
+// run-time phase 1, the four-slot merge at k 128): by name only, to time
+// them on one call.
+PNP_SPAN_ENTRY(bm3d_match_span_serial_launch, kEntrySerial)
+#endif
+#undef PNP_SPAN_ENTRY

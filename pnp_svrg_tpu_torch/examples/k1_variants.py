@@ -1,7 +1,7 @@
 """Time K1's tile and span kernels against the design they replaced, and
 against variants of their source, on the card.
 
-    python -m pnp_svrg_tpu_torch.examples.k1_variants [--part tile|span]
+    python -m pnp_svrg_tpu_torch.examples.k1_variants [--part tile|span|rank|rt]
 
 Part ``tile`` (block 8).
 
@@ -45,7 +45,35 @@ blocks :func:`span_most` allows: more, smaller CTAs). Each row's line also
 carries the plain version's time (CUDA events over 10 calls), the bounds
 (``chip_smoke.match_bounds``) and the plan.
 
-Both parts run by default. Variants build into
+Part ``rank`` (k 128): ``bm3d_match_tile_kernel`` at the ``k128`` row
+(block 8, step 3, search 19, on the stage-1 estimate) and
+``bm3d_match_span_kernel`` at ``block4_k128`` (block 4, step 2, search
+19), each merging by ranks ("new"), against the four-slot design each
+replaced ("replaced": ``bm3d_match_tile_slots_kernel``,
+``bm3d_match_span_serial_kernel``) in turns (new, replaced, replaced, new),
+then beside :data:`RANK_VARIANTS` (variant, new, new, variant): the tile
+kernel on tiles of 81 blocks (``one_cta``: one CTA an SM, its plan before)
+or of as many as let two CTAs share an SM (``two_ctas``; :func:`k1.tile_most`
+takes three), and the source with chunks of 128 offsets (``chunk_128``).
+
+Part ``rt`` (block 1 and 17-32): ``bm3d_match_pixel_kernel`` at ``block1``
+(step 1, search 3, k 4), ``bm3d_match_span_rt_kernel`` at ``block24`` (step
+12, search 8, k 16), ``block17`` (step 1, search 5, k 16) and ``block1_k16``,
+against ``bm3d_match_span_serial_kernel`` (the serial run-time phase 1) in
+turns, block 1 also against the run-time span kernel at k 4 (``span_rt``:
+the span kernel's distance buffer and thread merge, a warp an offset), and
+beside :data:`RT_VARIANTS`: launch bounds asking for two or four CTAs an
+SM, not three (``rt_two_ctas``, ``rt_four_ctas``), every tile through the chunks and the
+several-column trees (``no_one_column``: no one-block path, no one-column
+tree), and a one-block tile's warp forming one offset at a time, not two
+(``one_in_flight``), and a one-block tile reading its reference row's bf16
+pairs from shared memory for each offset, not holding them in registers
+(``ref_in_smem``). Both parts hold every name to the plain version in
+every mode first and time in ``bf16_xla``, each timing by
+``chip_smoke.device_ms`` (profiler windows, which tolerate a lost record)
+and by CUDA events (``event_ms``).
+
+Parts ``tile`` and ``span`` run by default. Variants build into
 ``build/pnp_svrg_tpu_torch/variants/`` with the port's ``nvcc`` flags.
 Needs a CUDA card.
 """
@@ -87,8 +115,8 @@ VARIANTS = {  # name -> [(text of the built source, its replacement), ...]
     ],
 }
 SPAN_VARIANTS = {
-    "two_ctas": [("__launch_bounds__(kTileWarps * 32, 3)\nbm3d_match_span_kernel(",
-                  "__launch_bounds__(kTileWarps * 32, 2)\nbm3d_match_span_kernel(")],
+    "two_ctas": [("PNP_SPAN_KERNEL(bm3d_match_span_kernel, kSpanCompiled, 3)",
+                  "PNP_SPAN_KERNEL(bm3d_match_span_kernel, kSpanCompiled, 2)")],
     "warp_merge": [("  const bool by_threads = K <= 8;", "  const bool by_threads = false;"),
                    ("    if (K <= 4)\n      merge_chunk_threads<4>", "    if (false)\n      merge_chunk_threads<4>"),
                    ("    else if (K <= 8)\n      merge_chunk_threads<8>", "    else if (false)\n      merge_chunk_threads<8>"),
@@ -103,6 +131,23 @@ SPAN_VARIANTS = {
          "          sq_terms2<0>(0u, 0u, ref[xx], ref[xx + 1], cand[xx]")],
     "chunk_128": [("constexpr int kChunk = 64;", "constexpr int kChunk = 128;")],
 }
+RANK_VARIANTS = {"chunk_128": [("constexpr int kChunk = 64;", "constexpr int kChunk = 128;")]}
+RT_VARIANTS = {"rt_two_ctas": [("constexpr int kRtMinCtas = 3;", "constexpr int kRtMinCtas = 2;")],
+               "rt_four_ctas": [("constexpr int kRtMinCtas = 3;", "constexpr int kRtMinCtas = 4;")],
+               "no_one_column": [("  const bool one_col = p.cmask == 1u;", "  const bool one_col = false;"),
+                                 ("    if (block > 16 && nt == 1 && K <= 32) {", "    if (false) {")],
+               "one_in_flight": [("constexpr int kOneInFlight = 2;", "constexpr int kOneInFlight = 1;")],
+               "ref_in_smem": [  # a one-block tile reads its reference pairs from shared memory, not registers
+                   ("  unsigned ref2[PAIRS ? kTileSpan / 2 : 1];\n  if constexpr (PAIRS) {\n#pragma unroll\n"
+                    "    for (int xx = 0; xx < kTileSpan; xx += 2)\n      ref2[xx / 2] = p.pairs[((p.search & 1) * "
+                    "p.reg_n + p.search + lane) * p.pp + (p.search >> 1) + xx / 2];\n  }",
+                    "  const unsigned* ref2 = p.pairs + ((p.search & 1) * p.reg_n + p.search + lane) * p.pp + "
+                    "(p.search >> 1);")]}
+# (block, step, search, k, image) of chip_smoke.py's rows for the parts
+# rank and rt (and two more off the lanes' settings).
+RANK_ROWS = {"k128": (8, 3, 19, 128, "basic"), "block4_k128": (4, 2, 19, 128, "basic")}
+RT_ROWS = {"block1": (1, 1, 3, 4, "input"), "block24": (24, 12, 8, 16, "input"), "block17": (17, 1, 5, 16, "input"),
+           "block1_k16": (1, 1, 3, 16, "input")}
 SHAPES = {"profile_ht": (19, 16, "input"), "profile_wiener": (19, 32, "basic"), "search24": (24, 16, "input")}
 # chip_smoke.ENVELOPE_K1's rows off block 8: (block, step, search, k).
 SPAN_ROWS = {"golden": (4, 2, 3, 4), "block2": (2, 1, 3, 4), "block5": (5, 2, 4, 8), "block6": (6, 3, 6, 8),
@@ -111,9 +156,10 @@ REPS = 50
 NEAR_TIE = 2 * 63 * 2.0**-24  # 8 x 8 terms a distance, summed in two orders
 
 
-def build_variants(variants: dict, kernel: str) -> tuple:
-    """(name -> ``kernel``'s bound entry in each variant's library, name ->
-    ptxas's output of its build)."""
+def build_variants(variants: dict, kernel: str | None) -> tuple:
+    """(name -> ``kernel``'s bound entry in each variant's library, or with
+    ``kernel`` None every entry it has (:func:`k1.bind`), name -> ptxas's
+    output of its build)."""
     src = (_build.SRC_DIR / "bm3d_match.cu").read_text()
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -124,9 +170,9 @@ def build_variants(variants: dict, kernel: str) -> tuple:
             if old not in text:  # an edit of a shared helper or line changes both kernels
                 raise RuntimeError(f"variant {name}: {old!r} is not in the source")
             text = text.replace(old, new)
-        cu = out_dir / f"{kernel}_{name}.cu"
+        cu = out_dir / f"{kernel or 'all'}_{name}.cu"
         cu.write_text(text)
-        so = out_dir / f"{kernel}_{name}.so"
+        so = out_dir / f"{kernel or 'all'}_{name}.so"
         procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns, logs = {}, {}
@@ -135,7 +181,8 @@ def build_variants(variants: dict, kernel: str) -> tuple:
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name}: nvcc exit {proc.returncode}\n{logs[name]}")
         if name != "built":
-            fns[name] = k1.bind(ctypes.CDLL(str(so)))[kernel]
+            bound = k1.bind(ctypes.CDLL(str(so)))
+            fns[name] = bound if kernel is None else bound[kernel]
     return fns, logs
 
 
@@ -321,14 +368,91 @@ def time_span(imgs: dict) -> dict:
     return {name: kernel_ptxas(log, "bm3d_match_span_kernel") for name, log in logs.items()}
 
 
+def time_against_replaced(imgs: dict, rows: dict, extra: dict, variants: dict, plans) -> dict:
+    """Parts ``rank`` and ``rt``: each row's kernel ("new") against the
+    design it replaced and ``extra`` (name -> kernel launched by name), and
+    beside each variant: source ``variants`` built, and ``plans(label, g, k,
+    search)`` -> {name: plan} (the kernel's own on other tiles). Prints a
+    line a row; returns ptxas's lines of the variants' builds."""
+    from chip_smoke import cuda_ms, device_ms as window_ms, match_bounds, near_tie
+
+    built = k1._lib()
+    var_fns, logs = build_variants(variants, None)
+    for label, (block, step, search, k, which) in rows.items():
+        x = imgs[which]
+        b, h, w = x.shape
+        rows_ = _ref_grid(h, block, step)
+        offs = search_offsets(search, 1)
+        g = k1.match_geometry(rows_, rows_, offs, block, x.device)
+        kernel = k1.match_kernel(g, block, k)
+        fns = {"new": (kernel, built[kernel], g), "replaced": (k1.prev_design(kernel, k), None, g)}
+        fns |= {name: (kern, None, g) for name, kern in extra.get(label, {}).items()}
+        if kernel != "bm3d_match_pixel_kernel":  # the variants edit the tile and span kernels
+            fns |= {name: (kernel, bound[kernel], g) for name, bound in var_fns.items()}
+        for name, plan in plans(label, g, k, search).items():
+            key = ("tile", k, search) if kernel == "bm3d_match_tile_kernel" else (k, search)
+            fns[name] = (kernel, built[kernel], dataclasses.replace(g, plans={key: plan}))
+
+        def call(name, mode, img=x, fns=fns, rows_=rows_, k=k, block=block):
+            kern, fn, geom = fns[name]
+            out = torch.empty((b, len(rows_), len(rows_), k), dtype=torch.int32, device=img.device)
+            k1.launch(kern, fn or built[kern], img, geom, out, block, k, mode, 0, h)
+            return out
+
+        rec = {"row": label, "images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
+               "kernel": kernel, "replaced": fns["replaced"][0], "near_tie": near_tie(block),
+               "plans": {name: [fns[name][2].tile(k).most if kernel == "bm3d_match_tile_kernel" else
+                                fns[name][2].span(k).most] for name in fns if name in ("new",) or name in
+                         plans(label, g, k, search)},
+               **match_bounds(b, h, w, rows_, rows_, offs, block=block, k=k)}
+        for mode in k1.MODES:
+            want = k1.bm3d_match_plain(x, rows_, rows_, offs, block, k, mode)
+            dists = k1.match_distances_plain(x, rows_, rows_, offs, block, mode)
+            rec[mode] = {name: held_to_plain(call(name, mode), want, dists) for name in fns}
+            for name in fns:
+                rec[mode][name]["near_tie_ok"] = rec[mode][name]["max_rel_gap"] <= near_tie(block)
+        mode = "bf16_xla"
+        order = ["new", "replaced", "replaced", "new"] + [v for name in fns if name not in ("new", "replaced")
+                                                          for v in (name, "new", "new", name)]
+        ms = {name: [] for name in fns}
+        events = {name: [] for name in fns}
+        for v in order:  # device time by windows of the profiler (lost records tolerated), and by events
+            ms[v].append(window_ms(lambda v=v: call(v, mode)))
+            events[v].append(cuda_ms(lambda v=v: call(v, mode)))
+        for name in fns:
+            rec[mode][name]["ms"], rec[mode][name]["event_ms"] = ms[name], events[name]
+        rec["plain_ms"] = plain_ms(lambda: k1.bm3d_match_plain(x, rows_, rows_, offs, block, k, mode), reps=2)
+        print(json.dumps(rec), flush=True)
+    return {name: {kernel: kernel_ptxas(log, kernel) for kernel in ("bm3d_match_tile_kernel", "bm3d_match_span_kernel",
+                                                                    "bm3d_match_span_rt_kernel")}
+            for name, log in logs.items()}
+
+
+def rank_plans(label, g, k, search) -> dict:
+    """The tile kernel at k 128 on tiles of 81 blocks (one CTA an SM) and of
+    as many as let two share an SM."""
+    if g.block != 8:
+        return {}
+    two = max(m for m in range(1, k1.TILE_MAX + 1) if k1.tile_smem_bytes(search, k, m) <= k1.TILE_BUDGETS[1])
+    out = {}
+    for name, most in (("one_cta", k1.TILE_MAX), ("two_ctas", two)):
+        rt, ct, used = k1._cut(g.rows, g.cols, 8, most)
+        out[name] = k1._plan(rt, ct, used, k1.tile_smem_bytes(search, k, used), g.rows_t.device)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--part", choices=("tile", "span"), action="append")
+    ap.add_argument("--part", choices=("tile", "span", "rank", "rt"), action="append")
     parts = ap.parse_args(argv).part or ["tile", "span"]
     if not torch.cuda.is_available():
         raise SystemExit("k1_variants: needs a CUDA card")
     imgs = lane_inputs()
-    ptxas = {part: {"tile": time_tile, "span": time_span}[part](imgs) for part in parts}
+    run = {"tile": time_tile, "span": time_span,
+           "rank": lambda im: time_against_replaced(im, RANK_ROWS, {}, RANK_VARIANTS, rank_plans),
+           "rt": lambda im: time_against_replaced(im, RT_ROWS, {"block1": {"span_rt": "bm3d_match_span_rt_kernel"}},
+                                                  RT_VARIANTS, lambda *a: {})}
+    ptxas = {part: run[part](imgs) for part in parts}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"ptxas": ptxas}), flush=True)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,7 +29,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("bm3d_match", "bm3d_aggregate", "nlm")
+# bm3d_match_replaced.cu includes bm3d_match.cu and builds only the designs
+# K1's kernels replaced, in a library of its own, beside the others.
+SOURCES = ("bm3d_match", "bm3d_aggregate", "nlm", "bm3d_match_replaced")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}  # source name -> nvcc/ptxas output of its build
@@ -46,8 +49,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the flags, the
+    source and the sources it includes from ``csrc/`` (``#include "x.cu"``)."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    included = re.findall(rb'^#include "([\w.]+)"', src, re.M)
+    text = src + b"".join((SRC_DIR / f.decode()).read_bytes() for f in included)
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -27,12 +27,15 @@ source, and :func:`match_kernel` names the one that takes a call:
 ``bm3d_match_kernel``, built for 8 x 8 blocks, 16 matches, a step-4 grid and
 at most 640 offsets (the headline's and the bench lanes'); else, at block 8,
 ``bm3d_match_tile_kernel`` (any step, window and k: the reference profile's
-step 3, 1,521 offsets, 16 / 32 matches); else ``bm3d_match_span_kernel``, for
-every other block of :data:`MATCH_ENVELOPE` (the golden oracle's block 4
-among them; blocks 1 and 17-32 through a phase 1 that reads the block at run
-time) on a strictly ascending grid; else ``bm3d_match_any_kernel``, which
-takes what is left (a grid with a repeated coordinate, which the BM3D
-denoiser never makes) inside its own bounds (:data:`ANY_ENVELOPE`).
+step 3, 1,521 offsets, 16 / 32 matches; k 128 merged by ranks, on tiles of at
+most :func:`tile_most` blocks); else, on a strictly ascending grid,
+``bm3d_match_span_kernel`` for blocks 2-16 (the golden oracle's block 4 among
+them), ``bm3d_match_pixel_kernel`` for block 1 at k up to 8 (a thread a
+reference pixel, no distance buffer) and ``bm3d_match_span_rt_kernel`` for
+block 1 past k 8 and blocks 17-32 (the span kernel's trees with the block
+read at run time); else ``bm3d_match_any_kernel``, which takes what is left
+(a grid with a repeated coordinate, which the BM3D denoiser never makes)
+inside its own bounds (:data:`ANY_ENVELOPE`).
 
 The envelope: block 1-32, any step (past the block a tile simply holds fewer
 blocks), a power-of-two k up to 128, and any window whose staged region
@@ -43,9 +46,13 @@ reference block, so the tile and span kernels skip it and stage only the
 halo of the rest, and every index they return stays the offset's index in
 the full window (a fill is index 0, as there). A setting outside the
 envelope raises before any launch, naming its bound
-(:func:`check_match_envelope`). The design the span kernel replaced, the
-any-kernel, stays reachable by name through :func:`launch`, so that a
-caller can time the two on one call (:data:`PREV_DESIGN`).
+(:func:`check_match_envelope`). The designs the tile and span kernels
+replaced stay reachable by name through :func:`launch`, so that a caller can
+time the two on one call (:func:`prev_design`): the any-kernel
+(:data:`PREV_DESIGN`), the tile kernel's four-slot merge at k 128
+(``bm3d_match_tile_slots_kernel``) and the span kernel as it was before the
+pixel and run-time kernels and the rank merge
+(``bm3d_match_span_serial_kernel``).
 """
 
 from __future__ import annotations
@@ -70,9 +77,23 @@ ANY_TILE_R, ANY_TILE_C = 4, 4  # kAnyTileR / kAnyTileC: bm3d_match_any_kernel's 
 # bm3d_match_tile_kernel: a tile's patches span at most TILE_SPAN rows (one a
 # lane) and columns (kTileSpan); it holds at most TILE_MAX blocks (kTileMax).
 TILE_SPAN, TILE_MAX, TILE_CHUNK = 32, 81, 64  # kTileSpan, kTileMax, kChunk (offsets a chunk)
-K1_KERNELS = ("bm3d_match_kernel", "bm3d_match_tile_kernel", "bm3d_match_any_kernel", "bm3d_match_span_kernel")
-# The design the span kernel replaced on every block other than 8.
+K1_KERNELS = ("bm3d_match_kernel", "bm3d_match_tile_kernel", "bm3d_match_any_kernel", "bm3d_match_span_kernel",
+              "bm3d_match_span_rt_kernel", "bm3d_match_pixel_kernel", "bm3d_match_tile_slots_kernel",
+              "bm3d_match_span_serial_kernel")
+# The design the tile and span kernels replaced on every block (and the
+# kernel of a grid that does not strictly ascend).
 PREV_DESIGN = "bm3d_match_any_kernel"
+# The designs replaced later, reachable by name only: the tile kernel's
+# four-slot merge at k 128, and the span kernel with its serial run-time
+# phase 1 (blocks 1 and 17-32) and its four-slot merge.
+TILE_SLOTS, SPAN_SERIAL = K1_KERNELS[6:]
+RANK_K = 128  # kRankK: k merged by ranks (the four slots a lane of k 128)
+# bm3d_match_tile_kernel at k 128: as many blocks a tile (at most TILE_MAX)
+# as let three CTAs share an SM's 228 KB (each with the 1 KB the card keeps
+# a CTA), or else two, where that is at least TILE_MAX // 2 (at most about
+# twice the tiles, each forming its span's terms); else TILE_MAX, one CTA an
+# SM. TILE_BUDGETS: a CTA's bytes for three and for two.
+TILE_BUDGETS = (228 * 1024 // 3 - 1024, 228 * 1024 // 2 - 1024)
 # bm3d_match_span_kernel: at most SPAN_MOST blocks a tile (one a thread of
 # its CTA), and no more than let three CTAs share an SM's 228 KB (each with
 # the 1 KB the card keeps a CTA); where that holds no block (a wide window's
@@ -105,8 +126,9 @@ def check_match_envelope(block: int, k: int, search: int, step: int) -> None:
     * a power-of-two k (the Hadamard transform along the group needs one)
       up to 128: a warp keeps a block's running top-k in one, two or four
       slots a lane (k 32, 64, 128); k 256 would need eight (not built). Its
-      lists take 8 bytes an entry: 8 x 81 x 128 = 82,944 bytes a tile-kernel
-      CTA at k 128.
+      lists take 8 bytes an entry: 8 x 81 x 128 = 82,944 bytes for a
+      tile-kernel CTA of 81 blocks at k 128 (:func:`tile_most` cuts a tile to
+      fewer where that lets three or two CTAs share an SM).
     * step 1 or more (a grid that strictly ascends; at a step past the block
       a tile holds fewer blocks, one from step 25 at block 8).
     * search 0 to :func:`match_search_limit` (block, k): the CTA stages its
@@ -143,18 +165,43 @@ def check_any_envelope(block: int, k: int, search: int) -> None:
                              f"{name} {lo}-{hi}, not {v}")
 
 
-def tile_smem_bytes(search: int, k: int) -> int:
+def tile_smem_bytes(search: int, k: int, most: int | None = None) -> int:
     """Dynamic shared memory of a ``bm3d_match_tile_kernel`` CTA: the
-    staged region, the distances of a chunk and the running top-k's."""
+    staged region, the distances of a chunk and the running top-k's, for
+    :data:`TILE_MAX` blocks below k 128 (and in the four-slot design,
+    ``most`` None); at k 128 by ranks for ``most`` blocks, the keys
+    8-byte aligned."""
     region = (TILE_SPAN + 2 * search) * (((TILE_SPAN + 2 * search) | 1) + 1)  # f32, or bf16 pairs twice
-    return 4 * (region + TILE_MAX * (TILE_CHUNK + 1)) + 8 * TILE_MAX * k
+    if k <= 64 or most is None:
+        return 4 * (region + TILE_MAX * (TILE_CHUNK + 1)) + 8 * TILE_MAX * k
+    return 4 * ((region + most * (TILE_CHUNK + 1) + 1) & ~1) + 8 * most * k
+
+
+def tile_most(search: int, k: int) -> int:
+    """The most blocks a ``bm3d_match_tile_kernel`` tile holds: :data:`TILE_MAX`
+    below k 128; at k 128 as many as keep :func:`tile_smem_bytes` within
+    the first of :data:`TILE_BUDGETS` (three CTAs an SM, then two) that
+    leaves at least half of :data:`TILE_MAX`, else :data:`TILE_MAX`."""
+    if k <= 64:
+        return TILE_MAX
+    for budget in TILE_BUDGETS:
+        most = next((m for m in range(TILE_MAX, 0, -1) if tile_smem_bytes(search, k, m) <= budget), 0)
+        if most >= TILE_MAX // 2:
+            return most
+    return TILE_MAX
+
+
+def pixel_smem_bytes(search: int) -> int:
+    """Dynamic shared memory of a ``bm3d_match_pixel_kernel`` CTA: the
+    staged region alone, f32."""
+    return 4 * (TILE_SPAN + 2 * search) * ((TILE_SPAN + 2 * search) | 1)
 
 
 def match_smem_bytes(block: int, k: int, search: int) -> int:
     """The least dynamic shared memory K1's tile kernel (block 8) or span
-    kernel (a tile of one block) needs at this window and k."""
+    kernels (a tile of one block) need at this window and k."""
     if block == KERNEL_BLOCK:
-        return tile_smem_bytes(search, k)
+        return tile_smem_bytes(search, k, tile_most(search, k))
     return span_smem_bytes(search, (TILE_SPAN + 2 * search) | 1, 1, k) + 4  # with the lists' alignment word
 
 
@@ -359,23 +406,38 @@ class SpanPlan:
     smem_bytes: int
 
 
-def span_plan(rows, cols, block: int, search: int, k: int, device, most: int | None = None) -> SpanPlan:
-    """The span kernel's tiles: of the cuts with at most ``a`` reference rows
-    and ``most`` // ``a`` columns a tile, the one with the fewest tiles (a
-    CTA forms its whole span's terms, however many blocks it holds), the
-    squarer on ties. ``most`` is :func:`span_most`'s unless given (a caller
-    timing smaller tiles)."""
-    most = most or span_most(search, k)
+def _cut(rows, cols, block: int, most: int) -> tuple:
+    """(row tiles, column tiles, the largest tile's blocks): of the cuts
+    (:func:`tile_plan`) with at most ``a`` reference rows and ``most`` //
+    ``a`` columns a tile, the one with the fewest tiles (a CTA forms its
+    whole span's terms, however many blocks it holds), the squarer on
+    ties."""
     cuts = []
     for a in range(1, min(most, TILE_SPAN) + 1):
         row_tiles, col_tiles = tile_plan(rows, block, a), tile_plan(cols, block, most // a)
         cuts.append((len(row_tiles) * len(col_tiles), abs(len(row_tiles) - len(col_tiles)), a,
                      row_tiles, col_tiles))
     *_, row_tiles, col_tiles = min(cuts, key=lambda c: c[:3])
-    used = int(row_tiles[:, 1].max()) * int(col_tiles[:, 1].max())
-    pitch = (TILE_SPAN + 2 * search) | 1
+    return row_tiles, col_tiles, int(row_tiles[:, 1].max()) * int(col_tiles[:, 1].max())
+
+
+def _plan(row_tiles, col_tiles, most: int, smem_bytes: int, device) -> SpanPlan:
     as_dev = lambda v: torch.as_tensor(v, device=device)  # noqa: E731
-    return SpanPlan(as_dev(row_tiles), as_dev(col_tiles), used, span_smem_bytes(search, pitch, used, k))
+    return SpanPlan(as_dev(row_tiles), as_dev(col_tiles), most, smem_bytes)
+
+
+def span_plan(rows, cols, block: int, search: int, k: int, device, most: int | None = None) -> SpanPlan:
+    """The span kernels' tiles (:func:`_cut`) of at most ``most`` blocks,
+    :func:`span_most`'s unless given (a caller timing smaller tiles)."""
+    row_tiles, col_tiles, used = _cut(rows, cols, block, most or span_most(search, k))
+    return _plan(row_tiles, col_tiles, used, span_smem_bytes(search, (TILE_SPAN + 2 * search) | 1, used, k), device)
+
+
+def pixel_plan(rows, cols, search: int, device) -> SpanPlan:
+    """``bm3d_match_pixel_kernel``'s tiles: the span kernels' cut at a
+    thread a block (:data:`SPAN_MOST`); its shared memory is the region's."""
+    row_tiles, col_tiles, used = _cut(rows, cols, 1, SPAN_MOST)
+    return _plan(row_tiles, col_tiles, used, pixel_smem_bytes(search), device)
 
 
 def visit_order(offsets) -> np.ndarray:
@@ -437,7 +499,7 @@ class MatchGeometry:
     rows: tuple = ()  # the reference coordinates, on the host
     cols: tuple = ()
     offsets: tuple = ()  # the (dy, dx) offsets, on the host
-    plans: dict = dataclasses.field(default_factory=dict, repr=False)  # (k, search) -> SpanPlan
+    plans: dict = dataclasses.field(default_factory=dict, repr=False)  # (k, search) and the like -> SpanPlan
     reaches: dict = dataclasses.field(default_factory=dict, repr=False)  # (H, W) -> Reach
 
     def span(self, k: int, search: int | None = None) -> SpanPlan:
@@ -448,6 +510,33 @@ class MatchGeometry:
         if (k, search) not in self.plans:
             self.plans[k, search] = span_plan(self.rows, self.cols, self.block, search, k, self.rows_t.device)
         return self.plans[k, search]
+
+    def tile(self, k: int, search: int | None = None) -> SpanPlan:
+        """``bm3d_match_tile_kernel``'s tiles for group size ``k`` at the
+        window radius ``search`` (the geometry's unless given): the
+        geometry's own (:data:`TILE_MAX` blocks) below k 128 or where
+        :func:`tile_most` keeps :data:`TILE_MAX`, else :func:`_cut` at
+        :func:`tile_most`."""
+        search = self.search if search is None else search
+        key = ("tile", k, search)
+        if key not in self.plans:
+            most = tile_most(search, k)
+            if most == TILE_MAX:
+                self.plans[key] = SpanPlan(self.row_tiles, self.col_tiles, TILE_MAX,
+                                           tile_smem_bytes(search, k, TILE_MAX if k > 64 else None))
+            else:
+                row_tiles, col_tiles, used = _cut(self.rows, self.cols, self.block, most)
+                self.plans[key] = _plan(row_tiles, col_tiles, used, tile_smem_bytes(search, k, used),
+                                        self.rows_t.device)
+        return self.plans[key]
+
+    def pixel(self, search: int | None = None) -> SpanPlan:
+        """``bm3d_match_pixel_kernel``'s tiles (:func:`pixel_plan`) at the
+        window radius ``search`` (the geometry's unless given)."""
+        search = self.search if search is None else search
+        if ("pixel", search) not in self.plans:
+            self.plans["pixel", search] = pixel_plan(self.rows, self.cols, search, self.rows_t.device)
+        return self.plans["pixel", search]
 
     def reach(self, h: int, w: int) -> Reach:
         """The offsets the tile and span kernels visit on an ``h`` x ``w``
@@ -495,14 +584,33 @@ class MatchGeometry:
 def match_kernel(g: MatchGeometry, block: int, k: int) -> str:
     """The K1 kernel that takes a call at geometry ``g`` with this ``block``
     and ``k``: ``bm3d_match_kernel`` wherever it can (every call it took
-    before the tile kernel existed), else ``bm3d_match_tile_kernel`` at
-    block 8 and ``bm3d_match_span_kernel`` at any other block (a grid that
-    strictly ascends), else ``bm3d_match_any_kernel`` (every geometry)."""
+    before the tile kernel existed), else on a grid that strictly ascends
+    ``bm3d_match_tile_kernel`` at block 8, ``bm3d_match_pixel_kernel`` at
+    block 1 and k up to 8, ``bm3d_match_span_rt_kernel`` at block 1 past k 8
+    and blocks 17-32, ``bm3d_match_span_kernel`` at blocks 2-16; else
+    ``bm3d_match_any_kernel`` (every geometry)."""
     if g.first_kernel_takes(block, k):
         return "bm3d_match_kernel"
     if g.tile_order is None:
         return PREV_DESIGN
-    return "bm3d_match_tile_kernel" if block == KERNEL_BLOCK else "bm3d_match_span_kernel"
+    if block == KERNEL_BLOCK:
+        return "bm3d_match_tile_kernel"
+    if block == 1 and k <= 8:
+        return "bm3d_match_pixel_kernel"
+    return "bm3d_match_span_rt_kernel" if block == 1 or block > 16 else "bm3d_match_span_kernel"
+
+
+def prev_design(kernel: str, k: int) -> str:
+    """The design ``kernel`` replaced on a call at group size ``k``: the
+    four-slot tile kernel at block 8 and k 128, the serial span kernel for
+    the pixel and run-time kernels and for the span kernel at k 128, else
+    the any-kernel (:data:`PREV_DESIGN`)."""
+    if k > 64 and kernel == "bm3d_match_tile_kernel":
+        return TILE_SLOTS
+    if kernel in ("bm3d_match_pixel_kernel", "bm3d_match_span_rt_kernel") or (
+            k > 64 and kernel == "bm3d_match_span_kernel"):
+        return SPAN_SERIAL
+    return PREV_DESIGN
 
 
 def grid_step(grid) -> int:
@@ -548,17 +656,29 @@ def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
 
 ENTRIES = {  # kernel name -> (its entry point in the source, pointer and int arguments)
     "bm3d_match_kernel": ("bm3d_match_launch", 6, 16),
-    "bm3d_match_tile_kernel": ("bm3d_match_tile_launch", 8, 15),
+    "bm3d_match_tile_kernel": ("bm3d_match_tile_launch", 8, 16),
     "bm3d_match_any_kernel": ("bm3d_match_any_launch", 5, 14),
     "bm3d_match_span_kernel": ("bm3d_match_span_launch", 8, 16),
+    "bm3d_match_span_rt_kernel": ("bm3d_match_span_rt_launch", 8, 16),
+    "bm3d_match_pixel_kernel": ("bm3d_match_pixel_launch", 8, 16),
+    "bm3d_match_tile_slots_kernel": ("bm3d_match_tile_slots_launch", 8, 15),
+    "bm3d_match_span_serial_kernel": ("bm3d_match_span_serial_launch", 8, 16),
 }
+
+
+# The library of the replaced designs' entries (TILE_SLOTS, SPAN_SERIAL):
+# csrc/bm3d_match_replaced.cu, bm3d_match.cu's source built with only those.
+REPLACED_LIBRARY = "bm3d_match_replaced"
 
 
 def bind(lib: ctypes.CDLL) -> dict:
     """Kernel name -> its entry point in a library built from
-    ``csrc/bm3d_match.cu``, with its argument types set."""
+    ``csrc/bm3d_match.cu`` (or ``bm3d_match_replaced.cu``), with its
+    argument types set, for each entry the library has."""
     fns = {}
     for name, (entry, pointers, ints) in ENTRIES.items():
+        if not hasattr(lib, entry):
+            continue
         fn = fns[name] = getattr(lib, entry)
         if fn.argtypes is None:
             fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
@@ -566,9 +686,21 @@ def bind(lib: ctypes.CDLL) -> dict:
     return fns
 
 
+class _Entries(dict):
+    """The built library's entries; a replaced design's, from
+    :data:`REPLACED_LIBRARY`, built and bound at its first use."""
+
+    def __missing__(self, name: str):
+        if name not in ENTRIES:
+            raise KeyError(name)
+        self.update(bind(_build.load(REPLACED_LIBRARY)))
+        return self[name]
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> dict:
-    """:func:`bind` of the built library."""
-    return bind(_build.load("bm3d_match"))
+    """:func:`bind` of the built library (the replaced designs' at first use)."""
+    return _Entries(bind(_build.load("bm3d_match")))
 
 
 def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor, block: int, k: int,
@@ -578,8 +710,9 @@ def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor
     nC, k) int32, candidate rows ``[lo, hi)``; raises if the launch fails.
     It checks nothing else and counts nothing (:func:`bm3d_match` does
     both): a caller that times one kernel against another, on a call both
-    take (the any-kernel, :data:`PREV_DESIGN`, takes every call), launches
-    through it."""
+    take (the any-kernel, :data:`PREV_DESIGN`, takes every call inside its
+    envelope; :func:`prev_design` names the design a kernel replaced),
+    launches through it."""
     b, h, w = x.shape
     nr, nc, s = g.rows_t.numel(), g.cols_t.numel(), g.offsets_t.shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -587,15 +720,16 @@ def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor
     if kernel == "bm3d_match_kernel":
         err = fn(*ptrs, g.col_plan.data_ptr(), out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k),
                  MODES[mode], g.search, g.smem_h, g.smem_w, g.pitch, g.d_pitch, lo, hi - block, stream)
-    elif kernel == "bm3d_match_tile_kernel":
+    elif kernel == TILE_SLOTS:
         r = g.reach(h, w)
         err = fn(*ptrs[:3], r.offsets.data_ptr(), r.order.data_ptr(), g.row_tiles.data_ptr(),
                  g.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, g.row_tiles.shape[0],
                  g.col_tiles.shape[0], r.order.shape[0], int(block), int(k), MODES[mode], r.search, r.pitch, lo,
                  hi - block, stream)
-    elif kernel == "bm3d_match_span_kernel":
+    elif kernel != PREV_DESIGN:  # the tile kernel and the span kernels: a plan, its most
         r = g.reach(h, w)
-        p = g.span(int(k), r.search)
+        p = (g.tile(int(k), r.search) if kernel == "bm3d_match_tile_kernel" else
+             g.pixel(r.search) if kernel == "bm3d_match_pixel_kernel" else g.span(int(k), r.search))
         err = fn(*ptrs[:3], r.offsets.data_ptr(), r.order.data_ptr(), p.row_tiles.data_ptr(),
                  p.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, p.row_tiles.shape[0],
                  p.col_tiles.shape[0], r.order.shape[0], int(block), int(k), MODES[mode], r.search, r.pitch,

@@ -1111,6 +1111,14 @@ def untouched_fingerprints(device) -> dict:
                          .astype(np.float32), device=device)
         grid = bm3d._ref_grid(128, 8, step)
         out[name] = digest(k1.bm3d_match(x, grid, grid, bm3d.search_offsets(search, 1), 8, k, mode))
+    for name, block, step, search, k in (("k1_span_golden", 4, 2, 3, 4), ("k1_span_block5", 5, 2, 4, 8),
+                                         ("k1_span_block16", 16, 8, 8, 16)):
+        rng = np.random.default_rng(block * 100 + k)
+        x = torch.tensor((load_image("13.png", 128, 128) + 0.1 * rng.standard_normal((2, 128, 128)))
+                         .astype(np.float32), device=device)
+        grid = bm3d._ref_grid(128, block, step)
+        offs = bm3d.search_offsets(search, 1)
+        out[name] = digest(*(k1.bm3d_match(x, grid, grid, offs, block, k, mode) for mode in ("bf16_xla", "f32")))
     for name, b, step, search, k in (("k2_8_16_b2", 2, 4, 8, 16), ("k2_8_16_b13", 13, 4, 8, 16),
                                       ("k2_8_32_b2", 2, 3, 19, 32)):
         rng = np.random.default_rng(b * 100 + k)
@@ -1146,14 +1154,20 @@ def untouched_fingerprints(device) -> dict:
 # What the untouched kernels gave before later slices: untouched_fingerprints
 # run on the card from a checkout of the tree before the packed K2 and the
 # cluster K3 kernel existed (K2, K3's (4, 5)), of the tree before the span
-# kernel (K1), and of the tree before the cluster kernel took distances past
-# 15 (its rows).
+# kernel (K1), of the tree before the cluster kernel took distances past
+# 15 (its rows), and of the tree before the span kernel's run-time phase 1
+# and k-128 merge were redesigned (the span rows: golden, block5 and block16
+# at B = 2, bf16_xla and f32).
 UNTOUCHED_FINGERPRINTS = {"k1_first_b13": "8c32060885cf6de7", "k1_first_b1": "3bce27305ffce817",
                           "k1_tile_k16": "9114f14fe3172631", "k1_tile_k32": "c345dae18744ff93",
                           "k2_8_16_b2": "dbc3785f3b6a9d07", "k2_8_16_b13": "1296a69990bc7c8c",
                           "k2_8_32_b2": "d1ad9bdf49a12841", "k3_4_5_b9": "ccc2b23c008bf2e8",
                           "k3_cluster_7_11_b9": "92b62ebe2b09ec08", "k3_cluster_7_11_plan_3x5": "0150c9508ceeb812",
-                          "k3_cluster_11_15_1_1_b1": "c412c1d26193b9fc"}
+                          "k3_cluster_11_15_1_1_b1": "c412c1d26193b9fc",
+                          # the span kernel at blocks 2-16, from the tree before its
+                          # run-time blocks and its k-128 merge moved to other code
+                          "k1_span_golden": "b88e16796faac3d2", "k1_span_block5": "a8918a3368fc4834",
+                          "k1_span_block16": "17170db4478aec0e"}
 
 
 def test_untouched_kernels_give_their_earlier_bits(cuda):
@@ -1391,13 +1405,17 @@ def test_k1_replaced_design_stays_reachable_by_name(cuda):
 WIDE_K1 = {"step_past_block": (8, 10, 19, 16), "block4_step6": (4, 6, 3, 4), "search32": (8, 3, 32, 16),
            "block4_s40": (4, 2, 40, 16), "k128": (8, 3, 19, 128), "block1": (1, 1, 3, 4),
            "block24": (24, 12, 8, 16), "block32": (32, 16, 4, 16), "block4_k128": (4, 2, 19, 128),
-           "block20_k64": (20, 7, 5, 64)}
+           "block20_k64": (20, 7, 5, 64), "block17": (17, 1, 5, 16), "block31": (31, 3, 4, 32),
+           "block1_k128": (1, 2, 5, 128), "block24_k128": (24, 12, 8, 128)}
+# The kernels of K1's calls past block 8's and blocks 2-16's: the tile
+# kernel, the span kernel, the run-time span kernel and the pixel kernel.
+K1_PATHS = ("bm3d_match_tile_kernel", "bm3d_match_span_kernel", "bm3d_match_span_rt_kernel", "bm3d_match_pixel_kernel")
 
 
 def _k1_wide_held(x, rows, cols, offs, block, k, mode, bounds=None):
     g = k1.match_geometry(rows, cols, offs, block, x.device)
     kernel = k1.match_kernel(g, block, k)
-    assert kernel in ("bm3d_match_tile_kernel", SPAN)
+    assert kernel in K1_PATHS
     before = dict(k1.bm3d_match.by_kernel)
     got = k1.bm3d_match(x, rows, cols, offs, block, k, mode, geometry=g, row_valid_bounds=bounds)
     torch.cuda.synchronize()
@@ -1738,3 +1756,61 @@ def test_k2_gather_form_adds_rows_anywhere_and_drops_rows_outside_the_table(cuda
     monkeypatch.setattr(k2, "index_plan", lambda b, n, p: (keep(b, n, p)[0], 16, keep(b, n, p)[2]))
     num, den = k2.launch(GATHER, fn, bad, d_est, d_wgt, d_kai, h, w, geom)
     assert torch.equal(num, want_num) and torch.equal(den, want_den)
+
+
+# The redesigns of K1's k-128 merge (the rank merge, tile and span kernels),
+# its block-1 path (the pixel kernel up to k 8) and its run-time blocks
+# 17-32 (the run-time span kernel's trees): block 1 bit for bit on real
+# inputs (a distance is one term), 20 repeats bit for bit, and each
+# replaced design, launched by name, equal to its successor on dyadic
+# images and counting nothing.
+REDESIGNED_K1 = {"k128": (8, 3, 19, 128), "block4_k128": (4, 2, 19, 128), "block1": (1, 1, 3, 4),
+                 "block1_k8": (1, 3, 6, 8), "block1_k16": (1, 1, 3, 16), "block24": (24, 12, 8, 16),
+                 "block17": (17, 1, 5, 16), "block32_k128": (32, 16, 4, 128)}
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("k", [1, 4, 8, 16, 128])
+def test_k1_at_block_1_equals_plain_exactly_on_real_images(cuda, mode, k):
+    x = torch.tensor(_profile_batch()[:4], device=cuda)
+    for step, search in ((1, 3), (3, 7)):
+        rows = bm3d._ref_grid(128, 1, step)
+        offs = bm3d.search_offsets(search, 1)
+        g = k1.match_geometry(rows, rows, offs, 1, cuda)
+        assert k1.match_kernel(g, 1, k) == ("bm3d_match_pixel_kernel" if k <= 8 else "bm3d_match_span_rt_kernel")
+        for bounds in (None, (9, 100)):
+            got = k1.bm3d_match(x, rows, rows, offs, 1, k, mode, geometry=g, row_valid_bounds=bounds)
+            assert torch.equal(got, k1.bm3d_match_plain(x, rows, rows, offs, 1, k, mode, row_valid_bounds=bounds))
+
+
+@pytest.mark.parametrize("row", list(REDESIGNED_K1))
+def test_k1_redesigned_paths_repeat_themselves_bit_for_bit(cuda, row):
+    block, step, search, k = REDESIGNED_K1[row]
+    x = torch.tensor(_profile_batch(5)[:6], device=cuda)
+    rows = bm3d._ref_grid(128, block, step)
+    offs = bm3d.search_offsets(search, 1)
+    g = k1.match_geometry(rows, rows, offs, block, cuda)
+    first = k1.bm3d_match(x, rows, rows, offs, block, k, "bf16_xla", geometry=g)
+    for _ in range(20):
+        assert torch.equal(k1.bm3d_match(x, rows, rows, offs, block, k, "bf16_xla", geometry=g), first)
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("row", list(REDESIGNED_K1))
+def test_k1_replaced_designs_equal_their_successors_on_dyadic_images(cuda, mode, row):
+    block, step, search, k = REDESIGNED_K1[row]
+    size = max(45, block + 13)
+    x = torch.tensor(_dyadic(np.random.default_rng(block * 7 + k), (2, size, size), 4, 0.25), device=cuda)
+    rows = bm3d._ref_grid(size, block, step)
+    offs = bm3d.search_offsets(search, 1)
+    g = k1.match_geometry(rows, rows, offs, block, cuda)
+    kernel = k1.match_kernel(g, block, k)
+    prev = k1.prev_design(kernel, k)
+    assert prev == (k1.TILE_SLOTS if block == 8 else k1.SPAN_SERIAL)
+    got = k1.bm3d_match(x, rows, rows, offs, block, k, mode, geometry=g)
+    before = k1.bm3d_match.launches, dict(k1.bm3d_match.by_kernel)
+    replaced = _k1_by_name(prev, x, rows, offs, block, k, mode)
+    torch.cuda.synchronize()
+    assert (k1.bm3d_match.launches, k1.bm3d_match.by_kernel) == before  # a launch by name counts nothing
+    assert torch.equal(replaced, got)
+    assert torch.equal(got, k1.bm3d_match_plain(x, rows, rows, offs, block, k, mode))

@@ -1,20 +1,27 @@
-"""K1's span kernel (``bm3d_match_span_kernel``, every block other than 8) on
-the CPU: its host-made plans, a model of its order of adds, and the plain
-version it is held to against the JAX package's Pallas matcher.
+"""K1's span kernels (every block other than 8) on the CPU: their host-made
+plans, a model of their order of adds, and the plain version they are held
+to against the JAX package's Pallas matcher.
 
 ``match_kernel`` sends every K1 call at a block other than 8 on a strictly
-ascending grid to the span kernel (``tests/test_torch_k1_tile.py`` holds the
-choice). Its tiles are ``tile_plan``'s, cut by ``span_plan`` to what three
-CTAs an SM leave room for; here each plan is held to what the kernel reads
-of it at every block 2-16: every reference coordinate in exactly one tile,
+ascending grid to a span kernel (``tests/test_torch_k1_tile.py`` holds the
+choice): blocks 2-16 to ``bm3d_match_span_kernel``, blocks 17-32 and block 1
+past k 8 to ``bm3d_match_span_rt_kernel``, block 1 at k up to 8 to
+``bm3d_match_pixel_kernel``. Their tiles are ``tile_plan``'s, cut by
+``span_plan`` to what three CTAs an SM leave room for (``pixel_plan``: a
+thread a block); here each plan is held to what the kernels read of it at
+every block 1-32 but 8: every reference coordinate in exactly one tile,
 every tile inside the kernel's span and its ``most``, and each block's sum
 taken once from exactly its own columns and rows by the kernel's tree. The
 tree (the block's binary decomposition, the largest power of two first,
 each part a doubling tree) is modelled in numpy float32, whose adds round
 as the kernel's ``__fadd_rn`` do, and held to ``match_distances_plain``:
 within the near-tie of the block's own terms on real images, exactly on
-dyadic ones. The kernel itself is held to the plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+dyadic ones. At blocks 17-32 the kernel reads the block at run time and
+forms that tree two ways (a tile of one column: the 32-wide doubling tree
+with the terms past the block as 0; else doubling sums to 16 and the
+remainder by its bits), each modelled here step for step and held to the
+tree bit for bit. The kernels themselves are held to the plain version on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ from pnp_svrg_tpu_torch.denoisers import bm3d
 from pnp_svrg_tpu_torch.ops.cuda import bm3d_match as k1
 
 BLOCKS = [b for b in range(2, 17)]
+# The span kernels' blocks: the compiled ones and those the run-time and
+# pixel kernels take.
+ALL_BLOCKS = [b for b in range(1, 33) if b != 8]
 MAX_SMEM = 227 * 1024
 
 
@@ -100,14 +110,14 @@ def _dyadic(shape, seed):
     return (0.25 * np.random.default_rng(seed).integers(0, 5, shape)).astype(np.float32)
 
 
-@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("block", ALL_BLOCKS)
 def test_the_tree_takes_each_term_of_a_block_once(block):
     assert _tree(block) == collections.Counter(range(block))
     ones = np.ones((1, 40), np.float32)
     assert np.array_equal(tree_sum(ones, block, 1), np.full((1, 41 - block), block, np.float32))
 
 
-@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("block", ALL_BLOCKS)
 @pytest.mark.parametrize("width", [37, 64, 128])
 def test_span_plans_take_each_reference_block_once_inside_the_span(block, width):
     for step in sorted({1, 2, max(1, block // 2), block}):
@@ -120,7 +130,7 @@ def test_span_plans_take_each_reference_block_once_inside_the_span(block, width)
                 taken = []
                 for start, n, mask in tiles:
                     refs = [int(v) for v in grid[start:start + n]]
-                    assert n >= 1 and mask == sum(1 << (v - refs[0]) for v in refs)
+                    assert n >= 1 and int(mask) & 0xFFFFFFFF == sum(1 << (v - refs[0]) for v in refs)  # bit 31: the sign
                     assert refs[-1] - refs[0] + block <= k1.TILE_SPAN  # a lane (row) or register (column) a pixel
                     taken += refs
                 assert taken == [int(v) for v in grid]
@@ -150,7 +160,7 @@ def test_span_kernel_shared_memory_lets_three_ctas_share_an_sm(block, search, k)
 # last reference block off the step grid (sizes not on it).
 MODEL_POINTS = [(2, 1, 3, 21), (3, 2, 2, 23), (4, 2, 3, 26), (5, 2, 4, 27), (6, 3, 3, 29), (7, 1, 2, 24),
                 (9, 4, 2, 30), (10, 5, 3, 33), (11, 3, 2, 31), (12, 6, 2, 32), (13, 7, 2, 34), (14, 2, 1, 32),
-                (15, 5, 2, 36), (16, 8, 3, 40)]
+                (15, 5, 2, 36), (16, 8, 3, 40), (1, 1, 2, 20), (17, 2, 2, 40), (24, 12, 2, 46), (31, 1, 1, 36)]
 
 
 @pytest.mark.parametrize("mode", list(k1.MODES))
@@ -220,3 +230,108 @@ def test_span_tiles_let_three_ctas_share_an_sm_or_else_fill_one(search, k):
     assert 1 <= most <= k1.SPAN_MOST and need(most) <= budget
     assert most == k1.SPAN_MOST or need(most + 1) > budget
     assert (budget == k1.SPAN_BUDGET) == (search <= 50)  # (60, 128) and (103, 16): one CTA an SM
+
+
+def _shift(a: np.ndarray, w: int) -> np.ndarray:
+    """Each lane's value ``w`` lanes down (``shfl.down``: lanes past 31 read
+    their own)."""
+    out = a.copy()
+    out[..., :-w] = a[..., w:]
+    return out
+
+
+def runtime_row_sums(t: np.ndarray, block: int) -> np.ndarray:
+    """``span_distances_tree``'s row sums at a tile of several columns,
+    step for step: the span's 32 terms doubled in place to 16, the remainder
+    ``block - 16`` gathered in a second row (columns 16-31) by its bits,
+    lowest first, as the doubling passes each width; column x's sum is its
+    16-wide sum plus the remainder's from x + 16."""
+    t, rest = t.astype(np.float32), block - 16
+    r = np.zeros(t.shape[:-1] + (16,), np.float32)
+    w = 1
+    while w <= 16:
+        if rest & w:
+            first = (rest & (w - 1)) == 0
+            for x in range(16, 32):  # ascending: r[x - 16 + w] is still the last width's
+                if x + w < 32:
+                    r[..., x - 16] = t[..., x] if first else t[..., x] + r[..., x - 16 + w]
+                elif first:
+                    r[..., x - 16] = t[..., x]
+        if w < 16:
+            t[..., :32 - w] = t[..., :32 - w] + t[..., w:]
+        w *= 2
+    return np.stack([t[..., x] + r[..., x] for x in range(33 - block)], -1)
+
+
+def one_column_sum(t: np.ndarray, block: int) -> np.ndarray:
+    """The same at a tile of one column (the span's first): the 32-wide
+    doubling tree with the terms past the block as 0."""
+    t = t.astype(np.float32)
+    t[..., block:] = 0
+    w = 1
+    while w < 32:
+        t[..., 0:32:2 * w] = t[..., 0:32:2 * w] + t[..., w:32:2 * w]
+        w *= 2
+    return t[..., 0]
+
+
+def runtime_lane_sums(v: np.ndarray, block: int) -> np.ndarray:
+    """``lane_window_sum_rt`` over the 32 lanes (last axis): doubling sums
+    to 16 down the lanes, the remainder by its bits, lowest first."""
+    v, rest = v.astype(np.float32), block - 16
+    r = np.zeros_like(v)
+    for w in (1, 2, 4, 8):
+        if rest & w:
+            r = v.copy() if (rest & (w - 1)) == 0 else v + _shift(r, w)
+        v = v + _shift(v, w)
+    if rest == 16:
+        r = v.copy()
+    return v + _shift(r, 16)
+
+
+@pytest.mark.parametrize("block", range(17, 33))
+def test_the_runtime_trees_are_the_blocks_tree_bit_for_bit(block):
+    """At blocks 17-32 the run-time kernel forms the compiled blocks' tree
+    (``tree_sum``: 16 first, then the remainder by the same rule) with the
+    block read at run time, along the rows both ways it does and down the
+    lanes: the same adds in the same order, so the same bits."""
+    rng = np.random.default_rng(block)
+    t = (rng.standard_normal((300, 32)) ** 2).astype(np.float32)
+    want = tree_sum(t, block, 1)
+    assert np.array_equal(runtime_row_sums(t, block), want)
+    assert np.array_equal(one_column_sum(t, block), want[:, 0])
+    assert np.array_equal(runtime_lane_sums(t, block)[:, :33 - block], want)
+    # a tile of one block: the same masked 32-wide tree down the lanes
+    # (a butterfly, each add's operands in either order) gives lane 0's sum
+    assert np.array_equal(one_column_sum(t, block), runtime_lane_sums(t, block)[:, 0])
+    ones = np.ones((1, 32), np.float32)
+    assert np.array_equal(runtime_row_sums(ones, block), np.full((1, 33 - block), block, np.float32))
+
+
+def test_block_1_is_one_term():
+    a = (np.random.default_rng(1).standard_normal((4, 32)) ** 2).astype(np.float32)
+    assert np.array_equal(tree_sum(a, 1, 1), a) and _tree(1) == collections.Counter([0])
+
+
+@pytest.mark.parametrize("step", [1, 2, 3, 5, 17])
+@pytest.mark.parametrize("width", [37, 64, 128])
+def test_pixel_plans_take_each_reference_block_once(step, width):
+    """``bm3d_match_pixel_kernel`` (block 1, k up to 8): a thread a
+    reference block, every block of the grid in exactly one tile, each
+    tile inside the span; its shared memory is the staged region alone."""
+    grid = bm3d._ref_grid(width, 1, step)
+    for search in (0, 3, 24):
+        plan = k1.pixel_plan(grid, grid, search, "cpu")
+        assert 1 <= plan.most <= k1.SPAN_MOST
+        for tiles in (plan.row_tiles.numpy(), plan.col_tiles.numpy()):
+            taken = []
+            for start, n, mask in tiles:
+                refs = [int(v) for v in grid[start:start + n]]
+                assert int(mask) & 0xFFFFFFFF == sum(1 << (v - refs[0]) for v in refs)
+                assert refs[-1] - refs[0] + 1 <= k1.TILE_SPAN
+                taken += refs
+            assert taken == [int(v) for v in grid]
+        assert int(plan.row_tiles[:, 1].max()) * int(plan.col_tiles[:, 1].max()) == plan.most
+        assert plan.smem_bytes == k1.pixel_smem_bytes(search) <= MAX_SMEM
+        g = k1.match_geometry(grid, grid, bm3d.search_offsets(search, 1), 1, "cpu")
+        assert torch.equal(g.pixel(search).row_tiles, plan.row_tiles) and g.pixel(search).most == plan.most
