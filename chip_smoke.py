@@ -606,8 +606,12 @@ ENVELOPE_K1_WIDE = {"step_past_block": (8, 10, 19, 16, "input"), "block4_step6":
                     "block4_k128": (4, 2, 19, 128, "basic")}
 # The wide K1 rows whose kernel or merge was redesigned (the rank merge at
 # k 128, the pixel kernel at block 1, the run-time span kernel past block
-# 16): each beside the design it replaced on the same call (prev_design).
-K1_REDESIGNED_WIDE = ("k128", "block1", "block24", "block4_k128")
+# 16, the window staged in parts): each beside the design it replaced on the
+# same call (prev_design). On the parts rows (K1_PARTS_WIDE) that is the
+# same kernel on the one-part plan (search32's plan has one part: its own
+# time twice).
+K1_PARTS_WIDE = ("search32", "search_widest", "block4_s40")
+K1_REDESIGNED_WIDE = ("k128", "block1", "block24", "block4_k128") + K1_PARTS_WIDE
 ENVELOPE_K2_WIDE = {"step_past_block": (8, 10, 19, 16), "block4_step6": (4, 6, 3, 4), "k128": (8, 3, 19, 128),
                     "block1": (1, 1, 3, 4), "block24": (24, 12, 8, 16), "search40": (8, 3, 40, 32),
                     "search_widest": (8, 3, match_search_limit(8, 16), 16)}
@@ -868,7 +872,8 @@ def ptxas_summary(log: str) -> dict:
     lane>`` for K1's first kernel, ``<P, R, kWide>`` for K3's cluster
     kernel, ``<R, G>`` for its run-time-patch kernel, ``<mode, slots a
     lane>`` for K1's tile
-    kernel, ``<mode>`` for the four-slot design it replaced at k 128,
+    kernel (``_parts``: its window staged in parts), ``<mode>`` for the
+    four-slot design it replaced at k 128,
     ``<mode, offsets a lane, block>`` for its any-kernel, ``<pairs>`` (1:
     mode 1's bf16 pairs) for its span, run-time span and serial span
     kernels, ``<mode, keys a thread>`` for its pixel kernel, ``<block, K>``
@@ -879,7 +884,7 @@ def ptxas_summary(log: str) -> dict:
         if m:
             base = re.search(r"(bm3d_match(?:_any|_tile_slots|_tile|_span_rt|_span_serial|_span|_pixel)?|"
                              r"bm3d_aggregate(?:_fold)?|"
-                             r"nlm(?:_any|_cluster|_cluster_rt|_rt_serial)?)_kernel",
+                             r"nlm(?:_any|_cluster|_cluster_rt|_rt_serial)?)_kernel(?:_parts)?",
                              m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = (base.group(0) if base else m.group(1)) + (f"<{', '.join(args)}>" if args else "")
@@ -1401,7 +1406,7 @@ def profile_lane_inputs() -> tuple:
 
 def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mode: str,
                  search_step: int = 1, modes=tuple(MODES), prev_design: bool = False,
-                 plain_reps: tuple = (10, 25)) -> dict:
+                 plain_reps: tuple = (10, 25), one_part: bool = False) -> dict:
     """K1 at one setting against its plain version, in each of ``modes`` on
     each image of ``imgs``: the multiset agreement of each
     block's k (>= 0.999 in f32, >= 0.995 in bf16), slot by slot the same
@@ -1414,10 +1419,13 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     replaced (``prev_design`` of the K1 module: the any-kernel for the tile
     and span kernels, the four-slot tile kernel at block 8 and k 128, the
     serial span kernel for the pixel and run-time kernels and for the span
-    kernel at k 128) is timed on the same arguments too (``prev_design_ms``,
-    its ``event_ms`` and the ratio), after it is held to the same rules in
-    ``lane_mode``. The plain version is timed over ``plain_reps`` = (calls,
-    warm-up calls)."""
+    kernel at k 128; with ``one_part``, the call's kernel on the one-part
+    plan, the design the window staged in parts replaced) is timed on the
+    same arguments too (``prev_design_ms``, its ``event_ms`` and the ratio),
+    after it is held to the same rules in ``lane_mode``. The tile and span
+    kernels' rows carry their plan (``span_tiles``: blocks a tile, tiles,
+    parts and the box a part stages). The plain version is timed over ``plain_reps`` =
+    (calls, warm-up calls)."""
     z = next(iter(imgs.values()))
     b, h, w = z.shape
     rows, cols = _ref_grid(h, block, step), _ref_grid(w, block, step)
@@ -1448,9 +1456,9 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
     kernel = match_kernel(geom, block, k)
     reach = geom.reach(h, w)
     smem = {"bm3d_match_kernel": lambda: geom.smem_bytes,
-            "bm3d_match_tile_kernel": lambda: geom.tile(k, reach.search).smem_bytes,
+            "bm3d_match_tile_kernel": lambda: geom.tile(k, reach=reach).smem_bytes,
             "bm3d_match_any_kernel": lambda: geom.any_smem_bytes,
-            "bm3d_match_span_kernel": lambda: geom.span(k, reach.search).smem_bytes,
+            "bm3d_match_span_kernel": lambda: geom.span(k, reach=reach).smem_bytes,
             "bm3d_match_span_rt_kernel": lambda: geom.span(k, reach.search).smem_bytes,
             "bm3d_match_pixel_kernel": lambda: geom.pixel(reach.search).smem_bytes,
             "bm3d_match_tile_slots_kernel": lambda: geom.tile_smem_bytes(k, reach.search),
@@ -1466,18 +1474,25 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
         "smem_bytes": smem[kernel](), "ctas_per_sm_by_smem": (228 * 1024) // (smem[kernel]() + 1024),
         "near_tie": tie, "checks": checks, **bounds,
     }
-    plan = {"bm3d_match_span_kernel": geom.span, "bm3d_match_span_rt_kernel": geom.span,
-            "bm3d_match_pixel_kernel": lambda k, s: geom.pixel(s), "bm3d_match_tile_kernel": geom.tile}.get(kernel)
+    plan = {"bm3d_match_span_kernel": lambda k, s: geom.span(k, reach=reach),
+            "bm3d_match_span_rt_kernel": geom.span, "bm3d_match_pixel_kernel": lambda k, s: geom.pixel(s),
+            "bm3d_match_tile_kernel": lambda k, s: geom.tile(k, reach=reach)}.get(kernel)
     if plan is not None:
         plan = plan(k, reach.search)
-        rec["span_tiles"] = {"blocks_a_tile": plan.most, "tiles": [len(plan.row_tiles), len(plan.col_tiles)]}
-    prev = k1_module.prev_design(kernel, k)
-    if prev_design and kernel != prev:
+        rec["span_tiles"] = {"blocks_a_tile": plan.most, "tiles": [len(plan.row_tiles), len(plan.col_tiles)],
+                             "parts": 1 if plan.parts is None else len(plan.parts.table),
+                             "part_box": None if plan.parts is None else [plan.parts.rows, plan.parts.pitch - 1]}
+    prev = k1_module.prev_design(kernel, k, one_part)
+    one = None  # the one-part plan (one_part)
+    if one_part:
+        one = (geom.tile if kernel == "bm3d_match_tile_kernel" else geom.span)(k, reach.search)
+        smem[prev] = lambda: one.smem_bytes
+    if prev_design and (kernel != prev or one_part):
         fn = k1_module._lib()[prev]
 
         def call_prev():  # through the kernel's own entry point: no launch counted
             out = torch.empty((b, len(rows), len(cols), k), dtype=torch.int32, device=z.device)
-            k1_module.launch(prev, fn, z, geom, out, block, k, lane_mode, 0, h)
+            k1_module.launch(prev, fn, z, geom, out, block, k, lane_mode, 0, h, plan=one)
             return out
 
         got = call_prev()
@@ -1488,7 +1503,11 @@ def match_record(imgs: dict, block: int, step: int, search: int, k: int, lane_mo
         require(c["multiset_agreement"] >= (0.999 if lane_mode == "f32" else 0.995) and c["max_rel_gap"] <= tie,
                 f"K1's {prev} at block {block}, k {k}, {len(offs)} offsets: {c}")
         rec |= {"prev_design": prev, "prev_design_checks": c, "prev_design_ms": device_ms(call_prev),
-                "prev_design_event_ms": cuda_ms(call_prev), "prev_design_smem_bytes": smem[prev]()}
+                "prev_design_event_ms": cuda_ms(call_prev), "prev_design_smem_bytes": smem[prev](),
+                "prev_design_ctas_per_sm_by_smem": (228 * 1024) // (smem[prev]() + 1024)}
+        if one_part:
+            rec["prev_design_plan"] = {"parts": 1, "blocks_a_tile": one.most,
+                                       "tiles": [len(one.row_tiles), len(one.col_tiles)]}
         rec["speedup_vs_prev_design"] = rec["prev_design_ms"] / rec["ms"]
         # The same by CUDA events (back-to-back calls), for the rows where
         # this process's profiler lost or misread device records (device_ms).
@@ -1563,7 +1582,8 @@ def check_envelope_kernels(clock_hz: float) -> tuple:
     for row, (block, step, search, k, first) in ENVELOPE_K1_WIDE.items():
         t0 = time.perf_counter()
         k1[row] = match_record({first: imgs[first]}, block, step, search, k, "bf16_xla",
-                               plain_reps=PLAIN_WIDE_REPS, prev_design=row in K1_REDESIGNED_WIDE)
+                               plain_reps=PLAIN_WIDE_REPS, prev_design=row in K1_REDESIGNED_WIDE,
+                               one_part=row in K1_PARTS_WIDE)
         k1[row]["seconds"] = time.perf_counter() - t0
     block, step, search, k, _ = ENVELOPE_K1[K1_BOUNDED_ROW]
     k1[K1_BOUNDED_ROW]["bounded"] = match_bounded_record(imgs, block, step, search, k, "bf16_xla", K1_BOUNDS)
@@ -3649,7 +3669,8 @@ def main() -> None:
         "launches_by_lane": tile_by_lane, **{k: ht[k] for k in fields + REDESIGN_FIELDS},
         "card": dev["nvidia_smi"], "bench_shapes": tile_rows,
         "ptxas": {n: s for n, s in (ptxas.get("bm3d_match", {}) | ptxas.get("bm3d_match_replaced", {})).items()
-                  if n.startswith(("bm3d_match_tile_kernel<", k1_module.TILE_SLOTS + "<"))}})
+                  if n.startswith(("bm3d_match_tile_kernel<", "bm3d_match_tile_kernel_parts<",
+                                   k1_module.TILE_SLOTS + "<"))}})
     # K1's span kernel and K2's packed and gather kernels (the paths off
     # block 8 and off (8, 16) / (8, 32): no lane runs them; their rows are
     # the envelope's, golden and search40 first) and K3's cluster kernel
@@ -3677,7 +3698,8 @@ def main() -> None:
                                     if n.startswith((kernel, "nlm_rt_serial_kernel"))}
         if group == "bm3d_match":  # and of the K1 kernel, with the designs its calls' kernels replaced
             kernels[-1]["ptxas"] = {n: s for n, s in (ptxas.get("bm3d_match", {}) | ptxas.get("bm3d_match_replaced", {}))
-                                    .items() if n.startswith((kernel + "<", k1_module.SPAN_SERIAL + "<"))}
+                                    .items() if n.startswith((kernel + "<", kernel + "_parts<",
+                                                              k1_module.SPAN_SERIAL + "<"))}
         if kernel == K1_KERNELS[3]:  # with row bounds
             bounded = k1["bench_shapes"][K1_BOUNDED_ROW]["bounded"]
             kernels[-1]["bounded"] = {"launches": 0, **{k: bounded[k] for k in ("shape", "bounds", "kernel") + fields}}

@@ -568,6 +568,32 @@ cudaError_t launch_any_mode(int S, int block, dim3 grid, size_t smem, cudaStream
 // was visiting the offsets in ascending order (PERF.md). Bound as above: f32 arithmetic (one term a
 // pixel and offset, the box sums shared by a tile's blocks); PERF.md gives
 // its time beside that bound.
+//
+// A wide window in parts (`bm3d_match_tile_kernel_parts`, k <= 64; the
+// span kernel's `bm3d_match_span_kernel_parts` likewise). The whole region,
+// (32 + 2 search)^2 words, leaves one CTA an SM at search 95, and every
+// tile visits every offset of the reach, though at 128 px only 0.47 of the
+// (tile, offset) pairs are live. Where the whole region would not let three
+// CTAs share an SM, the host cuts the reach into parts (`part_plan`): the
+// cells of bands of dy and dx cut where some tile's live offsets begin or
+// end, split to the width the host's cost model picks, the part nearest the
+// window's centre first, each part's offsets in the visiting order. On a
+// whole image a part then holds only offsets some block of a tile takes, or
+// none of the tile's. The CTA stages its reference span apart
+// (`stage_reference`: kTileSpan rows of kRefPitch words) and, for each
+// part the tile can take (`part_live`, from its first and last reference
+// rows and columns and the part's bounds), the box of pixels that part's
+// candidates reach (`stage_part_region`, laid out as `stage_span_region`
+// lays out a region: f32, or mode 1's bf16 pairs in two alignments), then
+// runs the part's offsets through the same two phases, each candidate
+// tested as before; the running top-k lists stay in shared memory across
+// parts, and the last chunk of the last part the tile takes writes the
+// result. The skip is exact: +inf never passes phase 2's ballot, phase 2
+// compares (distance bits, offset index) whatever the order, and a tile
+// that takes no part writes index 0 in every slot, the fill. (A test an
+// offset as well, inside a live part, was 4.5 % slower at search_widest:
+// PERF.md.) The parts path is a template argument of the body (PARTS), so
+// the one-part calls keep their code.
 
 constexpr int kTileSpan = 32;  // rows (one a lane) and columns a tile's patches span, at most
 constexpr int kTileCols = kTileSpan - kBlock + 1;  // column positions of an 8-wide sum in the span
@@ -580,6 +606,14 @@ constexpr unsigned kAllLanes = 0xffffffffu;
 // span (the span kernel's blocks 1 and 17-32 through its run-time phase 1).
 constexpr int kSpanMaxK = 128;
 constexpr int kSpanMinBlock = 1, kSpanMaxBlock = kTileSpan;
+// A window staged in parts (the tile kernel at k <= 64, the span kernel):
+// the tile's reference span staged apart, kTileSpan rows of kRefPitch f32
+// words (mode 1: kRefPairPitch bf16 pairs a row), and a host-made table of
+// the parts, kPartCols ints a part: its first position in the visiting
+// order, its count, dy0, dy1, dx0, dx1.
+constexpr int kRefPitch = kTileSpan + 1, kRefPairPitch = kTileSpan / 2 + 1;
+constexpr int kRefWords = kTileSpan * kRefPitch;
+constexpr int kPartCols = 6;
 
 // Two f32 values rounded to bf16 (to nearest even), packed: a low, b high.
 __device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
@@ -668,6 +702,82 @@ __device__ __forceinline__ void stage_span_region(const float* x, int H, int W, 
     for (int q = threadIdx.x; q < reg_n * reg_n; q += kTileWarps * 32)
       region[(q / reg_n) * pitch + q % reg_n] = pixel(ry0 - search + q / reg_n, rx0 - search + q % reg_n);
   }
+}
+
+// Stages a tile's reference span apart, for a window staged in parts:
+// kTileSpan rows and columns of the image `x` from (ry0, rx0), 0 outside
+// the image; f32 at row pitch kRefPitch, or in mode 1 the bf16 pairs of
+// columns (2p, 2p + 1) at row pitch kRefPairPitch.
+template <int MODE>
+__device__ __forceinline__ void stage_reference(const float* x, int H, int W, int ry0, int rx0, float* ref) {
+  auto pixel = [&](int yy, int xx) {  // the image, 0 outside it
+    return yy >= 0 && yy < H && xx >= 0 && xx < W ? x[yy * W + xx] : 0.f;
+  };
+  if (MODE == 1) {
+    unsigned* pairs = reinterpret_cast<unsigned*>(ref);
+    for (int q = threadIdx.x; q < kTileSpan * kTileSpan / 2; q += kTileWarps * 32) {
+      const int r = q / (kTileSpan / 2), p2 = q % (kTileSpan / 2);
+      pairs[r * kRefPairPitch + p2] = pack_bf16x2(pixel(ry0 + r, rx0 + 2 * p2), pixel(ry0 + r, rx0 + 2 * p2 + 1));
+    }
+  } else {
+    for (int q = threadIdx.x; q < kTileSpan * kTileSpan; q += kTileWarps * 32)
+      ref[(q / kTileSpan) * kRefPitch + q % kTileSpan] = pixel(ry0 + q / kTileSpan, rx0 + q % kTileSpan);
+  }
+}
+
+// Stages one part's box as `stage_span_region` lays out a region: the image
+// from (y0, x0), `rows` rows of `cols` (even) columns, 0 outside the image;
+// f32 at row pitch `pitch`, or mode 1's bf16 pairs in two alignments, `rows`
+// rows of pitch `pp` each.
+template <int MODE>
+__device__ __forceinline__ void stage_part_region(const float* x, int H, int W, int y0, int x0, int rows, int cols,
+                                                  int pitch, int pp, float* region, unsigned* pairs) {
+  auto pixel = [&](int yy, int xx) {  // the image, 0 outside it
+    return yy >= 0 && yy < H && xx >= 0 && xx < W ? x[yy * W + xx] : 0.f;
+  };
+  if (MODE == 1) {
+    const int half = cols / 2;
+    for (int q = threadIdx.x; q < rows * half; q += kTileWarps * 32) {
+      const int r = q / half, p2 = q % half;
+      const int yy = y0 + r, xx = x0 + 2 * p2;
+      const float v0 = pixel(yy, xx), v1 = pixel(yy, xx + 1);
+      const float v2 = 2 * p2 + 2 < cols ? pixel(yy, xx + 2) : 0.f;
+      pairs[r * pp + p2] = pack_bf16x2(v0, v1);  // round_bf16 of each
+      pairs[(rows + r) * pp + p2] = pack_bf16x2(v1, v2);
+    }
+  } else {
+    for (int q = threadIdx.x; q < rows * cols; q += kTileWarps * 32)
+      region[(q / cols) * pitch + q % cols] = pixel(y0 + q / cols, x0 + q % cols);
+  }
+}
+
+// Whether a tile whose reference rows span [ry0, ry1] and columns [rx0,
+// rx1] can take some offset of part `pt` (a row of the parts table): some
+// row plus some dy of the part in [cand_lo, cand_hi] and some column plus
+// some dx in [0, last_c]. A part it cannot take is +inf for every block of
+// the tile, so skipping it changes no result (+inf never passes phase 2's
+// ballot, and a fill is index 0 whatever was visited).
+__device__ __forceinline__ bool part_live(const int* __restrict__ pt, int ry0, int ry1, int rx0, int rx1,
+                                          int cand_lo, int cand_hi, int last_c) {
+  return ry0 + __ldg(pt + 2) <= cand_hi && ry1 + __ldg(pt + 3) >= cand_lo && rx0 + __ldg(pt + 4) <= last_c &&
+         rx1 + __ldg(pt + 5) >= 0;
+}
+
+// The last of `n_parts` parts the tile takes (`part_live`), or -1, and
+// then writes the whole tile's result: index 0 in every slot (each block
+// fills its k with +inf candidates only, as `top_k_offsets_plain` does).
+__device__ __forceinline__ int last_live_part(const int* __restrict__ parts, int n_parts, int ry0, int ry1, int rx0,
+                                              int rx1, int cand_lo, int cand_hi, int last_c, int* out, int b,
+                                              int nR, int nC, int r0, int c0, int nr, int nc, int K) {
+  int last = n_parts - 1;
+  while (last >= 0 && !part_live(parts + kPartCols * last, ry0, ry1, rx0, rx1, cand_lo, cand_hi, last_c)) --last;
+  if (last < 0) {
+    for (int q = threadIdx.x; q < nr * nc * K; q += kTileWarps * 32) {
+      const int tb = q / K, bi = tb / nc, bj = tb - bi * nc;
+      out[(((size_t)b * nR + r0 + bi) * nC + c0 + bj) * K + q % K] = 0;
+    }
+  }
+  return last;
 }
 
 // Phase 2 of the tile kernel (and of the span kernel at k 32 and 64): each
@@ -916,33 +1026,50 @@ __device__ __forceinline__ void merge_chunk_ranks(const float* dist, unsigned lo
 // The tile kernel's body: KS slots a lane merged by `merge_chunk_warps`
 // (the lists [block][entry] for kTileMax blocks), or with RANKS (k 128)
 // by `merge_chunk_ranks` (64-bit keys for `most` blocks, past the distance
-// buffer's `most` rows).
-template <int MODE, int KS, bool RANKS>
+// buffer's `most` rows). With PARTS the window comes in `n_parts` parts
+// (`parts`, kPartCols ints each): the reference span is staged apart
+// (`stage_reference`), and for each part the tile can take (`part_live`)
+// its box of `part_rows` rows of `pitch` - 1 columns from (ry0 + dy0, rx0 +
+// dx0), whose offsets' chunks then run as the whole window's do; `search`
+// and `pitch` are the whole region's without.
+template <int MODE, int KS, bool RANKS, bool PARTS = false>
 __device__ __forceinline__ void tile_kernel_body(const float* __restrict__ img, const int* __restrict__ rows,
                                                  const int* __restrict__ cols, const int* __restrict__ offsets,
                                                  const int* __restrict__ order, const int* __restrict__ row_tiles,
                                                  const int* __restrict__ col_tiles, int* __restrict__ out, int H,
                                                  int W, int nR, int nC, int S, int K, int search, int pitch,
-                                                 int cand_lo, int cand_hi, int most) {
+                                                 int cand_lo, int cand_hi, int most,
+                                                 const int* __restrict__ parts = nullptr, int n_parts = 0,
+                                                 int part_rows = 0) {
   extern __shared__ float smem[];
   const int reg_n = kTileSpan + 2 * search;  // the staged region's rows and columns (even)
   // The region as `stage_span_region` lays it out: f32 (modes 0, 2) or bf16 pairs (mode 1).
-  float* region = smem;
-  unsigned* pairs = reinterpret_cast<unsigned*>(smem);
-  const int pp = (reg_n / 2) | 1;               // the pairs' row pitch in words (odd)
-  float* dist = smem + reg_n * (pitch + 1);     // kTileMax (RANKS: most) x kDPitch, past either layout
+  float* region = PARTS ? smem + kRefWords : smem;
+  unsigned* pairs = reinterpret_cast<unsigned*>(region);
+  const int pp = PARTS ? ((pitch - 1) / 2) | 1 : (reg_n / 2) | 1;  // the pairs' row pitch in words (odd)
+  const int lay_n = PARTS ? part_rows : reg_n;                       // the rows of one pairs layout
+  const int region_words = PARTS ? kRefWords + part_rows * (pitch + 1) : reg_n * (pitch + 1);
+  float* dist = smem + region_words;            // kTileMax (RANKS: most) x kDPitch, past either layout
   unsigned* list_k = reinterpret_cast<unsigned*>(dist + kTileMax * kDPitch);  // [block][entry]
   int* list_i = reinterpret_cast<int*>(list_k + kTileMax * K);
   unsigned long long* keys =  // RANKS: [block][entry], 8-byte aligned
-      reinterpret_cast<unsigned long long*>(smem + ((reg_n * (pitch + 1) + most * kDPitch + 1) & ~1));
+      reinterpret_cast<unsigned long long*>(smem + ((region_words + most * kDPitch + 1) & ~1));
   const int r0 = row_tiles[3 * blockIdx.y], nr = row_tiles[3 * blockIdx.y + 1];
   const unsigned rmask = (unsigned)row_tiles[3 * blockIdx.y + 2];
   const int c0 = col_tiles[3 * blockIdx.x], nc = col_tiles[3 * blockIdx.x + 1];
   const unsigned cmask = (unsigned)col_tiles[3 * blockIdx.x + 2];
   const int b = blockIdx.z;
   const int ry0 = rows[r0], rx0 = cols[c0];
-  stage_span_region<MODE>(img + (size_t)b * H * W, H, W, ry0, rx0, search, reg_n, pitch, pp, region,
-                          pairs);
+  int last_part = 0;  // PARTS: the last part this tile takes
+  if constexpr (PARTS) {
+    last_part = last_live_part(parts, n_parts, ry0, ry0 + 31 - __clz(rmask), rx0, rx0 + 31 - __clz(cmask), cand_lo,
+                               cand_hi, W - kBlock, out, b, nR, nC, r0, c0, nr, nc, K);
+    if (last_part < 0) return;
+    stage_reference<MODE>(img + (size_t)b * H * W, H, W, ry0, rx0, smem);
+  } else {
+    stage_span_region<MODE>(img + (size_t)b * H * W, H, W, ry0, rx0, search, reg_n, pitch, pp, region,
+                            pairs);
+  }
   const int nt = nr * nc;
   for (int q = threadIdx.x; q < nt * K; q += kTileWarps * 32) {
     if constexpr (RANKS) {
@@ -952,7 +1079,6 @@ __device__ __forceinline__ void tile_kernel_body(const float* __restrict__ img, 
       list_i[q] = 0x7fffffff;
     }
   }
-  __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -960,70 +1086,94 @@ __device__ __forceinline__ void tile_kernel_body(const float* __restrict__ img, 
   // Lane y: region row y of the span; if it is a reference row, block row i.
   const bool ref_row = (rmask >> lane) & 1u;
   const int i = __popc(rmask & ((1u << lane) - 1u));
-  const float* ref_at = region + (search + lane) * pitch + search;  // modes 0, 2
+  // The lane's reference row: in the region (modes 0, 2), or staged apart.
+  const float* ref_at = PARTS ? smem + lane * kRefPitch : region + (search + lane) * pitch + search;
   // Mode 1: the pair of columns (c, c + 1) of region row y is word c / 2 of
   // row y of layout c % 2.
-  auto pair_at = [&](int y, int c) { return pairs + ((c & 1) * reg_n + y) * pp + (c >> 1); };
+  auto pair_at = [&](int y, int c) { return pairs + ((c & 1) * lay_n + y) * pp + (c >> 1); };
   const int last_c = W - kBlock;
   const int2* offs2 = reinterpret_cast<const int2*>(offsets);
-  for (int s0 = 0; s0 < S; s0 += kChunk) {  // positions in the visiting order
-    const int n_chunk = min(kChunk, S - s0);
-    // Phase 1: distances. The lane's reference row stays in registers for
-    // the chunk (in mode 1 as bf16 pairs: half the registers, and one load
-    // a candidate pair).
-    float ref[MODE == 1 ? 1 : kTileSpan];
-    unsigned ref2[MODE == 1 ? kTileSpan / 2 : 1];
-#pragma unroll
-    for (int xx = 0; xx < kTileSpan; xx += 2) {
-      if (MODE == 1) {
-        ref2[xx / 2] = pair_at(search + lane, search)[xx / 2];
-      } else {
-        ref[xx] = ref_at[xx];
-        ref[xx + 1] = ref_at[xx + 1];
-      }
-    }
-    for (int c = warp; c < n_chunk; c += kTileWarps) {
-      const int2 o = __ldg(offs2 + s0 + c);
-      const float* cand = ref_at + o.x * pitch + o.y;
-      const unsigned* cand2 = pair_at(search + lane + o.x, search + o.y);
-      float t[kTileSpan];
+  // The chunks of positions [s_begin, s_end) of the visiting order, the
+  // offset (0, 0) of the span at row sy and column sx of the staged region;
+  // with `writes` (the last part the tile takes), the last writes the result.
+  auto chunks = [&](int s_begin, int s_end, bool writes, int sy, int sx) {
+    const float* cand_at = PARTS ? region + (sy + lane) * pitch + sx : ref_at;
+    for (int s0 = s_begin; s0 < s_end; s0 += kChunk) {  // positions in the visiting order
+      const int n_chunk = min(kChunk, s_end - s0);
+      // Phase 1: distances. The lane's reference row stays in registers for
+      // the chunk (in mode 1 as bf16 pairs: half the registers, and one load
+      // a candidate pair).
+      float ref[MODE == 1 ? 1 : kTileSpan];
+      unsigned ref2[MODE == 1 ? kTileSpan / 2 : 1];
 #pragma unroll
       for (int xx = 0; xx < kTileSpan; xx += 2) {
-        if (MODE == 1)
-          sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);
-        else
-          sq_terms2<MODE>(0u, 0u, ref[xx], ref[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
-      }
-      const int cy = ry0 + lane + o.x;
-      const bool row_ok = ref_row && cy >= cand_lo && cy <= cand_hi;
-      // In place, ascending: t[xx] becomes the sum of 2, then 4, then 8
-      // terms from column xx, each level the sum of two of the last.
-#pragma unroll
-      for (int xx = 0; xx < kTileSpan - 1; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 1]);
-#pragma unroll
-      for (int xx = 0; xx < kTileSpan - 3; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 2]);
-#pragma unroll
-      for (int xx = 0; xx < kTileCols; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 4]);
-#pragma unroll
-      for (int xx = 0; xx < kTileCols; ++xx) {
-        if ((cmask >> xx) & 1u) {
-          const float v = sum8_down(t[xx]);
-          const int j = __popc(cmask & ((1u << xx) - 1u));
-          const int cx = rx0 + xx + o.y;
-          if (ref_row) dist[(i * nc + j) * kDPitch + c] = row_ok && cx >= 0 && cx <= last_c ? v : inf;
+        if (MODE == 1 && PARTS) {
+          ref2[xx / 2] = reinterpret_cast<const unsigned*>(smem)[lane * kRefPairPitch + xx / 2];
+        } else if (MODE == 1) {
+          ref2[xx / 2] = pair_at(search + lane, search)[xx / 2];
+        } else {
+          ref[xx] = ref_at[xx];
+          ref[xx + 1] = ref_at[xx + 1];
         }
       }
-    }
-    __syncthreads();
+      for (int c = warp; c < n_chunk; c += kTileWarps) {
+        const int2 o = __ldg(offs2 + s0 + c);
+        const float* cand = cand_at + o.x * pitch + o.y;
+        const unsigned* cand2 = pair_at(sy + lane + o.x, sx + o.y);
+        float t[kTileSpan];
+#pragma unroll
+        for (int xx = 0; xx < kTileSpan; xx += 2) {
+          if (MODE == 1)
+            sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);
+          else
+            sq_terms2<MODE>(0u, 0u, ref[xx], ref[xx + 1], cand[xx], cand[xx + 1], t[xx], t[xx + 1]);
+        }
+        const int cy = ry0 + lane + o.x;
+        const bool row_ok = ref_row && cy >= cand_lo && cy <= cand_hi;
+        // In place, ascending: t[xx] becomes the sum of 2, then 4, then 8
+        // terms from column xx, each level the sum of two of the last.
+#pragma unroll
+        for (int xx = 0; xx < kTileSpan - 1; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 1]);
+#pragma unroll
+        for (int xx = 0; xx < kTileSpan - 3; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 2]);
+#pragma unroll
+        for (int xx = 0; xx < kTileCols; ++xx) t[xx] = __fadd_rn(t[xx], t[xx + 4]);
+#pragma unroll
+        for (int xx = 0; xx < kTileCols; ++xx) {
+          if ((cmask >> xx) & 1u) {
+            const float v = sum8_down(t[xx]);
+            const int j = __popc(cmask & ((1u << xx) - 1u));
+            const int cx = rx0 + xx + o.y;
+            if (ref_row) dist[(i * nc + j) * kDPitch + c] = row_ok && cx >= 0 && cx <= last_c ? v : inf;
+          }
+        }
+      }
+      __syncthreads();
 
-    // Phase 2: each warp merges the chunk into its blocks' running top-k.
-    if constexpr (RANKS)
-      merge_chunk_ranks(dist, keys, order, s0, n_chunk, nt, nc, s0 + kChunk >= S, out, b, nR, nC, r0, c0, lane,
-                        warp);
-    else
-      merge_chunk_warps<KS>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, s0 + kChunk >= S, out,
-                            b, nR, nC, r0, c0, lane, warp);
+      // Phase 2: each warp merges the chunk into its blocks' running top-k.
+      const bool last = writes && s0 + kChunk >= s_end;
+      if constexpr (RANKS)
+        merge_chunk_ranks(dist, keys, order, s0, n_chunk, nt, nc, last, out, b, nR, nC, r0, c0, lane, warp);
+      else
+        merge_chunk_warps<KS>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
+                              c0, lane, warp);
+      __syncthreads();
+    }
+  };
+  if constexpr (PARTS) {
+    const int ry1 = ry0 + 31 - __clz(rmask), rx1 = rx0 + 31 - __clz(cmask);  // the last reference row, column
+    for (int q = 0; q <= last_part; ++q) {  // the parts nearest the window's centre first
+      const int* pt = parts + kPartCols * q;
+      if (!part_live(pt, ry0, ry1, rx0, rx1, cand_lo, cand_hi, last_c)) continue;
+      const int first = __ldg(pt), dy0 = __ldg(pt + 2), dx0 = __ldg(pt + 4);
+      stage_part_region<MODE>(img + (size_t)b * H * W, H, W, ry0 + dy0, rx0 + dx0, part_rows, pitch - 1, pitch, pp,
+                              region, pairs);
+      __syncthreads();
+      chunks(first, first + __ldg(pt + 1), q == last_part, -dy0, -dx0);
+    }
+  } else {
     __syncthreads();
+    chunks(0, S, true, search, search);
   }
 }
 
@@ -1038,6 +1188,20 @@ bm3d_match_tile_kernel(const float* __restrict__ img, const int* __restrict__ ro
                        int search, int pitch, int cand_lo, int cand_hi, int most) {
   tile_kernel_body<MODE, KS, KS == 4>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, H, W, nR, nC, S,
                                       K, search, pitch, cand_lo, cand_hi, most);
+}
+
+// The same kernel with the window staged in parts (k <= 64): the body's
+// PARTS instantiation, so that the one-part calls keep their code.
+template <int MODE, int KS>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+bm3d_match_tile_kernel_parts(const float* __restrict__ img, const int* __restrict__ rows,
+                             const int* __restrict__ cols, const int* __restrict__ offsets,
+                             const int* __restrict__ order, const int* __restrict__ row_tiles,
+                             const int* __restrict__ col_tiles, int* __restrict__ out, int H, int W, int nR,
+                             int nC, int S, int K, int pitch, int cand_lo, int cand_hi,
+                             const int* __restrict__ parts, int n_parts, int part_rows) {
+  tile_kernel_body<MODE, KS, false, true>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, H, W, nR, nC,
+                                          S, K, 0, pitch, cand_lo, cand_hi, kTileMax, parts, n_parts, part_rows);
 }
 
 // The design the rank merge replaced at k 128 (four slots a lane, each
@@ -1067,13 +1231,23 @@ cudaError_t launch_granted(dim3 grid, size_t smem, cudaStream_t stream, A... arg
   return cudaGetLastError();
 }
 
-// One slot a lane for k <= 32, two for k <= 64, the rank merge at k 128.
+// One slot a lane for k <= 32, two for k <= 64, the rank merge at k 128;
+// with `n_parts` parts (k <= 64), the window staged in parts.
 template <int MODE>
 cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const float* img,
                              const int* rows, const int* cols, const int* offsets,
                              const int* order, const int* row_tiles, const int* col_tiles,
                              int* out, int H, int W, int nR, int nC, int S, int K, int search,
-                             int pitch, int cand_lo, int cand_hi, int most) {
+                             int pitch, int cand_lo, int cand_hi, int most, const int* parts, int n_parts,
+                             int part_rows) {
+  if (n_parts > 0 && K <= 32)
+    return launch_granted<bm3d_match_tile_kernel_parts<MODE, 1>>(grid, smem, st, img, rows, cols, offsets, order,
+                                                                 row_tiles, col_tiles, out, H, W, nR, nC, S, K,
+                                                                 pitch, cand_lo, cand_hi, parts, n_parts, part_rows);
+  if (n_parts > 0)
+    return launch_granted<bm3d_match_tile_kernel_parts<MODE, 2>>(grid, smem, st, img, rows, cols, offsets, order,
+                                                                 row_tiles, col_tiles, out, H, W, nR, nC, S, K,
+                                                                 pitch, cand_lo, cand_hi, parts, n_parts, part_rows);
   if (K <= 32)
     return launch_granted<bm3d_match_tile_kernel<MODE, 1>>(grid, smem, st, img, rows, cols, offsets, order,
                                                            row_tiles, col_tiles, out, H, W, nR, nC, S, K, search,
@@ -1146,7 +1320,10 @@ cudaError_t launch_tile_mode(dim3 grid, size_t smem, cudaStream_t st, const floa
 // merging k <= 8 by a warp, k 16 by a thread, two CTAs an SM, chunks of
 // 128, tiles of half the blocks, offsets in ascending order and modes 0
 // and 2 holding the reference row in registers were each slower at most
-// rows. The run-time blocks and the design they replaced live in kernels
+// rows. A window whose region would shrink the tiles (block 4 at search 40:
+// 63 blocks, not 143) comes in parts, as the tile kernel's does
+// (`bm3d_match_span_kernel_parts`), where the host's cost model finds the
+// parts cheaper: the tiles keep a narrow window's blocks. The run-time blocks and the design they replaced live in kernels
 // of their own (`PNP_SPAN_KERNEL` below): the tree at a run-time block needs
 // more registers than the compiled cases, which keep their bits.
 
@@ -1211,34 +1388,42 @@ struct SpanTile {
   int i;         // its block row in the tile
   bool round_sq;  // mode 2: each square rounded to bf16
   float* dist;    // D[tile blocks][chunk], kDPitch floats a row
+  // A window staged in parts: the reference span staged apart, and where
+  // offset (0, 0) of the span's first row and column lies in a part's box.
+  const float* ref = nullptr;
+  int sy = 0, sx = 0;
 };
 
 // Phase 1 of the span kernel at block B: the distances of chunk positions
 // [s0, s0 + n_chunk) into `dist`, a warp an offset. Mode 1 keeps the lane's
 // reference row in registers as bf16 pairs; modes 0 and 2 read it from
 // shared memory with each candidate row (32 more registers there spilled,
-// and were slower at 5 of 6 rows: PERF.md).
-template <bool PAIRS, int B>
+// and were slower at 5 of 6 rows: PERF.md). With PARTS the reference row is
+// the one staged apart and the candidates a part's box.
+template <bool PAIRS, int B, bool PARTS = false>
 __device__ __forceinline__ void span_distances(const SpanTile& p, int s0, int n_chunk, int lane,
                                                int warp) {
   const float inf = __int_as_float(kInfBits);
-  const float* ref_at = p.region + (p.search + lane) * p.pitch + p.search;
+  const float* ref_at = PARTS ? p.ref + lane * kRefPitch : p.region + (p.search + lane) * p.pitch + p.search;
+  const float* cand_at = PARTS ? p.region + (p.sy + lane) * p.pitch + p.sx : ref_at;
+  const int sy = PARTS ? p.sy : p.search, sx = PARTS ? p.sx : p.search;
   auto pair_at = [&](int y, int c) { return p.pairs + ((c & 1) * p.reg_n + y) * p.pp + (c >> 1); };
   unsigned ref2[PAIRS ? kTileSpan / 2 : 1];
   if constexpr (PAIRS) {
 #pragma unroll
-    for (int xx = 0; xx < kTileSpan; xx += 2) ref2[xx / 2] = pair_at(p.search + lane, p.search)[xx / 2];
+    for (int xx = 0; xx < kTileSpan; xx += 2) ref2[xx / 2] = PARTS ?
+        reinterpret_cast<const unsigned*>(p.ref)[lane * kRefPairPitch + xx / 2] : pair_at(sy + lane, sx)[xx / 2];
   }
   for (int c = warp; c < n_chunk; c += kTileWarps) {
     const int2 o = __ldg(p.offsets + s0 + c);
     float t[kTileSpan], r[kTileSpan];
     if constexpr (PAIRS) {
-      const unsigned* cand2 = pair_at(p.search + lane + o.x, p.search + o.y);
+      const unsigned* cand2 = pair_at(sy + lane + o.x, sx + o.y);
 #pragma unroll
       for (int xx = 0; xx < kTileSpan; xx += 2)
         sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);
     } else {
-      const float* cand = ref_at + o.x * p.pitch + o.y;
+      const float* cand = cand_at + o.x * p.pitch + o.y;
       if (p.round_sq) {
 #pragma unroll
         for (int xx = 0; xx < kTileSpan; xx += 2)
@@ -1581,9 +1766,14 @@ __device__ __forceinline__ void merge_chunk_threads(const float* dist, unsigned 
 __host__ __device__ inline int span_entries(int K) { return K <= 4 ? 4 : K <= 8 ? 8 : K; }
 
 // Words of shared memory before the top-k lists (8-byte aligned): the staged
-// region, the distance buffer and the chunk's offset indices.
+// region (`region_words`), the distance buffer and the chunk's offset indices.
+__host__ __device__ inline int span_lists_past(int region_words, int most) {
+  return (region_words + most * kDPitch + kChunk + 1) & ~1;
+}
+
+// The same for the whole window's region at `search`.
 __host__ __device__ inline int span_lists_at(int search, int pitch, int most) {
-  return ((kTileSpan + 2 * search) * (pitch + 1) + most * kDPitch + kChunk + 1) & ~1;
+  return span_lists_past((kTileSpan + 2 * search) * (pitch + 1), most);
 }
 
 // The span kernels' phase 1 and phase 2 forms (`span_kernel_body`):
@@ -1593,22 +1783,26 @@ __host__ __device__ inline int span_lists_at(int search, int pitch, int most) {
 // run-time phase 1 and the four-slot merge (`bm3d_match_span_serial_kernel`).
 enum SpanForm { kSpanCompiled, kSpanRunTime, kSpanSerial };
 
-template <bool PAIRS, SpanForm FORM>
+template <bool PAIRS, SpanForm FORM, bool PARTS = false>
 __device__ __forceinline__ void span_kernel_body(const float* __restrict__ img, const int* __restrict__ rows,
                                                  const int* __restrict__ cols, const int* __restrict__ offsets,
                                                  const int* __restrict__ order, const int* __restrict__ row_tiles,
                                                  const int* __restrict__ col_tiles, int* __restrict__ out, int H,
                                                  int W, int nR, int nC, int S, int K, int block, bool round_sq,
-                                                 int search, int pitch, int most, int cand_lo, int cand_hi) {
+                                                 int search, int pitch, int most, int cand_lo, int cand_hi,
+                                                 const int* __restrict__ parts = nullptr, int n_parts = 0,
+                                                 int part_rows = 0) {
   constexpr bool kRanks = FORM != kSpanSerial;  // k 128 by `merge_chunk_ranks`
   extern __shared__ float smem[];
   const int reg_n = kTileSpan + 2 * search;  // the staged region's rows and columns (even)
-  float* region = smem;
-  unsigned* pairs = reinterpret_cast<unsigned*>(smem);
-  const int pp = (reg_n / 2) | 1;                                    // the pairs' row pitch (odd)
-  float* dist = smem + reg_n * (pitch + 1);                          // most x kDPitch
+  // PARTS: the reference span staged apart (kRefWords), then a part's box.
+  float* region = PARTS ? smem + kRefWords : smem;
+  unsigned* pairs = reinterpret_cast<unsigned*>(region);
+  const int pp = PARTS ? ((pitch - 1) / 2) | 1 : (reg_n / 2) | 1;   // the pairs' row pitch (odd)
+  const int region_words = PARTS ? kRefWords + part_rows * (pitch + 1) : reg_n * (pitch + 1);
+  float* dist = smem + region_words;                                 // most x kDPitch
   int* chunk_order = reinterpret_cast<int*>(dist + most * kDPitch);  // kChunk
-  float* lists = smem + span_lists_at(search, pitch, most);
+  float* lists = smem + span_lists_past(region_words, most);
   unsigned long long* list = reinterpret_cast<unsigned long long*>(lists);  // k <= 8: [entry][most]
   unsigned long long* keys = list;                                          // k 128, ranks: [block][entry]
   unsigned* list_k = reinterpret_cast<unsigned*>(lists);                    // else [block][entry]
@@ -1619,8 +1813,16 @@ __device__ __forceinline__ void span_kernel_body(const float* __restrict__ img, 
   const unsigned cmask = (unsigned)col_tiles[3 * blockIdx.x + 2];
   const int b = blockIdx.z;
   const int ry0 = rows[r0], rx0 = cols[c0];
-  stage_span_region<PAIRS ? 1 : 0>(img + (size_t)b * H * W, H, W, ry0, rx0, search, reg_n, pitch, pp,
-                                   region, pairs);
+  int last_part = 0;  // PARTS: the last part this tile takes
+  if constexpr (PARTS) {
+    last_part = last_live_part(parts, n_parts, ry0, ry0 + 31 - __clz(rmask), rx0, rx0 + 31 - __clz(cmask), cand_lo,
+                               cand_hi, W - block, out, b, nR, nC, r0, c0, nr, nc, K);
+    if (last_part < 0) return;
+    stage_reference<PAIRS ? 1 : 0>(img + (size_t)b * H * W, H, W, ry0, rx0, smem);
+  } else {
+    stage_span_region<PAIRS ? 1 : 0>(img + (size_t)b * H * W, H, W, ry0, rx0, search, reg_n, pitch, pp,
+                                     region, pairs);
+  }
   const int nt = nr * nc;
   const bool by_threads = K <= 8;
   const bool by_ranks = kRanks && K > 64;
@@ -1649,49 +1851,72 @@ __device__ __forceinline__ void span_kernel_body(const float* __restrict__ img, 
       return;
     }
   }
-  for (int s0 = 0; s0 < S; s0 += kChunk) {  // positions in the visiting order
-    const int n_chunk = min(kChunk, S - s0);
-    if (by_threads && (int)threadIdx.x < n_chunk) chunk_order[threadIdx.x] = __ldg(order + s0 + threadIdx.x);
-    __syncthreads();
-    if constexpr (FORM == kSpanRunTime) {  // phase 1: distances
-      if (block == 1)
-        span_distances<PAIRS, 1>(tile, s0, n_chunk, lane, warp);
-      else
-        span_distances_tree<PAIRS>(tile, block, s0, n_chunk, lane, warp);
-    } else {
-      switch (block) {
+  // The chunks of positions [s_begin, s_end) of the visiting order on the
+  // staged region `p`; with `writes` (the last part the tile takes), the
+  // last writes the result.
+  auto chunks = [&](int s_begin, int s_end, bool writes, const SpanTile& p) {
+    for (int s0 = s_begin; s0 < s_end; s0 += kChunk) {  // positions in the visiting order
+      const int n_chunk = min(kChunk, s_end - s0);
+      if (by_threads && (int)threadIdx.x < n_chunk) chunk_order[threadIdx.x] = __ldg(order + s0 + threadIdx.x);
+      __syncthreads();
+      if constexpr (FORM == kSpanRunTime) {  // phase 1: distances
+        if (block == 1)
+          span_distances<PAIRS, 1>(p, s0, n_chunk, lane, warp);
+        else
+          span_distances_tree<PAIRS>(p, block, s0, n_chunk, lane, warp);
+      } else {
+        switch (block) {
 #define PNP_SPAN_BLOCK(B) \
   case B:                 \
-    span_distances<PAIRS, B>(tile, s0, n_chunk, lane, warp); \
+    span_distances<PAIRS, B, PARTS>(p, s0, n_chunk, lane, warp); \
     break;
-        PNP_SPAN_BLOCK(2) PNP_SPAN_BLOCK(3) PNP_SPAN_BLOCK(4) PNP_SPAN_BLOCK(5) PNP_SPAN_BLOCK(6)
-        PNP_SPAN_BLOCK(7) PNP_SPAN_BLOCK(9) PNP_SPAN_BLOCK(10) PNP_SPAN_BLOCK(11) PNP_SPAN_BLOCK(12)
-        PNP_SPAN_BLOCK(13) PNP_SPAN_BLOCK(14) PNP_SPAN_BLOCK(15) PNP_SPAN_BLOCK(16)
+          PNP_SPAN_BLOCK(2) PNP_SPAN_BLOCK(3) PNP_SPAN_BLOCK(4) PNP_SPAN_BLOCK(5) PNP_SPAN_BLOCK(6)
+          PNP_SPAN_BLOCK(7) PNP_SPAN_BLOCK(9) PNP_SPAN_BLOCK(10) PNP_SPAN_BLOCK(11) PNP_SPAN_BLOCK(12)
+          PNP_SPAN_BLOCK(13) PNP_SPAN_BLOCK(14) PNP_SPAN_BLOCK(15) PNP_SPAN_BLOCK(16)
 #undef PNP_SPAN_BLOCK
-        default:  // 1 and 17-32 (the serial design; the host sends them nowhere else)
-          if constexpr (FORM == kSpanSerial) span_distances_rt<PAIRS>(tile, block, s0, n_chunk, lane, warp);
+          default:  // 1 and 17-32 (the serial design; the host sends them nowhere else)
+            if constexpr (FORM == kSpanSerial) span_distances_rt<PAIRS>(p, block, s0, n_chunk, lane, warp);
+        }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // Phase 2: the chunk into the blocks' running top-k.
-    const bool last = s0 + kChunk >= S;
-    if (K <= 4)
-      merge_chunk_threads<4>(dist, list, chunk_order, n_chunk, nt, most, K, last, out, b, nR, nC, r0, c0, nc);
-    else if (K <= 8)
-      merge_chunk_threads<8>(dist, list, chunk_order, n_chunk, nt, most, K, last, out, b, nR, nC, r0, c0, nc);
-    else if (K <= 32)
-      merge_chunk_warps<1>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
-                           c0, lane, warp);
-    else if (K <= 64)
-      merge_chunk_warps<2>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
-                           c0, lane, warp);
-    else if constexpr (kRanks)
-      merge_chunk_ranks(dist, keys, order, s0, n_chunk, nt, nc, last, out, b, nR, nC, r0, c0, lane, warp);
-    else
-      merge_chunk_warps<4>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
-                           c0, lane, warp);
-    __syncthreads();
+      // Phase 2: the chunk into the blocks' running top-k.
+      const bool last = writes && s0 + kChunk >= s_end;
+      if (K <= 4)
+        merge_chunk_threads<4>(dist, list, chunk_order, n_chunk, nt, most, K, last, out, b, nR, nC, r0, c0, nc);
+      else if (K <= 8)
+        merge_chunk_threads<8>(dist, list, chunk_order, n_chunk, nt, most, K, last, out, b, nR, nC, r0, c0, nc);
+      else if (K <= 32)
+        merge_chunk_warps<1>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
+                             c0, lane, warp);
+      else if (K <= 64)
+        merge_chunk_warps<2>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
+                             c0, lane, warp);
+      else if constexpr (kRanks)
+        merge_chunk_ranks(dist, keys, order, s0, n_chunk, nt, nc, last, out, b, nR, nC, r0, c0, lane, warp);
+      else
+        merge_chunk_warps<4>(dist, list_k, list_i, order, s0, n_chunk, S, K, nt, nc, last, out, b, nR, nC, r0,
+                             c0, lane, warp);
+      __syncthreads();
+    }
+  };
+  if constexpr (PARTS) {
+    const int ry1 = ry0 + 31 - __clz(rmask), rx1 = rx0 + 31 - __clz(cmask);
+    for (int q = 0; q <= last_part; ++q) {  // the parts nearest the window's centre first
+      const int* pt = parts + kPartCols * q;
+      if (!part_live(pt, ry0, ry1, rx0, rx1, cand_lo, cand_hi, W - block)) continue;
+      const int first = __ldg(pt), dy0 = __ldg(pt + 2), dx0 = __ldg(pt + 4);
+      stage_part_region<PAIRS ? 1 : 0>(img + (size_t)b * H * W, H, W, ry0 + dy0, rx0 + dx0, part_rows, pitch - 1,
+                                       pitch, pp, region, pairs);
+      SpanTile part = tile;  // its box: the pairs' layouts part_rows rows each
+      part.reg_n = part_rows;
+      part.ref = smem;
+      part.sy = -dy0;
+      part.sx = -dx0;
+      chunks(first, first + __ldg(pt + 1), q == last_part, part);  // its first barrier follows the staging
+    }
+  } else {
+    chunks(0, S, true, tile);
   }
 }
 
@@ -1711,6 +1936,21 @@ PNP_SPAN_KERNEL(bm3d_match_span_kernel, kSpanCompiled, 3)
 PNP_SPAN_KERNEL(bm3d_match_span_rt_kernel, kSpanRunTime, kRtMinCtas)
 PNP_SPAN_KERNEL(bm3d_match_span_serial_kernel, kSpanSerial, 3)
 #undef PNP_SPAN_KERNEL
+
+// The span kernel with the window staged in parts: the body's PARTS
+// instantiation, so that the one-part calls keep their code.
+template <bool PAIRS>
+__global__ void __launch_bounds__(kTileWarps * 32, 3)
+bm3d_match_span_kernel_parts(const float* __restrict__ img, const int* __restrict__ rows,
+                             const int* __restrict__ cols, const int* __restrict__ offsets,
+                             const int* __restrict__ order, const int* __restrict__ row_tiles,
+                             const int* __restrict__ col_tiles, int* __restrict__ out, int H, int W, int nR, int nC,
+                             int S, int K, int block, bool round_sq, int pitch, int most, int cand_lo, int cand_hi,
+                             const int* __restrict__ parts, int n_parts, int part_rows) {
+  span_kernel_body<PAIRS, kSpanCompiled, true>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, H, W, nR,
+                                               nC, S, K, block, round_sq, 0, pitch, most, cand_lo, cand_hi, parts,
+                                               n_parts, part_rows);
+}
 
 // ---- Block 1 at k <= 8: `bm3d_match_pixel_kernel` ------------------------
 //
@@ -1788,8 +2028,9 @@ bm3d_match_pixel_kernel(const float* __restrict__ img, const int* __restrict__ r
 // most (in [1, 256]; the plans' rows' count times the columns' at most
 // that), on a strictly ascending reference grid, k a power of two in [1,
 // 128] and any window whose tile fits shared memory. FORM's kernel takes
-// the blocks `span_takes` lets through. Each returns the launch's
-// cudaError_t.
+// the blocks `span_takes` lets through; only `bm3d_match_span_launch`
+// takes a window in parts (`n_parts` > 0, as the tile kernel's entry
+// does). Each returns the launch's cudaError_t.
 enum SpanEntry { kEntryCompiled, kEntryRunTime, kEntrySerial, kEntryPixel };
 
 __host__ inline bool span_takes(SpanEntry form, int block, int K) {
@@ -1815,17 +2056,33 @@ constexpr auto span_kernel_of() {
 
 template <SpanEntry FORM>
 int span_entry(const float* img, const int* rows, const int* cols, const int* offsets, const int* order,
-               const int* row_tiles, const int* col_tiles, int* out, int B, int H, int W, int nR, int nC,
-               int n_row_tiles, int n_col_tiles, int S, int block_size, int K, int mode, int search, int pitch,
-               int most, int cand_lo, int cand_hi, void* stream) {
+               const int* row_tiles, const int* col_tiles, int* out, const int* parts, int B, int H, int W, int nR,
+               int nC, int n_row_tiles, int n_col_tiles, int S, int block_size, int K, int mode, int search,
+               int pitch, int most, int cand_lo, int cand_hi, int n_parts, int part_rows, void* stream) {
   if (block_size < kSpanMinBlock || block_size > kSpanMaxBlock || !span_takes(FORM, block_size, K) || K < 1 ||
       K > kSpanMaxK || (K & (K - 1)) != 0 || S < 1 || mode < 0 || mode > 2 || search < 0 ||
-      pitch < kTileSpan + 2 * search || n_row_tiles < 1 || n_col_tiles < 1 || most < 1 ||
-      most > kTileWarps * 32 || cand_lo < 0 || cand_hi > H - block_size)
+      pitch < (n_parts > 0 ? kTileSpan + 1 : kTileSpan + 2 * search) || n_row_tiles < 1 || n_col_tiles < 1 ||
+      most < 1 || most > kTileWarps * 32 || cand_lo < 0 || cand_hi > H - block_size || n_parts < 0 ||
+      (n_parts > 0 && (FORM != kEntryCompiled || parts == nullptr || part_rows < kTileSpan || pitch % 2 == 0)))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dim3 grid(n_col_tiles, n_row_tiles, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (FORM == kEntryCompiled) {
+    if (n_parts > 0) {
+      const size_t smem = sizeof(float) * span_lists_past(kRefWords + part_rows * (pitch + 1), most) +
+                          sizeof(unsigned long long) * most * span_entries(K);
+      if (mode == 1)
+        return launch_granted<bm3d_match_span_kernel_parts<true>>(grid, smem, st, img, rows, cols, offsets, order,
+                                                                  row_tiles, col_tiles, out, H, W, nR, nC, S, K,
+                                                                  block_size, false, pitch, most, cand_lo, cand_hi,
+                                                                  parts, n_parts, part_rows);
+      return launch_granted<bm3d_match_span_kernel_parts<false>>(grid, smem, st, img, rows, cols, offsets, order,
+                                                                 row_tiles, col_tiles, out, H, W, nR, nC, S, K,
+                                                                 block_size, mode == 2, pitch, most, cand_lo,
+                                                                 cand_hi, parts, n_parts, part_rows);
+    }
+  }
   if constexpr (FORM == kEntryPixel) {
     const size_t smem = sizeof(float) * (size_t)(kTileSpan + 2 * search) * pitch;
 #define PNP_PIXEL(M, KL)                                                                                        \
@@ -1853,12 +2110,13 @@ int span_entry(const float* img, const int* rows, const int* cols, const int* of
 
 #define PNP_SPAN_ENTRY(NAME, FORM)                                                                              \
   extern "C" int NAME(const float* img, const int* rows, const int* cols, const int* offsets, const int* order, \
-                      const int* row_tiles, const int* col_tiles, int* out, int B, int H, int W, int nR, int nC,  \
-                      int n_row_tiles, int n_col_tiles, int S, int block_size, int K, int mode, int search,       \
-                      int pitch, int most, int cand_lo, int cand_hi, void* stream) {                              \
-    return span_entry<FORM>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, B, H, W, nR, nC,         \
+                      const int* row_tiles, const int* col_tiles, int* out, const int* parts, int B, int H, int W, \
+                      int nR, int nC, int n_row_tiles, int n_col_tiles, int S, int block_size, int K, int mode,    \
+                      int search, int pitch, int most, int cand_lo, int cand_hi, int n_parts, int part_rows,      \
+                      void* stream) {                                                                             \
+    return span_entry<FORM>(img, rows, cols, offsets, order, row_tiles, col_tiles, out, parts, B, H, W, nR, nC,  \
                             n_row_tiles, n_col_tiles, S, block_size, K, mode, search, pitch, most, cand_lo,       \
-                            cand_hi, stream);                                                                     \
+                            cand_hi, n_parts, part_rows, stream);                                                 \
   }
 #ifndef PNP_K1_REPLACED_DESIGNS  // the kernels K1's calls take
 
@@ -1942,20 +2200,26 @@ extern "C" int bm3d_match_any_launch(const float* img, const int* rows, const in
 // rows' count times the columns' at most `most`). `pitch` (odd, at least
 // kTileSpan + 2 search) is the staged region's row pitch. `most` (in [1,
 // kTileMax]) lays out the rank merge's shared memory at k 128; below it is
-// kTileMax. The rest as above. Returns the launch's cudaError_t.
+// kTileMax. With `n_parts` > 0 (k <= 64) the window comes in parts:
+// `parts` (n_parts, kPartCols) int32, each part's offsets together in
+// `offsets` / `order`, and `part_rows` x (`pitch` - 1) (odd `pitch`) the box
+// a part stages. The rest as above. Returns the launch's cudaError_t.
 extern "C" int bm3d_match_tile_launch(const float* img, const int* rows, const int* cols,
                                       const int* offsets, const int* order, const int* row_tiles,
-                                      const int* col_tiles, int* out, int B, int H, int W, int nR,
-                                      int nC, int n_row_tiles, int n_col_tiles, int S,
+                                      const int* col_tiles, int* out, const int* parts, int B, int H, int W,
+                                      int nR, int nC, int n_row_tiles, int n_col_tiles, int S,
                                       int block_size, int K, int mode, int search, int pitch,
-                                      int most, int cand_lo, int cand_hi, void* stream) {
+                                      int most, int cand_lo, int cand_hi, int n_parts, int part_rows,
+                                      void* stream) {
   if (block_size != kBlock || K < 1 || K > kSpanMaxK || (K > 64 && K != kRankK) || S < 1 || search < 0 ||
-      pitch < kTileSpan + 2 * search || n_row_tiles < 1 || n_col_tiles < 1 || most < 1 || most > kTileMax ||
-      (K <= 64 && most != kTileMax) || cand_lo < 0 || cand_hi > H - kBlock)
+      pitch < (n_parts > 0 ? kTileSpan + 1 : kTileSpan + 2 * search) || n_row_tiles < 1 || n_col_tiles < 1 ||
+      most < 1 || most > kTileMax || (K <= 64 && most != kTileMax) || cand_lo < 0 || cand_hi > H - kBlock ||
+      n_parts < 0 || (n_parts > 0 && (K > 64 || parts == nullptr || part_rows < kTileSpan || pitch % 2 == 0)))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dim3 grid(n_col_tiles, n_row_tiles, B);
-  const size_t region = (size_t)(kTileSpan + 2 * search) * (pitch + 1);
+  const size_t region = n_parts > 0 ? (size_t)kRefWords + (size_t)part_rows * (pitch + 1)
+                                    : (size_t)(kTileSpan + 2 * search) * (pitch + 1);
   const size_t smem = K > 64 ? sizeof(float) * ((region + (size_t)most * kDPitch + 1) & ~(size_t)1) +
                                    sizeof(unsigned long long) * most * K
                              : sizeof(float) * (region + (size_t)kTileMax * kDPitch) + 2 * sizeof(int) * kTileMax * K;
@@ -1964,7 +2228,7 @@ extern "C" int bm3d_match_tile_launch(const float* img, const int* rows, const i
 #define PNP_TILE_MODE(M)                                                                                       \
   case M:                                                                                                      \
     return launch_tile_mode<M>(grid, smem, st, img, rows, cols, offsets, order, row_tiles, col_tiles, out, H, W, \
-                               nR, nC, S, K, search, pitch, cand_lo, cand_hi, most);
+                               nR, nC, S, K, search, pitch, cand_lo, cand_hi, most, parts, n_parts, part_rows);
     PNP_TILE_MODE(0) PNP_TILE_MODE(1) PNP_TILE_MODE(2)
 #undef PNP_TILE_MODE
     default:

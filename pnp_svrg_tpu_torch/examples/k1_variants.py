@@ -1,7 +1,7 @@
 """Time K1's tile and span kernels against the design they replaced, and
 against variants of their source, on the card.
 
-    python -m pnp_svrg_tpu_torch.examples.k1_variants [--part tile|span|rank|rt]
+    python -m pnp_svrg_tpu_torch.examples.k1_variants [--part tile|span|rank|rt|parts]
 
 Part ``tile`` (block 8).
 
@@ -73,6 +73,25 @@ every mode first and time in ``bf16_xla``, each timing by
 ``chip_smoke.device_ms`` (profiler windows, which tolerate a lost record)
 and by CUDA events (``event_ms``).
 
+Part ``parts`` (the windows staged in parts): ``search32`` (block 8,
+step 3, search 32), ``search_widest`` (search 95, 36,481 offsets) and
+``block4_s40`` (block 4, step 2, search 40), k 16, on the first denoise
+input (:data:`PART_ROWS`): the plan the call takes ("plan":
+:meth:`k1.MatchGeometry.tile` / ``.span`` with the reach) against the
+one-part plan, the design it replaced ("one_part", in turns: plan,
+one_part, one_part, plan), then beside other plans (:data:`PART_PLANS`,
+each on its own tiles): the parts cut where the tiles' live offsets begin
+and end, split to at most w offsets an axis ("width_w"), square parts of
+edge e, the centre one centred ("square_e"), and bands of e dy values
+across the whole dx range ("band_e"); and beside :data:`PART_VARIANTS` of the
+source (``no_dead_parts``: every part visited; ``host_made``: the
+dead-part test read from bits the host adds to each part's row of the
+table, :func:`host_made_table`, not made in the kernel). Each is held to
+the plain version first (all three modes for the plan and the one-part
+plan, ``bf16_xla`` for the rest); each line carries per name the parts,
+cut points, blocks a tile, tiles, shared memory and the host's cost of its
+visits (:meth:`k1.MatchGeometry.visit_cost`).
+
 Parts ``tile`` and ``span`` run by default. Variants build into
 ``build/pnp_svrg_tpu_torch/variants/`` with the port's ``nvcc`` flags.
 Needs a CUDA card.
@@ -107,10 +126,10 @@ VARIANTS = {  # name -> [(text of the built source, its replacement), ...]
         ("      region[(q / reg_n) * pitch + q % reg_n] = pixel(ry0 - search + q / reg_n, rx0 - search + q % reg_n);",
          "      region[(q / reg_n) * pitch + q % reg_n] = MODE == 1 ? round_bf16(pixel(ry0 - search + q / reg_n, "
          "rx0 - search + q % reg_n)) : pixel(ry0 - search + q / reg_n, rx0 - search + q % reg_n);"),
-        ("        ref2[xx / 2] = pair_at(search + lane, search)[xx / 2];",
-         "        ref2[xx / 2] = pack_bf16x2(ref_at[xx], ref_at[xx + 1]);"),
-        ("          sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);",
-         "          sq_terms2<1>(ref2[xx / 2], pack_bf16x2(cand[xx], cand[xx + 1]), 0.f, 0.f, 0.f, 0.f, t[xx], "
+        ("          ref2[xx / 2] = pair_at(search + lane, search)[xx / 2];",
+         "          ref2[xx / 2] = pack_bf16x2(ref_at[xx], ref_at[xx + 1]);"),
+        ("            sq_terms2<1>(ref2[xx / 2], cand2[xx / 2], 0.f, 0.f, 0.f, 0.f, t[xx], t[xx + 1]);",
+         "            sq_terms2<1>(ref2[xx / 2], pack_bf16x2(cand[xx], cand[xx + 1]), 0.f, 0.f, 0.f, 0.f, t[xx], "
          "t[xx + 1]);"),
     ],
 }
@@ -118,8 +137,9 @@ SPAN_VARIANTS = {
     "two_ctas": [("PNP_SPAN_KERNEL(bm3d_match_span_kernel, kSpanCompiled, 3)",
                   "PNP_SPAN_KERNEL(bm3d_match_span_kernel, kSpanCompiled, 2)")],
     "warp_merge": [("  const bool by_threads = K <= 8;", "  const bool by_threads = false;"),
-                   ("    if (K <= 4)\n      merge_chunk_threads<4>", "    if (false)\n      merge_chunk_threads<4>"),
-                   ("    else if (K <= 8)\n      merge_chunk_threads<8>", "    else if (false)\n      merge_chunk_threads<8>"),
+                   ("      if (K <= 4)\n        merge_chunk_threads<4>", "      if (false)\n        merge_chunk_threads<4>"),
+                   ("      else if (K <= 8)\n        merge_chunk_threads<8>",
+                    "      else if (false)\n        merge_chunk_threads<8>"),
                    ("{ return K <= 4 ? 4 : K <= 8 ? 8 : K; }", "{ return K; }")],
     "f32_ref_registers": [  # modes 0 and 2 keep the reference row in registers for the chunk
         ("  if constexpr (PAIRS) {\n#pragma unroll\n    for (int xx = 0; xx < kTileSpan; xx += 2) ref2[xx / 2]",
@@ -132,6 +152,23 @@ SPAN_VARIANTS = {
     "chunk_128": [("constexpr int kChunk = 64;", "constexpr int kChunk = 128;")],
 }
 RANK_VARIANTS = {"chunk_128": [("constexpr int kChunk = 64;", "constexpr int kChunk = 128;")]}
+PART_VARIANTS = {
+    "no_dead_parts": [("  return ry0 + __ldg(pt + 2) <= cand_hi", "  return true || ry0 + __ldg(pt + 2) <= cand_hi")],
+    # The dead-part test made on the host: each part's row of the table
+    # carries the row tiles and the column tiles that take it, as bits
+    # (host_made_table); the kernel reads its tile's bits.
+    "host_made": [("constexpr int kPartCols = 6;", "constexpr int kPartCols = 8;"),
+                  ("  return ry0 + __ldg(pt + 2) <= cand_hi",
+                   "  return ((__ldg(pt + 6) >> blockIdx.y) & (__ldg(pt + 7) >> blockIdx.x) & 1) != 0;\n"
+                   "  (void)(ry0 + __ldg(pt + 2) <= cand_hi"),
+                  ("         rx1 + __ldg(pt + 5) >= 0;", "         rx1 + __ldg(pt + 5) >= 0);")]}
+# (block, step, search, k, image) of chip_smoke.py's rows the parts design
+# takes, and the other plans each is timed on.
+PART_ROWS = {"search32": (8, 3, 32, 16, "input"), "search_widest": (8, 3, 95, 16, "input"),
+             "block4_s40": (4, 2, 40, 16, "input")}
+PART_PLANS = {"search32": {"width": (27, 37), "square": (25,)},
+              "search_widest": {"width": (19, 27), "square": (27, 49), "band": (9,)},
+              "block4_s40": {"width": (21, 41), "square": (29,), "band": (5,)}}
 RT_VARIANTS = {"rt_two_ctas": [("constexpr int kRtMinCtas = 3;", "constexpr int kRtMinCtas = 2;")],
                "rt_four_ctas": [("constexpr int kRtMinCtas = 3;", "constexpr int kRtMinCtas = 4;")],
                "no_one_column": [("  const bool one_col = p.cmask == 1u;", "  const bool one_col = false;"),
@@ -441,9 +478,100 @@ def rank_plans(label, g, k, search) -> dict:
     return out
 
 
+def square_cuts(offsets, edge: tuple) -> tuple:
+    """Cut points of bands of ``edge`` = (dy, dx) values along each axis of
+    ``offsets``, the centre band from -(edge // 2): square parts, the
+    centre part centred."""
+    offs = np.asarray(offsets).reshape(-1, 2)
+    return tuple(tuple(range(-(e // 2) + e * -(-(int(offs[:, a].min()) + e // 2) // e), int(offs[:, a].max()) + 1, e))
+                 for a, e in enumerate(edge))
+
+
+def host_made_table(g, plan, h: int, w: int):
+    """``plan`` with its parts table widened by two columns for the
+    ``host_made`` variant: the bits of the row tiles whose rows plus the
+    part's dy reach the image's candidate rows, and of the column tiles
+    whose columns plus its dx reach its columns (the two halves of
+    :func:`k1.parts_live`, on the whole image)."""
+    t = plan.parts.table.cpu().numpy().astype(np.int64)
+    bits = [sum(((first + t[:, lo] <= last_c) & (last + t[:, lo + 1] >= 0)).astype(np.int64) << i
+                for i, (first, last) in enumerate(g._spans(tiles, grid)))
+            for tiles, grid, lo, last_c in ((plan.row_tiles, g.rows, 2, h - g.block),
+                                             (plan.col_tiles, g.cols, 4, w - g.block))]
+    wide = np.concatenate([t, np.stack(bits, 1)], 1).astype(np.int32)
+    table = torch.as_tensor(np.ascontiguousarray(wide), device=plan.row_tiles.device)
+    return dataclasses.replace(plan, parts=dataclasses.replace(plan.parts, table=table))
+
+
+def time_parts(imgs: dict) -> dict:
+    """Part ``parts``: prints a line a row; returns ptxas's lines of the
+    variants' builds."""
+    from chip_smoke import cuda_ms, device_ms as window_ms, match_bounds, near_tie
+
+    built = k1._lib()
+    var_fns, logs = build_variants(PART_VARIANTS, None)
+    for label, (block, step, search, k, which) in PART_ROWS.items():
+        x = imgs[which]
+        b, h, w = x.shape
+        rows = _ref_grid(h, block, step)
+        offs = search_offsets(search, 1)
+        g = k1.match_geometry(rows, rows, offs, block, x.device)
+        kernel = k1.match_kernel(g, block, k)
+        r = g.reach(h, w)
+        tile = kernel == "bm3d_match_tile_kernel"
+        plans = {"plan": g.tile(k, reach=r) if tile else g.span(k, reach=r),
+                 "one_part": g.tile(k, r.search) if tile else g.span(k, r.search)}
+        for form, edges in PART_PLANS[label].items():
+            for e in edges:
+                cuts = (None if form == "width" else
+                        square_cuts(r.host[0], (e, e) if form == "square" else (e, 2 * r.search + 1)))
+                plans[f"{form}_{e}"] = g.tile_parts(k, r, e, cuts) if tile else g.span_parts(k, r, e, cuts)
+        fns = {name: (built[kernel], plan) for name, plan in plans.items()}
+        if plans["plan"].parts is not None:  # the variants edit the parts path
+            fns |= {name: (bound[kernel], host_made_table(g, plans["plan"], h, w) if name == "host_made" else
+                           plans["plan"]) for name, bound in var_fns.items()}
+
+        def call(name, mode, fns=fns, rows=rows, k=k, block=block, g=g, x=x):
+            fn, plan = fns[name]
+            out = torch.empty((b, len(rows), len(rows), k), dtype=torch.int32, device=x.device)
+            k1.launch(kernel, fn, x, g, out, block, k, mode, 0, h, plan=plan)
+            return out
+
+        def describe(p):
+            table = None if p.parts is None else p.parts.table.cpu().numpy()
+            return {"parts": 0 if p.parts is None else len(table), "cuts": None if p.parts is None else p.parts.cuts,
+                    "blocks_a_tile": p.most, "tiles": [len(p.row_tiles), len(p.col_tiles)],
+                    "smem_bytes": p.smem_bytes, "ctas_per_sm_by_smem": (228 * 1024) // (p.smem_bytes + 1024),
+                    "visit_cost": g.visit_cost(p.row_tiles, p.col_tiles, table, r)}
+
+        rec = {"row": label, "images": [b, h, w], "block": block, "step": step, "offsets": len(offs), "k": k,
+               "kernel": kernel, "near_tie": near_tie(block), "plans": {n: describe(p) for n, p in plans.items()},
+               **match_bounds(b, h, w, rows, rows, offs, block=block, k=k)}
+        for mode in k1.MODES:
+            want = k1.bm3d_match_plain(x, rows, rows, offs, block, k, mode)
+            dists = k1.match_distances_plain(x, rows, rows, offs, block, mode)
+            names = fns if mode == "bf16_xla" else ("plan", "one_part")
+            rec[mode] = {name: held_to_plain(call(name, mode), want, dists) for name in names}
+            for name in names:
+                rec[mode][name]["near_tie_ok"] = rec[mode][name]["max_rel_gap"] <= near_tie(block)
+        mode = "bf16_xla"
+        order = ["plan", "one_part", "one_part", "plan"] + [v for name in fns if name not in ("plan", "one_part")
+                                                            for v in (name, "plan", "plan", name)]
+        ms = {name: [] for name in fns}
+        events = {name: [] for name in fns}
+        for v in order:
+            ms[v].append(window_ms(lambda v=v: call(v, mode), reps=10 if v == "one_part" else 50))
+            events[v].append(cuda_ms(lambda v=v: call(v, mode), reps=10 if v == "one_part" else 50, warmup=3))
+        for name in fns:
+            rec[mode][name]["ms"], rec[mode][name]["event_ms"] = ms[name], events[name]
+        print(json.dumps(rec), flush=True)
+    return {name: {kern: kernel_ptxas(log, kern) for kern in ("bm3d_match_tile_kernel", "bm3d_match_span_kernel")}
+            for name, log in logs.items()}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--part", choices=("tile", "span", "rank", "rt"), action="append")
+    ap.add_argument("--part", choices=("tile", "span", "rank", "rt", "parts"), action="append")
     parts = ap.parse_args(argv).part or ["tile", "span"]
     if not torch.cuda.is_available():
         raise SystemExit("k1_variants: needs a CUDA card")
@@ -451,7 +579,8 @@ def main(argv=None) -> None:
     run = {"tile": time_tile, "span": time_span,
            "rank": lambda im: time_against_replaced(im, RANK_ROWS, {}, RANK_VARIANTS, rank_plans),
            "rt": lambda im: time_against_replaced(im, RT_ROWS, {"block1": {"span_rt": "bm3d_match_span_rt_kernel"}},
-                                                  RT_VARIANTS, lambda *a: {})}
+                                                  RT_VARIANTS, lambda *a: {}),
+           "parts": time_parts}
     ptxas = {part: run[part](imgs) for part in parts}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -44,7 +44,13 @@ than the image is taken through its reach (:meth:`MatchGeometry.reach`): an
 offset with ``|dy| > H - block`` or ``|dx| > W - block`` is +inf for every
 reference block, so the tile and span kernels skip it and stage only the
 halo of the rest, and every index they return stays the offset's index in
-the full window (a fill is index 0, as there). A setting outside the
+the full window (a fill is index 0, as there). Where the whole region would
+crowd the CTA, the tile kernel (k up to 64) and the span kernel (blocks
+2-16) stage the reach in parts (:class:`PartPlan`: sub-windows of offsets,
+each with its own halo, the tile's reference span staged apart) and visit
+only the parts some block of the tile can take; elsewhere the plan has one
+part, today's path bit for bit (:meth:`MatchGeometry.tile`,
+:meth:`MatchGeometry.span` with a reach). A setting outside the
 envelope raises before any launch, naming its bound
 (:func:`check_match_envelope`). The designs the tile and span kernels
 replaced stay reachable by name through :func:`launch`, so that a caller can
@@ -100,6 +106,18 @@ TILE_BUDGETS = (228 * 1024 // 3 - 1024, 228 * 1024 // 2 - 1024)
 # region), as many as one CTA's shared memory holds.
 SPAN_MOST, SPAN_BUDGET = 256, 228 * 1024 // 3 - 1024
 _MAX_SMEM = 227 * 1024
+# A window staged in parts (PartPlan): the tile's reference span staged
+# apart, TILE_SPAN rows of TILE_SPAN + 1 words (kRefWords in the source:
+# f32, or mode 1's bf16 pairs in the first TILE_SPAN // 2 + 1 of each row);
+# a part's row of the host-made table is PART_COLS ints (kPartCols: its
+# first position in the plan's order, its count, dy0, dy1, dx0, dx1). Parts
+# are the cells of bands of dy and dx, cut where some tile's live offsets
+# begin or end (MatchGeometry.live_cuts) and split to at most a width
+# between MIN_PART_EDGE and the window's. A plan's cost
+# (MatchGeometry.visit_cost) counts each part a tile visits as PART_COST
+# chunks besides its own: its staging, its barrier, its last chunk's idle
+# warps.
+REF_WORDS, PART_COLS, MIN_PART_EDGE, PART_COST = TILE_SPAN * (TILE_SPAN + 1), 6, 9, 0.5
 # The settings K1 takes on the card: (least, most) of each; k is also a
 # power of two (the Hadamard transform along the group needs one); the
 # reference step, the search step and the row bounds any; the search
@@ -131,13 +149,17 @@ def check_match_envelope(block: int, k: int, search: int, step: int) -> None:
       fewer where that lets three or two CTAs share an SM).
     * step 1 or more (a grid that strictly ascends; at a step past the block
       a tile holds fewer blocks, one from step 25 at block 8).
-    * search 0 to :func:`match_search_limit` (block, k): the CTA stages its
-      tile's 32-pixel span plus the window's halo, (32 + 2 search) rows of
-      (33 + 2 search) 4-byte words, beside its distance buffer and top-k
-      lists, in one CTA's 227 KB (232,448 bytes). At block 8 and k 16 that
-      is search 95: 222 x 224 x 4 = 198,912 bytes of region, 21,060 of
-      distances and 10,368 of lists. A wider window on a small image is
-      taken through its reach."""
+    * search 0 to :func:`match_search_limit` (block, k): the windows whose
+      one-part plan fits one CTA's 227 KB (232,448 bytes), the tile's
+      32-pixel span plus the window's halo, (32 + 2 search) rows of (33 + 2
+      search) 4-byte words, beside its distance buffer and top-k lists. At
+      block 8 and k 16 that is search 95: 222 x 224 x 4 = 198,912 bytes of
+      region, 21,060 of distances and 10,368 of lists. The calls past three
+      CTAs an SM stage the window in parts (:class:`PartPlan`), which fit
+      three CTAs at any window; the limit stays where every call can also
+      take the one-part plan, the design the parts replaced, which
+      ``launch(..., plan=...)`` reaches on the same call. A wider window on
+      a small image is taken through its reach."""
     lo, hi = MATCH_ENVELOPE["block"]
     if not lo <= block <= hi:
         raise ValueError(f"K1 takes block {lo}-{hi} (a tile's span is {TILE_SPAN} pixels, one row a lane), "
@@ -395,15 +417,126 @@ def span_most(search: int, k: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class PartPlan:
+    """A reach's offsets cut into parts that the tile and span kernels stage
+    one at a time (:func:`part_plan`): each part's row of ``table`` is
+    (first position in ``order`` / ``offsets``, count, dy0, dy1, dx0, dx1),
+    the part's offsets in the visiting order, the parts nearest the window's
+    centre first. A CTA stages its tile's reference span apart
+    (:data:`REF_WORDS`) and, for each part some block of the tile can take,
+    the ``rows`` x (``pitch`` - 1) box of pixels its offsets reach from the
+    span (f32 at row pitch ``pitch``, or mode 1's bf16 pairs in two
+    alignments)."""
+
+    table: torch.Tensor  # (n, PART_COLS) int32
+    order: torch.Tensor  # (S',) int32: window indices, part by part
+    offsets: torch.Tensor  # (S', 2) int32: the offsets in that order
+    rows: int  # TILE_SPAN + the largest dy extent of a part
+    pitch: int  # odd: TILE_SPAN + the largest dx extent, made even, + 1
+    cuts: tuple  # (dy, dx) cut points: a band of each axis starts at each
+
+    @property
+    def words(self) -> int:
+        """Shared-memory words of the reference span and a part's box."""
+        return part_words(self.rows, self.pitch)
+
+
+def part_words(rows: int, pitch: int) -> int:
+    """Shared-memory words of the reference span and a part's box of
+    ``rows`` rows at row pitch ``pitch`` (f32, or both pairs layouts)."""
+    return REF_WORDS + rows * (pitch + 1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class SpanPlan:
     """``bm3d_match_span_kernel``'s tiles for one k: :func:`tile_plan` of the
     rows and the columns, ``most`` the largest tile's blocks (its layout's
-    stride) and the CTA's shared memory."""
+    stride) and the CTA's shared memory; ``parts`` where the window is
+    staged in parts (None: one part, the whole reach at once)."""
 
     row_tiles: torch.Tensor  # (n, 3) int32
     col_tiles: torch.Tensor
     most: int
     smem_bytes: int
+    parts: PartPlan | None = None
+
+
+def box(width: int) -> tuple:
+    """(rows, pitch) of the box a part of at most ``width`` offsets an axis
+    stages (:class:`PartPlan`)."""
+    cols = TILE_SPAN + width - 1
+    return TILE_SPAN + width - 1, cols + (cols & 1) + 1
+
+
+def _parts(offsets, cuts: tuple) -> tuple:
+    """:func:`part_plan` in numpy: (the positions of ``offsets`` part by
+    part, the table, the box's rows, its pitch)."""
+    offs = np.asarray(offsets, np.int64).reshape(-1, 2)
+    band = np.stack([np.searchsorted(np.asarray(c, np.int64), offs[:, a], side="right")
+                     for a, c in enumerate(cuts)], 1)
+    _, cell = np.unique(band[:, 0] * (len(cuts[1]) + 1) + band[:, 1], return_inverse=True)
+    cell = cell.reshape(-1)
+    by_cell = np.argsort(cell, kind="stable")
+    first = np.concatenate([[0], np.cumsum(np.bincount(cell))[:-1]])
+    lo = np.stack([np.minimum.reduceat(offs[by_cell, a], first) for a in (0, 1)], 1)
+    hi = np.stack([np.maximum.reduceat(offs[by_cell, a], first) for a in (0, 1)], 1)
+    rank = np.empty(len(first), np.int64)  # each cell's place: its centre's distance from the window's, then the cell
+    rank[np.lexsort((np.arange(len(first)), ((lo + hi) ** 2).sum(1)))] = np.arange(len(first))
+    lo, hi = lo[np.argsort(rank)], hi[np.argsort(rank)]
+    pos = np.argsort(rank[cell], kind="stable")
+    counts = np.bincount(rank[cell])
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    cols = TILE_SPAN + int((hi - lo)[:, 1].max())
+    return (pos, np.stack([first, counts, lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]], 1),
+            TILE_SPAN + int((hi - lo)[:, 0].max()), cols + (cols & 1) + 1)
+
+
+def part_plan(offsets, order, cuts: tuple, device) -> PartPlan:
+    """``offsets`` (S', 2), in the visiting order with window indices
+    ``order``, cut into parts: the cells of bands of dy and dx, a band of
+    axis a starting at each of ``cuts[a]`` (:meth:`MatchGeometry.live_cuts`),
+    each part's offsets kept in the visiting order,
+    the parts by the distance of their centre from the window's (then by
+    cell), so that the running top-k tightens early. An empty cell makes no
+    part."""
+    pos, table, rows, pitch = _parts(offsets, cuts)
+    as_dev = lambda v: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.int32, device=device)  # noqa: E731
+    return PartPlan(as_dev(table), as_dev(np.asarray(order)[pos]),
+                    as_dev(np.asarray(offsets).reshape(-1, 2)[pos]), rows, pitch, tuple(map(tuple, cuts)))
+
+
+def parts_live(table, row_span: tuple, col_span: tuple, lo: int, hi: int, last_c: int) -> np.ndarray:
+    """Which parts of a ``table`` (:class:`PartPlan`'s, as numpy) a tile
+    whose reference rows span ``row_span`` = (first, last) and columns
+    ``col_span`` can take, by the kernels' test: some row plus some dy of
+    the part in ``[lo, hi]`` (the candidate top rows), some column plus some
+    dx in ``[0, last_c]``. A part it cannot take is +inf for every block of
+    the tile, so skipping it changes no result."""
+    t = np.asarray(table).reshape(-1, PART_COLS)
+    return ((row_span[0] + t[:, 2] <= hi) & (row_span[1] + t[:, 3] >= lo)
+            & (col_span[0] + t[:, 4] <= last_c) & (col_span[1] + t[:, 5] >= 0))
+
+
+def tile_parts_smem_bytes(words: int, k: int) -> int:
+    """Dynamic shared memory of a ``bm3d_match_tile_kernel`` CTA on a parts
+    plan (k up to 64): the reference span and a part's box (``words``,
+    :func:`part_words`), the distances of a chunk and :data:`TILE_MAX`
+    blocks' top-k lists."""
+    return 4 * (words + TILE_MAX * (TILE_CHUNK + 1)) + 8 * TILE_MAX * k
+
+
+def span_parts_smem_bytes(words: int, most: int, k: int) -> int:
+    """Dynamic shared memory of a ``bm3d_match_span_kernel`` CTA on a parts
+    plan: :func:`span_smem_bytes` with the reference span and a part's box
+    (``words``) in place of the whole region."""
+    return 4 * ((words + most * (TILE_CHUNK + 1) + TILE_CHUNK + 1) & ~1) + 8 * most * span_entries(k)
+
+
+def span_parts_most(words: int, k: int) -> int:
+    """:func:`span_most` on a parts plan: the most blocks (one a thread)
+    that keep :func:`span_parts_smem_bytes` within :data:`SPAN_BUDGET`, 0
+    where none does."""
+    return next((m for m in range(SPAN_MOST, 0, -1) if span_parts_smem_bytes(words, m, k) <= SPAN_BUDGET), 0)
 
 
 def _cut(rows, cols, block: int, most: int) -> tuple:
@@ -461,6 +594,9 @@ class Reach:
     offsets: torch.Tensor  # (S', 2) int32: the offsets, in that order
     search: int
     pitch: int  # odd, >= TILE_SPAN + 2 search
+    host: tuple = ()  # (offsets, order) as numpy
+    size: tuple = ()  # the image's (H, W)
+    plans: dict = dataclasses.field(default_factory=dict, repr=False)  # ("tile" / "span", k) -> SpanPlan
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -499,24 +635,139 @@ class MatchGeometry:
     rows: tuple = ()  # the reference coordinates, on the host
     cols: tuple = ()
     offsets: tuple = ()  # the (dy, dx) offsets, on the host
+    host_tiles: tuple = ()  # row_tiles and col_tiles as numpy
     plans: dict = dataclasses.field(default_factory=dict, repr=False)  # (k, search) and the like -> SpanPlan
     reaches: dict = dataclasses.field(default_factory=dict, repr=False)  # (H, W) -> Reach
 
-    def span(self, k: int, search: int | None = None) -> SpanPlan:
+    def span(self, k: int, search: int | None = None, reach: Reach | None = None) -> SpanPlan:
         """``bm3d_match_span_kernel``'s tiles for group size ``k``
         (:func:`span_plan`) at the window radius ``search`` (the geometry's
-        unless given: a reach's)."""
+        unless given: a reach's). With a ``reach``, the plan its calls take:
+        of this one and the reach in parts of each odd width from the
+        window's down to :data:`MIN_PART_EDGE` (:meth:`span_parts`), the one
+        whose tiles cost the least (:meth:`visit_cost`), this one on ties,
+        then the widest parts."""
+        if reach is not None:
+            if ("span", k) not in reach.plans:
+                one = self.span(k, reach.search)
+                best = self.visit_cost(one.row_tiles, one.col_tiles, None, reach), one
+                for width in range(2 * reach.search + 1, MIN_PART_EDGE - 1, -2):
+                    cut = self._span_parts(k, reach, width)
+                    if cut is not None and cut[0] < best[0]:
+                        best = cut[0], cut
+                reach.plans["span", k] = best[1] if best[1] is one else self._span_plan(reach, *best[1][1:])
+            return reach.plans["span", k]
         search = self.search if search is None else search
         if (k, search) not in self.plans:
             self.plans[k, search] = span_plan(self.rows, self.cols, self.block, search, k, self.rows_t.device)
         return self.plans[k, search]
 
-    def tile(self, k: int, search: int | None = None) -> SpanPlan:
+    def visit_cost(self, row_tiles, col_tiles, table, reach: Reach) -> float:
+        """The cost of the tiles ``row_tiles`` x ``col_tiles`` visiting
+        ``reach`` on the whole image (no row bounds), in chunks of
+        :data:`TILE_CHUNK` offsets (each about the same: a warp's 32 x 32
+        terms an offset and a merge a block): every tile's chunks of each
+        part of ``table`` (numpy) it can take (:func:`parts_live`; a chunk
+        never crosses a part) and :data:`PART_COST` a part, or the chunks of
+        the whole reach where ``table`` is None."""
+        if table is None:
+            return float(len(row_tiles) * len(col_tiles) * -(-len(reach.host[1]) // TILE_CHUNK))
+        chunks = -(-table[:, 1] // TILE_CHUNK) + PART_COST
+        h, w = reach.size
+        return float(sum(chunks[parts_live(table, r, c, 0, h - self.block, w - self.block)].sum()
+                         for r in self._spans(row_tiles, self.rows) for c in self._spans(col_tiles, self.cols)))
+
+    @staticmethod
+    def _spans(tiles, grid) -> list:
+        """Each tile's first and last reference coordinate (``tiles`` a
+        :func:`tile_plan`, in numpy or a tensor on any device)."""
+        tiles = tiles.cpu().numpy() if isinstance(tiles, torch.Tensor) else np.asarray(tiles)
+        return [(int(grid[t[0]]), int(grid[t[0] + t[1] - 1])) for t in tiles]
+
+    def live_cuts(self, row_tiles, col_tiles, reach: Reach, width: int) -> tuple:
+        """Cut points (:func:`part_plan`) of the reach's dy and dx: where some
+        tile's live offsets begin or end (a tile whose reference rows span
+        [a, b] takes dy in [-b, H - block - a]), each band then split evenly
+        into bands of at most ``width`` values; a part either holds an offset
+        some block of a tile takes or none of the tile's."""
+        offs = reach.host[0]
+        out = []
+        for a, (tiles, grid, size) in enumerate(((row_tiles, self.rows, reach.size[0]),
+                                                 (col_tiles, self.cols, reach.size[1]))):
+            lo, hi = int(offs[:, a].min()), int(offs[:, a].max())
+            live = {v for first, last in self._spans(tiles, grid) for v in (-last, size - self.block - first + 1)}
+            edges = [lo] + sorted(v for v in live if lo < v <= hi) + [hi + 1]
+            cuts = []
+            for start, end in zip(edges[:-1], edges[1:]):
+                n = -(-(end - start) // width)
+                cuts += [start + (end - start) * i // n for i in range(1, n + 1)]
+            out.append(tuple(cuts[:-1]))
+        return tuple(out)
+
+    def _span_parts(self, k: int, reach: Reach, width: int, cuts: tuple | None = None) -> tuple | None:
+        """(:meth:`visit_cost`, row tiles, column tiles, blocks, shared
+        memory, cuts) of :meth:`span_parts`; None where no block fits."""
+        most = span_parts_most(part_words(*(box(width) if cuts is None else _parts(reach.host[0], cuts)[2:])), k)
+        if most < 1:
+            return None
+        row_tiles, col_tiles, used = _cut(self.rows, self.cols, self.block, most)
+        cuts = cuts or self.live_cuts(row_tiles, col_tiles, reach, width)
+        _, table, rows, pitch = _parts(reach.host[0], cuts)
+        return (self.visit_cost(row_tiles, col_tiles, table, reach), row_tiles, col_tiles, used,
+                span_parts_smem_bytes(part_words(rows, pitch), used, k), cuts)
+
+    def _span_plan(self, reach: Reach, row_tiles, col_tiles, used: int, smem: int, cuts: tuple) -> SpanPlan:
+        return dataclasses.replace(_plan(row_tiles, col_tiles, used, smem, self.rows_t.device),
+                                   parts=part_plan(*reach.host, cuts, self.rows_t.device))
+
+    def span_parts(self, k: int, reach: Reach, width: int, cuts: tuple | None = None) -> SpanPlan | None:
+        """``bm3d_match_span_kernel``'s reach in parts of at most ``width``
+        offsets an axis cut where the tiles' live offsets begin and end
+        (:meth:`live_cuts`), or at ``cuts`` (``width`` unused), on tiles of as
+        many blocks as leave three CTAs an SM beside their box
+        (:func:`span_parts_most`, :func:`_cut`); None where no block fits."""
+        cut = self._span_parts(k, reach, width, cuts)
+        return None if cut is None else self._span_plan(reach, *cut[1:])
+
+    def tile_parts(self, k: int, reach: Reach, width: int | None = None, cuts: tuple | None = None) -> SpanPlan:
+        """``bm3d_match_tile_kernel``'s reach in parts (k up to 64) on the
+        geometry's tiles: cut at ``cuts``, or where the tiles' live offsets
+        begin and end and then to at most ``width`` offsets an axis
+        (:meth:`live_cuts`); without either, of the odd widths down to
+        :data:`MIN_PART_EDGE` whose box lets three CTAs share an SM, the one
+        whose tiles cost the least (:meth:`visit_cost`), the widest on
+        ties."""
+        if k > 64:
+            raise ValueError(f"the tile kernel stages a window in parts at k up to 64, not {k}")
+        tiles = self.host_tiles
+        if cuts is None and width is None:
+            best = None
+            for w in range(2 * reach.search + 1, MIN_PART_EDGE - 1, -2):
+                c = self.live_cuts(*tiles, reach, w)
+                _, table, rows, pitch = _parts(reach.host[0], c)
+                if tile_parts_smem_bytes(part_words(rows, pitch), k) <= TILE_BUDGETS[0]:
+                    cost = self.visit_cost(*tiles, table, reach)
+                    if best is None or cost < best[0]:
+                        best = cost, c
+            cuts = best[1]
+        parts = part_plan(*reach.host, cuts or self.live_cuts(*tiles, reach, width), self.rows_t.device)
+        return SpanPlan(self.row_tiles, self.col_tiles, TILE_MAX, tile_parts_smem_bytes(parts.words, k), parts)
+
+    def tile(self, k: int, search: int | None = None, reach: Reach | None = None) -> SpanPlan:
         """``bm3d_match_tile_kernel``'s tiles for group size ``k`` at the
         window radius ``search`` (the geometry's unless given): the
         geometry's own (:data:`TILE_MAX` blocks) below k 128 or where
         :func:`tile_most` keeps :data:`TILE_MAX`, else :func:`_cut` at
-        :func:`tile_most`."""
+        :func:`tile_most`. With a ``reach``, the plan its calls take: this
+        one wherever its CTA lets three share an SM (and at k 128, where the
+        lists bound the tiles: :func:`tile_most`), else its reach in parts
+        (:meth:`tile_parts`)."""
+        if reach is not None:
+            if ("tile", k) not in reach.plans:
+                one = self.tile(k, reach.search)
+                reach.plans["tile", k] = (one if k > 64 or one.smem_bytes <= TILE_BUDGETS[0]
+                                          else self.tile_parts(k, reach))
+            return reach.plans["tile", k]
         search = self.search if search is None else search
         key = ("tile", k, search)
         if key not in self.plans:
@@ -547,12 +798,13 @@ class MatchGeometry:
             offs = np.asarray(self.offsets, np.int64).reshape(-1, 2)[order]
             keep = (np.abs(offs[:, 0]) <= h - self.block) & (np.abs(offs[:, 1]) <= w - self.block)
             if keep.all():
-                r = Reach(self.tile_order, self.tile_offsets, self.search, self.tile_pitch)
+                r = Reach(self.tile_order, self.tile_offsets, self.search, self.tile_pitch, (offs, order), (h, w))
             else:
                 keep[0] |= not keep.any()  # at least one offset: an all-fill result, as the plain version's
                 search = int(np.abs(offs[keep]).max())
                 as_dev = lambda v: torch.as_tensor(v, dtype=torch.int32, device=self.rows_t.device)  # noqa: E731
-                r = Reach(as_dev(order[keep]), as_dev(offs[keep]), search, (TILE_SPAN + 2 * search) | 1)
+                r = Reach(as_dev(order[keep]), as_dev(offs[keep]), search, (TILE_SPAN + 2 * search) | 1,
+                          (offs[keep], order[keep]), (h, w))
             self.reaches[h, w] = r
         return self.reaches[h, w]
 
@@ -600,11 +852,16 @@ def match_kernel(g: MatchGeometry, block: int, k: int) -> str:
     return "bm3d_match_span_rt_kernel" if block == 1 or block > 16 else "bm3d_match_span_kernel"
 
 
-def prev_design(kernel: str, k: int) -> str:
-    """The design ``kernel`` replaced on a call at group size ``k``: the
-    four-slot tile kernel at block 8 and k 128, the serial span kernel for
-    the pixel and run-time kernels and for the span kernel at k 128, else
-    the any-kernel (:data:`PREV_DESIGN`)."""
+def prev_design(kernel: str, k: int, parts: bool = False) -> str:
+    """The design ``kernel`` replaced on a call at group size ``k``: on a
+    call whose plan stages the window in ``parts``, the same kernel on the
+    one-part plan (``launch(..., plan=...)``: :meth:`MatchGeometry.tile` /
+    :meth:`MatchGeometry.span` without a reach); else the four-slot tile
+    kernel at block 8 and k 128, the serial span kernel for the pixel and
+    run-time kernels and for the span kernel at k 128, else the any-kernel
+    (:data:`PREV_DESIGN`)."""
+    if parts:
+        return kernel
     if k > 64 and kernel == "bm3d_match_tile_kernel":
         return TILE_SLOTS
     if kernel in ("bm3d_match_pixel_kernel", "bm3d_match_span_rt_kernel") or (
@@ -632,17 +889,18 @@ def _geometry(rows: tuple, cols: tuple, offsets: tuple, block: int,
         plan = None
     # The tile and span kernels' order of offsets, and the tile kernel's
     # plans; None where they cannot take the call.
-    tiles = [None] * 4
+    tiles, host_tiles = [None] * 4, ()
     if tile_plan(rows, block, 1) is not None and tile_plan(cols, block, 1) is not None:
         order = visit_order(offsets)
         tiles[2:] = as_dev(order), as_dev(np.asarray(offsets)[order])
         if block == KERNEL_BLOCK:
             row_tiles = tile_plan(rows, block, TILE_MAX)
-            tiles[:2] = as_dev(row_tiles), as_dev(tile_plan(cols, block, TILE_MAX // int(row_tiles[:, 1].max())))
+            host_tiles = row_tiles, tile_plan(cols, block, TILE_MAX // int(row_tiles[:, 1].max()))
+            tiles[:2] = map(as_dev, host_tiles)
     return MatchGeometry(as_dev(rows), as_dev(cols), as_dev(offsets), plan, block,
                          max(grid_step(rows), grid_step(cols)), search, ref_rows, smem_h, smem_w,
                          smem_w | 1, len(offsets) | 1, any_h, any_w | 1, *tiles,
-                         (TILE_SPAN + 2 * search) | 1, rows, cols, offsets)
+                         (TILE_SPAN + 2 * search) | 1, rows, cols, offsets, host_tiles)
 
 
 def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
@@ -656,13 +914,13 @@ def match_geometry(rows, cols, offsets, block: int, device) -> MatchGeometry:
 
 ENTRIES = {  # kernel name -> (its entry point in the source, pointer and int arguments)
     "bm3d_match_kernel": ("bm3d_match_launch", 6, 16),
-    "bm3d_match_tile_kernel": ("bm3d_match_tile_launch", 8, 16),
+    "bm3d_match_tile_kernel": ("bm3d_match_tile_launch", 9, 18),
     "bm3d_match_any_kernel": ("bm3d_match_any_launch", 5, 14),
-    "bm3d_match_span_kernel": ("bm3d_match_span_launch", 8, 16),
-    "bm3d_match_span_rt_kernel": ("bm3d_match_span_rt_launch", 8, 16),
-    "bm3d_match_pixel_kernel": ("bm3d_match_pixel_launch", 8, 16),
+    "bm3d_match_span_kernel": ("bm3d_match_span_launch", 9, 18),
+    "bm3d_match_span_rt_kernel": ("bm3d_match_span_rt_launch", 9, 18),
+    "bm3d_match_pixel_kernel": ("bm3d_match_pixel_launch", 9, 18),
     "bm3d_match_tile_slots_kernel": ("bm3d_match_tile_slots_launch", 8, 15),
-    "bm3d_match_span_serial_kernel": ("bm3d_match_span_serial_launch", 8, 16),
+    "bm3d_match_span_serial_kernel": ("bm3d_match_span_serial_launch", 9, 18),
 }
 
 
@@ -703,8 +961,12 @@ def _lib() -> dict:
     return _Entries(bind(_build.load("bm3d_match")))
 
 
+# The kernels that take a plan staging the window in parts (PartPlan).
+PARTED = ("bm3d_match_tile_kernel", "bm3d_match_span_kernel")
+
+
 def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor, block: int, k: int,
-           mode: str, lo: int, hi: int) -> None:
+           mode: str, lo: int, hi: int, plan: SpanPlan | None = None) -> None:
     """Launch ``kernel`` through its bound entry point ``fn`` (:func:`bind`)
     on the current stream: images ``x`` (B, H, W) contiguous, ``out`` (B, nR,
     nC, k) int32, candidate rows ``[lo, hi)``; raises if the launch fails.
@@ -712,8 +974,16 @@ def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor
     both): a caller that times one kernel against another, on a call both
     take (the any-kernel, :data:`PREV_DESIGN`, takes every call inside its
     envelope; :func:`prev_design` names the design a kernel replaced),
-    launches through it."""
+    launches through it. The tile and span kernels take the plan their
+    geometry gives the image's reach (:meth:`MatchGeometry.tile`,
+    :meth:`MatchGeometry.span`), or ``plan`` where given (the one-part plan
+    a parts plan replaced, or another a caller times); a plan in parts
+    that ``kernel`` cannot take raises before the launch."""
     b, h, w = x.shape
+    if plan is not None and plan.parts is not None and (kernel not in PARTED or (
+            kernel == "bm3d_match_tile_kernel" and k > 64)):
+        raise ValueError(f"{kernel} at k {k} takes no window in parts (the tile kernel up to k 64 and the span "
+                         "kernel do)")
     nr, nc, s = g.rows_t.numel(), g.cols_t.numel(), g.offsets_t.shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = (x.data_ptr(), g.rows_t.data_ptr(), g.cols_t.data_ptr(), g.offsets_t.data_ptr())
@@ -726,14 +996,18 @@ def launch(kernel: str, fn, x: torch.Tensor, g: MatchGeometry, out: torch.Tensor
                  g.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, g.row_tiles.shape[0],
                  g.col_tiles.shape[0], r.order.shape[0], int(block), int(k), MODES[mode], r.search, r.pitch, lo,
                  hi - block, stream)
-    elif kernel != PREV_DESIGN:  # the tile kernel and the span kernels: a plan, its most
+    elif kernel != PREV_DESIGN:  # the tile kernel and the span kernels: a plan, its most, its parts
         r = g.reach(h, w)
-        p = (g.tile(int(k), r.search) if kernel == "bm3d_match_tile_kernel" else
-             g.pixel(r.search) if kernel == "bm3d_match_pixel_kernel" else g.span(int(k), r.search))
-        err = fn(*ptrs[:3], r.offsets.data_ptr(), r.order.data_ptr(), p.row_tiles.data_ptr(),
-                 p.col_tiles.data_ptr(), out.data_ptr(), b, h, w, nr, nc, p.row_tiles.shape[0],
-                 p.col_tiles.shape[0], r.order.shape[0], int(block), int(k), MODES[mode], r.search, r.pitch,
-                 p.most, lo, hi - block, stream)
+        p = plan or (g.tile(int(k), reach=r) if kernel == "bm3d_match_tile_kernel" else
+                     g.pixel(r.search) if kernel == "bm3d_match_pixel_kernel" else
+                     g.span(int(k), reach=r) if kernel == "bm3d_match_span_kernel" else g.span(int(k), r.search))
+        q = p.parts
+        order, offs = (r.order, r.offsets) if q is None else (q.order, q.offsets)
+        err = fn(*ptrs[:3], offs.data_ptr(), order.data_ptr(), p.row_tiles.data_ptr(), p.col_tiles.data_ptr(),
+                 out.data_ptr(), None if q is None else q.table.data_ptr(), b, h, w, nr, nc,
+                 p.row_tiles.shape[0], p.col_tiles.shape[0], order.shape[0], int(block), int(k), MODES[mode],
+                 r.search, r.pitch if q is None else q.pitch, p.most, lo, hi - block,
+                 0 if q is None else q.table.shape[0], 0 if q is None else q.rows, stream)
     else:
         err = fn(*ptrs, out.data_ptr(), b, h, w, nr, nc, s, int(block), int(k), MODES[mode], g.search,
                  g.any_smem_h, g.any_pitch, lo, hi - block, stream)

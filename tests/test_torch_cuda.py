@@ -1029,10 +1029,13 @@ def test_k1_tile_kernel_repeats_itself_bit_for_bit(cuda):
 # kernel: 64), with the same order of adds and the same bits. K3's cluster
 # kernel at distance 1-16 (``kWide`` false: its tile's pitch within 64
 # columns) keeps the registers it had before it took any distance,
-# ``nlm_cluster_kernel<P, R>`` then (64-178).
+# ``nlm_cluster_kernel<P, R>`` then (64-178). K1's tile and span kernels on
+# a window staged in parts, instantiations of their own: 80 each.
 UNTOUCHED_REGISTERS = {
     ("bm3d_match", r"bm3d_match_kernelILi\dELi(?:1|3|10)E"): 93,
     ("bm3d_match", r"bm3d_match_tile_kernelILi\dELi[12]EE"): 80,
+    ("bm3d_match", r"bm3d_match_tile_kernel_partsILi\dELi[12]EE"): 80,
+    ("bm3d_match", r"bm3d_match_span_kernel_partsILb[01]EE"): 80,
     ("bm3d_match", r"bm3d_match_kernelILi\dELi20E"): 96,
     ("bm3d_aggregate", r"bm3d_aggregate_kernelILi8ELi16EE"): 56,
     ("bm3d_aggregate", r"bm3d_aggregate_fold_kernelILb0ELi2ELi2EE"): 48,
@@ -1475,6 +1478,72 @@ def test_k1_at_the_widest_search_at_block_8(cuda):
     x = torch.tensor(_profile_batch()[:2], device=cuda)
     rows = bm3d._ref_grid(128, 8, 8)
     _k1_wide_held(x, rows, rows, bm3d.search_offsets(search, 4), 8, 16, "bf16_xla")
+
+
+# K1's windows staged in parts (the tile kernel at k up to 64, the span
+# kernel): chip_smoke.py's parts rows at 128 px, on K1's rules in every mode
+# with and without row bounds, and the same indices on the one-part plan
+# (the design the parts replaced, launched by name with its plan); exactly on
+# dyadic images at smaller sizes, each plan in parts, every edge's too.
+PARTS_ROWS = {"search32": (8, 3, 32, 16, False), "search_widest": (8, 3, 95, 16, True),
+              "block4_s40": (4, 2, 40, 16, True)}
+
+
+@pytest.mark.parametrize("bounds", [None, (16, 112)])
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("row", list(PARTS_ROWS))
+def test_k1_parts_rows_match_plain_and_the_one_part_plan(cuda, row, mode, bounds):
+    block, step, search, k, parted = PARTS_ROWS[row]
+    x = torch.tensor(_profile_batch()[:4], device=cuda)
+    rows = bm3d._ref_grid(128, block, step)
+    offs = bm3d.search_offsets(search, 1)
+    g = k1.match_geometry(rows, rows, offs, block, cuda)
+    reach = g.reach(128, 128)
+    kernel = k1.match_kernel(g, block, k)
+    plan, one = ((g.tile(k, reach=reach), g.tile(k, search)) if block == 8 else
+                 (g.span(k, reach=reach), g.span(k, search)))
+    assert (plan.parts is not None) == parted and one.parts is None
+    got = _k1_wide_held(x, rows, rows, offs, block, k, mode, bounds)
+    out = torch.empty_like(got)
+    lo, hi = bounds or (0, 128)
+    k1.launch(kernel, k1._lib()[kernel], x, g, out, block, k, mode, lo, hi, plan=one)
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("mode", list(k1.MODES))
+@pytest.mark.parametrize("block,step,search,size", [(8, 3, 40, 64), (8, 5, 30, 70), (4, 2, 40, 64), (6, 3, 33, 61),
+                                                     (16, 5, 24, 60)])
+def test_k1_parts_equal_plain_exactly_on_dyadic_images_at_every_edge(cuda, mode, block, step, search, size):
+    from pnp_svrg_tpu_torch.examples.k1_variants import square_cuts
+
+    x = torch.tensor(_dyadic(np.random.default_rng(block * search), (2, size, size + 3), 4, 0.25), device=cuda)
+    rows, cols = bm3d._ref_grid(size, block, step), bm3d._ref_grid(size + 3, block, step)
+    offs = bm3d.search_offsets(search, 1)
+    g = k1.match_geometry(rows, cols, offs, block, cuda)
+    reach = g.reach(size, size + 3)
+    kernel = k1.match_kernel(g, block, 16)
+    cuts = [(w, None) for w in (9, 13, 21)] + [(11, square_cuts(reach.host[0], e))
+                                               for e in ((11, 11), (11, 2 * reach.search + 1))]
+    plans = [g.tile_parts(16, reach, w, c) if block == 8 else g.span_parts(16, reach, w, c) for w, c in cuts]
+    for bounds in (None, (3, size - 5), (20, 26)):
+        want = k1.bm3d_match_plain(x, rows, cols, offs, block, 16, mode, row_valid_bounds=bounds)
+        lo, hi = bounds or (0, size)
+        for plan in (p for p in plans if p is not None):
+            out = torch.empty_like(want)
+            k1.launch(kernel, k1._lib()[kernel], x, g, out, block, 16, mode, lo, hi, plan=plan)
+            assert torch.equal(out, want), (plan.parts.cuts, bounds)
+
+
+def test_k1_parts_plan_refused_where_the_kernel_takes_none(cuda):
+    rows = bm3d._ref_grid(64, 8, 3)
+    offs = bm3d.search_offsets(40, 1)
+    g = k1.match_geometry(rows, rows, offs, 8, cuda)
+    parted = g.tile_parts(16, g.reach(64, 64), 9)
+    x = torch.zeros((1, 64, 64), device=cuda)
+    out = torch.empty((1, len(rows), len(rows), 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="takes no window in parts"):
+        k1.launch("bm3d_match_tile_kernel", k1._lib()["bm3d_match_tile_kernel"], x, g, out, 8, 128, "f32", 0, 64,
+                  plan=parted)
 
 
 WIDE_K2 = [(8, 10, 19, 16), (4, 6, 3, 4), (8, 3, 19, 128), (1, 1, 3, 4), (24, 12, 8, 16), (32, 16, 4, 16),

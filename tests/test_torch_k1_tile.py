@@ -330,24 +330,33 @@ def test_match_kernel_names_each_block_and_k_its_kernel_and_replaced_design(bloc
 
 def test_chip_smoke_times_each_redesigned_k1_row_beside_its_replaced_design():
     """chip_smoke.py's k128, block1, block24 and block4_k128 rows go to the
-    rank merge, the pixel kernel and the run-time span kernel, each timed
-    beside the design it replaced; none of those kernels may take a launch
-    off the rows, and ptxas's lines name each."""
+    rank merge, the pixel kernel and the run-time span kernel, and its
+    search32, search_widest and block4_s40 rows to the tile and span kernels
+    on their plans (the two wide windows in parts), each timed beside the
+    design it replaced (the parts rows: the same kernel on the one-part
+    plan); none of those kernels may take a launch off the rows, and
+    ptxas's lines name each."""
     want = {"k128": TILE, "block1": "bm3d_match_pixel_kernel", "block24": "bm3d_match_span_rt_kernel",
-            "block4_k128": SPAN}
+            "block4_k128": SPAN, "search32": TILE, "search_widest": TILE, "block4_s40": SPAN}
     assert set(chip_smoke.K1_REDESIGNED_WIDE) == set(want)
+    assert set(chip_smoke.K1_PARTS_WIDE) == {"search32", "search_widest", "block4_s40"}
     assert chip_smoke.ENVELOPE_K1_WIDE["block4_k128"] == (4, 2, 19, 128, "basic")
     for row, kernel in want.items():
         block, step, search, k, _ = chip_smoke.ENVELOPE_K1_WIDE[row]
         g = _geometry(bm3d.BM3DParams(block=block, step=step, search=search), 128)
         assert k1.match_kernel(g, block, k) == kernel
-        assert k1.prev_design(kernel, k) == (k1.TILE_SLOTS if block == 8 else k1.SPAN_SERIAL)
+        if row in chip_smoke.K1_PARTS_WIDE:
+            assert k1.prev_design(kernel, k, parts=True) == kernel
+        else:
+            assert k1.prev_design(kernel, k) == (k1.TILE_SLOTS if block == 8 else k1.SPAN_SERIAL)
     assert set(k1.K1_KERNELS[3:]) <= set(chip_smoke.REDESIGNED_OFF_LANES)
     names = {"_ZN12_GLOBAL__N_125bm3d_match_span_rt_kernelILb1EEEvPKf": "bm3d_match_span_rt_kernel<1>",
              "_ZN12_GLOBAL__N_129bm3d_match_span_serial_kernelILb0EEEvPKf": "bm3d_match_span_serial_kernel<0>",
              "_ZN12_GLOBAL__N_123bm3d_match_pixel_kernelILi1ELi4EEEvPKf": "bm3d_match_pixel_kernel<1, 4>",
              "_ZN12_GLOBAL__N_128bm3d_match_tile_slots_kernelILi2EEEvPKf": "bm3d_match_tile_slots_kernel<2>",
-             "_ZN12_GLOBAL__N_122bm3d_match_span_kernelILb0EEEvPKf": "bm3d_match_span_kernel<0>"}
+             "_ZN12_GLOBAL__N_122bm3d_match_span_kernelILb0EEEvPKf": "bm3d_match_span_kernel<0>",
+             "_ZN12_GLOBAL__N_128bm3d_match_tile_kernel_partsILi1ELi2EEEvPKf": "bm3d_match_tile_kernel_parts<1, 2>",
+             "_ZN12_GLOBAL__N_128bm3d_match_span_kernel_partsILb1EEEvPKf": "bm3d_match_span_kernel_parts<1>"}
     for mangled, name in names.items():
         log = f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\nptxas info    : Used 80 registers"
         assert list(chip_smoke.ptxas_summary(log)) == [name]
@@ -409,7 +418,8 @@ def test_every_k1_variant_edits_text_the_source_has():
     from pnp_svrg_tpu_torch.ops.cuda import _build
 
     src = (_build.SRC_DIR / "bm3d_match.cu").read_text()
-    tables = (k1_variants.VARIANTS, k1_variants.SPAN_VARIANTS, k1_variants.RANK_VARIANTS, k1_variants.RT_VARIANTS)
+    tables = (k1_variants.VARIANTS, k1_variants.SPAN_VARIANTS, k1_variants.RANK_VARIANTS, k1_variants.RT_VARIANTS,
+              k1_variants.PART_VARIANTS)
     for table in tables:
         for name, edits in table.items():
             assert edits and all(old in src for old, _ in edits), name
